@@ -1,0 +1,283 @@
+"""Transformer building blocks (JAX package models/layers.py).
+
+Semantics of the reference zorro utilities
+(downstream/instance_segmentation/modeling/multimae/zorro_utils.py) and the
+ViT primitives of pretraining/multimae/multimae_utils.py, quirks kept:
+
+  * ``ZorroAttention`` layer-norms its *query* input itself
+    (zorro_utils.py:176), so a block applies LayerNorm twice before
+    attention; a cross-attention context is not normed.
+  * ``GEGLUFeedForward`` begins with its own LayerNorm (zorro_utils.py:121-128).
+  * Bias-less LayerNorm: learned weight (the reference's gamma) only.
+  * GELU is the exact (erf) form.
+
+Module and parameter names follow the flax tree one to one (a Dense
+``kernel`` [in, out] is an ``nn.Linear`` ``weight`` [out, in], a ``gamma``
+is a LayerNorm ``weight``), so ``utils.jax_params.params_from_jax`` maps a
+flax checkpoint by renaming alone.
+
+``use_kernel`` routes the four hot computations through the hand-written
+kernels' wrappers (ops/cuda_*.py), which launch the kernel for a CUDA tensor
+and run the plain version for a CPU tensor; without it the plain versions run.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import cuda_attn, cuda_ffn, cuda_fusion_attn
+from ..ops.attention import multihead_attention
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in f32, with a learned bias unless ``bias=False``."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, bias: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(x.dtype)
+
+
+class BiaslessLayerNorm(LayerNorm):
+    """LayerNorm with a learned weight only (zorro_utils.py:103-110)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps, bias=False)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1]).contiguous()
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2 (multimae_utils.py:138-155). With ``use_kernel``
+    the pair runs as kernel K2 in MLP mode."""
+
+    def __init__(self, dim: int, hidden_features: Optional[int] = None,
+                 out_features: Optional[int] = None):
+        super().__init__()
+        hidden = hidden_features or dim
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, out_features or dim)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        if use_kernel:
+            y = cuda_ffn.mlp_ffn(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                                 self.fc2.bias)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class GEGLUFeedForward(nn.Module):
+    """LayerNorm -> Linear(2*inner, no bias) -> GEGLU -> Linear(dim, no bias),
+    inner = int(dim * mult * 2/3) (zorro_utils.py:115-128). Runs as kernel K2
+    in GEGLU mode with ``use_kernel``; the [M, 2*inner] activation stays on
+    chip."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult * 2 / 3)
+        self.norm = BiaslessLayerNorm(dim)
+        self.proj_in = nn.Linear(dim, inner * 2, bias=False)
+        self.proj_out = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        fn = cuda_ffn.geglu_ffn if use_kernel else cuda_ffn.geglu_ffn_reference
+        y = fn(_rows(x), self.norm.weight, self.proj_in.weight, self.proj_out.weight)
+        return y.reshape(x.shape)
+
+
+class ZorroAttention(nn.Module):
+    """Masked MHA with its own query-side LayerNorm (zorro_utils.py:152-194).
+
+    Self-attention with ``packed_types`` projects q/k/v with one product
+    against the stacked [to_q; to_kv] weights -- the same columns as the two
+    separate projections -- and runs kernel K1 (zorro mode) on the fused
+    slab. Cross-attention (``context``) with an explicit ``attn_mask`` runs
+    the plain masked attention.
+    """
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.norm = BiaslessLayerNorm(dim)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, inner * 2, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x, context=None, attn_mask=None, packed_types=None, fusion_type=None,
+                use_kernel: bool = False, empty_rows_uniform_over=None):
+        x = self.norm(x)
+        if packed_types is not None and context is None:
+            qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight], dim=0))
+            fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
+            return self.to_out(fn(qkv, self.heads, packed_types, fusion_type))
+        kv_x = context if context is not None else x
+        b, n = x.shape[:2]
+        m = kv_x.shape[1]
+        q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
+        k, v = self.to_kv(kv_x).chunk(2, dim=-1)
+        out = multihead_attention(q, k.reshape(b, m, self.heads, self.dim_head),
+                                  v.reshape(b, m, self.heads, self.dim_head), mask=attn_mask,
+                                  empty_rows_uniform_over=empty_rows_uniform_over)
+        return self.to_out(out.reshape(b, n, -1))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (zorro_utils.py:69-99); identity in eval
+    mode, the only mode this package runs so far."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.floor(keep + torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                                             dtype=x.dtype, device=x.device))
+        return x / keep * mask
+
+
+class EncoderBlock(nn.Module):
+    """Zorro-masked encoder block (zorro_utils.py:227-240)."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
+                 drop_path: float = 0.0):
+        super().__init__()
+        self.norm1 = BiaslessLayerNorm(dim)
+        self.attn = ZorroAttention(dim, dim_head, heads)
+        self.norm2 = BiaslessLayerNorm(dim)
+        self.mlp = GEGLUFeedForward(dim, ff_mult)
+        self.dp1 = DropPath(drop_path)
+        self.dp2 = DropPath(drop_path)
+
+    def forward(self, x, packed_types, fusion_type: int, use_kernel: bool = False):
+        h = self.attn(self.norm1(x), packed_types=packed_types, fusion_type=fusion_type,
+                      use_kernel=use_kernel)
+        x = x + self.dp1(h)
+        return x + self.dp2(self.mlp(self.norm2(x), use_kernel=use_kernel))
+
+
+class FusionBlockFast(nn.Module):
+    """Per-position cross-modal fusion (zorro_utils.py:243-258) in the JAX
+    package's restructured form: the LayerNorms and the fused KV projection
+    run once on the flat sources (packed tokens, the mask-embedding table,
+    fusion tokens), and each fusion position's modality stack is assembled as
+    a t-major KV grid by a gather: grid slot g takes the packed token
+    ``slot[g]`` where ``use[g]``, and the mask embedding's KV elsewhere --
+    the values the JAX one-hot product gives. Kernel K3 then attends each
+    fusion position over its T slots plus itself.
+
+      fus = fusion + to_out(attn)
+      fus = fus + ff(norm2(fus))
+    """
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.norm1 = BiaslessLayerNorm(dim)
+        self.attn_norm = BiaslessLayerNorm(dim)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, inner * 2, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
+        self.norm2 = BiaslessLayerNorm(dim)
+        self.mlp = GEGLUFeedForward(dim, ff_mult)
+
+    def forward(self, packed, fusion, mask_emb, slot, use, use_kernel: bool = False):
+        """packed [B, E, D]; fusion [B, F, D]; mask_emb [1, F, D];
+        slot [B, T*F] (mask_info.ids_restore); use [B, T*F] bool."""
+        e = packed.shape[1]
+        f = fusion.shape[1]
+        t = slot.shape[1] // f
+        h_packed = self.attn_norm(self.norm1(packed))
+        h_mask = self.attn_norm(self.norm1(mask_emb))
+        h_fus = self.attn_norm(self.norm1(fusion))
+
+        q = self.to_q(h_fus)  # [B, F, I]
+        kv_p = self.to_kv(h_packed)  # [B, E, 2I]
+        kv_m = self.to_kv(h_mask)  # [1, F, 2I]
+        kv_f = self.to_kv(h_fus)  # [B, F, 2I]
+
+        idx = slot.clamp(max=e - 1)[..., None].expand(-1, -1, kv_p.shape[-1])
+        kv_grid = torch.where(use[..., None], torch.gather(kv_p, 1, idx), kv_m.repeat(1, t, 1))
+
+        fn = (cuda_fusion_attn.fusion_row_attention if use_kernel
+              else cuda_fusion_attn.fusion_row_attention_reference)
+        out = self.to_out(fn(q, kv_grid.contiguous(), kv_f, self.heads, self.dim_head))
+        fus = fusion + out
+        return fus + self.mlp(self.norm2(fus), use_kernel=use_kernel)
+
+
+class ViTSelfAttention(nn.Module):
+    """Fused-QKV self-attention (multimae_utils.py:158-182) of the decoder;
+    kernel K1 in its unmasked mode with ``use_kernel``."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
+        return self.proj(fn(self.qkv(x), self.num_heads))
+
+
+class ViTBlock(nn.Module):
+    """Standard pre-norm ViT block (multimae_utils.py:217-232)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, norm_eps: float = 1e-6):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=norm_eps)
+        self.attn = ViTSelfAttention(dim, num_heads, qkv_bias)
+        self.norm2 = LayerNorm(dim, eps=norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), use_kernel=use_kernel)
+        return x + self.mlp(self.norm2(x), use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Seeded initialization with the JAX package's distributions
+# ---------------------------------------------------------------------------
+
+def xavier_uniform_(weight: torch.Tensor, generator: torch.Generator, n_split: int = 1):
+    """Xavier-uniform on an [out, in] weight. ``n_split`` > 1 treats a fused
+    projection (packed kv or qkv) as that many separate matrices
+    (reference multimae_crossattn.py:141-150, JAX layers.xavier_uniform_fused)."""
+    fan_out, fan_in = weight.shape
+    val = math.sqrt(6.0 / float(fan_out / n_split + fan_in))
+    with torch.no_grad():
+        weight.uniform_(-val, val, generator=generator)
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02):
+    """flax ``truncated_normal(stddev=std)``: a standard normal cut at +-2,
+    scaled so the cut distribution has standard deviation ``std``."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    with torch.no_grad():
+        t.uniform_(lo, hi, generator=generator)
+        t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+        t.mul_(std / 0.87962566103423978)

@@ -1,0 +1,47 @@
+"""The port stands alone: importing it pulls in neither JAX nor flax nor the
+JAX package, builds nothing, and every CUDA source it ships is on the build
+list."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from incomplete_multimodal_fusion_tpu_torch.ops import cuda_build
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_import_leaves_jax_and_flax_out():
+    code = (
+        "import sys\n"
+        "import incomplete_multimodal_fusion_tpu_torch as p\n"
+        "from incomplete_multimodal_fusion_tpu_torch import infer, serving\n"
+        "from incomplete_multimodal_fusion_tpu_torch.models import multimae\n"
+        "from incomplete_multimodal_fusion_tpu_torch.utils import jax_params\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_every_cuda_source_is_built():
+    shipped = sorted(p.name for p in cuda_build.CSRC.glob("*.cu"))
+    assert shipped == sorted(cuda_build.SOURCES)
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    # the build directory sits inside the checkout and is git-ignored
+    assert cuda_build.BUILD_DIR.is_relative_to(ROOT)
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_library_name_follows_the_source():
+    """An edited source gets a new library name, so a stale build is never
+    loaded."""
+    names = {cuda_build.library_path(s).name for s in cuda_build.SOURCES}
+    assert len(names) == len(cuda_build.SOURCES)
+    assert all(n.endswith(".so") for n in names)
