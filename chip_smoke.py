@@ -1,30 +1,43 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): builds the
 hand-written CUDA kernels from ``incomplete_multimodal_fusion_tpu_torch/
-csrc/`` with nvcc, holds each against its plain PyTorch version at the
-serving shapes, then drives the full-width ``tiny`` MultiMAE (PretrainConfig
-defaults, seeded random weights, bf16) through the serving entry points and
-checks what comes out.
+csrc/`` with nvcc, holds each, forward and backward, against its plain
+PyTorch version at the shapes of the model, then drives the full-width
+``tiny`` MultiMAE (PretrainConfig defaults, seeded random weights) through
+the serving entry points (bf16) and through the pretraining step (bf16
+compute over f32 master weights, B = 60) and checks what comes out.
 
     python3 chip_smoke.py
 
 Phases (any failure raises; the exit code is then non-zero):
   1. device   -- the card's name and power limit; fails without CUDA.
-  2. build    -- nvcc for sm_90a into build/kernels/, timed.
+  2. build    -- nvcc for sm_90a into build/kernels/, all sources in
+                 parallel, timed.
   3. kernels  -- each kernel against its plain version in bf16 at the
-                 slice's shapes: max abs error and relative L2 error (bound
-                 KERNEL_REL_L2), kernel and plain times (CUDA events, median
-                 of 20 after warm-up).
+                 serving and training shapes: max abs error and relative L2
+                 error (bound KERNEL_REL_L2), kernel, plain and library times
+                 (CUDA events, median of 20 after warm-up) and the least time
+                 the card could take (bound_ms, from the bytes and operations
+                 of these inputs).
   4. serving  -- four requests through serving.infer_closure / infer.infer:
                  launch counts per forward, finite outputs, invariance to
                  the pixels the request drops or masks, relative L2 against
                  the plain path (attn_impl='xla') on the card (bound
                  SERVING_REL_L2), p50 latency per request kind.
+  5. train    -- train.pretrain.create_train_state / make_train_step at
+                 B = 60: loss and gradients of the kernel path against the
+                 plain path on one set of masks (bounds TRAIN_LOSS_REL,
+                 TRAIN_GRAD_REL_L2), exact launch counts per step, 3 warm-up
+                 and 10 timed steps (finite loss, weights moved, optimizer
+                 count advanced), p50 step time of both paths, host time of
+                 the mask sampling, peak device memory.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -33,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from incomplete_multimodal_fusion_tpu_torch import infer, ops, serving
 from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
@@ -40,11 +54,23 @@ from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batc
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
 from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn, cuda_build, cuda_ffn, cuda_fusion_attn
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
-from incomplete_multimodal_fusion_tpu_torch.ops.attention import packed_token_types, packed_valid
+from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
+                                                                   zorro_mask_from_padded_types)
+from incomplete_multimodal_fusion_tpu_torch.train import pretrain
 
 KERNEL_REL_L2 = 2e-2  # bf16 kernel vs bf16 plain version, same inputs
 SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
+# train step, kernels vs plain path on the same weights and masks: bf16
+# rounding at other places, and the order of the gathers' scatter-add
+# backward on the card varies from run to run
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
 SEED = 0
+# an H100 SXM's published peaks (NVIDIA data sheet): dense bf16 tensor-core
+# and f32 CUDA-core operations per second, HBM3 bytes per second
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_HBM = 3.35e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "incomplete_multimodal_fusion_tpu_torch"
 
@@ -54,8 +80,10 @@ def log(*args):
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative L2 error; a reference that is zero in exact arithmetic (a
+    gradient at a single token) is measured against a norm of 1e-3."""
     a, b = a.float(), b.float()
-    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+    return float((a - b).norm() / b.norm().clamp(min=1e-3))
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -73,6 +101,38 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row")
+MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
+
+
+def device_breakdown(fn, reps: int = 5):
+    """Device time of one call of ``fn`` from torch.profiler over ``reps``
+    calls: total ms of the device kernels and copies (one stream, so their
+    sum is the busy time), their count, ms by kind (the hand-written
+    kernels, the matmul library, everything else) and the top 8 by name."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per_name = collections.Counter()
+    count = 0
+    for evt in prof.events():
+        # device kernels and copies; not the ranges that annotate them
+        # (``Optimizer.step`` appears on the device timeline too)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            per_name[evt.name] += evt.device_time_total
+            count += 1
+    by_kind = collections.Counter()
+    for name, us in per_name.items():
+        low = name.lower()
+        kind = ("hand-written" if any(k in low for k in HAND_WRITTEN) else
+                "matmul library" if any(k in low for k in MATMUL_LIBRARY) else "other")
+        by_kind[kind] += us / reps / 1e3
+    total = sum(per_name.values()) / reps / 1e3
+    top = [(name, us / reps / 1e3) for name, us in per_name.most_common(8)]
+    return total, count / reps, dict(by_kind), top
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this smoke runs only on a GPU")
@@ -83,6 +143,17 @@ def phase_device() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, n_bytes: float, peak: float):
+    """The least time in ms the card could take for ``flops`` operations at
+    ``peak`` and ``n_bytes`` of device memory traffic, and which bounds it."""
+    ops_ms, bytes_ms = flops / peak * 1e3, n_bytes / PEAK_HBM * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def phase_build():
@@ -101,8 +172,53 @@ def packed_types(mi: masking.MaskInfo, e: int, f: int, n_dom: int) -> torch.Tens
     return torch.where(valid, types, torch.full_like(types, cuda_attn.PAD_TYPE))
 
 
+def heads_layout(qkv, heads):
+    """q, k, v of a fused [B, N, 3I] slab as contiguous [B, H, N, dh], the
+    layout scaled_dot_product_attention takes."""
+    b, n, three_i = qkv.shape
+    return [t.reshape(b, n, heads, -1).transpose(1, 2).contiguous() for t in qkv.chunk(3, dim=-1)]
+
+
+def sdpa_case(qkv, heads, types, part: str):
+    """One PyTorch call computing K1's function (``part`` 'forward'), its
+    gradient ('backward', on a retained graph) or both in turn
+    ('forward+backward'): scaled_dot_product_attention with the zorro mask
+    as a boolean mask, or with none. Timed as library_ms; the port never
+    calls it."""
+    F = torch.nn.functional
+    q, k, v = (t.requires_grad_(part != "forward") for t in heads_layout(qkv, heads))
+    mask = None if types is None else zorro_mask_from_padded_types(types, 3, cuda_attn.PAD_TYPE)[:, None]
+    if part == "forward":
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    do = torch.randn_like(out)
+    if part == "backward":
+        return lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    return lambda: torch.autograd.grad(F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                       (q, k, v), do)
+
+
+def attention_work(qkv, heads, types, backward: bool):
+    """Operations and bytes of K1 (or K1b) on these inputs: 4 (10 backward)
+    flops per allowed (query, key) pair and head dim element -- the products
+    over pairs the mask allows, what these types need -- against the qkv
+    (and o, dO, lse, dqkv) bytes."""
+    b, n, three_i = qkv.shape
+    dh = three_i // 3 // heads
+    pairs = b * n * n if types is None else int(
+        zorro_mask_from_padded_types(types, 3, cuda_attn.PAD_TYPE).sum())
+    if not backward:
+        return 4.0 * pairs * dh * heads, nbytes(qkv) * 4 / 3, PEAK_BF16
+    return 10.0 * pairs * dh * heads, nbytes(qkv) * 2 + nbytes(qkv) * 2 / 3 + b * heads * n * 4, PEAK_BF16
+
+
+def outputs(r):
+    return list(r) if isinstance(r, (tuple, list)) else [r]
+
+
 def phase_kernels(dev):
-    """Each kernel against its plain version at the serving shapes."""
+    """Each kernel, forward and backward, against its plain version at the
+    serving and training shapes."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     bf = torch.bfloat16
     doms, f = ("s1", "s2", "dem"), 256
@@ -116,64 +232,135 @@ def phase_kernels(dev):
 
     rand_mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, (f,) * 3,
                                             256, 8, batch_shared=False, device=dev)
+    train_mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, (f,) * 3,
+                                             384, 60, device=dev)
     d, inner_ff, dd, hid = 192, 512, 256, 1024
     w_in, w_out = randn(2 * inner_ff, d, scale=d ** -0.5), randn(d, inner_ff, scale=inner_ff ** -0.5)
     gamma = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(bf)
     w1, b1 = randn(hid, dd, scale=dd ** -0.5), randn(hid, scale=0.1)
     w2, b2 = randn(dd, hid, scale=hid ** -0.5), randn(dd, scale=0.1)
+    geglu_w, mlp_w = (gamma, w_in, w_out), (w1, b1, w2, b2)
 
-    # (entry, shape label, kernel call, plain call, main shape of the entry?)
+    # (entry, shape label, kernel call, plain call, (flops, bytes, peak),
+    #  library call or None, main shape of the entry?)
     cases = []
+    fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
+
+    def zorro_cases(entry_mode, label, qkv, heads, types, main):
+        cases.append((f"zorro_attention_qkv/{entry_mode}", label,
+                      lambda: cuda_attn.zorro_attention_qkv(qkv, heads, types, 3),
+                      lambda: cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3),
+                      attention_work(qkv, heads, types, False),
+                      sdpa_case(qkv, heads, types, "forward"), main))
+
+    def zorro_bwd_cases(entry_mode, label, qkv, heads, types, main):
+        o, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+        do = randn(*o.shape)
+        entry = f"zorro_attention_qkv/{entry_mode}_backward"
+        cases.append((entry, label,
+                      lambda: cuda_attn.zorro_attention_qkv_backward(qkv, types, o, lse, do, heads, 3),
+                      lambda: cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, o, lse, do,
+                                                                               heads, 3),
+                      attention_work(qkv, heads, types, True),
+                      sdpa_case(qkv, heads, types, "backward"), main))
+        fwd_bwd[entry, label] = sdpa_case(qkv, heads, types, "forward+backward")
+
+    # serving shapes (the forward kernels' main shapes in the kernels line)
     for label, b, types in (("N=1024 B=1 all modalities", 1, drop_types(1, ())),
                             ("N=1024 B=1 dem dropped", 1, drop_types(1, ("dem",))),
                             ("N=1024 B=4 s2 dropped", 4, drop_types(4, ("s2",))),
                             ("N=512 B=8 random masks e=256", 8, packed_types(rand_mi, 256, f, 3))):
-        qkv = randn(b, types.shape[1], 3 * 192)
-        cases.append(("zorro_attention_qkv/zorro", label,
-                      lambda qkv=qkv, t=types: cuda_attn.zorro_attention_qkv(qkv, 3, t, 3),
-                      lambda qkv=qkv, t=types: cuda_attn.zorro_attention_qkv_reference(qkv, 3, t, 3),
-                      b == 1 and "all" in label))
+        zorro_cases("zorro", label, randn(b, types.shape[1], 3 * 192), 3, types,
+                    b == 1 and "all" in label)
     for b in (1, 8):
-        qkv = randn(b, 256, 3 * 256)
-        cases.append(("zorro_attention_qkv/none", f"n=256 8x32 B={b}",
-                      lambda qkv=qkv: cuda_attn.zorro_attention_qkv(qkv, 8),
-                      lambda qkv=qkv: cuda_attn.zorro_attention_qkv_reference(qkv, 8), b == 8))
-    for m in (1024, 256, 4096):
+        zorro_cases("none", f"n=256 8x32 B={b}", randn(b, 256, 3 * 256), 8, None, b == 8)
+    # training shapes: forward and backward
+    train_types = packed_types(train_mi, 384, f, 3)
+    qkv_train = randn(60, 640, 3 * 192)
+    zorro_cases("zorro", "N=640 B=60 train masks e=384", qkv_train, 3, train_types, False)
+    zorro_bwd_cases("zorro", "N=640 B=60 train masks e=384", qkv_train, 3, train_types, True)
+    s2_types = drop_types(4, ("s2",))
+    zorro_bwd_cases("zorro", "N=1024 B=4 s2 dropped", randn(4, 1024, 3 * 192), 3, s2_types, False)
+    qkv_dec = randn(60, 256, 3 * 256)
+    zorro_cases("none", "n=256 8x32 B=60", qkv_dec, 8, None, False)
+    zorro_bwd_cases("none", "n=256 8x32 B=60", qkv_dec, 8, None, True)
+
+    def ffn_work(m, backward, geglu):
+        if geglu:
+            weights = 3 * inner_ff * d + d
+            flops = (16 if backward else 6) * m * d * inner_ff
+            acts = (3 if backward else 2) * m * d
+        else:
+            weights = 2 * hid * dd + hid + dd
+            flops = (6 if backward else 2) * m * dd * hid + (4 if backward else 2) * m * hid * dd
+            acts = (3 if backward else 2) * m * dd
+        return flops, 2 * (acts + (2 if backward else 1) * weights), PEAK_BF16
+
+    for m in (1024, 256, 4096, 38400, 15360):
         x = randn(m, d)
         cases.append(("fused_ffn/geglu", f"M={m} d=192 I=512",
-                      lambda x=x: cuda_ffn.geglu_ffn(x, gamma, w_in, w_out),
-                      lambda x=x: cuda_ffn.geglu_ffn_reference(x, gamma, w_in, w_out), m == 1024))
-    for m in (256, 2048):
+                      lambda x=x: cuda_ffn.geglu_ffn(x, *geglu_w),
+                      lambda x=x: cuda_ffn.geglu_ffn_reference(x, *geglu_w),
+                      ffn_work(m, False, True), None, m == 1024))
+    for m in (38400, 15360):
+        x, dy = randn(m, d), randn(m, d)
+        cases.append(("fused_ffn/geglu_backward", f"M={m} d=192 I=512",
+                      lambda x=x, dy=dy: cuda_ffn.geglu_ffn_backward(x, *geglu_w, dy),
+                      lambda x=x, dy=dy: cuda_ffn.geglu_ffn_backward_reference(x, *geglu_w, dy),
+                      ffn_work(m, True, True), None, m == 38400))
+    for m in (256, 2048, 15360):
         x = randn(m, dd)
         cases.append(("fused_ffn/mlp", f"M={m} d=256 H=1024",
-                      lambda x=x: cuda_ffn.mlp_ffn(x, w1, b1, w2, b2),
-                      lambda x=x: cuda_ffn.mlp_ffn_reference(x, w1, b1, w2, b2), m == 2048))
-    for b in (1, 8):
+                      lambda x=x: cuda_ffn.mlp_ffn(x, *mlp_w),
+                      lambda x=x: cuda_ffn.mlp_ffn_reference(x, *mlp_w),
+                      ffn_work(m, False, False), None, m == 2048))
+    x, dy = randn(15360, dd), randn(15360, dd)
+    cases.append(("fused_ffn/mlp_backward", "M=15360 d=256 H=1024",
+                  lambda: cuda_ffn.mlp_ffn_backward(x, *mlp_w, dy),
+                  lambda: cuda_ffn.mlp_ffn_backward_reference(x, *mlp_w, dy),
+                  ffn_work(15360, True, False), None, True))
+
+    for b in (1, 8, 60):
         q, kvg, kvf = randn(b, f, 192), randn(b, 3 * f, 384), randn(b, f, 384)
+        work = (4.0 * 64 * 4 * b * f * 3, nbytes(q, kvg, kvf, q), PEAK_F32)
         cases.append(("fusion_row_attention/fusion_row", f"F=256 T=3 3x64 B={b}",
                       lambda q=q, kvg=kvg, kvf=kvf: cuda_fusion_attn.fusion_row_attention(
                           q, kvg, kvf, 3, 64),
                       lambda q=q, kvg=kvg, kvf=kvf: cuda_fusion_attn.fusion_row_attention_reference(
-                          q, kvg, kvf, 3, 64), b == 8))
+                          q, kvg, kvf, 3, 64), work, None, b == 8))
+        if b == 60:
+            do = randn(b, f, 192)
+            work = (8.0 * 64 * 4 * b * f * 3, 2 * nbytes(q, kvg, kvf) + nbytes(do), PEAK_F32)
+            cases.append(("fusion_row_attention/fusion_row_backward", "F=256 T=3 3x64 B=60",
+                          lambda: cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, 3, 64),
+                          lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(
+                              q, kvg, kvf, do, 3, 64), work, None, True))
 
     results = {}
-    for entry, label, kernel, plain, main in cases:
-        out, ref = kernel(), plain()
+    for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
+        outs, refs = outputs(kernel()), outputs(plain())
         torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            raise RuntimeError(f"[kernels] {entry} {label}: bad output {tuple(out.shape)}")
-        err = float((out.float() - ref.float()).abs().max())
-        rel = rel_l2(out, ref)
-        ms_k = cuda_ms(kernel)
-        ms_p = cuda_ms(plain)
-        log(f"[kernels] {entry:32s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
-            f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms")
+        if entry.startswith("zorro_attention_qkv/") and entry.endswith("_backward"):
+            outs, refs = outs[0].chunk(3, dim=-1), refs[0].chunk(3, dim=-1)  # dq, dk, dv
+        for o, r in zip(outs, refs):
+            if o.shape != r.shape or not torch.isfinite(o).all():
+                raise RuntimeError(f"[kernels] {entry} {label}: bad output {tuple(o.shape)}")
+        err = max(float((o.float() - r.float()).abs().max()) for o, r in zip(outs, refs))
+        rel = max(rel_l2(o, r) for o, r in zip(outs, refs))
+        ms_k, ms_p = cuda_ms(kernel), cuda_ms(plain)
+        ms_lib = cuda_ms(library) if library is not None else None
+        bound_ms, bound_by = bound(flops, n_bytes, peak)
+        fb = f" library fwd+bwd {cuda_ms(fwd_bwd[entry, label]):.6g} ms" if (entry, label) in fwd_bwd else ""
+        log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
+            f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
+            f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
         if not rel <= KERNEL_REL_L2:
             raise RuntimeError(f"[kernels] {entry} {label}: rel L2 {rel} > {KERNEL_REL_L2}")
         r = results.setdefault(entry, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
-            r.update(ms=ms_k, plain_ms=ms_p, shape=label)
+            r.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=bound_ms, bound_by=bound_by,
+                     shape=label)
     return results
 
 
@@ -184,8 +371,8 @@ PER_FORWARD = {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 6,
 def serving_model(dev):
     """The full-width ``tiny`` MultiMAE (PretrainConfig defaults), seeded
     random weights, bf16 on ``dev``."""
-    model = build_multimae(PretrainConfig()).init_weights(torch.Generator().manual_seed(SEED))
-    return model.to(device=dev, dtype=torch.bfloat16).eval()
+    model = build_multimae(PretrainConfig(), device=dev, generator=torch.Generator().manual_seed(SEED))
+    return model.to(torch.bfloat16).eval()
 
 
 def serve_request(model, closure, rng, b, dropped):
@@ -255,7 +442,7 @@ def phase_serving(dev):
     launches = ops.kernel_launches()
     log(f"[serving] launches in the main-path run: {launches}")
     for kind, counts in per_request.items():
-        if counts != PER_FORWARD:
+        if {k: n for k, n in counts.items() if n} != PER_FORWARD:
             raise RuntimeError(f"[serving] {kind}: launches per forward {counts}, "
                                f"expected {PER_FORWARD}")
 
@@ -301,6 +488,114 @@ def phase_serving(dev):
     return launches
 
 
+PER_STEP = {**PER_FORWARD, **{f"{k}_backward": n for k, n in PER_FORWARD.items()}}
+
+
+def flat_grads(model):
+    """Every parameter's gradient in f32; zeros where none arrives (the
+    teacher pool's tokens, whose gradient the DINO term stops)."""
+    return {n: (p.grad.detach().float().clone() if p.grad is not None
+                else torch.zeros_like(p, dtype=torch.float32))
+            for n, p in model.named_parameters()}
+
+
+def step_times(run, steps: int, warmup: int):
+    """Host-clock ms of ``steps`` calls after ``warmup`` untimed ones, each
+    ending in a synchronize; ``run`` returns the step's metrics."""
+    times, losses = [], []
+    for i in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return times, losses
+
+
+def phase_train(dev):
+    """The pretraining step at PretrainConfig() defaults (B = 60, bf16
+    compute over f32 masters) through create_train_state / make_train_step."""
+    cfg = PretrainConfig()
+    doms = tuple(cfg.data.in_domains)
+    nums = (cfg.data.num_patches,) * len(doms)
+    e, b = cfg.mask.num_encoded_tokens, cfg.data.batch_size
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), doms, b, cfg.data.input_size).items()}
+
+    # kernel path against the plain path: the same weights, batch and masks
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, b, device=dev)
+    loss_fn = pretrain.make_loss_fn(model, cfg)
+    results = {}
+    for impl in ("auto", "xla"):
+        model.attn_impl = impl
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(dict(model.named_parameters()), batch, mi)
+        loss.backward()
+        results[impl] = (float(loss.detach()), flat_grads(model))
+    model.attn_impl = "auto"
+    model.zero_grad(set_to_none=True)
+    (loss_k, g_k), (loss_p, g_p) = results["auto"], results["xla"]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    diff = torch.cat([(g_k[n] - g_p[n]).reshape(-1) for n in g_p])
+    grad_rel = float(diff.norm() / torch.cat([g.reshape(-1) for g in g_p.values()]).norm())
+    worst = sorted(((rel_l2(g_k[n], g_p[n]), n) for n in g_p), reverse=True)[:5]
+    log(f"[train] loss kernel path {loss_k:.6g}, plain path {loss_p:.6g}, rel diff {loss_rel:.3g}; "
+        f"flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise RuntimeError(f"[train] kernel path vs plain path: loss rel {loss_rel} "
+                           f"(bound {TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2})")
+    del results, g_k, g_p, diff
+
+    # the main path's run: one step with masks from the state's generator
+    ops.reset_kernel_launches()
+    step(state, batch)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    log(f"[train] launches in one step: {launches}")
+    if {k: n for k, n in launches.items() if n} != PER_STEP:
+        raise RuntimeError(f"[train] launches per step {launches}, expected {PER_STEP}")
+
+    before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    count = optimizer.count
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = step_times(lambda: step(state, batch)[1], steps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    moved = float((after - before).abs().max())
+    if not all(math.isfinite(x) for x in losses) or moved == 0.0 or optimizer.count != count + 13:
+        raise RuntimeError(f"[train] losses {losses}, max weight change {moved}, "
+                           f"optimizer count {optimizer.count} (was {count})")
+    model.attn_impl = "xla"
+    times_p, _ = step_times(lambda: step(state, batch)[1], steps=5, warmup=2)
+    model.attn_impl = "auto"
+    for impl, wall in (("auto", times), ("xla", times_p)):
+        model.attn_impl = impl
+        dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=3)
+        log(f"[train] profile attn_impl={impl}: device {dev_ms:.6g} ms a step in {n_kernels:.0f} "
+            f"kernels/copies, busy {dev_ms / statistics.median(wall):.3f} of the p50 wall; by kind "
+            + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+        for name, ms in top:
+            log(f"[train]     {ms:9.4f} ms  {name[:100]}")
+    model.attn_impl = "auto"
+    mask_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        masking.generate_random_masks(state.generator, doms, nums, e, b, device=dev)
+        torch.cuda.synchronize()
+        mask_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[train] B={b} N={e + cfg.model.num_fusion_tokens}: losses {[round(x, 4) for x in losses]}, "
+        f"max weight change {moved:.3g}, optimizer count {optimizer.count}; step p50 "
+        f"{statistics.median(times):.6g} ms (plain path p50 {statistics.median(times_p):.6g} ms); "
+        f"mask sampling p50 {statistics.median(mask_ms):.6g} ms on the host; "
+        f"peak device memory {peak / 2 ** 30:.4g} GiB")
+    return launches
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -310,6 +605,16 @@ REPLACES = {
     "fused_ffn/mlp": ("csrc/fused_ffn.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:374"),
     "fusion_row_attention/fusion_row": ("csrc/fusion_row_attention.cu",
                                         "incomplete_multimodal_fusion_tpu/ops/pallas_fusion_attn.py:171"),
+    "zorro_attention_qkv/zorro_backward": ("csrc/zorro_attention.cu",
+                                           "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:739"),
+    "zorro_attention_qkv/none_backward": ("csrc/zorro_attention.cu",
+                                          "incomplete_multimodal_fusion_tpu/ops/pallas_small_attn.py:156"),
+    "fused_ffn/geglu_backward": ("csrc/fused_ffn_bwd.cu",
+                                 "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:222"),
+    "fused_ffn/mlp_backward": ("csrc/fused_ffn_bwd.cu",
+                               "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:397"),
+    "fusion_row_attention/fusion_row_backward": (
+        "csrc/fusion_row_attention.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_fusion_attn.py:195"),
 }
 
 
@@ -318,16 +623,20 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     kernel_results = phase_kernels(dev)
-    launches = phase_serving(dev)
+    # the two main paths, each run with the counts set to 0 just before it
+    served = phase_serving(dev)
+    trained = phase_train(dev)
     entries = []
     for name, (src, replaces) in REPLACES.items():
         r = kernel_results[name]
-        if launches[name] <= 0:
-            raise RuntimeError(f"{name} was not launched by the main path")
+        launches = served[name] + trained[name]
+        if launches <= 0:
+            raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "shape": r["shape"]})
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"]})
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,8 +17,10 @@ is a LayerNorm ``weight``), so ``utils.jax_params.params_from_jax`` maps a
 flax checkpoint by renaming alone.
 
 ``use_kernel`` routes the four hot computations through the hand-written
-kernels' wrappers (ops/cuda_*.py), which launch the kernel for a CUDA tensor
-and run the plain version for a CPU tensor; without it the plain versions run.
+kernels' autograd Functions (ops/cuda_*.py), which launch the forward and
+backward kernels for CUDA tensors and run the plain forward and backward for
+CPU tensors; without it the plain forwards run and autograd differentiates
+them.
 """
 from __future__ import annotations
 
@@ -76,8 +78,8 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         if use_kernel:
-            y = cuda_ffn.mlp_ffn(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight,
-                                 self.fc2.bias)
+            y = cuda_ffn.MlpFFN.apply(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                                      self.fc2.bias)
             return y.reshape(*x.shape[:-1], y.shape[-1])
         return self.fc2(F.gelu(self.fc1(x)))
 
@@ -96,7 +98,7 @@ class GEGLUFeedForward(nn.Module):
         self.proj_out = nn.Linear(inner, dim, bias=False)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-        fn = cuda_ffn.geglu_ffn if use_kernel else cuda_ffn.geglu_ffn_reference
+        fn = cuda_ffn.GegluFFN.apply if use_kernel else cuda_ffn.geglu_ffn_reference
         y = fn(_rows(x), self.norm.weight, self.proj_in.weight, self.proj_out.weight)
         return y.reshape(x.shape)
 
@@ -126,7 +128,8 @@ class ZorroAttention(nn.Module):
         x = self.norm(x)
         if packed_types is not None and context is None:
             qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight], dim=0))
-            fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
+            fn = (cuda_attn.ZorroAttentionQKV.apply if use_kernel
+                  else cuda_attn.zorro_attention_qkv_reference)
             return self.to_out(fn(qkv, self.heads, packed_types, fusion_type))
         kv_x = context if context is not None else x
         b, n = x.shape[:2]
@@ -141,7 +144,7 @@ class ZorroAttention(nn.Module):
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth (zorro_utils.py:69-99); identity in eval
-    mode, the only mode this package runs so far."""
+    mode and at rate 0 (the pretraining default)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -221,7 +224,7 @@ class FusionBlockFast(nn.Module):
         idx = slot.clamp(max=e - 1)[..., None].expand(-1, -1, kv_p.shape[-1])
         kv_grid = torch.where(use[..., None], torch.gather(kv_p, 1, idx), kv_m.repeat(1, t, 1))
 
-        fn = (cuda_fusion_attn.fusion_row_attention if use_kernel
+        fn = (cuda_fusion_attn.FusionRowAttention.apply if use_kernel
               else cuda_fusion_attn.fusion_row_attention_reference)
         out = self.to_out(fn(q, kv_grid.contiguous(), kv_f, self.heads, self.dim_head))
         fus = fusion + out
@@ -239,7 +242,7 @@ class ViTSelfAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-        fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
+        fn = cuda_attn.ZorroAttentionQKV.apply if use_kernel else cuda_attn.zorro_attention_qkv_reference
         return self.proj(fn(self.qkv(x), self.num_heads))
 
 

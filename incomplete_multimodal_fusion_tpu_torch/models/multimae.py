@@ -22,7 +22,7 @@ everywhere.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -232,9 +232,18 @@ class MultiMAE(nn.Module):
         }
 
 
-def build_multimae(cfg) -> MultiMAE:
-    """Build from a PretrainConfig (factories multimae_crossattn.py:548-599)."""
-    return MultiMAE(
+def build_multimae(cfg, device="cuda", generator: Optional[torch.Generator] = None) -> MultiMAE:
+    """Build from a PretrainConfig (factories multimae_crossattn.py:548-599).
+
+    The module is built and initialized on the CPU with the JAX package's
+    initializers, drawn from ``generator`` (seed 0 when None), so the weights
+    do not depend on the device; then it moves to ``device``, the card unless
+    the caller asks for the CPU. Raises when the device is CUDA and there is
+    none."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_multimae: no CUDA device; pass device='cpu' to build on the CPU")
+    model = MultiMAE(
         in_domains=tuple(cfg.data.in_domains),
         out_domains=tuple(cfg.data.out_domains),
         image_size=cfg.data.input_size,
@@ -254,3 +263,5 @@ def build_multimae(cfg) -> MultiMAE:
         decoder_style=cfg.decoder.style,
         decoder_batch_tasks=cfg.decoder.batch_tasks,
     )
+    model.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
+    return model.to(device)

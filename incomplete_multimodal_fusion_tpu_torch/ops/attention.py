@@ -18,6 +18,12 @@ import torch
 NEG_INF = -torch.finfo(torch.float32).max
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in at least float32: the plain versions compute in f32 from
+    bf16/f32 operands and stay in float64 for float64 ones (gradcheck)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def multihead_attention(
     q: torch.Tensor,  # [B, Nq, H, Dh]
     k: torch.Tensor,  # [B, Nk, H, Dh]

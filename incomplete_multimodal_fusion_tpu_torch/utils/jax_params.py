@@ -16,8 +16,10 @@ renaming plus the Dense transpose:
   * every other leaf (``fusion_tokens``, ``task_emb``, ``bias``, ...) keeps
     its name.
 
-The input is the tree as nested dicts of numpy arrays (``{"params": ...}``
-or the inner tree).
+The input is the tree as nested dicts of numpy or JAX arrays
+(``{"params": ...}`` or the inner tree). Any tree of the parameters' shape
+carries over the same way: a gradient tree from ``jax.grad`` or the bool
+tree of ``wd_mask`` lands on the port's parameter names.
 """
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, prefix + _module_name(key) + ".")
             else:
-                name, arr = _leaf(key, np.asarray(value, dtype=np.float32))
+                name, arr = _leaf(key, np.array(value, dtype=np.float32))  # a writable copy
                 out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, "")

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, in bf16, over the edge cases the serving shapes do not reach: ragged
-N and M (not multiples of the tiles), every supported head width, T from 1
-to 8 slots, a query row whose first key tiles are all masked. Also the
+"""The hand-written CUDA kernels, forward and backward, against their plain
+PyTorch versions, on the card, in bf16, over the edge cases the model's
+shapes do not reach: ragged N and M (not multiples of the tiles), every
+supported head width, T from 1 to 8 slots, a query row whose first key
+tiles are all masked. Also the autograd Functions' launches and the
 wrappers' refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
@@ -102,6 +103,98 @@ def test_fusion_row_kernel_matches_plain(dev, t_mod, heads, dh):
     ref = cuda_fusion_attn.fusion_row_attention_reference(q, kvg, kvf, heads, dh)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= REL_L2
+
+
+def _rel_all(outs, refs):
+    """The largest rel-L2 over the gradients; one that is zero in exact
+    arithmetic (dq and dk at N = 1) is measured against a norm of 1e-3."""
+    return max(float((o.float() - r.float()).norm()) / max(float(r.float().norm()), 1e-3)
+               for o, r in zip(outs, refs))
+
+
+def _zorro_backward_case(dev, qkv, heads, types):
+    out, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+    ref, ref_lse = cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3, return_lse=True)
+    do = _randn(dev, *out.shape, seed=21)
+    dqkv = cuda_attn.zorro_attention_qkv_backward(qkv, types, out, lse, do, heads, 3)
+    ref_dqkv = cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, ref, ref_lse, do, heads, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dqkv).all()
+    assert _rel(lse, ref_lse) <= 1e-3
+    assert _rel_all(dqkv.chunk(3, dim=-1), ref_dqkv.chunk(3, dim=-1)) <= REL_L2
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("counts,pad,fusion", [((70, 0, 50), 9, 30), ((0, 3, 200), 60, 17)])
+def test_zorro_backward_kernel_matches_plain(dev, dh, counts, pad, fusion):
+    types = _types(dev, counts, pad, fusion).expand(2, -1).contiguous()
+    _zorro_backward_case(dev, _randn(dev, 2, types.shape[1], 3 * 2 * dh), 2, types)
+
+
+@pytest.mark.parametrize("n,heads,dh", [(1, 1, 32), (65, 2, 64), (300, 1, 128), (256, 8, 32)])
+def test_unmasked_backward_kernel_matches_plain(dev, n, heads, dh):
+    _zorro_backward_case(dev, _randn(dev, 3, n, 3 * heads * dh, seed=1), heads, None)
+
+
+@pytest.mark.parametrize("m", [1, 31, 33, 1000])
+def test_geglu_backward_kernel_matches_plain(dev, m):
+    d, inner = 64, 96
+    x, dy = _randn(dev, m, d, seed=2), _randn(dev, m, d, seed=22)
+    gamma = (1 + 0.1 * _randn(dev, d, seed=3).float()).to(torch.bfloat16)
+    w_in, w_out = _randn(dev, 2 * inner, d, scale=d ** -0.5, seed=4), _randn(
+        dev, d, inner, scale=inner ** -0.5, seed=5)
+    out = cuda_ffn.geglu_ffn_backward(x, gamma, w_in, w_out, dy)
+    ref = cuda_ffn.geglu_ffn_backward_reference(x, gamma, w_in, w_out, dy)
+    torch.cuda.synchronize()
+    assert [o.shape for o in out] == [r.shape for r in ref]
+    assert _rel_all(out, ref) <= REL_L2
+
+
+@pytest.mark.parametrize("m,d,hidden,out_dim", [(1, 32, 128, 32), (45, 64, 256, 48), (300, 256, 1024, 256)])
+def test_mlp_backward_kernel_matches_plain(dev, m, d, hidden, out_dim):
+    x, dy = _randn(dev, m, d, seed=6), _randn(dev, m, out_dim, seed=23)
+    w1, b1 = _randn(dev, hidden, d, scale=d ** -0.5, seed=7), _randn(dev, hidden, scale=0.1, seed=8)
+    w2, b2 = _randn(dev, out_dim, hidden, scale=hidden ** -0.5, seed=9), _randn(
+        dev, out_dim, scale=0.1, seed=10)
+    out = cuda_ffn.mlp_ffn_backward(x, w1, b1, w2, b2, dy)
+    ref = cuda_ffn.mlp_ffn_backward_reference(x, w1, b1, w2, b2, dy)
+    torch.cuda.synchronize()
+    assert [o.shape for o in out] == [r.shape for r in ref]
+    assert _rel_all(out, ref) <= REL_L2
+
+
+@pytest.mark.parametrize("t_mod", [1, 3, 8])
+@pytest.mark.parametrize("heads,dh", [(3, 64), (1, 32), (2, 128)])
+def test_fusion_row_backward_kernel_matches_plain(dev, t_mod, heads, dh):
+    b, f, inner = 2, 20, heads * dh
+    q, kvg, kvf = _randn(dev, b, f, inner, seed=11), _randn(dev, b, t_mod * f, 2 * inner, seed=12), \
+        _randn(dev, b, f, 2 * inner, seed=13)
+    do = _randn(dev, b, f, inner, seed=24)
+    out = cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, heads, dh)
+    ref = cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, heads, dh)
+    torch.cuda.synchronize()
+    assert _rel_all(out, ref) <= REL_L2
+
+
+def test_functions_launch_forward_and_backward_kernels(dev):
+    """Each autograd Function launches its forward kernel once and, in the
+    backward, its backward kernel once."""
+    ops.reset_kernel_launches()
+    qkv = _randn(dev, 2, 70, 3 * 64).requires_grad_()
+    cuda_attn.ZorroAttentionQKV.apply(qkv, 1).float().sum().backward()
+    x = _randn(dev, 40, 64).requires_grad_()
+    w = [_randn(dev, *s, seed=i).requires_grad_() for i, s in enumerate([(64,), (192, 64), (64, 96)])]
+    cuda_ffn.GegluFFN.apply(x, *w).float().sum().backward()
+    q, kvg, kvf = (_randn(dev, *s, seed=i).requires_grad_()
+                   for i, s in enumerate([(1, 8, 64), (1, 24, 128), (1, 8, 128)]))
+    cuda_fusion_attn.FusionRowAttention.apply(q, kvg, kvf, 1, 64).float().sum().backward()
+    counts = ops.kernel_launches()
+    for name in ("zorro_attention_qkv/none", "zorro_attention_qkv/none_backward", "fused_ffn/geglu",
+                 "fused_ffn/geglu_backward", "fusion_row_attention/fusion_row",
+                 "fusion_row_attention/fusion_row_backward"):
+        assert counts[name] == 1, (name, counts)
+    assert sum(counts.values()) == 6
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (qkv, x, *w, q, kvg, kvf))
 
 
 def test_each_launch_is_counted_once(dev):

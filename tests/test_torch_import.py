@@ -17,6 +17,8 @@ def test_import_leaves_jax_and_flax_out():
         "import incomplete_multimodal_fusion_tpu_torch as p\n"
         "from incomplete_multimodal_fusion_tpu_torch import infer, serving\n"
         "from incomplete_multimodal_fusion_tpu_torch.models import multimae\n"
+        "from incomplete_multimodal_fusion_tpu_torch import losses, train\n"
+        "from incomplete_multimodal_fusion_tpu_torch.train import optim, pretrain, schedules\n"
         "from incomplete_multimodal_fusion_tpu_torch.utils import jax_params\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"

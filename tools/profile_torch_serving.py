@@ -17,7 +17,6 @@ Needs a CUDA card; imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-import collections
 import os
 import statistics
 import sys
@@ -25,10 +24,9 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import SEED, serve_request, serving_model, serving_requests
+from chip_smoke import SEED, device_breakdown, serve_request, serving_model, serving_requests
 from incomplete_multimodal_fusion_tpu_torch import serving
 from incomplete_multimodal_fusion_tpu_torch.ops import cuda_build
 
@@ -48,22 +46,6 @@ def wall_p50(fn, reps=10, warmup=3):
     return statistics.median(times)
 
 
-def device_breakdown(fn, reps=5):
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per_name = collections.Counter()
-    count = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[evt.name] += evt.device_time_total
-            count += 1
-    total = sum(per_name.values()) / reps / 1e3
-    top = [(name, us / reps / 1e3) for name, us in per_name.most_common(8)]
-    return total, count / reps, top
-
-
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
@@ -80,7 +62,7 @@ def main():
         model.attn_impl = mode
         for kind, fn in reqs.items():
             wall = wall_p50(fn)
-            dev, n_kernels, top = device_breakdown(fn)
+            dev, n_kernels, _, top = device_breakdown(fn)
             print(f"== attn_impl={mode} {kind}: wall p50 {wall:.3f} ms, device {dev:.3f} ms "
                   f"in {n_kernels:.0f} kernels/copies, busy {dev / wall:.3f}", flush=True)
             for name, ms in top:
