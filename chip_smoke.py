@@ -4,7 +4,10 @@ csrc/`` with nvcc, holds each, forward and backward, against its plain
 PyTorch version at the shapes of the model, then drives the full-width
 ``tiny`` MultiMAE (PretrainConfig defaults, seeded random weights) through
 the serving entry points (bf16) and through the pretraining step (bf16
-compute over f32 master weights, B = 60) and checks what comes out.
+compute over f32 master weights, B = 60), and the full-width downstream
+MaskFormer (MaskFormerConfig defaults, seeded random weights, bf16 backbone
+and f32 head) through the segmentation entry points, and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -12,9 +15,10 @@ Phases (any failure raises; the exit code is then non-zero):
   1. device   -- the card's name and power limit; fails without CUDA.
   2. build    -- nvcc for sm_90a into build/kernels/, all sources in
                  parallel, timed.
-  3. kernels  -- each kernel against its plain version in bf16 at the
-                 serving and training shapes: max abs error and relative L2
-                 error (bound KERNEL_REL_L2), kernel, plain and library times
+  3. kernels  -- each kernel against its plain version in bf16 (K4 in f32)
+                 at the serving, training and segmentation shapes: max abs
+                 error and relative L2 error (bound KERNEL_REL_L2, K4
+                 MSDA_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
                  the card could take (bound_ms, from the bytes and operations
                  of these inputs).
@@ -30,6 +34,15 @@ Phases (any failure raises; the exit code is then non-zero):
                  and 10 timed steps (finite loss, weights moved, optimizer
                  count advanced), p50 step time of both paths, host time of
                  the mask sampling, peak device memory.
+  6. segment  -- four requests through infer_segmentation.
+                 forward_segmentation / forward_instance_segmentation
+                 (semantic B = 1, semantic B = 1 with dem dropped, instance
+                 B = 8, semantic B = 30): exact launch counts per forward,
+                 finite outputs, the dem-dropped answer bitwise unmoved by the
+                 dem pixels, pred_logits, pred_masks and the class
+                 probabilities within SEG_REL_L2 of the plain path, p50 wall
+                 time of both paths, images/s at B = 30, peak device memory,
+                 and the device time of a forward from the profiler.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -48,11 +61,15 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from incomplete_multimodal_fusion_tpu_torch import infer, ops, serving
+from incomplete_multimodal_fusion_tpu_torch import infer, infer_segmentation, ops, serving
 from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
+from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, build_maskformer
+from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
-from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn, cuda_build, cuda_ffn, cuda_fusion_attn
+from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
+from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_build, cuda_ffn, cuda_fusion_attn,
+                                                        cuda_msda)
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
@@ -65,6 +82,10 @@ SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
 # backward on the card varies from run to run
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
+# K4 in f32 against its f32 plain version: only the order of the sums differs
+MSDA_REL_L2 = 1e-4
+# segmentation forward (bf16 backbone, f32 head), kernels vs plain path
+SEG_REL_L2 = 5e-2
 SEED = 0
 # an H100 SXM's published peaks (NVIDIA data sheet): dense bf16 tensor-core
 # and f32 CUDA-core operations per second, HBM3 bytes per second
@@ -101,15 +122,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row")
+HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
-def device_breakdown(fn, reps: int = 5):
+def device_breakdown(fn, reps: int = 5, top_n=8):
     """Device time of one call of ``fn`` from torch.profiler over ``reps``
     calls: total ms of the device kernels and copies (one stream, so their
     sum is the busy time), their count, ms by kind (the hand-written
-    kernels, the matmul library, everything else) and the top 8 by name."""
+    kernels, the matmul library, everything else) and the top ``top_n`` by
+    name (all of them for None)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -129,7 +151,7 @@ def device_breakdown(fn, reps: int = 5):
                 "matmul library" if any(k in low for k in MATMUL_LIBRARY) else "other")
         by_kind[kind] += us / reps / 1e3
     total = sum(per_name.values()) / reps / 1e3
-    top = [(name, us / reps / 1e3) for name, us in per_name.most_common(8)]
+    top = [(name, us / reps / 1e3) for name, us in per_name.most_common(top_n)]
     return total, count / reps, dict(by_kind), top
 
 
@@ -210,6 +232,43 @@ def attention_work(qkv, heads, types, backward: bool):
     if not backward:
         return 4.0 * pairs * dh * heads, nbytes(qkv) * 4 / 3, PEAK_BF16
     return 10.0 * pairs * dh * heads, nbytes(qkv) * 2 + nbytes(qkv) * 2 / 3 + b * heads * n * 4, PEAK_BF16
+
+
+MSDA_LEVELS = ((8, 8), (16, 16), (32, 32))  # the pixel decoder's levels at 256^2, low -> high
+
+
+def msda_inputs(dev, g, b, heads=8, dim=32, points=4, near_reference=False):
+    """K4's operands at the pixel decoder's shapes, f32: locations uniform in
+    [-0.1, 1.1], or with ``near_reference`` each query's level reference
+    point plus N(0, 2 pixels) offsets, as a trained decoder's samples lie."""
+    s = sum(h * w for h, w in MSDA_LEVELS)
+    l = len(MSDA_LEVELS)
+    value = torch.randn(b, s, heads, dim, device=dev, generator=g)
+    if near_reference:
+        ref = reference_points_for(MSDA_LEVELS, device=dev)[None, :, None, :, None, :]
+        size = torch.tensor([[w, h] for h, w in MSDA_LEVELS], dtype=torch.float32, device=dev)
+        noise = 2.0 * torch.randn(b, s, heads, l, points, 2, device=dev, generator=g)
+        locs = ref + noise / size[None, None, None, :, None, :]
+    else:
+        locs = -0.1 + 1.2 * torch.rand(b, s, heads, l, points, 2, device=dev, generator=g)
+    aw = torch.softmax(torch.randn(b, s, heads, l * points, device=dev, generator=g), dim=-1)
+    return value, locs, aw.reshape(b, s, heads, l, points).contiguous()
+
+
+def msda_work(value, locs, aw):
+    """Operations and bytes of K4 on these inputs: 10 f32 operations per
+    channel of each sample with a tap inside its level (4 corner products
+    and adds, the weighting; a sample wholly outside contributes nothing
+    and is not counted), against value, locations, weights and the output
+    each moved once."""
+    b, s, m, d = value.shape
+    live = 0
+    for lid, (h, w) in enumerate(MSDA_LEVELS):
+        px = locs[:, :, :, lid, :, 0] * w - 0.5
+        py = locs[:, :, :, lid, :, 1] * h - 0.5
+        live += int(((px > -1) & (px < w) & (py > -1) & (py < h)).sum())
+    out_bytes = b * locs.shape[1] * m * d * 4
+    return 10.0 * live * d, nbytes(value, locs, aw) + out_bytes, PEAK_F32
 
 
 def outputs(r):
@@ -336,6 +395,19 @@ def phase_kernels(dev):
                           lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(
                               q, kvg, kvf, do, 3, 64), work, None, True))
 
+    # K4 (f32) at the pixel decoder's shapes: levels 8^2, 16^2, 32^2, 8 heads
+    # x 32, 4 points, every position a query; random locations in
+    # [-0.1, 1.1] and random softmaxed weights, so the samples fall between
+    # pixel centres and past the borders; at B = 30 also samples near each
+    # query's reference points, to see whether the gathers' locality matters
+    for b, near in ((1, False), (30, False), (30, True)):
+        value, locs, aw = msda_inputs(dev, g, b, near_reference=near)
+        label = f"B={b} Lq=S=1344 8x32 L=3 P=4" + (" near reference" if near else "")
+        cases.append(("ms_deform_attn/forward", label,
+                      lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn(v, MSDA_LEVELS, lc, a),
+                      lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn_core(v, MSDA_LEVELS, lc, a),
+                      msda_work(value, locs, aw), None, b == 30 and not near))
+
     results = {}
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
         outs, refs = outputs(kernel()), outputs(plain())
@@ -354,8 +426,9 @@ def phase_kernels(dev):
         log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
-        if not rel <= KERNEL_REL_L2:
-            raise RuntimeError(f"[kernels] {entry} {label}: rel L2 {rel} > {KERNEL_REL_L2}")
+        rel_bound = MSDA_REL_L2 if entry.startswith("ms_deform_attn/") else KERNEL_REL_L2
+        if not rel <= rel_bound:
+            raise RuntimeError(f"[kernels] {entry} {label}: rel L2 {rel} > {rel_bound}")
         r = results.setdefault(entry, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
@@ -425,6 +498,20 @@ def serving_requests(model, closure, rng):
     }
 
 
+def wall_ms(run, reps: int, warmup: int):
+    """Host-clock ms of ``reps`` calls after ``warmup``, each ending in a
+    synchronize."""
+    times = []
+    for i in range(warmup + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
 def phase_serving(dev):
     model = serving_model(dev)
     closure = serving.infer_closure(model, None, model.in_domains)
@@ -466,25 +553,13 @@ def phase_serving(dev):
         rel = max([rel_l2(preds[d], preds_p[d]) for d in preds] + [rel_l2(pooled, pooled_p)])
         if not rel <= SERVING_REL_L2:
             raise RuntimeError(f"[serving] {kind}: rel L2 vs plain path {rel} > {SERVING_REL_L2}")
-        lat = []
-        for _ in range(13):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
+        lat = wall_ms(run, reps=10, warmup=3)
         model.attn_impl = "xla"
-        lat_p = []
-        for _ in range(7):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            lat_p.append((time.perf_counter() - t0) * 1e3)
+        lat_p = wall_ms(run, reps=5, warmup=2)
         model.attn_impl = "auto"
         log(f"[serving] {kind:32s} finite ok, dropped-pixel max change {worst_inv:.3g}, "
-            f"rel_l2 vs plain path {rel:.6g}, p50 {statistics.median(lat[3:]):.6g} ms "
-            f"(plain path p50 {statistics.median(lat_p[2:]):.6g} ms)")
+            f"rel_l2 vs plain path {rel:.6g}, p50 {statistics.median(lat):.6g} ms "
+            f"(plain path p50 {statistics.median(lat_p):.6g} ms)")
     return launches
 
 
@@ -596,6 +671,129 @@ def phase_train(dev):
     return launches
 
 
+SEG_PER_FORWARD = {"ms_deform_attn/forward": 2, "zorro_attention_qkv/zorro": 12, "fused_ffn/geglu": 24}
+SEG_CLASSES = 10  # the 9 Dynamic-World land-cover classes and the dead channel 0
+
+
+def segment_model(dev, num_classes: int):
+    """The full-width MaskFormer (MaskFormerConfig defaults) with seeded
+    random weights: backbone bf16, head f32. Two changes to the JAX
+    initializers: seeded N(0, 0.02) noise on the zero sampling-offset and
+    attention-weight kernels, so the samples leave the pixel centres, and
+    mask_embed.layer2 x 6, so the mask logits leave the hard 0.5
+    threshold of the masked attention (test_full_maskformer_parity.py:139)."""
+    model = build_maskformer(MaskFormerConfig(num_classes=num_classes), device=dev,
+                             generator=torch.Generator().manual_seed(SEED))
+    model.backbone.to(torch.bfloat16)
+    noise = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MSDeformAttn):
+                for lin in (m.sampling_offsets, m.attention_weights):
+                    lin.weight.add_(0.02 * torch.randn(lin.weight.shape, generator=noise).to(dev))
+        layer2 = model.predictor.mask_embed.layer2
+        layer2.weight.mul_(6.0)
+        layer2.bias.mul_(6.0)
+    return model.eval()
+
+
+def segment_requests(dev, rng):
+    """The four segmentation requests as {kind: (model, run, x, dropped)}:
+    ``run(x)`` answers the request through its entry point."""
+    sem, inst = segment_model(dev, SEG_CLASSES), segment_model(dev, 1)
+    doms = sem.cfg.in_domains
+    size = sem.cfg.image_size
+
+    def semantic(dropped):
+        return lambda x: infer_segmentation.forward_segmentation(sem, None, x, SEG_CLASSES, dropped)
+
+    def instance(x):
+        return infer_segmentation.forward_instance_segmentation(inst, None, x, topk=100)
+
+    x1 = synthetic_batch(rng, doms, 1, size)
+    return {
+        "semantic B=1 all modalities": (sem, semantic(()), x1, ()),
+        "semantic B=1 dem dropped": (sem, semantic(("dem",)), x1, ("dem",)),
+        "instance B=8 topk=100": (inst, instance, synthetic_batch(rng, doms, 8, size), ()),
+        "semantic B=30": (sem, semantic(()), synthetic_batch(rng, doms, 30, size), ()),
+    }
+
+
+def phase_segment(dev):
+    """The downstream segmentation forward at MaskFormerConfig() widths
+    through forward_segmentation / forward_instance_segmentation."""
+    requests = segment_requests(dev, np.random.default_rng(SEED))
+
+    # the main path's run: every request once, launch counters from 0
+    ops.reset_kernel_launches()
+    answers = {}
+    for kind, (model, run, x, _) in requests.items():
+        before = ops.kernel_launches()
+        answers[kind] = run(x)
+        torch.cuda.synchronize()
+        after = ops.kernel_launches()
+        counts = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        log(f"[segment] {kind:28s} launches per forward {counts}")
+        if counts != SEG_PER_FORWARD:
+            raise RuntimeError(f"[segment] {kind}: launches per forward {counts}, "
+                               f"expected {SEG_PER_FORWARD}")
+    launches = ops.kernel_launches()
+    log(f"[segment] launches in the main-path run: {launches}")
+
+    for kind, (model, run, x, dropped) in requests.items():
+        answer = answers[kind]
+        if kind.startswith("semantic"):
+            if not (answer.min() >= 1 and answer.max() <= SEG_CLASSES):
+                raise RuntimeError(f"[segment] {kind}: labels outside 1..{SEG_CLASSES}")
+        else:
+            for inst in answer:
+                if not (torch.isfinite(inst["scores"]).all() and len(inst["scores"]) == 100):
+                    raise RuntimeError(f"[segment] {kind}: bad instance scores")
+        hw = (model.cfg.image_size, model.cfg.image_size)
+        out_k = infer_segmentation.segmentation_outputs(model, None, x, dropped)
+        model.attn_impl = "xla"
+        out_p = infer_segmentation.segmentation_outputs(model, None, x, dropped)
+        model.attn_impl = "auto"
+        compared = {k: (out_k[k], out_p[k]) for k in ("pred_logits", "pred_masks")}
+        if kind.startswith("semantic"):
+            compared["probabilities"] = (infer_segmentation.semantic_probabilities(out_k, hw),
+                                         infer_segmentation.semantic_probabilities(out_p, hw))
+        for key, (a, b) in compared.items():
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"[segment] {kind}: non-finite {key}")
+        rels = {key: rel_l2(a, b) for key, (a, b) in compared.items()}
+        if not max(rels.values()) <= SEG_REL_L2:
+            raise RuntimeError(f"[segment] {kind}: rel L2 vs plain path {rels} > {SEG_REL_L2}")
+        note = ""
+        if dropped:
+            moved = {d: (v * 0.0 + 123.0 if d in dropped else v) for d, v in x.items()}
+            out_m = infer_segmentation.segmentation_outputs(model, None, moved, dropped)
+            same = all(torch.equal(out_k[k], out_m[k]) for k in ("pred_logits", "pred_masks"))
+            if not (same and torch.equal(run(moved), answer)):
+                raise RuntimeError(f"[segment] {kind}: the answer moved with the dropped pixels")
+            note = ", bitwise unmoved by the dropped pixels"
+        b = next(iter(x.values())).shape[0]
+        torch.cuda.reset_peak_memory_stats(dev)
+        lat = wall_ms(lambda: run(x), reps=10, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        model.attn_impl = "xla"
+        lat_p = wall_ms(lambda: run(x), reps=5, warmup=2)
+        model.attn_impl = "auto"
+        p50 = statistics.median(lat)
+        log(f"[segment] {kind:28s} finite ok{note}; rel_l2 vs plain path "
+            + ", ".join(f"{k} {v:.6g}" for k, v in rels.items())
+            + f"; p50 {p50:.6g} ms ({b / p50 * 1e3:.6g} images/s; plain path p50 "
+            f"{statistics.median(lat_p):.6g} ms); peak device memory {peak / 2 ** 30:.4g} GiB")
+        if kind.startswith("semantic B=1 all") or kind == "semantic B=30":
+            dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: run(x), reps=3, top_n=None)
+            log(f"[segment] {kind:28s} profile: device {dev_ms:.6g} ms a forward in {n_kernels:.0f} "
+                f"kernels/copies, busy {dev_ms / p50:.3f} of the p50 wall; by kind "
+                + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+            for name, ms in top[:8] + [t for t in top[8:] if "ms_deform_attn" in t[0]]:
+                log(f"[segment]     {ms:9.4f} ms  {name[:100]}")
+    return launches
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -615,6 +813,8 @@ REPLACES = {
                                "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:397"),
     "fusion_row_attention/fusion_row_backward": (
         "csrc/fusion_row_attention.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_fusion_attn.py:195"),
+    "ms_deform_attn/forward": ("csrc/ms_deform_attn.cu",
+                               "incomplete_multimodal_fusion_tpu/ops/pallas_msda.py:170"),
 }
 
 
@@ -626,10 +826,11 @@ def main() -> int:
     # the two main paths, each run with the counts set to 0 just before it
     served = phase_serving(dev)
     trained = phase_train(dev)
+    segmented = phase_segment(dev)
     entries = []
     for name, (src, replaces) in REPLACES.items():
         r = kernel_results[name]
-        launches = served[name] + trained[name]
+        launches = served[name] + trained[name] + segmented[name]
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

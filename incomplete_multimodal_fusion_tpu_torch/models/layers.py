@@ -142,6 +142,29 @@ class ZorroAttention(nn.Module):
         return self.to_out(out.reshape(b, n, -1))
 
 
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` over the last (channel) axis of an NHWC map:
+    statistics in f32 over the spatial axes and the group's channels, a
+    learned weight and bias; the result in the input's dtype."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {num_channels} channels")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[-1]
+        xf = x.float().reshape(x.shape[0], -1, self.num_groups, c // self.num_groups)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = xf.var(dim=(1, 3), unbiased=False, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth (zorro_utils.py:69-99); identity in eval
     mode and at rate 0 (the pretraining default)."""
@@ -206,9 +229,13 @@ class FusionBlockFast(nn.Module):
         self.norm2 = BiaslessLayerNorm(dim)
         self.mlp = GEGLUFeedForward(dim, ff_mult)
 
-    def forward(self, packed, fusion, mask_emb, slot, use, use_kernel: bool = False):
+    def forward(self, packed, fusion, mask_emb, slot, use, plane_valid=None,
+                use_kernel: bool = False):
         """packed [B, E, D]; fusion [B, F, D]; mask_emb [1, F, D];
-        slot [B, T*F] (mask_info.ids_restore); use [B, T*F] bool."""
+        slot [B, T*F] (mask_info.ids_restore); use [B, T*F] bool;
+        plane_valid [T+1] bool or None. With ``plane_valid`` the slots of the
+        excluded planes (absent modalities) get no attention; that runs the
+        plain slot attention, as the JAX block does (layers.py:478-502)."""
         e = packed.shape[1]
         f = fusion.shape[1]
         t = slot.shape[1] // f
@@ -224,9 +251,13 @@ class FusionBlockFast(nn.Module):
         idx = slot.clamp(max=e - 1)[..., None].expand(-1, -1, kv_p.shape[-1])
         kv_grid = torch.where(use[..., None], torch.gather(kv_p, 1, idx), kv_m.repeat(1, t, 1))
 
-        fn = (cuda_fusion_attn.FusionRowAttention.apply if use_kernel
-              else cuda_fusion_attn.fusion_row_attention_reference)
-        out = self.to_out(fn(q, kv_grid.contiguous(), kv_f, self.heads, self.dim_head))
+        if use_kernel and plane_valid is None:
+            out = cuda_fusion_attn.FusionRowAttention.apply(q, kv_grid.contiguous(), kv_f,
+                                                            self.heads, self.dim_head)
+        else:
+            out = cuda_fusion_attn.fusion_row_attention_reference(
+                q, kv_grid, kv_f, self.heads, self.dim_head, plane_valid=plane_valid)
+        out = self.to_out(out)
         fus = fusion + out
         return fus + self.mlp(self.norm2(fus), use_kernel=use_kernel)
 

@@ -22,7 +22,7 @@ everywhere.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +36,36 @@ from ..ops.posemb import build_2d_sincos_posemb
 from .adapters import PatchedInputAdapter, SpatialOutputAdapter
 from .layers import (BiaslessLayerNorm, EncoderBlock, FusionBlockFast, LayerNorm, Mlp,
                      ZorroAttention, trunc_normal_, xavier_uniform_)
+
+
+class PackedLayout(NamedTuple):
+    tokens: torch.Tensor  # [B, E+F, D]: visible tokens, zero padding slots, fusion tokens
+    types: torch.Tensor  # [B, E+F] token type of each slot
+    valid: torch.Tensor  # [B, E+F] bool, False at padding slots
+    kernel_types: torch.Tensor  # types with PAD_TYPE at padding slots: K1's mask input
+    slot: torch.Tensor  # [B, T*F] packed slot of each grid position (mask_info.ids_restore)
+    use: torch.Tensor  # [B, T*F] bool: the grid position holds a packed token
+
+
+def pack_tokens(tokens_in, fusion_tokens: torch.Tensor, mask_info: MaskInfo, e: int,
+                num_patches: int) -> PackedLayout:
+    """The packed layout of ``e`` slots plus the fusion tokens: slot s holds
+    token ``order[s]`` while s < num_visible, else zeros. ``tokens_in``: one
+    [B, num_patches, D] tensor per modality, in domain order."""
+    full = torch.cat(tokens_in, dim=1)
+    keep = mask_info.order[:, :e]
+    packed = torch.gather(full, 1, keep[..., None].expand(-1, -1, full.shape[-1]))
+    slot_real = torch.arange(e, device=full.device)[None, :] < mask_info.num_visible[:, None]
+    packed = torch.where(slot_real[..., None], packed, torch.zeros_like(packed))
+    tokens = torch.cat([packed, fusion_tokens], dim=1)
+
+    n_dom, f = len(tokens_in), fusion_tokens.shape[1]
+    types = packed_token_types(mask_info.order, (num_patches,) * n_dom, e, f, n_dom)
+    valid = packed_valid(mask_info.num_visible, e, f)
+    kernel_types = torch.where(valid, types, torch.full_like(types, PAD_TYPE))
+    slot = mask_info.ids_restore
+    use = (slot < e) & (slot < mask_info.num_visible[:, None])
+    return PackedLayout(tokens, types, valid, kernel_types, slot, use)
 
 
 class MultiMAE(nn.Module):
@@ -157,7 +187,6 @@ class MultiMAE(nn.Module):
         input (zeros will do): its tokens are computed and fully masked out.
         Returns the JAX package's output dict."""
         e = num_encoded_tokens
-        f = self.num_fusion_tokens
         b = x[self.in_domains[0]].shape[0]
         use_kernel = self.attn_impl != "xla"
 
@@ -170,27 +199,14 @@ class MultiMAE(nn.Module):
         fus_pos = build_2d_sincos_posemb(hp, hp, self.dim_tokens, device=device)
         fusion_tokens = (self.fusion_tokens + fus_pos[None]).to(dtype).expand(b, -1, -1)
 
-        # pack: slot s holds token order[s] while s < num_visible, else zeros
-        full = torch.cat(tokens_in, dim=1)
-        keep = mask_info.order[:, :e]
-        packed = torch.gather(full, 1, keep[..., None].expand(-1, -1, full.shape[-1]))
-        slot_real = torch.arange(e, device=device)[None, :] < mask_info.num_visible[:, None]
-        packed = torch.where(slot_real[..., None], packed, torch.zeros_like(packed))
-        tokens = torch.cat([packed, fusion_tokens], dim=1)  # [B, E+F, D]
-
-        nums = tuple(self.num_patches for _ in self.in_domains)
-        types = packed_token_types(mask_info.order, nums, e, f, self.fusion_type)
-        valid = packed_valid(mask_info.num_visible, e, f)
-        types_padded = torch.where(valid, types, torch.full_like(types, PAD_TYPE))
-
-        slot = mask_info.ids_restore  # [B, T*F]
-        use = (slot < e) & (slot < mask_info.num_visible[:, None])  # grid slot holds a packed token
+        tokens, types, valid, kernel_types, slot, use = pack_tokens(
+            tokens_in, fusion_tokens, mask_info, e, self.num_patches)
         mask_emb = self.mask_embedding.to(dtype)
         for blk, fus_blk in zip(self.blocks, self.fus_blocks):
             fusion_new = fus_blk(tokens[:, :e], tokens[:, e:], mask_emb, slot, use,
                                  use_kernel=use_kernel)
             tokens = torch.cat([tokens[:, :e], fusion_new], dim=1)
-            tokens = blk(tokens, types_padded, self.fusion_type, use_kernel=use_kernel)
+            tokens = blk(tokens, kernel_types, self.fusion_type, use_kernel=use_kernel)
 
         tokens = self.norm(tokens)
 

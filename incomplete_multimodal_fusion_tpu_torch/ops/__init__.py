@@ -1,12 +1,14 @@
 from typing import Dict
 
-from . import attention, cuda_attn, cuda_ffn, cuda_fusion_attn, masking, patches, posemb
+from . import (attention, cuda_attn, cuda_ffn, cuda_fusion_attn, cuda_msda, masking, msda, patches,
+               posemb, resize)
 
-__all__ = ["attention", "cuda_attn", "cuda_ffn", "cuda_fusion_attn", "masking", "patches",
-           "posemb", "kernel_launches", "reset_kernel_launches"]
+__all__ = ["attention", "cuda_attn", "cuda_ffn", "cuda_fusion_attn", "cuda_msda", "masking", "msda",
+           "patches", "posemb", "resize", "kernel_launches", "reset_kernel_launches"]
 
 _COUNTERS = {"zorro_attention_qkv": cuda_attn.LAUNCHES, "fused_ffn": cuda_ffn.LAUNCHES,
-             "fusion_row_attention": cuda_fusion_attn.LAUNCHES}
+             "fusion_row_attention": cuda_fusion_attn.LAUNCHES,
+             "ms_deform_attn": cuda_msda.LAUNCHES}
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -37,14 +37,19 @@ def _slots(q, kv_grid, kv_f, heads, dh):
     return qh, torch.cat([k_g, k_f], dim=2), torch.cat([v_g, v_f], dim=2)
 
 
-def fusion_row_attention_reference(q, kv_grid, kv_f, heads: int, dh: int):
+def fusion_row_attention_reference(q, kv_grid, kv_f, heads: int, dh: int, plane_valid=None):
     """Plain PyTorch version, the JAX ``fusion_row_attention_xla``
     (pallas_fusion_attn.py:215): q * scale in the activation dtype, scores
     and softmax in f32, weights cast to the activation dtype for the mix.
-    q [B, F, I], kv_grid [B, T*F, 2I] t-major, kv_f [B, F, 2I] -> [B, F, I]."""
+    q [B, F, I], kv_grid [B, T*F, 2I] t-major, kv_f [B, F, 2I] -> [B, F, I].
+    ``plane_valid`` [T+1] bool, when given, gives the excluded slots the
+    score -0.7 * f32 max, the plain path of layers.py:500-502."""
     b, f, inner = q.shape
     qh, k, v = _slots(q, kv_grid, kv_f, heads, dh)
     sim = (upcast(qh[:, :, None]) * upcast(k)).sum(dim=-1)  # [B, F, T+1, h]
+    if plane_valid is not None:
+        sim = torch.where(plane_valid[None, None, :, None], sim,
+                          torch.full_like(sim, -0.7 * torch.finfo(torch.float32).max))
     attn = torch.softmax(sim, dim=2)
     out = (attn[..., None].to(v.dtype) * v).sum(dim=2)
     return out.reshape(b, f, inner).to(q.dtype)

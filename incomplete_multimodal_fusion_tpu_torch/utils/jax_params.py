@@ -10,11 +10,22 @@ renaming plus the Dense transpose:
   * a Dense ``kernel`` [in, out] -> ``weight`` [out, in]; the input
     adapter's ``proj_kernel`` / ``proj_bias`` -> ``proj.weight`` (transposed)
     / ``proj.bias``;
+  * a 4-D ``Conv`` kernel [kh, kw, in, out] -> ``nn.Conv2d``'s ``weight``
+    [out, in, kh, kw]; the ``ConvTranspose`` kernels of the feature pyramid
+    (modules ``up*_conv*``) -> ``F.conv_transpose2d``'s [in, out, kh, kw],
+    spatially flipped: lax.conv_transpose runs the unflipped kernel as a
+    fractionally strided convolution, where torch scatters ``weight[i, j]``
+    to output ``(s*p + i, s*q + j)`` (the inverse of the JAX package's
+    torch_convert.py:234-241);
   * ``gamma`` -> ``weight`` and ``beta`` -> ``bias`` of a LayerNorm (the
     ``_Param`` holders ``mlp/norm/gamma``, ``mlp/proj_in/kernel`` keep their
-    module names);
-  * every other leaf (``fusion_tokens``, ``task_emb``, ``bias``, ...) keeps
-    its name.
+    module names); flax ``LayerNorm`` / ``GroupNorm`` ``scale`` -> ``weight``;
+  * every other leaf (``fusion_tokens``, ``task_emb``, ``bias``,
+    ``level_embed``, ...) keeps its name.
+
+The downstream head's modules carry their flax names in the port
+(``enc_layer{i}``, ``input_proj{i}``, ``fpn_lateral2_gn``, ``cross{i}``,
+``self{i}``, ``ffn{i}``, ``mask_embed.layer{j}``, ...), so they need no rule.
 
 The input is the tree as nested dicts of numpy or JAX arrays
 (``{"params": ...}`` or the inner tree). Any tree of the parameters' shape
@@ -44,14 +55,21 @@ def _module_name(key: str) -> str:
     return key
 
 
-def _leaf(key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+_CONV_TRANSPOSE = re.compile(r"^up\d+_conv\d*$")
+
+
+def _leaf(module: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if key == "kernel" and arr.ndim == 4:
+        if _CONV_TRANSPOSE.match(module):
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        return "weight", arr.transpose(3, 2, 0, 1)
     if key == "kernel":
         return "weight", arr.T
     if key == "proj_kernel":
         return "proj.weight", arr.T
     if key == "proj_bias":
         return "proj.bias", arr
-    if key == "gamma":
+    if key in ("gamma", "scale"):
         return "weight", arr
     if key == "beta":
         return "bias", arr
@@ -64,13 +82,13 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
 
-    def walk(tree: Mapping, prefix: str):
+    def walk(tree: Mapping, prefix: str, module: str):
         for key, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, prefix + _module_name(key) + ".")
+                walk(value, prefix + _module_name(key) + ".", key)
             else:
-                name, arr = _leaf(key, np.array(value, dtype=np.float32))  # a writable copy
+                name, arr = _leaf(module, key, np.array(value, dtype=np.float32))  # a writable copy
                 out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
 
-    walk(params, "")
+    walk(params, "", "")
     return out

@@ -26,17 +26,21 @@ NP_ = 16  # patches per modality at SMALL
 def random_params(flax_module, seed, *args, **kwargs):
     """A flax parameter tree for ``flax_module.apply(..., *args)`` with
     values drawn from numpy: shapes come from ``jax.eval_shape`` (tracing
-    only, no compile); LayerNorm gains near 1, biases and everything else
-    small normals, so every parameter moves the output."""
+    only, no compile); norm gains near 1, kernels normals of std
+    fan_in ** -0.5, biases and everything else small normals, so every
+    parameter moves the output."""
     shapes = jax.eval_shape(lambda: flax_module.init(jax.random.PRNGKey(0), *args, **kwargs))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
         name = getattr(path[-1], "key", "")
-        if name == "gamma":
+        if name in ("gamma", "scale"):
             return (1.0 + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
-        fan_in = leaf.shape[0] if len(leaf.shape) == 2 else 1
-        scale = fan_in ** -0.5 if len(leaf.shape) == 2 else 0.1
+        if name == "kernel" and len(leaf.shape) == 4:  # conv [kh, kw, in, out]
+            scale = float(np.prod(leaf.shape[:3])) ** -0.5
+        else:
+            fan_in = leaf.shape[0] if len(leaf.shape) == 2 else 1
+            scale = fan_in ** -0.5 if len(leaf.shape) == 2 else 0.1
         return (scale * rng.standard_normal(leaf.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)["params"]

@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels, forward and backward, against their plain
-PyTorch versions, on the card, in bf16, over the edge cases the model's
-shapes do not reach: ragged N and M (not multiples of the tiles), every
-supported head width, T from 1 to 8 slots, a query row whose first key
-tiles are all masked. Also the autograd Functions' launches and the
-wrappers' refusals. These tests need a CUDA card and skip without one; on a
+PyTorch versions, on the card, in bf16 (the deformable-attention kernel K4
+in f32), over the edge cases the model's shapes do not reach: ragged N and M
+(not multiples of the tiles), every supported head width, T from 1 to 8
+slots, a query row whose first key tiles are all masked, non-square levels,
+channel counts that are not 32 and sampling locations past every border.
+Also the autograd Functions' launches and the wrappers' refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from incomplete_multimodal_fusion_tpu_torch import ops
-from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn, cuda_ffn, cuda_fusion_attn
+from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn, cuda_ffn, cuda_fusion_attn, cuda_msda
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +222,73 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="bad shapes"):
         cuda_fusion_attn.fusion_row_attention(_randn(dev, 1, 4, 64), _randn(dev, 1, 12, 64),
                                               _randn(dev, 1, 4, 128), 1, 64)
+
+
+MSDA_REL_L2 = 1e-4  # f32 on both sides: only the order of the sums differs
+FULL_LEVELS = ((8, 8), (16, 16), (32, 32))  # the pixel decoder's levels at 256^2
+
+
+def _msda_inputs(dev, b, lq, m, d, p, shapes, lo=-0.1, hi=1.1, seed=30):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(b, s, m, d, device=dev, generator=g)
+    locs = lo + (hi - lo) * torch.rand(b, lq, m, len(shapes), p, 2, device=dev, generator=g)
+    aw = torch.softmax(torch.randn(b, lq, m, len(shapes) * p, device=dev, generator=g), dim=-1)
+    return value, locs, aw.reshape(b, lq, m, len(shapes), p)
+
+
+@pytest.mark.parametrize("b,lq,m,d,p,shapes", [
+    (2, 1344, 8, 32, 4, FULL_LEVELS),  # full width
+    (1, 37, 2, 5, 3, ((3, 5), (6, 4), (7, 9))),  # narrow D, non-square levels, odd Lq
+    (3, 101, 4, 40, 2, ((5, 3), (9, 11))),  # D over one warp's 32 lanes
+    (1, 17, 1, 64, 1, ((1, 1), (2, 7), (12, 1), (4, 4))),
+])
+def test_msda_kernel_matches_plain(dev, b, lq, m, d, p, shapes):
+    value, locs, aw = _msda_inputs(dev, b, lq, m, d, p, shapes)
+    out = cuda_msda.ms_deform_attn(value, shapes, locs, aw)
+    ref = cuda_msda.ms_deform_attn_core(value, shapes, locs, aw)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, lq, m * d)
+    assert _rel(out, ref) <= MSDA_REL_L2
+
+
+def test_msda_kernel_locations_past_the_borders(dev):
+    """Far outside every level gives exactly 0; on and half a pixel past
+    the borders the kernel matches the plain zero-padded sample."""
+    value, locs, aw = _msda_inputs(dev, 2, 50, 4, 32, 4, FULL_LEVELS, seed=31)
+    far = cuda_msda.ms_deform_attn(value, FULL_LEVELS, torch.full_like(locs, 2.0), aw)
+    assert float(far.abs().max()) == 0.0
+    g = torch.Generator(device=dev).manual_seed(32)
+    edges = torch.tensor([-0.02, -1e-3, 0.0, 1.0, 1.0 + 1e-3, 1.02], device=dev)
+    locs = edges[torch.randint(0, 6, locs.shape, device=dev, generator=g)]
+    out = cuda_msda.ms_deform_attn(value, FULL_LEVELS, locs, aw)
+    ref = cuda_msda.ms_deform_attn_core(value, FULL_LEVELS, locs, aw)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= MSDA_REL_L2
+
+
+def test_msda_function_counts_its_launch_and_has_no_backward(dev):
+    ops.reset_kernel_launches()
+    value, locs, aw = _msda_inputs(dev, 1, 20, 2, 32, 2, ((4, 4), (2, 2)))
+    cuda_msda.ms_deform_attn_core(value, ((4, 4), (2, 2)), locs, aw)
+    value.requires_grad_()
+    out = cuda_msda.MSDeformAttnFunction.apply(value, ((4, 4), (2, 2)), locs, aw)
+    assert ops.kernel_launches()["ms_deform_attn/forward"] == 1
+    assert sum(ops.kernel_launches().values()) == 1
+    with pytest.raises(NotImplementedError, match="downstream training"):
+        out.sum().backward()
+
+
+def test_msda_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    shapes = ((4, 4), (2, 2))
+    value, locs, aw = _msda_inputs(dev, 1, 20, 2, 32, 2, shapes)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_msda.ms_deform_attn(value.to(torch.bfloat16), shapes, locs, aw)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_msda.ms_deform_attn(value, shapes, locs.cpu(), aw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_msda.ms_deform_attn(value, shapes, torch.cat([locs, locs], dim=-1)[..., ::2], aw)
+    with pytest.raises(ValueError, match="spatial shapes"):
+        cuda_msda.ms_deform_attn(value, ((4, 4), (3, 2)), locs, aw)
+    with pytest.raises(ValueError, match="bad shapes"):
+        cuda_msda.ms_deform_attn(value, shapes, locs, aw[..., :1].contiguous())

@@ -20,6 +20,11 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch import losses, train\n"
         "from incomplete_multimodal_fusion_tpu_torch.train import optim, pretrain, schedules\n"
         "from incomplete_multimodal_fusion_tpu_torch.utils import jax_params\n"
+        "from incomplete_multimodal_fusion_tpu_torch import eval, infer_segmentation\n"
+        "from incomplete_multimodal_fusion_tpu_torch.eval import metrics\n"
+        "from incomplete_multimodal_fusion_tpu_torch.models import (mask2former_decoder, maskformer,\n"
+        "    msda_module, pixel_decoder, position_encoding, vit_baseline)\n"
+        "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_msda, msda, resize\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
         "assert not bad, bad\n"
