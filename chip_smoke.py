@@ -6,8 +6,10 @@ PyTorch version at the shapes of the model, then drives the full-width
 the serving entry points (bf16) and through the pretraining step (bf16
 compute over f32 master weights, B = 60), and the full-width downstream
 MaskFormer (MaskFormerConfig defaults, seeded random weights, bf16 backbone
-and f32 head) through the segmentation entry points, and checks what comes
-out.
+and f32 head) through the segmentation entry points and through the
+downstream instance-segmentation training step (B = 30, exact Hungarian
+matching, PointRend criterion, bf16 compute over f32 master weights), and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -15,10 +17,11 @@ Phases (any failure raises; the exit code is then non-zero):
   1. device   -- the card's name and power limit; fails without CUDA.
   2. build    -- nvcc for sm_90a into build/kernels/, all sources in
                  parallel, timed.
-  3. kernels  -- each kernel against its plain version in bf16 (K4 in f32)
-                 at the serving, training and segmentation shapes: max abs
-                 error and relative L2 error (bound KERNEL_REL_L2, K4
-                 MSDA_REL_L2), kernel, plain and library times
+  3. kernels  -- each kernel against its plain version in bf16 (K4, K4b,
+                 K5 and K5b in f32) at the serving, training and
+                 segmentation shapes: max abs error and relative L2 error
+                 (bound KERNEL_REL_L2, K4 and K4b MSDA_REL_L2, K5 and K5b
+                 POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
                  the card could take (bound_ms, from the bytes and operations
                  of these inputs).
@@ -43,6 +46,17 @@ Phases (any failure raises; the exit code is then non-zero):
                  probabilities within SEG_REL_L2 of the plain path, p50 wall
                  time of both paths, images/s at B = 30, peak device memory,
                  and the device time of a forward from the profiler.
+  7. segment-train -- train.downstream.create_downstream_optimizer /
+                 make_downstream_train_step at MaskFormerConfig(num_classes=1)
+                 widths, B = 30 with 8 padded targets, 12544 points, exact
+                 matching, frozen_stages 11, clip 0.01, AdamW 1e-4, bf16
+                 compute: loss and gradients of the kernel path against the
+                 plain path on the same masks, matches and points, dropout
+                 off (bounds TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2), exact launch
+                 counts per step, 3 warm-up and 10 timed steps (finite loss,
+                 trainable weights moved, frozen ones bitwise unchanged), p50
+                 step time and images/s of both paths, host time of the
+                 scipy matching, peak device memory, profiled device time.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -68,12 +82,13 @@ from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerC
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
+from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
 from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_build, cuda_ffn, cuda_fusion_attn,
-                                                        cuda_msda)
+                                                        cuda_msda, cuda_points)
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
-from incomplete_multimodal_fusion_tpu_torch.train import pretrain
+from incomplete_multimodal_fusion_tpu_torch.train import downstream, pretrain
 
 KERNEL_REL_L2 = 2e-2  # bf16 kernel vs bf16 plain version, same inputs
 SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
@@ -82,8 +97,11 @@ SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
 # backward on the card varies from run to run
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
-# K4 in f32 against its f32 plain version: only the order of the sums differs
+# K4 / K4b in f32 against their f32 plain versions: only the order of the
+# sums differs (K4b's dV sums in an order its atomics set, run to run)
 MSDA_REL_L2 = 1e-4
+# K5 / K5b in f32 against the plain point sample: the same four taps
+POINTS_REL_L2 = 1e-5
 # segmentation forward (bf16 backbone, f32 head), kernels vs plain path
 SEG_REL_L2 = 5e-2
 SEED = 0
@@ -122,7 +140,8 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn")
+HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
+                "point_sample")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
@@ -255,6 +274,16 @@ def msda_inputs(dev, g, b, heads=8, dim=32, points=4, near_reference=False):
     return value, locs, aw.reshape(b, s, heads, l, points).contiguous()
 
 
+def msda_live(locs):
+    """Samples of these locations with a tap inside their level."""
+    live = 0
+    for lid, (h, w) in enumerate(MSDA_LEVELS):
+        px = locs[:, :, :, lid, :, 0] * w - 0.5
+        py = locs[:, :, :, lid, :, 1] * h - 0.5
+        live += int(((px > -1) & (px < w) & (py > -1) & (py < h)).sum())
+    return live
+
+
 def msda_work(value, locs, aw):
     """Operations and bytes of K4 on these inputs: 10 f32 operations per
     channel of each sample with a tap inside its level (4 corner products
@@ -262,13 +291,39 @@ def msda_work(value, locs, aw):
     and is not counted), against value, locations, weights and the output
     each moved once."""
     b, s, m, d = value.shape
-    live = 0
-    for lid, (h, w) in enumerate(MSDA_LEVELS):
-        px = locs[:, :, :, lid, :, 0] * w - 0.5
-        py = locs[:, :, :, lid, :, 1] * h - 0.5
-        live += int(((px > -1) & (px < w) & (py > -1) & (py < h)).sum())
     out_bytes = b * locs.shape[1] * m * d * 4
-    return 10.0 * live * d, nbytes(value, locs, aw) + out_bytes, PEAK_F32
+    return 10.0 * msda_live(locs) * d, nbytes(value, locs, aw) + out_bytes, PEAK_F32
+
+
+def msda_bwd_work(value, locs, aw, dout):
+    """Operations and bytes of K4b on these inputs: 16 f32 operations per
+    channel of each live sample (per tap: the <v, g> product and the dV
+    term's product and add), against value, locations, weights and dOut
+    read once and dV, dlocations, dweights written once."""
+    d = value.shape[-1]
+    return 16.0 * msda_live(locs) * d, 2 * nbytes(value, locs, aw) + nbytes(dout), PEAK_F32
+
+
+# the criterion's point-sampling calls at B = 30, G = 8, 100 queries,
+# 12544 points: (label, masks, coords rows, group)
+POINT_SHAPES = (("matcher queries [3000, 64^2] x 12544, shared per image", (3000, 64, 64), 30, 100),
+                ("targets [240, 256^2] x 12544", (240, 256, 256), 240, 1),
+                ("uncertainty [240, 64^2] x 37632", (240, 64, 64), 240, 1),
+                ("loss predictions [240, 64^2] x 12544", (240, 64, 64), 240, 1))
+
+
+def grid_sample_case(masks, coords, group, ds=None):
+    """One PyTorch call computing K5's function (K5b's dmasks with ``ds``):
+    F.grid_sample of the masks at 2 * coords - 1, align_corners=False, the
+    grid built (and repeated per group) beforehand. Timed as library_ms; the
+    port never calls it."""
+    F = torch.nn.functional
+    grid = (2.0 * coords - 1.0).repeat_interleave(group, dim=0)[:, None]  # [N, 1, P, 2]
+    if ds is None:
+        return lambda: F.grid_sample(masks[:, None], grid, align_corners=False)
+    m = masks.detach().clone().requires_grad_()
+    out = F.grid_sample(m[:, None], grid, align_corners=False)[:, 0, 0]
+    return lambda: torch.autograd.grad(out, m, ds, retain_graph=True)
 
 
 def outputs(r):
@@ -407,6 +462,37 @@ def phase_kernels(dev):
                       lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn(v, MSDA_LEVELS, lc, a),
                       lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn_core(v, MSDA_LEVELS, lc, a),
                       msda_work(value, locs, aw), None, b == 30 and not near))
+    # K4b at the same shapes, random locations (off the pixel centres, where
+    # the derivative is one-sided, almost surely)
+    for b in (1, 30):
+        value, locs, aw = msda_inputs(dev, g, b)
+        dout = torch.randn(b, locs.shape[1], value.shape[2] * value.shape[3], device=dev, generator=g)
+        cases.append(("ms_deform_attn/backward", f"B={b} Lq=S=1344 8x32 L=3 P=4",
+                      lambda v=value, lc=locs, a=aw, do=dout: cuda_msda.ms_deform_attn_backward(
+                          v, MSDA_LEVELS, lc, a, do),
+                      lambda v=value, lc=locs, a=aw, do=dout: cuda_msda.ms_deform_attn_backward_reference(
+                          v, MSDA_LEVELS, lc, a, do),
+                      msda_bwd_work(value, locs, aw, dout), None, b == 30))
+    # K5 at the criterion's four shapes, K5b at the loss's; coords uniform in
+    # [-0.05, 1.05], past the borders too
+    for label, (n, h, w), rows, group in POINT_SHAPES:
+        masks = torch.randn(n, h, w, device=dev, generator=g)
+        coords = -0.05 + 1.1 * torch.rand(rows, 12544 * (3 if "37632" in label else 1), 2, device=dev,
+                                          generator=g)
+        p = coords.shape[1]
+        work = (12.0 * n * p, nbytes(masks, coords) + n * p * 4, PEAK_F32)
+        cases.append(("point_sample/forward", label,
+                      lambda m=masks, c=coords, gr=group: cuda_points.point_sample(m, c, gr),
+                      lambda m=masks, c=coords, gr=group: cuda_points.point_sample_reference(m, c, gr),
+                      work, grid_sample_case(masks, coords, group), group > 1))
+        if label.startswith("loss"):
+            ds = torch.randn(n, p, device=dev, generator=g)
+            work = (8.0 * n * p, nbytes(coords, ds, masks), PEAK_F32)  # coords, dS in; dmasks out
+            cases.append(("point_sample/backward", label,
+                          lambda m=masks, c=coords, d=ds: cuda_points.point_sample_backward(m, c, d)[0],
+                          lambda m=masks, c=coords, d=ds: cuda_points.point_sample_backward_reference(
+                              m, c, d)[0],
+                          work, grid_sample_case(masks, coords, 1, ds), True))
 
     results = {}
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
@@ -426,7 +512,8 @@ def phase_kernels(dev):
         log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
-        rel_bound = MSDA_REL_L2 if entry.startswith("ms_deform_attn/") else KERNEL_REL_L2
+        rel_bound = (MSDA_REL_L2 if entry.startswith("ms_deform_attn/") else
+                     POINTS_REL_L2 if entry.startswith("point_sample/") else KERNEL_REL_L2)
         if not rel <= rel_bound:
             raise RuntimeError(f"[kernels] {entry} {label}: rel L2 {rel} > {rel_bound}")
         r = results.setdefault(entry, {"max_abs_err": 0.0})
@@ -675,16 +762,19 @@ SEG_PER_FORWARD = {"ms_deform_attn/forward": 2, "zorro_attention_qkv/zorro": 12,
 SEG_CLASSES = 10  # the 9 Dynamic-World land-cover classes and the dead channel 0
 
 
-def segment_model(dev, num_classes: int):
+def segment_model(dev, num_classes: int, serving: bool = True):
     """The full-width MaskFormer (MaskFormerConfig defaults) with seeded
-    random weights: backbone bf16, head f32. Two changes to the JAX
-    initializers: seeded N(0, 0.02) noise on the zero sampling-offset and
-    attention-weight kernels, so the samples leave the pixel centres, and
-    mask_embed.layer2 x 6, so the mask logits leave the hard 0.5
-    threshold of the masked attention (test_full_maskformer_parity.py:139)."""
+    random weights: for serving the backbone bf16 and the head f32, in eval
+    mode; else all f32, the training step's master weights. Two changes to
+    the JAX initializers: seeded N(0, 0.02) noise on the zero
+    sampling-offset and attention-weight kernels, so the samples leave the
+    pixel centres, and mask_embed.layer2 x 6, so the mask logits leave the
+    hard 0.5 threshold of the masked attention
+    (test_full_maskformer_parity.py:139)."""
     model = build_maskformer(MaskFormerConfig(num_classes=num_classes), device=dev,
                              generator=torch.Generator().manual_seed(SEED))
-    model.backbone.to(torch.bfloat16)
+    if serving:
+        model.backbone.to(torch.bfloat16)
     noise = torch.Generator().manual_seed(SEED + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -694,7 +784,7 @@ def segment_model(dev, num_classes: int):
         layer2 = model.predictor.mask_embed.layer2
         layer2.weight.mul_(6.0)
         layer2.bias.mul_(6.0)
-    return model.eval()
+    return model.eval() if serving else model
 
 
 def segment_requests(dev, rng):
@@ -793,6 +883,177 @@ def phase_segment(dev):
                 log(f"[segment]     {ms:9.4f} ms  {name[:100]}")
     return launches
 
+SEG_TRAIN_PER_STEP = {"ms_deform_attn/forward": 2, "ms_deform_attn/backward": 2,
+                      "zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/zorro_backward": 12,
+                      "fused_ffn/geglu": 24, "fused_ffn/geglu_backward": 24,
+                      "point_sample/forward": 20, "point_sample/backward": 4}
+SEG_TRAIN_BATCH = 30
+# the downstream step, kernel vs plain path: the mask embedding is zero at
+# init and reaches the fusion blocks through two LayerNorms of that zero
+# input, each of which multiplies its gradient by 1/sqrt(eps) = 316; its
+# gradient is 1e5 x a bf16 sum over every masked slot with heavy
+# cancellation, and dominates the flat norm (70,000 of 70,300 at init). The
+# kernel path run twice differs there by 0.8% (its sums' order varies from
+# run to run), the kernel and plain paths by about 10% (on an H100 80GB
+# HBM3 at 700 W); every other parameter is held to
+# TRAIN_GRAD_REL_L2
+MASK_EMB_GRAD_REL_L2 = 0.25
+
+
+def synthetic_instances(rng, b, s, num_classes, g=8):
+    """Random rasters and rectangular instance targets, 1 to 3 per image
+    among ``g`` padded columns, painted into the rasters (a copy of
+    scripts/train_downstream.py:70-93)."""
+    x = {
+        "s1": rng.standard_normal((b, s, s, 1)).astype(np.float32),
+        "s2": rng.standard_normal((b, s, s, 3)).astype(np.float32),
+        "dem": rng.standard_normal((b, s, s, 1)).astype(np.float32),
+    }
+    labels = np.full((b, g), -1, np.int32)
+    masks = np.zeros((b, g, s, s), np.float32)
+    valid = np.zeros((b, g), bool)
+    for i in range(b):
+        n = rng.integers(1, 4)
+        for j in range(n):
+            h0, w0 = rng.integers(0, s // 2, 2)
+            hh, ww = rng.integers(s // 8, s // 2, 2)
+            masks[i, j, h0: h0 + hh, w0: w0 + ww] = 1.0
+            labels[i, j] = rng.integers(0, num_classes)
+            valid[i, j] = True
+            for k in x:
+                x[k][i, h0: h0 + hh, w0: w0 + ww] += 2.0 + labels[i, j]
+    return x, SegTargets(labels, masks, valid)
+
+
+def phase_segment_train(dev):
+    """The downstream instance-segmentation training step at
+    MaskFormerConfig(num_classes=1) widths (scripts/train_downstream.py
+    defaults: B = 30, 12544 points, exact matching, frozen_stages 11,
+    clip 0.01, AdamW 1e-4, bf16 compute) through create_downstream_optimizer
+    / make_downstream_train_step."""
+    cfg = MaskFormerConfig(num_classes=1)
+    model = segment_model(dev, 1, serving=False)
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=cfg.frozen_stages)
+    step = downstream.make_downstream_train_step(model, cfg, optimizer)
+    state = downstream.DownstreamState(model, optimizer, torch.Generator().manual_seed(SEED))
+    x, targets = synthetic_instances(np.random.default_rng(SEED), SEG_TRAIN_BATCH, cfg.image_size, 1)
+    batch = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    targets = downstream.as_targets(targets, dev)
+    doms, nums = cfg.in_domains, (cfg.num_patches,) * len(cfg.in_domains)
+
+    # kernel path against the plain path: the same weights, masks, matches
+    # and PointRend points (the kernel path's), dropout off
+    g = torch.Generator().manual_seed(SEED)
+    present = masking.sample_modality_subset(g, len(doms))
+    mi = masking.incomplete_random_masks(g, doms, nums, present, cfg.max_encoded_tokens,
+                                         SEG_TRAIN_BATCH, device=dev)
+    present = present.to(dev)
+    model.zero_grad(set_to_none=True)
+    loss_k, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                  return_aux=True)
+    loss_k.backward()
+    g_k = flat_grads(model)
+    # the kernel path once more on the same inputs: its run-to-run spread
+    model.zero_grad(set_to_none=True)
+    loss_k2, _ = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                              matched_override=aux["matched"], point_coords_override=aux["point_coords"])
+    loss_k2.backward()
+    g_k2 = flat_grads(model)
+    model.attn_impl = "xla"
+    model.zero_grad(set_to_none=True)
+    loss_p, _ = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                             matched_override=aux["matched"], point_coords_override=aux["point_coords"])
+    loss_p.backward()
+    g_p = flat_grads(model)
+    model.attn_impl = "auto"
+    model.zero_grad(set_to_none=True)
+    loss_k, loss_k2, loss_p = float(loss_k.detach()), float(loss_k2.detach()), float(loss_p.detach())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    # the mask embedding's gradient stands apart (MASK_EMB_GRAD_REL_L2)
+    emb = "backbone.mask_embedding"
+    rest = [n for n in g_p if n != emb]
+
+    def flat_rel(a, b):
+        diff = torch.cat([(a[n] - b[n]).reshape(-1) for n in rest])
+        return float(diff.norm() / torch.cat([b[n].reshape(-1) for n in rest]).norm())
+
+    grad_rel, emb_rel = flat_rel(g_k, g_p), rel_l2(g_k[emb], g_p[emb])
+    worst = sorted(((rel_l2(g_k[n], g_p[n]), n) for n in rest), reverse=True)[:5]
+    log(f"[segment-train] present {present.tolist()}, {int(mi.num_visible[0])} visible tokens; loss "
+        f"kernel path {loss_k:.6g}, plain path {loss_p:.6g}, rel diff {loss_rel:.3g}; flat gradient "
+        f"of all but the mask embedding rel_l2 {grad_rel:.3g}, the mask embedding's {emb_rel:.3g} "
+        f"(norm {float(g_p[emb].norm()):.6g} of all "
+        f"{float(torch.cat([v.reshape(-1) for v in g_p.values()]).norm()):.6g}); the kernel path run "
+        f"twice: loss rel diff {abs(loss_k - loss_k2) / abs(loss_k):.3g}, flat gradient "
+        f"{flat_rel(g_k2, g_k):.3g}, the mask embedding's {rel_l2(g_k2[emb], g_k[emb]):.3g}; worst "
+        "parameters: " + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+            and emb_rel <= MASK_EMB_GRAD_REL_L2):
+        raise RuntimeError(f"[segment-train] kernel path vs plain path: loss rel {loss_rel} (bound "
+                           f"{TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2}), "
+                           f"mask embedding {emb_rel} (bound {MASK_EMB_GRAD_REL_L2})")
+    del aux, g_k, g_k2, g_p
+
+    # the main path's run: one step with the state's draws
+    ops.reset_kernel_launches()
+    step(state, batch, targets)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    log(f"[segment-train] launches in one step: {launches}")
+    if {k: n for k, n in launches.items() if n} != SEG_TRAIN_PER_STEP:
+        raise RuntimeError(f"[segment-train] launches per step {launches}, expected {SEG_TRAIN_PER_STEP}")
+
+    trainable = downstream.freeze_mask(model, cfg.frozen_stages)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = step_times(lambda: step(state, batch, targets)[1], steps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = max(float((p.detach() - before[n]).abs().max()) for n, p in model.named_parameters()
+                if trainable[n])
+    frozen_same = all(torch.equal(p.detach(), before[n]) for n, p in model.named_parameters()
+                      if not trainable[n])
+    if not all(math.isfinite(v) for v in losses) or moved == 0.0 or not frozen_same:
+        raise RuntimeError(f"[segment-train] losses {losses}, max trainable change {moved}, frozen "
+                           f"weights unchanged: {frozen_same}")
+    del before
+    model.attn_impl = "xla"
+    times_p, _ = step_times(lambda: step(state, batch, targets)[1], steps=3, warmup=1)
+    model.attn_impl = "auto"
+
+    # the exact matching's host part: the costs of all 4 levels fetched once
+    # and one scipy pass
+    costs = step.cost_step(state, batch, targets)
+    fetch_ms, scipy_ms = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = costs.float().cpu().numpy()
+        t1 = time.perf_counter()
+        scipy_assign_host(host)
+        t2 = time.perf_counter()
+        fetch_ms.append((t1 - t0) * 1e3)
+        scipy_ms.append((t2 - t1) * 1e3)
+    for impl, wall in (("auto", times), ("xla", times_p)):
+        model.attn_impl = impl
+        dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch, targets), reps=2,
+                                                           top_n=12)
+        log(f"[segment-train] profile attn_impl={impl}: device {dev_ms:.6g} ms a step in "
+            f"{n_kernels:.0f} kernels/copies, busy {dev_ms / statistics.median(wall):.3f} of the p50 "
+            "wall; by kind " + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+        for name, ms in top:
+            log(f"[segment-train]     {ms:9.4f} ms  {name[:100]}")
+    model.attn_impl = "auto"
+    p50 = statistics.median(times)
+    log(f"[segment-train] B={SEG_TRAIN_BATCH} G=8 P=12544: losses {[round(v, 4) for v in losses]}, max "
+        f"trainable weight change {moved:.3g}, frozen weights bitwise unchanged; step p50 {p50:.6g} ms "
+        f"({SEG_TRAIN_BATCH / p50 * 1e3:.6g} images/s; plain path p50 {statistics.median(times_p):.6g} "
+        f"ms, {SEG_TRAIN_BATCH / statistics.median(times_p) * 1e3:.6g} images/s); matching on the host: "
+        f"cost copy p50 {statistics.median(fetch_ms):.6g} ms, scipy p50 {statistics.median(scipy_ms):.6g} "
+        f"ms for {host.shape[0]} levels x {host.shape[1]} images; peak device memory "
+        f"{peak / 2 ** 30:.4g} GiB")
+    return launches
+
 
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
@@ -815,6 +1076,12 @@ REPLACES = {
         "csrc/fusion_row_attention.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_fusion_attn.py:195"),
     "ms_deform_attn/forward": ("csrc/ms_deform_attn.cu",
                                "incomplete_multimodal_fusion_tpu/ops/pallas_msda.py:170"),
+    "ms_deform_attn/backward": ("csrc/ms_deform_attn.cu",
+                                "incomplete_multimodal_fusion_tpu/ops/pallas_msda.py:191"),
+    "point_sample/forward": ("csrc/point_sample.cu",
+                             "incomplete_multimodal_fusion_tpu/ops/pallas_points.py:124"),
+    "point_sample/backward": ("csrc/point_sample.cu",
+                              "incomplete_multimodal_fusion_tpu/ops/pallas_points.py:140"),
 }
 
 
@@ -823,14 +1090,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     kernel_results = phase_kernels(dev)
-    # the two main paths, each run with the counts set to 0 just before it
+    # the main paths, each run with the counts set to 0 just before it
     served = phase_serving(dev)
     trained = phase_train(dev)
     segmented = phase_segment(dev)
+    seg_trained = phase_segment_train(dev)
     entries = []
     for name, (src, replaces) in REPLACES.items():
         r = kernel_results[name]
-        launches = served[name] + trained[name] + segmented[name]
+        launches = served[name] + trained[name] + segmented[name] + seg_trained[name]
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

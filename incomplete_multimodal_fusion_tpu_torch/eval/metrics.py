@@ -1,11 +1,17 @@
-"""Segmentation inference post-processing (JAX package eval/metrics.py:
-``semantic_inference`` and ``instance_inference``; reference
-maskformer_train_ins_vit.py:325-369). The evaluation metrics (dice,
-ConfMatrix) are not ported yet."""
+"""Segmentation inference post-processing and evaluation metrics (JAX
+package eval/metrics.py):
+
+  * ``semantic_inference`` / ``instance_inference``
+    (reference maskformer_train_ins_vit.py:325-369);
+  * ``dice_score`` and ``binary_mask_from_labels`` (:308-323);
+  * ``ConfMatrix`` AA / SA / IoU / mIoU (semantic utils/metrics.py:7-100),
+    numpy, with the ignore-class-0 filter in ``add``.
+"""
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -35,3 +41,87 @@ def instance_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor, num_clas
     rescore = (torch.sigmoid(masks) * bin_masks).sum(dim=(1, 2)) / (bin_masks.sum(dim=(1, 2)) + 1e-6)
     return {"scores": scores_k * rescore, "pred_classes": labels[idx], "pred_masks": bin_masks,
             "mask_logits": masks}
+
+
+def dice_score(predict: torch.Tensor, target: torch.Tensor, smooth: float = 1e-5) -> torch.Tensor:
+    """Per-class dice, meaned (maskformer_train_ins_vit.py:308-316): predict,
+    target [K, ...]."""
+    p = predict.reshape(predict.shape[0], -1)
+    t = target.reshape(target.shape[0], -1)
+    num = (p * t).sum(dim=1)
+    den = p.sum(-1) + t.sum(-1)
+    return ((2 * num + smooth).sum(-1) / (den + smooth).sum(-1)).mean()
+
+
+def binary_mask_from_labels(target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """[H, W] int -> [num_classes, H, W] f32 one-hot of labels 1..K, class 0
+    dropped (_get_binary_mask, maskformer_train_ins_vit.py:318-323); a label
+    outside 0..K (255, ignore) is zero everywhere, as jax.nn.one_hot gives."""
+    classes = torch.arange(1, num_classes + 1, device=target.device)
+    return (target[None] == classes[:, None, None]).float()
+
+
+class ConfMatrix:
+    """Streaming confusion matrix (semantic utils/metrics.py:7-100); ``add``
+    drops the pixels whose ground truth is class 0 (ignore), as the
+    reference does."""
+
+    def __init__(self, num_classes: int, ignore_zero: bool = True):
+        self.num_classes = num_classes
+        self.ignore_zero = ignore_zero
+        self.state = np.zeros((num_classes, num_classes), np.float64)
+
+    def _cm(self, gt: np.ndarray, pred: np.ndarray) -> np.ndarray:
+        k = self.num_classes
+        keep = (gt >= 0) & (gt < k) & (pred >= 0) & (pred < k)
+        idx = gt[keep].astype(np.int64) * k + pred[keep].astype(np.int64)
+        return np.bincount(idx, minlength=k * k).reshape(k, k).astype(np.float64)
+
+    def add(self, gt, pred) -> None:
+        gt = _numpy(gt).flatten()
+        pred = _numpy(pred).flatten()
+        if self.ignore_zero:
+            pred = pred[gt != 0]
+            gt = gt[gt != 0]
+        if gt.size:
+            self.state += self._cm(gt, pred)
+
+    def add_batch(self, gt, pred) -> None:
+        for g, p in zip(_numpy(gt), _numpy(pred)):
+            self.add(g, p)
+
+    def get_existing_classes(self) -> int:
+        return int((self.state.sum(axis=1) > 0).sum())
+
+    def norm_on_lines(self) -> np.ndarray:
+        a = self.state
+        b = self.state.sum(axis=1)[:, None]
+        return np.divide(a, b, out=np.zeros_like(a), where=b != 0)
+
+    def get_aa(self) -> float:
+        return float(np.diagonal(self.norm_on_lines()).sum() / max(self.get_existing_classes(), 1))
+
+    def get_sa(self) -> np.ndarray:
+        return np.diagonal(self.norm_on_lines())
+
+    def get_iou(self) -> np.ndarray:
+        cm = self.state
+        res = np.zeros(self.num_classes)
+        for i in range(self.num_classes):
+            den = cm[i, :].sum() + cm[:, i].sum() - cm[i, i]
+            res[i] = cm[i, i] / den if den > 0 else 0.0
+        return res
+
+    def get_miou(self) -> float:
+        """Mean IoU over the classes with any support (ground truth or
+        prediction), so the structurally empty ignore class 0 does not
+        deflate it."""
+        iou = self.get_iou()
+        present = (self.state.sum(axis=1) + self.state.sum(axis=0)) > 0
+        if not present.any():
+            return 0.0
+        return float(iou[present].mean())
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)

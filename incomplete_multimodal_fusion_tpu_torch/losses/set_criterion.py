@@ -1,0 +1,329 @@
+"""Mask2Former set criterion and Hungarian matching (JAX package
+losses/set_criterion.py; reference criterion_ins.py:120-278 and
+matcher_ins.py:70-175).
+
+  * Targets are padded tensors (``SegTargets``: labels [B, G] with -1 pad,
+    masks [B, G, H, W], valid [B, G]); padded target columns get the
+    constant ``PAD_COST``, so their assignment is interchangeable and the
+    real columns' assignment stays optimal.
+  * Matching is exact: scipy's ``linear_sum_assignment`` on the host, as the
+    reference does (matcher_ins.py:147). The costs of every prediction level
+    are computed first and copied to the host once (``set_criterion_costs``),
+    one scipy pass assigns them all.
+  * PointRend uncertainty point sampling (12544 points, oversample 3.0,
+    importance 0.75) with exact ``torch.topk``; point sampling runs kernels
+    K5 / K5b through ``ops.cuda_points.PointSampleFunction`` (``impl``
+    'auto'), or the plain version everywhere (``impl`` 'xla').
+
+Randomness: the functions that draw take an explicit ``torch.Generator``
+(``uncertain_point_coords``, ``match_costs``), or accept the drawn values
+(``coords``, ``draws``, ``point_coords_override``) so a test can inject
+JAX's draws. ``set_criterion`` and ``set_criterion_costs`` take a ``key``, an
+int that plays a JAX key's part: both derive the same per-level generators
+from it (level li: its matcher points from ``(key, li, 0)``, its PointRend
+points from ``(key, li, 1)``), so host assignments made from
+``set_criterion_costs(key)`` are what ``set_criterion(key)`` would make.
+Not ported yet: the 'greedy' and 'auction' matchers and ``dense_masks``
+(the semantic criterion); they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import cuda_points
+from ..ops.points import point_sample as point_sample_plain
+
+PAD_COST = 1e8
+
+
+class SegTargets(NamedTuple):
+    labels: torch.Tensor  # [B, G] int, -1 padding
+    masks: torch.Tensor  # [B, G, H, W] float 0/1
+    valid: torch.Tensor  # [B, G] bool
+
+
+def point_sample(masks: torch.Tensor, coords: torch.Tensor, group: int = 1,
+                 impl: str = "auto") -> torch.Tensor:
+    """masks [N, H, W], coords [N / group, P, 2] in [0, 1] (x, y) -> [N, P]
+    f32: kernel K5 (its backward K5b) for CUDA tensors with ``impl`` 'auto',
+    else the plain version, which autograd differentiates."""
+    masks = masks.float().contiguous()
+    coords = coords.float().contiguous()
+    if impl == "xla":
+        return point_sample_plain(masks, coords, group)
+    return cuda_points.PointSampleFunction.apply(masks, coords, group)
+
+
+def calculate_uncertainty(logits: torch.Tensor) -> torch.Tensor:
+    """-|logit| (criterion_ins.py calculate_uncertainty)."""
+    return -logits.abs()
+
+
+def uncertain_point_coords(generator: Optional[torch.Generator], logits: torch.Tensor,
+                           num_points: int, oversample_ratio: float = 3.0,
+                           importance_sample_ratio: float = 0.75,
+                           draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                           impl: str = "auto") -> torch.Tensor:
+    """get_uncertain_point_coords_with_randomness: num_points * oversample
+    uniform points, the most uncertain importance fraction of them kept
+    (exact top-k), the rest fresh uniform points. logits [N, H, W] ->
+    coords [N, num_points, 2]. ``draws`` = (oversampled [N, n_sampled, 2],
+    fresh [N, n_rand, 2]) replaces the two uniform draws."""
+    n = logits.shape[0]
+    n_sampled = int(num_points * oversample_ratio)
+    n_unc = int(importance_sample_ratio * num_points)
+    n_rand = num_points - n_unc
+    dev = logits.device
+    if draws is None:
+        coords = torch.rand((n, n_sampled, 2), generator=generator, device=dev)
+        rand_coords = torch.rand((n, n_rand, 2), generator=generator, device=dev)
+    else:
+        coords, rand_coords = (d.to(dev, torch.float32) for d in draws)
+    unc = calculate_uncertainty(point_sample(logits, coords, impl=impl))
+    idx = torch.topk(unc, n_unc, dim=1).indices
+    top = torch.gather(coords, 1, idx[..., None].expand(-1, -1, 2))
+    return torch.cat([top, rand_coords], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# matching
+# ---------------------------------------------------------------------------
+def batch_dice_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """[..., Q, P] logits x [..., G, P] binary -> [..., Q, G]
+    (matcher_ins.py:15-30)."""
+    p = torch.sigmoid(inputs)
+    num = 2 * torch.einsum("...qp,...gp->...qg", p, targets)
+    den = p.sum(-1)[..., :, None] + targets.sum(-1)[..., None, :]
+    return 1 - (num + 1) / (den + 1)
+
+
+def batch_sigmoid_ce_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """[..., Q, P] x [..., G, P] -> [..., Q, G] (matcher_ins.py:38-61)."""
+    hw = inputs.shape[-1]
+    pos = F.softplus(-inputs)  # BCE(x, 1)
+    neg = F.softplus(inputs)  # BCE(x, 0)
+    return (torch.einsum("...qp,...gp->...qg", pos, targets)
+            + torch.einsum("...qp,...gp->...qg", neg, 1 - targets)) / hw
+
+
+def _scipy_assign(cost: np.ndarray) -> np.ndarray:
+    """[B, Q, G] -> the query matched to each target column, [B, G]."""
+    from scipy.optimize import linear_sum_assignment
+
+    b, q, g = cost.shape
+    out = np.zeros((b, g), np.int64)
+    for i in range(b):
+        row, col = linear_sum_assignment(cost[i])
+        out[i, col] = row
+    return out
+
+
+def scipy_assign_host(cost: np.ndarray) -> np.ndarray:
+    """Exact assignment of a host cost array [..., B, Q, G] -> [..., B, G]
+    (any leading level dims), one scipy pass."""
+    lead = cost.shape[:-3]
+    flat = cost.reshape((-1,) + cost.shape[-3:])
+    out = np.stack([_scipy_assign(c) for c in flat])
+    return out.reshape(lead + out.shape[1:])
+
+
+def hungarian_match(cost: torch.Tensor, exact: bool = True, mode: Optional[str] = None) -> torch.Tensor:
+    """cost [..., B, Q, G] -> matched query per target column [..., B, G]
+    on the cost's device. Mode 'exact' only (scipy on the host)."""
+    mode = mode or ("exact" if exact else "greedy")
+    if mode != "exact":
+        raise NotImplementedError(f"match_mode={mode!r} is not ported yet (only 'exact')")
+    host = cost.detach().float().cpu().numpy()
+    return torch.from_numpy(scipy_assign_host(host)).to(cost.device)
+
+
+def match_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targets: SegTargets,
+                generator: Optional[torch.Generator], num_points: int, cost_class: float = 1.0,
+                cost_mask: float = 1.0, cost_dice: float = 1.0,
+                coords: Optional[torch.Tensor] = None, impl: str = "auto") -> torch.Tensor:
+    """Matching cost [B, Q, G] (matcher_ins.py:95-146), padded target
+    columns at PAD_COST, without gradient. One row of uniform points per
+    image [B, num_points, 2] (``coords``, or drawn from ``generator``),
+    shared by its queries and its targets (matcher_ins.py:116-129): the
+    samplers read it per group, with no broadcast copy."""
+    with torch.no_grad():
+        b, q = pred_logits.shape[:2]
+        g = targets.labels.shape[1]
+        prob = torch.softmax(pred_logits.float(), dim=-1)
+        safe = targets.labels.long().clamp(0, prob.shape[-1] - 1)
+        c_class = -torch.gather(prob, 2, safe[:, None, :].expand(b, q, g))
+        if coords is None:
+            coords = torch.rand((b, num_points, 2), generator=generator, device=pred_masks.device)
+        coords = coords.reshape(b, num_points, 2)
+        out_pts = point_sample(pred_masks.reshape(b * q, *pred_masks.shape[2:]), coords, q, impl)
+        tgt_pts = point_sample(targets.masks.reshape(b * g, *targets.masks.shape[2:]), coords, g, impl)
+        out_pts = out_pts.reshape(b, q, num_points)
+        tgt_pts = tgt_pts.reshape(b, g, num_points)
+        cost = (cost_class * c_class + cost_mask * batch_sigmoid_ce_cost(out_pts, tgt_pts)
+                + cost_dice * batch_dice_cost(out_pts, tgt_pts))
+        return torch.where(targets.valid[:, None, :], cost, torch.full_like(cost, PAD_COST))
+
+
+def match_outputs_to_targets(pred_logits, pred_masks, targets: SegTargets,
+                             generator: Optional[torch.Generator], num_points: int,
+                             cost_class: float = 1.0, cost_mask: float = 1.0, cost_dice: float = 1.0,
+                             exact: bool = True, match_mode: Optional[str] = None,
+                             impl: str = "auto") -> torch.Tensor:
+    """HungarianMatcher.memory_efficient_forward (matcher_ins.py:95-153)."""
+    cost = match_costs(pred_logits, pred_masks, targets, generator, num_points, cost_class,
+                       cost_mask, cost_dice, impl=impl)
+    return hungarian_match(cost, exact=exact, mode=match_mode)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def sigmoid_ce_loss(point_logits, point_labels, weights, num_masks):
+    """Per-mask mean over points, summed over masks / num_masks; padded rows
+    weighted 0 (criterion_ins.py sigmoid_ce_loss)."""
+    loss = torch.where(point_labels > 0.5, F.softplus(-point_logits), F.softplus(point_logits))
+    return (loss.mean(dim=-1) * weights).sum() / num_masks
+
+
+def dice_loss(point_logits, point_labels, weights, num_masks):
+    p = torch.sigmoid(point_logits)
+    num = 2 * (p * point_labels).sum(dim=-1)
+    den = p.sum(dim=-1) + point_labels.sum(dim=-1)
+    return ((1 - (num + 1) / (den + 1)) * weights).sum() / num_masks
+
+
+def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targets: SegTargets,
+                     matched_q: torch.Tensor, generator: Optional[torch.Generator], num_classes: int,
+                     num_masks: torch.Tensor, eos_coef: float = 0.1, num_points: int = 12544,
+                     oversample_ratio: float = 3.0, importance_sample_ratio: float = 0.75,
+                     dense_masks: bool = False, point_coords_override: Optional[torch.Tensor] = None,
+                     impl: str = "auto") -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """loss_labels + loss_masks of one prediction level
+    (criterion_ins.py:153-221). Returns the losses and the PointRend coords
+    [B*G, P, 2] they were taken at (``point_coords_override`` when given,
+    else drawn from ``generator``)."""
+    if dense_masks:
+        raise NotImplementedError("dense_masks=True (the semantic criterion) is not ported yet")
+    b, q, _ = pred_logits.shape
+    g = targets.labels.shape[1]
+    dev = pred_logits.device
+    matched_q = matched_q.long()
+
+    # classes: matched queries take their valid target's label, every other
+    # query no-object (weighted eos_coef); padded columns scatter into an
+    # extra column q that is dropped (criterion_ins.py:161-165)
+    slot = torch.where(targets.valid, matched_q, torch.full_like(matched_q, q))
+    label = torch.where(targets.valid, targets.labels.long(), torch.full_like(matched_q, num_classes))
+    target_classes = torch.full((b, q + 1), num_classes, dtype=torch.long, device=dev)
+    target_classes = target_classes.scatter(1, slot, label)[:, :q]
+    logp = torch.log_softmax(pred_logits.float(), dim=-1)
+    class_w = torch.ones(num_classes + 1, device=dev)
+    class_w[num_classes] = eos_coef
+    w = class_w[target_classes]
+    nll = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
+    loss_ce = (nll * w).sum() / w.sum().clamp(min=1e-6)
+
+    # masks: the matched prediction of each target column
+    h, wd = pred_masks.shape[2:]
+    src = torch.gather(pred_masks.float(), 1, matched_q[:, :, None, None].expand(b, g, h, wd))
+    src_f = src.reshape(b * g, h, wd)
+    tgt_f = targets.masks.float().reshape(b * g, *targets.masks.shape[2:])
+    weights = targets.valid.float().reshape(-1)
+    if point_coords_override is not None:
+        coords = point_coords_override.to(dev, torch.float32)
+    else:
+        with torch.no_grad():
+            coords = uncertain_point_coords(generator, src_f.detach(), num_points, oversample_ratio,
+                                            importance_sample_ratio, impl=impl)
+    point_logits = point_sample(src_f, coords, impl=impl)
+    with torch.no_grad():
+        point_labels = point_sample(tgt_f, coords, impl=impl)
+    losses = {
+        "loss_ce": loss_ce,
+        "loss_mask": sigmoid_ce_loss(point_logits, point_labels, weights, num_masks),
+        "loss_dice": dice_loss(point_logits, point_labels, weights, num_masks),
+    }
+    return losses, coords
+
+
+def _levels(outputs: Dict) -> list:
+    return [outputs] + list(outputs.get("aux_outputs", []))
+
+
+def level_generator(key: int, level: int, stream: int, device) -> torch.Generator:
+    """The generator of prediction level ``level``'s matcher points (stream
+    0) or PointRend points (stream 1) under ``key``."""
+    seed = (int(key) * 1_000_003 + 2 * level + stream) % (2 ** 63)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def set_criterion_costs(outputs: Dict, targets: SegTargets, key: int, num_points: int = 12544,
+                        cost_class: float = 1.0, cost_mask: float = 1.0, cost_dice: float = 1.0,
+                        impl: str = "auto") -> torch.Tensor:
+    """Per-level matching costs [L, B, Q, G] (level order: final, aux 0,
+    aux 1, ...), each level's points from ``level_generator(key, li, 0)``,
+    so host assignments from them equal ``set_criterion(key)``'s."""
+    return torch.stack([
+        match_costs(out["pred_logits"], out["pred_masks"], targets,
+                    level_generator(key, li, 0, out["pred_masks"].device), num_points,
+                    cost_class, cost_mask, cost_dice, impl=impl)
+        for li, out in enumerate(_levels(outputs))])
+
+
+def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int,
+                  eos_coef: float = 0.1, num_points: int = 12544, oversample_ratio: float = 3.0,
+                  importance_sample_ratio: float = 0.75, cost_class: float = 1.0,
+                  cost_mask: float = 1.0, cost_dice: float = 1.0, dense_masks: bool = False,
+                  exact_match: bool = True, match_mode: Optional[str] = None,
+                  matched_override: Optional[torch.Tensor] = None,
+                  point_coords_override: Optional[Sequence[torch.Tensor]] = None,
+                  impl: str = "auto", return_aux: bool = False):
+    """The full criterion with the aux levels (criterion_ins.py:224-278).
+
+    Without ``matched_override`` [L, B, G] the costs of all levels are
+    computed first and assigned in one host pass. ``point_coords_override``
+    [L, B*G, P, 2] evaluates the mask losses at given PointRend coords. With
+    ``return_aux`` also returns {'matched': [L, B, G], 'point_coords':
+    [L, B*G, P, 2]}, what this call used."""
+    if dense_masks:
+        raise NotImplementedError("dense_masks=True (the semantic criterion) is not ported yet")
+    levels = _levels(outputs)
+    if matched_override is None:
+        mode = match_mode or ("exact" if exact_match else "greedy")
+        if mode != "exact":
+            raise NotImplementedError(f"match_mode={mode!r} is not ported yet (only 'exact')")
+        costs = set_criterion_costs(outputs, targets, key, num_points, cost_class, cost_mask,
+                                    cost_dice, impl=impl)
+        matched_override = hungarian_match(costs)
+    num_masks = targets.valid.float().sum().clamp(min=1.0)
+    losses, used = {}, []
+    for li, out in enumerate(levels):
+        dev = out["pred_masks"].device
+        override = None if point_coords_override is None else point_coords_override[li]
+        level_losses, coords = criterion_losses(
+            out["pred_logits"], out["pred_masks"], targets, matched_override[li].to(dev),
+            level_generator(key, li, 1, dev), num_classes, num_masks, eos_coef, num_points,
+            oversample_ratio, importance_sample_ratio, point_coords_override=override, impl=impl)
+        suffix = "" if li == 0 else f"_{li - 1}"
+        losses.update({k + suffix: v for k, v in level_losses.items()})
+        used.append(coords)
+    if return_aux:
+        return losses, {"matched": matched_override, "point_coords": torch.stack(used)}
+    return losses
+
+
+def targets_from_semantic_labels(label_map: torch.Tensor, num_classes: int,
+                                 ignore_index: int = 255) -> SegTargets:
+    """Per-class binary masks of a label map (criterion_seg.py
+    SetCriterion._get_targets:271-279); classes absent from an image are
+    padding."""
+    b, h, w = label_map.shape
+    classes = torch.arange(num_classes, device=label_map.device)
+    masks = (label_map[:, None, :, :] == classes[None, :, None, None]).float()
+    valid = masks.sum(dim=(2, 3)) > 0
+    labels = classes[None].expand(b, num_classes).to(torch.int32)
+    return SegTargets(labels=labels, masks=masks, valid=valid)

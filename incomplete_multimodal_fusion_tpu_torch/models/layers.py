@@ -54,6 +54,27 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense``'s dtype rule on an ``nn.Linear``: the product runs
+    in the promoted dtype of input and weight, so bf16 weights meet an f32
+    input (the downstream head, pixel_decoder.py:90) in f32, bf16-rounded,
+    and a bf16 input with bf16 weights stays bf16."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with flax ``nn.Conv``'s dtype rule (see ``Dense``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 class BiaslessLayerNorm(LayerNorm):
     """LayerNorm with a learned weight only (zorro_utils.py:103-110)."""
 

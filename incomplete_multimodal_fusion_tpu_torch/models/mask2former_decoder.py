@@ -7,6 +7,9 @@ deep-supervision aux outputs, and the class and mask heads.
 
 Batch-first NHWC, post-norm layers, plain PyTorch as the JAX package leaves
 these to XLA; the masked attention is ``ops.attention.multihead_attention``.
+Under the training step's bf16 weights the layers follow flax's dtype rule
+(``layers.Dense``): the query stream (bf16 learned queries) computes in bf16,
+the memory side (f32 pixel-decoder maps) in f32.
 Submodules carry the flax names (``cross{i}``, ``self{i}``, ``ffn{i}``,
 ``mask_embed.layer{j}``).
 """
@@ -20,7 +23,7 @@ from torch import nn
 
 from ..ops.attention import multihead_attention
 from ..ops.resize import resize_bilinear
-from .layers import LayerNorm
+from .layers import Dense, LayerNorm
 from .position_encoding import position_embedding_sine
 
 
@@ -31,10 +34,10 @@ class MHA(nn.Module):
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = Dense(d_model, d_model)
+        self.k_proj = Dense(d_model, d_model)
+        self.v_proj = Dense(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model)
 
     def forward(self, q, k, v, attn_mask=None):
         def heads(t):
@@ -70,8 +73,8 @@ class SelfAttentionLayer(nn.Module):
 class FFNLayer(nn.Module):
     def __init__(self, d_model: int, dim_feedforward: int):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Dense(d_model, dim_feedforward)
+        self.linear2 = Dense(dim_feedforward, d_model)
         self.norm = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt):
@@ -86,7 +89,7 @@ class MLP(nn.Module):
         self.num_layers = num_layers
         dims = [input_dim] + [hidden_dim] * (num_layers - 1) + [output_dim]
         for i in range(num_layers):
-            self.add_module(f"layer{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"layer{i}", Dense(dims[i], dims[i + 1]))
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -112,7 +115,7 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
             self.add_module(f"self{i}", SelfAttentionLayer(hidden_dim, n_heads))
             self.add_module(f"ffn{i}", FFNLayer(hidden_dim, dim_feedforward))
         self.decoder_norm = LayerNorm(hidden_dim, eps=1e-5)
-        self.class_embed = nn.Linear(hidden_dim, num_classes + 1)
+        self.class_embed = Dense(hidden_dim, num_classes + 1)
         self.mask_embed = MLP(hidden_dim, hidden_dim, mask_dim, 3)
 
     def _heads(self, output, mask_features, target_size):
@@ -120,7 +123,9 @@ class MultiScaleMaskedTransformerDecoder(nn.Module):
         attention mask [B, 1, Q, h*w] at ``target_size``."""
         dec = self.decoder_norm(output)
         logits = self.class_embed(dec)
-        masks = torch.einsum("bqc,bhwc->bqhw", self.mask_embed(dec), mask_features)
+        emb = self.mask_embed(dec)
+        dt = torch.promote_types(emb.dtype, mask_features.dtype)
+        masks = torch.einsum("bqc,bhwc->bqhw", emb.to(dt), mask_features.to(dt))
         # no antialiasing: the reference's F.interpolate does not filter
         # this 4-16x downsample, and a filter moves threshold bits
         small = resize_bilinear(masks.detach(), target_size, antialias=False)

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..ops.cuda_msda import MSDeformAttnFunction
 from ..ops.msda import ms_deform_attn_core
+from .layers import Dense
 
 IMPLS = ("auto", "pallas", "xla")
 
@@ -45,10 +46,10 @@ class MSDeformAttn(nn.Module):
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
         self.impl = impl
-        self.value_proj = nn.Linear(d_model, d_model)
-        self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
-        self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
-        self.output_proj = nn.Linear(d_model, d_model)
+        self.value_proj = Dense(d_model, d_model)
+        self.sampling_offsets = Dense(d_model, n_heads * n_levels * n_points * 2)
+        self.attention_weights = Dense(d_model, n_heads * n_levels * n_points)
+        self.output_proj = Dense(d_model, d_model)
 
     def reset_offsets(self) -> None:
         """The JAX initializers of the two sampling projections: zero

@@ -4,8 +4,10 @@ the three lowest-resolution backbone features, then FPN steps down to the
 highest resolution, giving (mask_features, the transformer decoder's
 multi-scale features).
 
-NHWC throughout, f32 (the features are cast on entry, pixel_decoder.py:90),
-no padding masks: valid ratios are 1 and the reference points are the
+NHWC throughout, f32 (the features are cast on entry, pixel_decoder.py:90;
+with bf16 weights, as the training step's cast gives them, the layers
+compute in f32 on the bf16-rounded weights, flax's dtype rule), no padding
+masks: valid ratios are 1 and the reference points are the
 static per-level centre grid. Submodules carry the flax names
 (``input_proj{i}``, ``enc_layer{i}``, ``fpn_lateral2_gn``, ...), so
 ``utils.jax_params.params_from_jax`` maps a flax tree by renaming alone.
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear_nhwc
-from .layers import GroupNorm, LayerNorm
+from .layers import Conv2d, Dense, GroupNorm, LayerNorm
 from .msda_module import MSDeformAttn
 from .position_encoding import position_embedding_sine
 
@@ -45,8 +47,8 @@ class MSDeformAttnEncoderLayer(nn.Module):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear1 = Dense(d_model, d_ffn)
+        self.linear2 = Dense(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.drop = nn.Dropout(dropout)
 
@@ -80,7 +82,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         n_levels = 3
         # input projections low -> high resolution: res5, res4, res3
         for idx, ch in enumerate(in_channels[1:][::-1]):
-            self.add_module(f"input_proj{idx}", nn.Linear(ch, conv_dim))
+            self.add_module(f"input_proj{idx}", Dense(ch, conv_dim))
             self.add_module(f"input_gn{idx}", GroupNorm(conv_dim, 32, eps=1e-5))
         self.level_embed = nn.Parameter(torch.zeros(n_levels, conv_dim))
         for i in range(transformer_enc_layers):
@@ -88,11 +90,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
                 conv_dim, dim_feedforward, n_levels, n_heads, n_points, dropout))
         for adapter_num in range(num_fpn_levels, 0, -1):
             sfx = self._suffix(adapter_num)
-            self.add_module(f"fpn_lateral{sfx}", nn.Linear(in_channels[adapter_num - 1], conv_dim))
+            self.add_module(f"fpn_lateral{sfx}", Dense(in_channels[adapter_num - 1], conv_dim))
             self.add_module(f"fpn_lateral{sfx}_gn", GroupNorm(conv_dim, 32, eps=1e-5))
-            self.add_module(f"fpn_output{sfx}", nn.Conv2d(conv_dim, conv_dim, 3, padding=1))
+            self.add_module(f"fpn_output{sfx}", Conv2d(conv_dim, conv_dim, 3, padding=1))
             self.add_module(f"fpn_output{sfx}_gn", GroupNorm(conv_dim, 32, eps=1e-5))
-        self.mask_features = nn.Linear(conv_dim, mask_dim)
+        self.mask_features = Dense(conv_dim, mask_dim)
 
     @staticmethod
     def _suffix(adapter_num: int) -> str:

@@ -21,7 +21,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("zorro_attention.cu", "fused_ffn.cu", "fused_ffn_bwd.cu", "fusion_row_attention.cu",
-           "ms_deform_attn.cu")
+           "ms_deform_attn.cu", "point_sample.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
 

@@ -158,6 +158,80 @@ def mask_info_from_task_masks(
     return mask_info_from_flat_mask(mask_all, task_names, nums, num_encoded_tokens)
 
 
+def _single_incomplete_mask(
+    generator: torch.Generator,
+    num_tokens_per_task: Sequence[int],
+    present: torch.Tensor,  # [T] float
+    keep_ratio: float,
+    alphas: float,
+) -> torch.Tensor:
+    """One [N] 0/1 keep-mask over the present modalities: floor(keep_ratio *
+    present tokens) visible, Dirichlet-split over the present tasks."""
+    n_tasks = len(num_tokens_per_task)
+    total = int(sum(num_tokens_per_task))
+    pres = [float(p) for p in present.tolist()]
+    dist = _dirichlet([alphas * p + 1e-6 for p in pres], generator) * present
+    dist = dist / dist.sum().clamp(min=1e-6)
+    e_dyn = int(math.floor(keep_ratio * sum(n * p for n, p in zip(num_tokens_per_task, pres))))
+    samples = torch.round(dist * e_dyn).long()
+
+    parts, absent_parts = [], []
+    for t, n_t in enumerate(num_tokens_per_task):
+        noise = torch.rand(n_t, generator=generator)
+        rank = torch.argsort(torch.argsort(noise))
+        keep = (rank < samples[t]) & (pres[t] > 0)
+        parts.append((~keep).long())
+        absent_parts.append(torch.full((n_t,), 1.0 - pres[t]))
+    mask_all = torch.cat(parts)
+    absent = torch.cat(absent_parts)
+
+    # exact count: absent tokens sort last, so they are never made visible
+    tie = torch.rand(total, generator=generator)
+    ids_shuffle = torch.argsort(mask_all.float() + 10.0 * absent + tie)
+    ids_restore = torch.argsort(ids_shuffle)
+    flags = (torch.arange(total) >= e_dyn).long()
+    return flags[ids_restore]
+
+
+def incomplete_random_masks(
+    generator: torch.Generator,
+    task_names: Tuple[str, ...],
+    num_tokens_per_task: Tuple[int, ...],
+    present: torch.Tensor,  # [T] bool, the modalities this step has
+    num_encoded_tokens: int,  # static packed size, >= the most that can be visible
+    batch_size: int,
+    keep_ratio: float = 0.9,
+    alphas: float = 1.0,
+    batch_shared: bool = True,
+    device=None,
+) -> MaskInfo:
+    """Downstream train-time masking (multimae_big_imcomplete.py:542-594): of
+    the ``present`` modalities, floor(keep_ratio * their tokens) stay visible
+    by Dirichlet budgeting; absent modalities are fully masked; the packed
+    layout pads to ``num_encoded_tokens``. ``batch_shared`` (the reference's
+    quirk) draws one mask for the whole batch, else one per sample. Drawn on
+    the host from ``generator``; the result lands on ``device``."""
+    present = present.detach().to("cpu", torch.float32)
+
+    def one():
+        return _single_incomplete_mask(generator, num_tokens_per_task, present, keep_ratio, alphas)
+
+    if batch_shared:
+        mask = one()[None].expand(batch_size, -1)
+    else:
+        mask = torch.stack([one() for _ in range(batch_size)])
+    return mask_info_from_flat_mask(mask.to(device), task_names, num_tokens_per_task,
+                                    num_encoded_tokens)
+
+
+def sample_modality_subset(generator: torch.Generator, n_tasks: int) -> torch.Tensor:
+    """``random.randint(1, T); random.sample(domains, k)``
+    (multimae_big_imcomplete.py:542-548) as a [T] bool vector, on the host."""
+    k = int(torch.randint(1, n_tasks + 1, (), generator=generator))
+    rank = torch.argsort(torch.argsort(torch.rand(n_tasks, generator=generator)))
+    return rank < k
+
+
 def full_visible_mask_info(
     task_names: Tuple[str, ...],
     num_tokens_per_task: Tuple[int, ...],

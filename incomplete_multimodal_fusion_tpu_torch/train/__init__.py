@@ -1,3 +1,3 @@
-from . import optim, pretrain, schedules
+from . import downstream, optim, pretrain, schedules
 
-__all__ = ["optim", "pretrain", "schedules"]
+__all__ = ["downstream", "optim", "pretrain", "schedules"]

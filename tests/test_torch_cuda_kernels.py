@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from incomplete_multimodal_fusion_tpu_torch import ops
-from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn, cuda_ffn, cuda_fusion_attn, cuda_msda
+from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_ffn, cuda_fusion_attn, cuda_msda,
+                                                        cuda_points)
 
 pytestmark = pytest.mark.cuda
 
@@ -268,6 +269,8 @@ def test_msda_kernel_locations_past_the_borders(dev):
 
 
 def test_msda_function_counts_its_launch_and_has_no_backward(dev):
+    """The Function launches K4 once forward and, since the backward kernel
+    K4b landed, K4b once backward (the name predates K4b)."""
     ops.reset_kernel_launches()
     value, locs, aw = _msda_inputs(dev, 1, 20, 2, 32, 2, ((4, 4), (2, 2)))
     cuda_msda.ms_deform_attn_core(value, ((4, 4), (2, 2)), locs, aw)
@@ -275,8 +278,10 @@ def test_msda_function_counts_its_launch_and_has_no_backward(dev):
     out = cuda_msda.MSDeformAttnFunction.apply(value, ((4, 4), (2, 2)), locs, aw)
     assert ops.kernel_launches()["ms_deform_attn/forward"] == 1
     assert sum(ops.kernel_launches().values()) == 1
-    with pytest.raises(NotImplementedError, match="downstream training"):
-        out.sum().backward()
+    out.sum().backward()
+    assert ops.kernel_launches()["ms_deform_attn/backward"] == 1
+    assert sum(ops.kernel_launches().values()) == 2
+    assert torch.isfinite(value.grad).all()
 
 
 def test_msda_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -292,3 +297,113 @@ def test_msda_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_msda.ms_deform_attn(value, ((4, 4), (3, 2)), locs, aw)
     with pytest.raises(ValueError, match="bad shapes"):
         cuda_msda.ms_deform_attn(value, shapes, locs, aw[..., :1].contiguous())
+
+
+def _off_integer(locs, shapes):
+    """Locations moved off the pixel centres, where the bilinear derivative
+    is one-sided (as tests/test_pallas_msda.py:62-64 keeps them)."""
+    for lid, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            px = locs[:, :, :, lid, :, axis] * size - 0.5
+            frac = px - torch.floor(px)
+            near = (frac < 0.02) | (frac > 0.98)
+            locs[:, :, :, lid, :, axis] = torch.where(near, locs[:, :, :, lid, :, axis] + 0.05 / size,
+                                                      locs[:, :, :, lid, :, axis])
+    return locs
+
+
+@pytest.mark.parametrize("b,lq,m,d,p,shapes", [
+    (2, 1344, 8, 32, 4, FULL_LEVELS),  # full width
+    (1, 37, 2, 5, 3, ((3, 5), (6, 4), (7, 9))),  # narrow D, non-square levels, odd Lq
+    (3, 101, 4, 40, 2, ((5, 3), (9, 11))),  # D over one warp's 32 lanes
+    (1, 17, 1, 64, 1, ((1, 1), (2, 7), (12, 1), (4, 4))),
+])
+def test_msda_backward_kernel_matches_plain(dev, b, lq, m, d, p, shapes):
+    value, locs, aw = _msda_inputs(dev, b, lq, m, d, p, shapes, seed=33)
+    locs = _off_integer(locs, shapes)
+    g = torch.Generator(device=dev).manual_seed(34)
+    dout = torch.randn(b, lq, m * d, device=dev, generator=g)
+    out = cuda_msda.ms_deform_attn_backward(value, shapes, locs, aw, dout)
+    ref = cuda_msda.ms_deform_attn_backward_reference(value, shapes, locs, aw, dout)
+    torch.cuda.synchronize()
+    for o, r, t in zip(out, ref, (value, locs, aw)):
+        assert o.shape == r.shape == t.shape
+        assert torch.isfinite(o).all()
+    assert _rel_all(out, ref) <= MSDA_REL_L2
+
+
+def test_msda_backward_far_outside_is_zero(dev):
+    value, locs, aw = _msda_inputs(dev, 2, 50, 4, 32, 4, FULL_LEVELS, seed=35)
+    dout = torch.randn(2, 50, 4 * 32, device=dev)
+    dv, dl, da = cuda_msda.ms_deform_attn_backward(value, FULL_LEVELS, torch.full_like(locs, 2.0), aw,
+                                                   dout)
+    assert float(dv.abs().max()) == float(dl.abs().max()) == float(da.abs().max()) == 0.0
+
+
+POINTS_REL_L2 = 1e-5  # f32 both sides: the same taps, sums in another order
+
+
+def _points_inputs(dev, n, h, w, p, group=1, lo=-0.2, hi=1.2, seed=40):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    masks = torch.randn(n, h, w, device=dev, generator=g)
+    coords = lo + (hi - lo) * torch.rand(n // group, p, 2, device=dev, generator=g)
+    return masks, coords
+
+
+@pytest.mark.parametrize("n,h,w,p,group", [
+    (240, 64, 64, 12544, 1),  # the loss's predictions
+    (300, 64, 64, 1000, 100),  # the matcher's queries, points shared per image
+    (24, 256, 256, 2000, 8),  # the matcher's targets
+    (5, 7, 9, 33, 1),  # non-square, ragged P
+])
+def test_point_sample_kernel_matches_plain(dev, n, h, w, p, group):
+    masks, coords = _points_inputs(dev, n, h, w, p, group)
+    out = cuda_points.point_sample(masks, coords, group)
+    ref = cuda_points.point_sample_reference(masks, coords, group)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (n, p)
+    assert _rel(out, ref) <= POINTS_REL_L2
+
+
+@pytest.mark.parametrize("n,h,w,p,group,coords_grad", [
+    (240, 64, 64, 12544, 1, False),  # the loss path: shared-memory accumulation
+    (12, 64, 64, 500, 4, True),  # shared coords, their gradient summed per group
+    (6, 256, 256, 3000, 1, True),  # 256 KB masks: the global-atomics path
+    (5, 7, 9, 33, 1, True),
+])
+def test_point_sample_backward_kernel_matches_plain(dev, n, h, w, p, group, coords_grad):
+    masks, coords = _points_inputs(dev, n, h, w, p, group, seed=41)
+    ds = torch.randn(n, p, device=dev)
+    out = cuda_points.point_sample_backward(masks, coords, ds, group, coords_grad)
+    ref = cuda_points.point_sample_backward_reference(masks, coords, ds, group, coords_grad)
+    torch.cuda.synchronize()
+    assert out[0].shape == masks.shape
+    assert _rel(out[0], ref[0]) <= POINTS_REL_L2
+    if coords_grad:
+        assert out[1].shape == coords.shape
+        assert _rel(out[1], ref[1]) <= 1e-4  # one-sided derivatives at pixel edges are rare
+    else:
+        assert out[1] is None and ref[1] is None
+
+
+def test_point_sample_function_launches_and_gradients(dev):
+    ops.reset_kernel_launches()
+    masks, coords = _points_inputs(dev, 8, 16, 16, 100, group=2, seed=42)
+    masks.requires_grad_()
+    cuda_points.PointSampleFunction.apply(masks, coords, 2).square().sum().backward()
+    counts = ops.kernel_launches()
+    assert counts["point_sample/forward"] == counts["point_sample/backward"] == 1
+    assert sum(counts.values()) == 2
+    m2 = masks.detach().clone().requires_grad_()
+    cuda_points.point_sample_reference(m2, coords, 2).square().sum().backward()
+    assert _rel(masks.grad, m2.grad) <= POINTS_REL_L2
+
+
+def test_point_sample_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    masks, coords = _points_inputs(dev, 4, 8, 8, 10)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_points.point_sample(masks.double(), coords)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_points.point_sample(masks.transpose(1, 2), coords)
+    with pytest.raises(ValueError, match="bad shapes"):
+        cuda_points.point_sample(masks, coords, group=3)

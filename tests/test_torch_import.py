@@ -25,6 +25,9 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.models import (mask2former_decoder, maskformer,\n"
         "    msda_module, pixel_decoder, position_encoding, vit_baseline)\n"
         "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_msda, msda, resize\n"
+        "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_points, points\n"
+        "from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion\n"
+        "from incomplete_multimodal_fusion_tpu_torch.train import downstream\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
         "assert not bad, bad\n"

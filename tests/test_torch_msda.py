@@ -57,11 +57,65 @@ def test_wrapper_takes_the_plain_core_on_the_cpu():
 
 
 def test_function_backward_raises():
-    value, locs, aw = (torch.from_numpy(a) for a in _inputs(4))
-    value.requires_grad_()
-    out = cuda_msda.MSDeformAttnFunction.apply(value, SHAPES, locs, aw)
-    with pytest.raises(NotImplementedError, match="downstream training"):
-        out.sum().backward()
+    """The Function's backward raised until the backward kernel landed (the
+    name is older); on CPU tensors it is now the plain core's vjp: the same
+    gradients as autograd of the plain core, and no kernel launch."""
+    value, locs, aw = (torch.from_numpy(a).requires_grad_() for a in _inputs(4))
+    cuda_msda.LAUNCHES.update(forward=0, backward=0)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 13, 16)).astype(np.float32))
+    cuda_msda.MSDeformAttnFunction.apply(value, SHAPES, locs, aw).backward(g)
+    refs = [t.detach().clone().requires_grad_() for t in (value, locs, aw)]
+    ms_deform_attn_core(refs[0], SHAPES, refs[1], refs[2]).backward(g)
+    for t, r in zip((value, locs, aw), refs):
+        torch.testing.assert_close(t.grad, r.grad, rtol=0, atol=0)
+    assert cuda_msda.LAUNCHES == {"forward": 0, "backward": 0}
+
+
+def _off_integer(locs, shapes=SHAPES, margin=0.02):
+    """Locations moved off the pixel centres, where the bilinear derivative
+    is one-sided (tests/test_pallas_msda.py:62-64)."""
+    locs = locs.copy()
+    for lid, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            px = locs[:, :, :, lid, :, axis] * size - 0.5
+            frac = px - np.floor(px)
+            near = (frac < margin) | (frac > 1 - margin)
+            locs[:, :, :, lid, :, axis] += np.where(near, 2.5 * margin / size, 0.0).astype(np.float32)
+    return locs
+
+
+@pytest.mark.parametrize("reference", ["xla", "pallas"])
+@pytest.mark.parametrize("seed,lq,d,p", [(6, 13, 8, 3), (7, 5, 32, 2)])
+def test_backward_matches_jax_vjp(reference, seed, lq, d, p):
+    """Plain dvalue, dlocations and dweights against jax.vjp of the JAX core
+    and of the Pallas kernel (interpret mode), at off-integer locations."""
+    value, locs, aw = _inputs(seed, lq=lq, d=d, p=p)
+    locs = _off_integer(locs)
+    dout = np.random.default_rng(seed + 100).standard_normal((2, lq, 2 * d)).astype(np.float32)
+    fn = jax_core if reference == "xla" else ms_deform_attn_pallas
+
+    def vjp(v, lc, a, g):
+        return jax.vjp(lambda v, lc, a: fn(v, SHAPES, lc, a), v, lc, a)[1](g)
+
+    refs = jax.jit(vjp)(*(jnp.asarray(t) for t in (value, locs, aw, dout)))
+    outs = cuda_msda.ms_deform_attn_backward(*(torch.from_numpy(t) for t in (value,)), SHAPES,
+                                             torch.from_numpy(locs), torch.from_numpy(aw),
+                                             torch.from_numpy(dout))
+    for name, o, r in zip(("dvalue", "dlocations", "dweights"), outs, refs):
+        np.testing.assert_allclose(to_np(o), np.asarray(r), atol=2e-4, rtol=1e-4, err_msg=name)
+
+
+def test_function_gradcheck_float64():
+    """The repair: MSDeformAttnFunction differentiates on the CPU."""
+    rng = np.random.default_rng(8)
+    shapes = ((2, 3), (3, 2))
+    s = sum(h * w for h, w in shapes)
+    value = torch.from_numpy(rng.standard_normal((1, s, 2, 3))).requires_grad_()
+    locs = torch.from_numpy(_off_integer(rng.uniform(-0.2, 1.2, (1, 4, 2, 2, 2, 2)), shapes, 0.05))
+    aw = torch.from_numpy(rng.random((1, 4, 2, 2, 2))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v, lc, a: cuda_msda.MSDeformAttnFunction.apply(v, shapes, lc, a),
+        (value, locs.requires_grad_(), aw))
 
 
 def test_bilinear_zero_padding():
