@@ -19,7 +19,9 @@ Phases (any failure raises; the exit code is then non-zero):
                  parallel, timed.
   3. kernels  -- each kernel against its plain version in bf16 (K4, K4b,
                  K5 and K5b in f32) at the serving, training and
-                 segmentation shapes: max abs error and relative L2 error
+                 segmentation shapes (K1's separate-q/k/v and tile-skip
+                 modes and the fused attention half-block K6 at the
+                 pretraining shape): max abs error and relative L2 error
                  (bound KERNEL_REL_L2, K4 and K4b MSDA_REL_L2, K5 and K5b
                  POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
@@ -57,6 +59,19 @@ Phases (any failure raises; the exit code is then non-zero):
                  trainable weights moved, frozen ones bitwise unchanged), p50
                  step time and images/s of both paths, host time of the
                  scipy matching, peak device memory, profiled device time.
+  8. encoder-variants -- on phase 5's model, batch and masks: (a) the
+                 pretraining step with EncoderBlock.fused_block on all 12
+                 blocks (K6 / K6b) against the default kernel step (bounds
+                 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2), exact launch counts per
+                 step, 3 warm-up and 10 timed steps beside the default step,
+                 profiled device time, peak device memory; (b) on each
+                 block's qkv slab of one step, K1's separate-q/k/v mode
+                 against K1 / K1b on every row and its tile-skip mode against
+                 K1 / K1b on the non-PAD rows and against its plain version on
+                 every row, forward and backward with a seeded dO, the
+                 share of 128 x 128 tiles skipped, and block 0's K1 + K1b
+                 device time dense, with its tiles skipped and with every
+                 tile active.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -83,8 +98,8 @@ from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAt
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
 from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
-from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_build, cuda_ffn, cuda_fusion_attn,
-                                                        cuda_msda, cuda_points)
+from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_build, cuda_ffn,
+                                                        cuda_fusion_attn, cuda_msda, cuda_points, cuda_zorro_sparse)
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
@@ -140,8 +155,23 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of one call, CUDA events around ``reps`` calls launched
+    back to back: the host runs ahead, so this is the device's time unless
+    the host's launch work per call is the longer."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
-                "point_sample")
+                "point_sample", "block_attn")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
@@ -220,15 +250,20 @@ def heads_layout(qkv, heads):
     return [t.reshape(b, n, heads, -1).transpose(1, 2).contiguous() for t in qkv.chunk(3, dim=-1)]
 
 
-def sdpa_case(qkv, heads, types, part: str):
+def zorro_mask(types):
+    """The zorro mask [B, N, N] of PAD-coded types (fusion type 3), or None."""
+    return None if types is None else zorro_mask_from_padded_types(types, 3, cuda_attn.PAD_TYPE)
+
+
+def sdpa_case(qkv, heads, mask, part: str):
     """One PyTorch call computing K1's function (``part`` 'forward'), its
     gradient ('backward', on a retained graph) or both in turn
-    ('forward+backward'): scaled_dot_product_attention with the zorro mask
-    as a boolean mask, or with none. Timed as library_ms; the port never
-    calls it."""
+    ('forward+backward'): scaled_dot_product_attention with ``mask`` [B, N, N]
+    (the zorro mask, or that and the tile activity) as a boolean mask, or
+    with none. Timed as library_ms; the port never calls it."""
     F = torch.nn.functional
     q, k, v = (t.requires_grad_(part != "forward") for t in heads_layout(qkv, heads))
-    mask = None if types is None else zorro_mask_from_padded_types(types, 3, cuda_attn.PAD_TYPE)[:, None]
+    mask = None if mask is None else mask[:, None]
     if part == "forward":
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
@@ -239,18 +274,37 @@ def sdpa_case(qkv, heads, types, part: str):
                                        (q, k, v), do)
 
 
-def attention_work(qkv, heads, types, backward: bool):
+def attention_work(qkv, heads, mask, backward: bool):
     """Operations and bytes of K1 (or K1b) on these inputs: 4 (10 backward)
     flops per allowed (query, key) pair and head dim element -- the products
-    over pairs the mask allows, what these types need -- against the qkv
-    (and o, dO, lse, dqkv) bytes."""
+    over pairs ``mask`` [B, N, N] allows, what these inputs need -- against
+    the qkv (and o, dO, lse, dqkv) bytes."""
     b, n, three_i = qkv.shape
     dh = three_i // 3 // heads
-    pairs = b * n * n if types is None else int(
-        zorro_mask_from_padded_types(types, 3, cuda_attn.PAD_TYPE).sum())
+    pairs = b * n * n if mask is None else int(mask.sum())
     if not backward:
         return 4.0 * pairs * dh * heads, nbytes(qkv) * 4 / 3, PEAK_BF16
     return 10.0 * pairs * dh * heads, nbytes(qkv) * 2 + nbytes(qkv) * 2 / 3 + b * heads * n * 4, PEAK_BF16
+
+
+def block_attn_work(x, inner, heads, mask, backward: bool):
+    """Operations and bytes of K6 (or K6b) on these inputs: the projections
+    (2 M D 3I), the attention over the allowed pairs (4 flops per pair and
+    head dim element; 12 backward: the recomputed S and P.V, then dP, dV, dQ
+    and dK) and the out projection (2 M I D); backward also dout = dy Wo,
+    dWqkv, dWo and dhid (2 M D I + 2 M 3I D + 2 M D I + 2 M 3I D). Bytes: x
+    and y (backward x, dy and dx), the weights (and their gradients) and the
+    types, each moved once."""
+    b, n, d = x.shape
+    m, dh = b * n, inner // heads
+    pairs = int(mask.sum())
+    weights = (4 * inner * d + 2 * d) * 2
+    proj = 2.0 * m * d * 3 * inner
+    if not backward:
+        return proj + 4.0 * pairs * dh * heads + 2.0 * m * inner * d, 2 * nbytes(x) + weights + m * 4, PEAK_BF16
+    flops = proj + 2.0 * m * d * inner + 12.0 * pairs * dh * heads + 2 * (2.0 * m * 3 * inner * d) \
+        + 2.0 * m * d * inner
+    return flops, 3 * nbytes(x) + 2 * weights + m * 4, PEAK_BF16
 
 
 MSDA_LEVELS = ((8, 8), (16, 16), (32, 32))  # the pixel decoder's levels at 256^2, low -> high
@@ -364,8 +418,8 @@ def phase_kernels(dev):
         cases.append((f"zorro_attention_qkv/{entry_mode}", label,
                       lambda: cuda_attn.zorro_attention_qkv(qkv, heads, types, 3),
                       lambda: cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3),
-                      attention_work(qkv, heads, types, False),
-                      sdpa_case(qkv, heads, types, "forward"), main))
+                      attention_work(qkv, heads, zorro_mask(types), False),
+                      sdpa_case(qkv, heads, zorro_mask(types), "forward"), main))
 
     def zorro_bwd_cases(entry_mode, label, qkv, heads, types, main):
         o, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
@@ -375,9 +429,9 @@ def phase_kernels(dev):
                       lambda: cuda_attn.zorro_attention_qkv_backward(qkv, types, o, lse, do, heads, 3),
                       lambda: cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, o, lse, do,
                                                                                heads, 3),
-                      attention_work(qkv, heads, types, True),
-                      sdpa_case(qkv, heads, types, "backward"), main))
-        fwd_bwd[entry, label] = sdpa_case(qkv, heads, types, "forward+backward")
+                      attention_work(qkv, heads, zorro_mask(types), True),
+                      sdpa_case(qkv, heads, zorro_mask(types), "backward"), main))
+        fwd_bwd[entry, label] = sdpa_case(qkv, heads, zorro_mask(types), "forward+backward")
 
     # serving shapes (the forward kernels' main shapes in the kernels line)
     for label, b, types in (("N=1024 B=1 all modalities", 1, drop_types(1, ())),
@@ -398,6 +452,58 @@ def phase_kernels(dev):
     qkv_dec = randn(60, 256, 3 * 256)
     zorro_cases("none", "n=256 8x32 B=60", qkv_dec, 8, None, False)
     zorro_bwd_cases("none", "n=256 8x32 B=60", qkv_dec, 8, None, True)
+
+    # K1's separate-q/k/v and tile-skip modes at the training shape and masks
+    train_label = "N=640 B=60 train masks e=384"
+    q_t, k_t, v_t = (t.contiguous() for t in qkv_train.chunk(3, dim=-1))
+    sparse_mask = cuda_zorro_sparse.sparse_allowed(train_types, 3)
+    o_p, lse_p = cuda_attn.zorro_attention_packed(q_t, k_t, v_t, train_types, 3, 3, return_lse=True)
+    o_s, lse_s = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv_train, train_types, 3, 3, return_lse=True)
+    do_t = randn(*o_p.shape)
+    cases.append(("zorro_attention_packed/zorro", train_label,
+                  lambda: cuda_attn.zorro_attention_packed(q_t, k_t, v_t, train_types, 3, 3),
+                  lambda: cuda_attn.zorro_attention_packed_reference(q_t, k_t, v_t, train_types, 3, 3),
+                  attention_work(qkv_train, 3, zorro_mask(train_types), False),
+                  sdpa_case(qkv_train, 3, zorro_mask(train_types), "forward"), True))
+    cases.append(("zorro_attention_packed/zorro_backward", train_label,
+                  lambda: cuda_attn.zorro_attention_packed_backward(q_t, k_t, v_t, train_types, o_p, lse_p, do_t,
+                                                                    3, 3),
+                  lambda: cuda_attn.zorro_attention_packed_backward_reference(q_t, k_t, v_t, train_types, o_p,
+                                                                              lse_p, do_t, 3, 3),
+                  attention_work(qkv_train, 3, zorro_mask(train_types), True),
+                  sdpa_case(qkv_train, 3, zorro_mask(train_types), "backward"), True))
+    cases.append(("zorro_sparse/forward", train_label,
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv_train, train_types, 3, 3),
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv_train, train_types, 3, 3),
+                  attention_work(qkv_train, 3, sparse_mask, False), sdpa_case(qkv_train, 3, sparse_mask, "forward"),
+                  True))
+    cases.append(("zorro_sparse/backward", train_label,
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv_train, train_types, o_s, lse_s,
+                                                                                do_t, 3, 3),
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(
+                      qkv_train, train_types, o_s, lse_s, do_t, 3, 3),
+                  attention_work(qkv_train, 3, sparse_mask, True), sdpa_case(qkv_train, 3, sparse_mask, "backward"),
+                  True))
+    fwd_bwd["zorro_attention_packed/zorro_backward", train_label] = sdpa_case(
+        qkv_train, 3, zorro_mask(train_types), "forward+backward")
+    fwd_bwd["zorro_sparse/backward", train_label] = sdpa_case(qkv_train, 3, sparse_mask, "forward+backward")
+
+    # K6 / K6b, the fused attention half-block, at the training shape: the
+    # encoder block's widths (D = I = 192, 3 heads x 64)
+    x_blk, dy_blk = randn(60, 640, 192), randn(60, 640, 192)
+    blk_w = ((1 + 0.1 * torch.randn(192, device=dev, generator=g)).to(bf),
+             (1 + 0.1 * torch.randn(192, device=dev, generator=g)).to(bf),
+             randn(192, 192, scale=192 ** -0.5), randn(384, 192, scale=192 ** -0.5),
+             randn(192, 192, scale=192 ** -0.5))
+    cases.append(("fused_block_attn/forward", train_label,
+                  lambda: cuda_block_attn.fused_block_attn(x_blk, train_types, *blk_w, 3, 3),
+                  lambda: cuda_block_attn.fused_block_attn_reference(x_blk, train_types, *blk_w, 3, 3),
+                  block_attn_work(x_blk, 192, 3, zorro_mask(train_types), False), None, True))
+    cases.append(("fused_block_attn/backward", train_label,
+                  lambda: cuda_block_attn.fused_block_attn_backward(x_blk, train_types, *blk_w, dy_blk, 3, 3),
+                  lambda: cuda_block_attn.fused_block_attn_backward_reference(x_blk, train_types, *blk_w, dy_blk,
+                                                                              3, 3),
+                  block_attn_work(x_blk, 192, 3, zorro_mask(train_types), True), None, True))
 
     def ffn_work(m, backward, geglu):
         if geglu:
@@ -498,7 +604,7 @@ def phase_kernels(dev):
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
         outs, refs = outputs(kernel()), outputs(plain())
         torch.cuda.synchronize()
-        if entry.startswith("zorro_attention_qkv/") and entry.endswith("_backward"):
+        if entry.startswith(("zorro_attention_qkv/", "zorro_sparse/")) and entry.endswith("backward"):
             outs, refs = outs[0].chunk(3, dim=-1), refs[0].chunk(3, dim=-1)  # dq, dk, dv
         for o, r in zip(outs, refs):
             if o.shape != r.shape or not torch.isfinite(o).all():
@@ -678,7 +784,9 @@ def step_times(run, steps: int, warmup: int):
 
 def phase_train(dev):
     """The pretraining step at PretrainConfig() defaults (B = 60, bf16
-    compute over f32 masters) through create_train_state / make_train_step."""
+    compute over f32 masters) through create_train_state / make_train_step.
+    Returns the step's launches and what phase 8 reuses: the model, state,
+    step, batch, masks, loss function and the step's p50."""
     cfg = PretrainConfig()
     doms = tuple(cfg.data.in_domains)
     nums = (cfg.data.num_patches,) * len(doms)
@@ -755,7 +863,9 @@ def phase_train(dev):
         f"{statistics.median(times):.6g} ms (plain path p50 {statistics.median(times_p):.6g} ms); "
         f"mask sampling p50 {statistics.median(mask_ms):.6g} ms on the host; "
         f"peak device memory {peak / 2 ** 30:.4g} GiB")
-    return launches
+    context = dict(model=model, state=state, step=step, batch=batch, mask_info=mi, loss_fn=loss_fn,
+                   p50=statistics.median(times))
+    return launches, context
 
 
 SEG_PER_FORWARD = {"ms_deform_attn/forward": 2, "zorro_attention_qkv/zorro": 12, "fused_ffn/geglu": 24}
@@ -1055,6 +1165,188 @@ def phase_segment_train(dev):
     return launches
 
 
+# one fused step: every encoder block's attention half as K6 / K6b, so K1
+# zorro runs nowhere; the rest as in the default step
+FUSED_PER_STEP = {**{k: n for k, n in PER_STEP.items()
+                     if k not in ("zorro_attention_qkv/zorro", "zorro_attention_qkv/zorro_backward")},
+                  "fused_block_attn/forward": 12, "fused_block_attn/backward": 12}
+
+
+# the two K1 modes, forward and backward, once on each of the 12 blocks' slabs
+MODE_LAUNCHES = {"zorro_attention_packed/zorro": 12, "zorro_attention_packed/zorro_backward": 12,
+                 "zorro_sparse/forward": 12, "zorro_sparse/backward": 12}
+
+
+def set_fused_block(model, on: bool) -> None:
+    for blk in model.blocks:
+        blk.fused_block = on
+
+
+def capture_qkv_slabs(model, loss_fn, batch, mask_info):
+    """Each encoder block's fused qkv slab and types from one forward of the
+    step (composed blocks): a hook on each block's attention recomputes
+    F.linear(norm(x), [Wq; Wkv]) on the step's bf16 weights."""
+    slabs = []
+
+    def hook(module, args, kwargs, _):
+        w = torch.cat([module.to_q.weight, module.to_kv.weight], dim=0)
+        slabs.append((torch.nn.functional.linear(module.norm(args[0]), w), kwargs["packed_types"]))
+
+    handles = [blk.attn.register_forward_hook(hook, with_kwargs=True) for blk in model.blocks]
+    with torch.no_grad():
+        loss_fn(dict(model.named_parameters()), batch, mask_info)
+    for h in handles:
+        h.remove()
+    return slabs
+
+
+def phase_encoder_variants(dev, ctx):
+    """(a) The pretraining step with the fused attention half-block and (b)
+    K1's separate-q/k/v and tile-skip modes on the step's own qkv slabs, on
+    phase 5's model, batch and masks."""
+    model, state, step, batch, mi, loss_fn = (ctx[k] for k in ("model", "state", "step", "batch", "mask_info",
+                                                              "loss_fn"))
+    # (a) the fused step against the default kernel step: same weights and masks
+    results = {}
+    for fused in (False, True):
+        set_fused_block(model, fused)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(dict(model.named_parameters()), batch, mi)
+        loss.backward()
+        results[fused] = (float(loss.detach()), flat_grads(model))
+    model.zero_grad(set_to_none=True)
+    (loss_f, g_f), (loss_d, g_d) = results[True], results[False]
+    loss_rel = abs(loss_f - loss_d) / abs(loss_d)
+    diff = torch.cat([(g_f[n] - g_d[n]).reshape(-1) for n in g_d])
+    grad_rel = float(diff.norm() / torch.cat([g.reshape(-1) for g in g_d.values()]).norm())
+    worst = sorted(((rel_l2(g_f[n], g_d[n]), n) for n in g_d), reverse=True)[:5]
+    log(f"[encoder-variants] fused step loss {loss_f:.6g}, default kernel step {loss_d:.6g}, rel diff "
+        f"{loss_rel:.3g}; flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_f) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise RuntimeError(f"[encoder-variants] fused vs default step: loss rel {loss_rel} (bound "
+                           f"{TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2})")
+    del results, g_f, g_d, diff
+
+    # the fused step's main-path run: one step with masks from the state's generator
+    set_fused_block(model, True)
+    ops.reset_kernel_launches()
+    step(state, batch)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    log(f"[encoder-variants] launches in one fused step: {launches}")
+    if {k: n for k, n in launches.items() if n} != FUSED_PER_STEP:
+        raise RuntimeError(f"[encoder-variants] launches per fused step {launches}, expected {FUSED_PER_STEP}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = step_times(lambda: step(state, batch)[1], steps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"[encoder-variants] fused step losses {losses}")
+    dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=3)
+    set_fused_block(model, False)
+    times_d, _ = step_times(lambda: step(state, batch)[1], steps=5, warmup=2)
+    p50 = statistics.median(times)
+    log(f"[encoder-variants] fused step: losses {[round(x, 4) for x in losses]}; p50 {p50:.6g} ms (the default "
+        f"kernel step p50 {statistics.median(times_d):.6g} ms now, {ctx['p50']:.6g} ms in phase 5); profile: "
+        f"device {dev_ms:.6g} ms a step in {n_kernels:.0f} kernels/copies, busy {dev_ms / p50:.3f} of the p50 "
+        "wall; by kind " + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items()))
+        + f"; peak device memory {peak / 2 ** 30:.4g} GiB")
+    for name, ms in top:
+        log(f"[encoder-variants]     {ms:9.4f} ms  {name[:100]}")
+
+    # (b) the two K1 modes on each block's qkv slab of one step, seeded dO;
+    # the modes' runs first (the path's launches), the comparisons after
+    slabs = capture_qkv_slabs(model, loss_fn, batch, mi)
+    heads, fusion = model.blocks[0].attn.heads, model.fusion_type
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    ops.reset_kernel_launches()
+    runs = []
+    for qkv, types in slabs:
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        do = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, device=dev, generator=g).to(qkv.dtype)
+        o_p, lse_p = cuda_attn.zorro_attention_packed(q, k, v, types, heads, fusion, return_lse=True)
+        grads_p = cuda_attn.zorro_attention_packed_backward(q, k, v, types, o_p, lse_p, do, heads, fusion)
+        o_s, lse_s = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, types, heads, fusion, return_lse=True)
+        dqkv_s = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv, types, o_s, lse_s, do, heads, fusion)
+        runs.append((do, o_p, grads_p, o_s, lse_s, dqkv_s))
+    torch.cuda.synchronize()
+    mode_launches = ops.kernel_launches()
+    if {k: n for k, n in mode_launches.items() if n} != MODE_LAUNCHES:
+        raise RuntimeError(f"[encoder-variants] mode launches {mode_launches}, expected {MODE_LAUNCHES}")
+
+    worst = collections.defaultdict(float)
+    skipped = []
+    for i, ((qkv, types), (do, o_p, grads_p, o_s, lse_s, dqkv_s)) in enumerate(zip(slabs, runs)):
+        o1, lse1 = cuda_attn.zorro_attention_qkv(qkv, heads, types, fusion, return_lse=True)
+        d1 = cuda_attn.zorro_attention_qkv_backward(qkv, types, o1, lse1, do, heads, fusion)
+        valid = types != cuda_attn.PAD_TYPE
+        ref_s, ref_lse = cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv, types, heads, fusion,
+                                                                                return_lse=True)
+        ref_d = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(qkv, types, ref_s, ref_lse, do,
+                                                                                heads, fusion)
+        checks = {
+            "packed vs K1 out": rel_l2(o_p, o1),
+            "packed vs K1b grads": max(rel_l2(a, b) for a, b in zip(grads_p, d1.chunk(3, dim=-1))),
+            "sparse vs K1 out (valid rows)": rel_l2(o_s[valid], o1[valid]),
+            "sparse vs K1b grads (valid rows)": max(rel_l2(a, b) for a, b in zip(dqkv_s[valid].chunk(3, dim=-1),
+                                                                                 d1[valid].chunk(3, dim=-1))),
+            "sparse vs plain out": rel_l2(o_s, ref_s),
+            "sparse vs plain grads": max(rel_l2(a, b) for a, b in zip(dqkv_s.chunk(3, dim=-1),
+                                                                      ref_d.chunk(3, dim=-1))),
+        }
+        bad = {k: v for k, v in checks.items() if not v <= KERNEL_REL_L2}
+        if bad or not (torch.isfinite(o_s).all() and torch.isfinite(dqkv_s).all()):
+            raise RuntimeError(f"[encoder-variants] block {i}: {bad} > {KERNEL_REL_L2} (or non-finite)")
+        for k, v in checks.items():
+            worst[k] = max(worst[k], v)
+        worst["packed vs K1 max abs"] = max(worst["packed vs K1 max abs"],
+                                            float((o_p.float() - o1.float()).abs().max()))
+        nt = qkv.shape[1] // cuda_zorro_sparse.TILE
+        skipped.append(1.0 - float(cuda_zorro_sparse.tile_active(types, fusion, nt).float().mean()))
+    log(f"[encoder-variants] K1 modes on the {len(slabs)} blocks' qkv slabs (B={slabs[0][0].shape[0]} "
+        f"N={slabs[0][0].shape[1]}): worst " + ", ".join(f"{k} {v:.6g}" for k, v in worst.items())
+        + f"; 128x128 tiles skipped: {min(skipped):.4f}-{max(skipped):.4f} of all")
+
+    # the kernels' own device time on block 0's slab, dense K1 + K1b against
+    # the tile-skip mode, apart from the wrappers' other device work (casts,
+    # the activity table); and the tile-skip mode with every tile active,
+    # which reads the table but skips nothing
+    qkv0, types0 = slabs[0]
+    do0 = runs[0][0]
+
+    def dense():
+        o, lse = cuda_attn.zorro_attention_qkv(qkv0, heads, types0, fusion, return_lse=True)
+        cuda_attn.zorro_attention_qkv_backward(qkv0, types0, o, lse, do0, heads, fusion)
+
+    def sparse():
+        o, lse = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv0, types0, heads, fusion, return_lse=True)
+        cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv0, types0, o, lse, do0, heads, fusion)
+
+    b0, n0, inner0 = qkv0.shape[0], qkv0.shape[1], qkv0.shape[2] // 3
+    types0_i32 = cuda_attn.check_qkv("all-active", qkv0, heads, types0, fusion)
+    all_active = torch.ones((b0, 1, (n0 // cuda_zorro_sparse.TILE) ** 2), dtype=torch.int32, device=dev)
+    dqkv0 = torch.empty_like(qkv0)
+    scale0 = cuda_attn.default_scale(inner0, heads, None)
+
+    def every_tile_active():
+        view = cuda_attn.slab_view(qkv0)
+        o, lse = cuda_attn.launch_attention(view, b0, n0, inner0, heads, dev, types0_i32, fusion, scale0, True,
+                                            all_active)
+        cuda_attn.launch_attention_backward(view, cuda_attn.slab_view(dqkv0), b0, n0, inner0, heads, dev,
+                                            types0_i32, fusion, o, lse, do0, scale0, all_active)
+
+    for label, fn in (("dense K1 + K1b", dense), ("tile-skip K1 + K1b", sparse),
+                      ("tile-skip K1 + K1b, every tile active", every_tile_active)):
+        dev_ms, n_kernels, _, top = device_breakdown(fn, reps=5, top_n=None)
+        own = {name.split("(")[0].split("::")[-1]: ms for name, ms in top if "zorro_attention" in name}
+        log(f"[encoder-variants] {label} on block 0's slab, device ms a call: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in own.items())
+            + f"; all device work {dev_ms:.6g} in {n_kernels:.0f} kernels/copies; CUDA events around the "
+            f"call (phase 3's timing, the host's launch work included) {cuda_ms(fn):.6g} ms, around 20 calls "
+            f"back to back {back_to_back_ms(fn):.6g} ms a call")
+    return {k: launches[k] + mode_launches[k] for k in launches}
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -1082,6 +1374,18 @@ REPLACES = {
                              "incomplete_multimodal_fusion_tpu/ops/pallas_points.py:124"),
     "point_sample/backward": ("csrc/point_sample.cu",
                               "incomplete_multimodal_fusion_tpu/ops/pallas_points.py:140"),
+    "zorro_attention_packed/zorro": ("csrc/zorro_attention.cu",
+                                     "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:818"),
+    "zorro_attention_packed/zorro_backward": ("csrc/zorro_attention.cu",
+                                              "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:841"),
+    "zorro_sparse/forward": ("csrc/zorro_attention.cu",
+                             "incomplete_multimodal_fusion_tpu/ops/pallas_zorro_sparse.py:206"),
+    "zorro_sparse/backward": ("csrc/zorro_attention.cu",
+                              "incomplete_multimodal_fusion_tpu/ops/pallas_zorro_sparse.py:235"),
+    "fused_block_attn/forward": ("csrc/fused_block_attn.cu",
+                                 "incomplete_multimodal_fusion_tpu/ops/pallas_block_attn.py:237"),
+    "fused_block_attn/backward": ("csrc/fused_block_attn.cu",
+                                  "incomplete_multimodal_fusion_tpu/ops/pallas_block_attn.py:261"),
 }
 
 
@@ -1092,13 +1396,14 @@ def main() -> int:
     kernel_results = phase_kernels(dev)
     # the main paths, each run with the counts set to 0 just before it
     served = phase_serving(dev)
-    trained = phase_train(dev)
+    trained, train_context = phase_train(dev)
     segmented = phase_segment(dev)
     seg_trained = phase_segment_train(dev)
+    variants = phase_encoder_variants(dev, train_context)
     entries = []
     for name, (src, replaces) in REPLACES.items():
         r = kernel_results[name]
-        launches = served[name] + trained[name] + segmented[name] + seg_trained[name]
+        launches = served[name] + trained[name] + segmented[name] + seg_trained[name] + variants[name]
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",

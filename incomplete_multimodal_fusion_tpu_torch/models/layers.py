@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import cuda_attn, cuda_ffn, cuda_fusion_attn
+from ..ops import cuda_attn, cuda_block_attn, cuda_ffn, cuda_fusion_attn
 from ..ops.attention import multihead_attention
 
 
@@ -204,10 +204,18 @@ class DropPath(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Zorro-masked encoder block (zorro_utils.py:227-240)."""
+    """Zorro-masked encoder block (zorro_utils.py:227-240).
+
+    ``fused_block`` routes the whole attention half (norm1, the attention's
+    own norm, the q/kv projections, zorro attention, the out projection and
+    the residual add) through kernel K6 (ops/cuda_block_attn.py), reading the
+    same parameters. As in the JAX block (layers.py:327-330) the route is
+    taken only with ``use_kernel``, packed types, no active drop path and
+    shapes that ``block_attn_supported`` admits; otherwise the block runs
+    composed."""
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fused_block: bool = False):
         super().__init__()
         self.norm1 = BiaslessLayerNorm(dim)
         self.attn = ZorroAttention(dim, dim_head, heads)
@@ -215,11 +223,20 @@ class EncoderBlock(nn.Module):
         self.mlp = GEGLUFeedForward(dim, ff_mult)
         self.dp1 = DropPath(drop_path)
         self.dp2 = DropPath(drop_path)
+        self.fused_block = fused_block
 
     def forward(self, x, packed_types, fusion_type: int, use_kernel: bool = False):
-        h = self.attn(self.norm1(x), packed_types=packed_types, fusion_type=fusion_type,
-                      use_kernel=use_kernel)
-        x = x + self.dp1(h)
+        b, n, d = x.shape
+        attn = self.attn
+        if (self.fused_block and use_kernel and packed_types is not None
+                and (self.dp1.rate == 0.0 or not self.training)
+                and cuda_block_attn.block_attn_supported(n, d, attn.heads * attn.dim_head)):
+            x = cuda_block_attn.FusedBlockAttn.apply(
+                x, packed_types, self.norm1.weight, attn.norm.weight, attn.to_q.weight, attn.to_kv.weight,
+                attn.to_out.weight, attn.heads, fusion_type)
+        else:
+            h = attn(self.norm1(x), packed_types=packed_types, fusion_type=fusion_type, use_kernel=use_kernel)
+            x = x + self.dp1(h)
         return x + self.dp2(self.mlp(self.norm2(x), use_kernel=use_kernel))
 
 

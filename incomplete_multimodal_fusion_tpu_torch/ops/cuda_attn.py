@@ -1,12 +1,14 @@
-"""Kernel K1, ``zorro_attention_qkv``: multi-head self-attention over the
-fused [B, N, 3I] qkv projection (csrc/zorro_attention.cu), forward and
-backward.
+"""Kernel K1, ``zorro_attention``: multi-head self-attention
+(csrc/zorro_attention.cu), forward and backward, over the fused [B, N, 3I]
+qkv projection (``zorro_attention_qkv``) or over separate q, k, v
+[B, N, I] (``zorro_attention_packed``).
 
 Counterpart of the JAX package's ops/pallas_attn.py (the zorro-masked
-encoder attention) and ops/pallas_small_attn.py (the decoder's unmasked
-attention). With ``types`` the Zorro mask applies: a query attends a key iff
-they have the same token type, or the query is a fusion token and the key is
-not padding (``PAD_TYPE``). Without ``types`` nothing is masked.
+encoder attention: the fused-slab kernels and, for separate q, k, v,
+``zorro_self_attention_packed``) and ops/pallas_small_attn.py (the decoder's
+unmasked attention). With ``types`` the Zorro mask applies: a query attends a
+key iff they have the same token type, or the query is a fusion token and the
+key is not padding (``PAD_TYPE``). Without ``types`` nothing is masked.
 
 The scale multiplies the f32 scores (q.k) * scale, then masked scores become
 the finite ``NEG_INF`` of pallas_attn.py:37, in the kernels and the plain
@@ -14,14 +16,17 @@ versions alike. The forward can also return the f32 row log-sum-exp
 ``lse`` [B, H, N]; the backward recomputes the probabilities from it.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(bf16 only) or raises. ``ZorroAttentionQKV`` is the autograd Function the
-model calls: on CPU tensors it runs the plain forward and backward, on CUDA
-tensors the two kernels.
+(bf16 only) or raises. ``ZorroAttentionQKV`` and ``ZorroAttentionPacked`` are
+the autograd Functions: on CPU tensors they run the plain forward and
+backward, on CUDA tensors the two kernels. ``launch_attention`` and
+``launch_attention_backward`` drive the kernel on any operand view, with an
+optional tile-skip table (ops/cuda_zorro_sparse.py).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 
@@ -34,23 +39,72 @@ SUPPORTED_DH = (32, 64, 128)
 
 # launches of the kernels, per mode; only the wrappers' launches add to them
 LAUNCHES = {"zorro": 0, "none": 0, "zorro_backward": 0, "none_backward": 0}
+# the separate-q/k/v mode (zorro_attention_packed)
+PACKED_LAUNCHES = {"zorro": 0, "zorro_backward": 0}
 
 
-def _heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
+def heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
     """[B, N, H*dh] -> [B, H, N, dh]."""
     b, n, inner = t.shape
     return t.reshape(b, n, heads, inner // heads).transpose(1, 2)
 
 
-def _scores(qkv, heads, types, fusion_type, scale):
-    """q, k, v as [B, H, N, dh] and the scaled, masked f32 scores."""
-    inner = qkv.shape[-1] // 3
-    q, k, v = (_heads_view(t, heads) for t in qkv.split(inner, dim=-1))
-    s = torch.einsum("bhid,bhjd->bhij", upcast(q), upcast(k)) * scale
-    if types is not None:
-        allowed = zorro_mask_from_padded_types(types, fusion_type, PAD_TYPE)[:, None]
-        s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
-    return q, k, v, s
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[B, H, N, dh] -> [B, N, H*dh]."""
+    b, h, n, dh = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * dh)
+
+
+def zorro_allowed(types: Optional[torch.Tensor], fusion_type: Optional[int]) -> Optional[torch.Tensor]:
+    """The zorro mask [B, N, N] (True = the query attends the key), or None
+    without types."""
+    if types is None:
+        return None
+    return zorro_mask_from_padded_types(types, fusion_type, PAD_TYPE)
+
+
+def _scores(q, k, heads, allowed, scale):
+    """The scaled, masked f32 scores [B, H, N, N]."""
+    s = torch.einsum("bhid,bhjd->bhij", upcast(heads_view(q, heads)), upcast(heads_view(k, heads))) * scale
+    if allowed is not None:
+        s = torch.where(allowed[:, None], s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def masked_attention_reference(q, k, v, heads: int, allowed: Optional[torch.Tensor], scale: float,
+                               return_lse: bool = False):
+    """The plain forward on q, k, v [B, N, I] under a [B, N, N] mask (None:
+    unmasked): f32 scores and softmax, probabilities cast to the activation
+    dtype for the value product. Returns [B, N, I] (and lse [B, H, N])."""
+    s = _scores(q, k, heads, allowed, scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = torch.einsum("bhij,bhjd->bhid", upcast(p.to(q.dtype)), upcast(heads_view(v, heads)))
+    out = merge_heads(out).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
+def masked_attention_backward_reference(q, k, v, allowed, o, lse, do, heads: int, scale: float):
+    """The plain backward with the cast points of the Pallas bodies
+    (pallas_attn.py:378-416 and :529-664 classic form,
+    pallas_small_attn.py:70): P = exp(s - lse) in f32, D = rowsum(dO * O) in
+    f32 on the stored O, dV = P(bf16)^T dO, dS = P * (dP - D) cast to the
+    activation dtype, dQ = dS K * scale, dK = dS^T Q * scale. Returns
+    (dq, dk, dv), each [B, N, I] in q's dtype."""
+    dtype = q.dtype
+    p = torch.exp(_scores(q, k, heads, allowed, scale) - lse[..., None])
+    dof = upcast(heads_view(do, heads))
+    d = (dof * upcast(heads_view(o, heads))).sum(dim=-1, keepdim=True)
+    dv = torch.einsum("bhij,bhid->bhjd", upcast(p.to(dtype)), dof)
+    dp = torch.einsum("bhid,bhjd->bhij", dof, upcast(heads_view(v, heads)))
+    ds = upcast((p * (dp - d)).to(dtype))
+    dq = torch.einsum("bhij,bhjd->bhid", ds, upcast(heads_view(k, heads))) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, upcast(heads_view(q, heads))) * scale
+    return tuple(merge_heads(t).to(dtype) for t in (dq, dk, dv))
+
+
+def default_scale(inner: int, heads: int, scale: Optional[float]) -> float:
+    return (inner // heads) ** -0.5 if scale is None else scale
 
 
 def zorro_attention_qkv_reference(qkv: torch.Tensor, heads: int,
@@ -59,64 +113,155 @@ def zorro_attention_qkv_reference(qkv: torch.Tensor, heads: int,
                                   scale: Optional[float] = None, return_lse: bool = False):
     """Plain PyTorch version, the JAX ``_packed_qkv_xla`` (pallas_attn.py:775)
     with types and ``small_attention_qkv_xla`` (pallas_small_attn.py:179)
-    without: f32 scores and softmax, probabilities cast to the activation
-    dtype for the value product. qkv [B, N, 3I] -> [B, N, I] (and lse)."""
-    b, n, three_i = qkv.shape
-    if scale is None:
-        scale = (three_i // 3 // heads) ** -0.5
-    _, _, v, s = _scores(qkv, heads, types, fusion_type, scale)
-    lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhij,bhjd->bhid", upcast(p.to(qkv.dtype)), upcast(v))
-    out = out.transpose(1, 2).reshape(b, n, three_i // 3).to(qkv.dtype)
-    return (out, lse) if return_lse else out
+    without. qkv [B, N, 3I] -> [B, N, I] (and lse)."""
+    inner = qkv.shape[-1] // 3
+    q, k, v = qkv.split(inner, dim=-1)
+    return masked_attention_reference(q, k, v, heads, zorro_allowed(types, fusion_type),
+                                      default_scale(inner, heads, scale), return_lse)
 
 
 def zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads: int,
                                            fusion_type: Optional[int] = None,
                                            scale: Optional[float] = None) -> torch.Tensor:
-    """Plain backward with the cast points of the Pallas bodies
-    (pallas_attn.py:529-664 classic form, pallas_small_attn.py:70):
-    P = exp(s - lse) in f32, D = rowsum(dO * O) in f32, dV = P(bf16)^T dO,
-    dS = P * (dP - D) cast to the activation dtype, dQ = dS K * scale,
-    dK = dS^T Q * scale. Returns dqkv [B, N, 3I] in qkv's dtype."""
-    b, n, three_i = qkv.shape
-    dtype = qkv.dtype
-    if scale is None:
-        scale = (three_i // 3 // heads) ** -0.5
-    q, k, v, s = _scores(qkv, heads, types, fusion_type, scale)
-    p = torch.exp(s - lse[..., None])
-    dof = upcast(_heads_view(do, heads))
-    d = (dof * upcast(_heads_view(o, heads))).sum(dim=-1, keepdim=True)
-    dv = torch.einsum("bhij,bhid->bhjd", upcast(p.to(dtype)), dof)
-    dp = torch.einsum("bhid,bhjd->bhij", dof, upcast(v))
-    ds = upcast((p * (dp - d)).to(dtype))
-    dq = torch.einsum("bhij,bhjd->bhid", ds, upcast(k)) * scale
-    dk = torch.einsum("bhij,bhid->bhjd", ds, upcast(q)) * scale
-    parts = [t.transpose(1, 2).reshape(b, n, three_i // 3) for t in (dq, dk, dv)]
-    return torch.cat(parts, dim=-1).to(dtype)
+    """Plain backward (``masked_attention_backward_reference``) on the fused
+    slab. Returns dqkv [B, N, 3I] in qkv's dtype."""
+    inner = qkv.shape[-1] // 3
+    q, k, v = qkv.split(inner, dim=-1)
+    grads = masked_attention_backward_reference(q, k, v, zorro_allowed(types, fusion_type), o, lse, do,
+                                                heads, default_scale(inner, heads, scale))
+    return torch.cat(grads, dim=-1)
 
 
-def _check_qkv(name, qkv, heads, types, fusion_type):
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {qkv.device}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {qkv.dtype}")
-    if qkv.dim() != 3 or qkv.shape[-1] % (3 * heads):
-        raise ValueError(f"{name}: bad qkv shape {tuple(qkv.shape)} for {heads} heads")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
-    b, n, three_i = qkv.shape
-    dh = three_i // 3 // heads
-    if dh not in SUPPORTED_DH:
-        raise ValueError(f"{name}: head dim {dh} not in {SUPPORTED_DH}")
+def zorro_attention_packed_reference(q, k, v, types, heads: int, fusion_type: int,
+                                     scale: Optional[float] = None, return_lse: bool = False):
+    """Plain version of ``zorro_self_attention_packed`` (pallas_attn.py:861):
+    q, k, v [B, N, H*dh] -> [B, N, H*dh] (and lse)."""
+    return masked_attention_reference(q, k, v, heads, zorro_allowed(types, fusion_type),
+                                      default_scale(q.shape[-1], heads, scale), return_lse)
+
+
+def zorro_attention_packed_backward_reference(q, k, v, types, o, lse, do, heads: int, fusion_type: int,
+                                              scale: Optional[float] = None):
+    """Plain backward of the separate-q/k/v form (pallas_attn.py:378-416):
+    (dq, dk, dv)."""
+    return masked_attention_backward_reference(q, k, v, zorro_allowed(types, fusion_type), o, lse, do,
+                                               heads, default_scale(q.shape[-1], heads, scale))
+
+
+def _check_tensor(name, what, t, shape, dtype, device):
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device
+            or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name}: {what} must be a contiguous, 16-byte aligned {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}")
+
+
+def _check_bf16_cuda(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+
+
+def _check_heads(name, inner, heads):
+    if inner % heads or inner // heads not in SUPPORTED_DH:
+        raise ValueError(f"{name}: head dim {inner / heads:g} ({inner} / {heads} heads) not in {SUPPORTED_DH}")
+
+
+def _check_types(name, types, b, n, fusion_type, device):
     if types is None:
         return None
-    if types.shape != (b, n) or types.device != qkv.device:
-        raise ValueError(f"{name}: types must be [B, N] = {(b, n)} on {qkv.device}")
+    if tuple(types.shape) != (b, n) or types.device != device:
+        raise ValueError(f"{name}: types must be [B, N] = {(b, n)} on {device}")
     if fusion_type is None:
         raise ValueError(f"{name}: fusion_type is needed with types")
     return types.to(torch.int32).contiguous()
+
+
+def check_qkv(name, qkv, heads, types, fusion_type):
+    _check_bf16_cuda(name, qkv)
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"{name}: bad qkv shape {tuple(qkv.shape)}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be contiguous and 16-byte aligned")
+    b, n, three_i = qkv.shape
+    _check_heads(name, three_i // 3, heads)
+    return _check_types(name, types, b, n, fusion_type, qkv.device)
+
+
+def _check_separate(name, q, k, v, heads, types, fusion_type):
+    _check_bf16_cuda(name, q)
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be [B, N, H*dh], got {tuple(q.shape)}")
+    for what, t in (("q", q), ("k", k), ("v", v)):
+        _check_tensor(name, what, t, q.shape, torch.bfloat16, q.device)
+    b, n, inner = q.shape
+    _check_heads(name, inner, heads)
+    if types is None:
+        raise ValueError(f"{name}: the separate-q/k/v form is zorro-masked and needs types")
+    return _check_types(name, types, b, n, fusion_type, q.device)
+
+
+def slab_view(qkv):
+    """The (q, k, v) base pointers and token stride of a fused [B, N, 3I]
+    slab."""
+    inner = qkv.shape[-1] // 3
+    step = inner * qkv.element_size()
+    return qkv.data_ptr(), qkv.data_ptr() + step, qkv.data_ptr() + 2 * step, 3 * inner
+
+
+def launch_attention(view: Sequence[int], b: int, n: int, inner: int, heads: int, device,
+                     types: Optional[torch.Tensor], fusion_type: Optional[int], scale: float,
+                     return_lse: bool, active: Optional[torch.Tensor] = None):
+    """Launches K1 on the operand view (q, k, v base pointers and their
+    token stride; batch rows lie n * stride apart) with checked int32
+    ``types`` [B, N] (or None) and an optional int32 activity table
+    ``active`` [B, 1, nt * nt] of 128-token tiles. Returns out [B, N, I] and the
+    lse [B, H, N] or None. Counts nothing: the callers count."""
+    out = torch.empty((b, n, inner), dtype=torch.bfloat16, device=device)
+    lse = torch.empty((b, heads, n), dtype=torch.float32, device=device) if return_lse else None
+    nt = 0 if active is None else math.isqrt(active.shape[-1])
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_bf16",
+                         [p, p, p, ll, ll, p, p, i, p, p, i, i, i, i, ll, ll, ll, ctypes.c_float, i, i, p])
+    q_ptr, k_ptr, v_ptr, rstride = view
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
+                 0 if active is None else active.data_ptr(), nt, out.data_ptr(),
+                 0 if lse is None else lse.data_ptr(), b, n, heads, inner // heads, n * inner, inner,
+                 0 if types is None else n, float(scale), -1 if fusion_type is None else int(fusion_type),
+                 int(types is not None), stream)
+    cuda_build.check_launch(err, "zorro_attention")
+    return out, lse
+
+
+def launch_attention_backward(view: Sequence[int], grad_view: Sequence[int], b: int, n: int, inner: int,
+                              heads: int, device, types: Optional[torch.Tensor],
+                              fusion_type: Optional[int], o: torch.Tensor, lse: torch.Tensor,
+                              do: torch.Tensor, scale: float, active: Optional[torch.Tensor] = None) -> None:
+    """Launches K1b: the forward's operand view, its output ``o``, ``lse``
+    and the output gradient ``do`` (checked here) into the gradient view
+    (dq, dk, dv base pointers and their token stride)."""
+    for what, t, shape, dtype in (("o", o, (b, n, inner), torch.bfloat16),
+                                  ("do", do, (b, n, inner), torch.bfloat16),
+                                  ("lse", lse, (b, heads, n), torch.float32)):
+        _check_tensor("zorro_attention_backward", what, t, shape, dtype, device)
+    delta = torch.empty((b, heads, n), dtype=torch.float32, device=device)  # rowsum(dO * O)
+    nt = 0 if active is None else math.isqrt(active.shape[-1])
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_bwd_bf16",
+                         [p, p, p, ll, ll, p, p, i, p, p, p, p, p, p, ll, ll, p, i, i, i, i, ll,
+                          ctypes.c_float, i, i, p])
+    q_ptr, k_ptr, v_ptr, rstride = view
+    dq_ptr, dk_ptr, dv_ptr, g_rstride = grad_view
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
+                 0 if active is None else active.data_ptr(), nt, o.data_ptr(), lse.data_ptr(),
+                 do.data_ptr(), dq_ptr, dk_ptr, dv_ptr, n * g_rstride, g_rstride, delta.data_ptr(), b, n,
+                 heads, inner // heads, 0 if types is None else n, float(scale),
+                 -1 if fusion_type is None else int(fusion_type), int(types is not None), stream)
+    cuda_build.check_launch(err, "zorro_attention_backward")
 
 
 def zorro_attention_qkv(qkv: torch.Tensor, heads: int, types: Optional[torch.Tensor] = None,
@@ -127,24 +272,11 @@ def zorro_attention_qkv(qkv: torch.Tensor, heads: int, types: Optional[torch.Ten
     with ``return_lse`` also the f32 row log-sum-exp [B, H, N]."""
     if qkv.device.type == "cpu":
         return zorro_attention_qkv_reference(qkv, heads, types, fusion_type, scale, return_lse)
-    types = _check_qkv("zorro_attention_qkv", qkv, heads, types, fusion_type)
+    types = check_qkv("zorro_attention_qkv", qkv, heads, types, fusion_type)
     b, n, three_i = qkv.shape
     inner = three_i // 3
-    dh = inner // heads
-    if scale is None:
-        scale = dh ** -0.5
-    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
-    lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device) if return_lse else None
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_qkv_bf16",
-                         [p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ctypes.c_float, i, i, p])
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(qkv.data_ptr(), 0 if types is None else types.data_ptr(), out.data_ptr(),
-                 0 if lse is None else lse.data_ptr(), b, n, heads, dh, n * three_i, three_i,
-                 n * inner, inner, 0 if types is None else n, float(scale),
-                 -1 if fusion_type is None else int(fusion_type), int(types is not None), stream)
-    cuda_build.check_launch(err, "zorro_attention_qkv")
+    out, lse = launch_attention(slab_view(qkv), b, n, inner, heads, qkv.device, types, fusion_type,
+                                default_scale(inner, heads, scale), return_lse)
     LAUNCHES["none" if types is None else "zorro"] += 1
     return (out, lse) if return_lse else out
 
@@ -158,33 +290,48 @@ def zorro_attention_qkv_backward(qkv: torch.Tensor, types: Optional[torch.Tensor
     if qkv.device.type == "cpu":
         return zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads,
                                                       fusion_type, scale)
-    types = _check_qkv("zorro_attention_qkv_backward", qkv, heads, types, fusion_type)
+    types = check_qkv("zorro_attention_qkv_backward", qkv, heads, types, fusion_type)
     b, n, three_i = qkv.shape
     inner = three_i // 3
-    dh = inner // heads
-    for name, t, shape, dtype in (("o", o, (b, n, inner), qkv.dtype),
-                                  ("do", do, (b, n, inner), qkv.dtype),
-                                  ("lse", lse, (b, heads, n), torch.float32)):
-        if (t.shape != shape or t.dtype != dtype or t.device != qkv.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"zorro_attention_qkv_backward: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on {qkv.device}")
-    if scale is None:
-        scale = dh ** -0.5
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device)  # rowsum(dO * O)
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_qkv_bwd_bf16",
-                         [p, p, p, p, p, p, p, i, i, i, i, ll, ctypes.c_float, i, i, p])
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(qkv.data_ptr(), 0 if types is None else types.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), do.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), b, n, heads, dh,
-                 0 if types is None else n, float(scale),
-                 -1 if fusion_type is None else int(fusion_type), int(types is not None), stream)
-    cuda_build.check_launch(err, "zorro_attention_qkv_backward")
+    launch_attention_backward(slab_view(qkv), slab_view(dqkv), b, n, inner, heads, qkv.device, types,
+                              fusion_type, o, lse, do, default_scale(inner, heads, scale))
     LAUNCHES["none_backward" if types is None else "zorro_backward"] += 1
     return dqkv
+
+
+def zorro_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, types: torch.Tensor,
+                           heads: int, fusion_type: int, scale: Optional[float] = None,
+                           return_lse: bool = False):
+    """Zorro attention on separate q, k, v [B, N, H*dh] (the JAX
+    ``zorro_self_attention_packed``); types [B, N] int (PAD_TYPE = padding).
+    Returns [B, N, H*dh], and with ``return_lse`` also the f32 lse
+    [B, H, N]."""
+    if q.device.type == "cpu":
+        return zorro_attention_packed_reference(q, k, v, types, heads, fusion_type, scale, return_lse)
+    types = _check_separate("zorro_attention_packed", q, k, v, heads, types, fusion_type)
+    b, n, inner = q.shape
+    view = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inner)
+    out, lse = launch_attention(view, b, n, inner, heads, q.device, types, fusion_type,
+                                default_scale(inner, heads, scale), return_lse)
+    PACKED_LAUNCHES["zorro"] += 1
+    return (out, lse) if return_lse else out
+
+
+def zorro_attention_packed_backward(q, k, v, types, o, lse, do, heads: int, fusion_type: int,
+                                    scale: Optional[float] = None):
+    """(dq, dk, dv), each [B, N, H*dh], of ``zorro_attention_packed``."""
+    if q.device.type == "cpu":
+        return zorro_attention_packed_backward_reference(q, k, v, types, o, lse, do, heads, fusion_type,
+                                                         scale)
+    types = _check_separate("zorro_attention_packed_backward", q, k, v, heads, types, fusion_type)
+    b, n, inner = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    launch_attention_backward((q.data_ptr(), k.data_ptr(), v.data_ptr(), inner),
+                              (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), inner), b, n, inner, heads,
+                              q.device, types, fusion_type, o, lse, do, default_scale(inner, heads, scale))
+    PACKED_LAUNCHES["zorro_backward"] += 1
+    return dq, dk, dv
 
 
 class ZorroAttentionQKV(torch.autograd.Function):
@@ -208,3 +355,23 @@ class ZorroAttentionQKV(torch.autograd.Function):
         dqkv = zorro_attention_qkv_backward(qkv, types, out, lse, dout.contiguous(), ctx.heads,
                                             ctx.fusion_type, ctx.scale)
         return dqkv, None, None, None, None
+
+
+class ZorroAttentionPacked(torch.autograd.Function):
+    """``zorro_attention_packed`` with its backward:
+    ``ZorroAttentionPacked.apply(q, k, v, types, heads, fusion_type, scale)``.
+    Saves q, k, v, the output and the f32 lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, types, heads, fusion_type, scale=None):
+        out, lse = zorro_attention_packed(q, k, v, types, heads, fusion_type, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, types, out, lse)
+        ctx.heads, ctx.fusion_type, ctx.scale = heads, fusion_type, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, types, out, lse = ctx.saved_tensors
+        dq, dk, dv = zorro_attention_packed_backward(q, k, v, types, out, lse, dout.contiguous(), ctx.heads,
+                                                     ctx.fusion_type, ctx.scale)
+        return dq, dk, dv, None, None, None, None

@@ -1,0 +1,221 @@
+"""Kernel K6, ``fused_block_attn``: the attention half of an encoder block in
+hand-written kernels (csrc/fused_block_attn.cu), forward and backward, the
+counterpart of the JAX package's ops/pallas_block_attn.py:
+
+    y = x + to_out(zorro_attn(to_q(h), to_kv(h))),   h = LN_g2(LN_g1(x)),
+
+both LayerNorms bias-free (f32 statistics, eps 1e-5). The casts are those of
+the Pallas bodies: LN1's output, h, q and kv, the probabilities for P.V, each
+head's output and the out projection are rounded to the activation dtype
+before the residual add; the backward's are listed at
+``fused_block_attn_backward_reference``.
+
+Weights are in nn.Linear layout: wq [I, D], wkv [2I, D], wo [D, I], gains
+g1, g2 [D] (the JAX function takes the transposes and [1, D] gains); the
+backward returns the gradients in the same layout. A CPU tensor goes to the
+plain version; a CUDA tensor launches the kernel (bf16 only, D % 16 == 0,
+dh in 32, 64, 128) or raises. ``FusedBlockAttn`` is the autograd Function
+``EncoderBlock(fused_block=True)`` calls.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_attn, cuda_build
+from .attention import upcast
+from .cuda_ffn import bias_free_norm, wgrad_splits
+
+# launches of the kernels; only the wrappers' launches add to them
+LAUNCHES = {"forward": 0, "backward": 0}
+
+
+def block_attn_supported(n: int, d: int, inner: int) -> bool:
+    """The JAX package's gate (pallas_block_attn.py:339): the shapes the
+    fused route takes, the same answers on both sides."""
+    return (n <= 768 and n % 8 == 0 and inner % 64 == 0
+            and (n * n * 4 + 12 * n * max(d, inner) * 4 + 3 * d * inner * 2) <= 14e6)
+
+
+def _ln_backward(dout, z, rstd, g):
+    """Backward of out = z * g (pallas_block_attn.py:56-62): (dx, dg), dg
+    summed over every row."""
+    dg = (dout * z).reshape(-1, z.shape[-1]).sum(dim=0)
+    dz = dout * upcast(g)
+    dx = (dz - dz.mean(dim=-1, keepdim=True) - z * (dz * z).mean(dim=-1, keepdim=True)) * rstd
+    return dx, dg
+
+
+def _forward_parts(x, g1, g2, wq, wkv):
+    """The double norm with its rounds (pallas_block_attn.py:71-79) and the
+    rounded projections: (z1, r1, z2, r2, h, qkv)."""
+    dt = x.dtype
+    z1, r1, a = bias_free_norm(x, g1)
+    z2, r2, h = bias_free_norm(a.to(dt), g2)
+    h = h.to(dt)
+    q = (upcast(h) @ upcast(wq).t()).to(dt)
+    kv = (upcast(h) @ upcast(wkv).t()).to(dt)
+    return z1, r1, z2, r2, h, torch.cat([q, kv], dim=-1)
+
+
+def fused_block_attn_reference(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int):
+    """Plain PyTorch version, the JAX ``fused_block_attn_xla``
+    (pallas_block_attn.py:293). x [B, N, D]; types [B, N] int (PAD_TYPE =
+    padding) -> y [B, N, D]."""
+    *_, qkv = _forward_parts(x, g1, g2, wq, wkv)
+    out = cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, fusion_type)
+    return x + (upcast(out) @ upcast(wo).t()).to(x.dtype)
+
+
+def fused_block_attn_backward_reference(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fusion_type: int):
+    """Plain backward with the cast points of the Pallas body
+    (pallas_block_attn.py:108-202): recompute h, q, kv; dout = dy Wo rounded;
+    per head the f32 softmax p, P = round(p), o = P V in f32 and round(o) for
+    dWo; D = rowsum(dout * o) on the unrounded o; dS = round(p (dP - D));
+    dq = round(dS K * scale), dk = round(dS^T Q * scale), dv = round(P^T dout);
+    dhid = dq Wq + dkv Wkv in f32; both LayerNorm backwards in f32;
+    dx = round(dy + dx_ln). The weight and gain gradients are f32 sums over
+    every row, cast once to their parameter's dtype. Returns
+    (dx, dg1, dg2, dwq, dwkv, dwo)."""
+    dt = x.dtype
+    b, n, d = x.shape
+    inner = wq.shape[0]
+    dh = inner // heads
+    scale = dh ** -0.5
+    z1, r1, z2, r2, h, qkv = _forward_parts(x, g1, g2, wq, wkv)
+    q, k, v = (cuda_attn.heads_view(t, heads) for t in qkv.split(inner, dim=-1))
+    dyf = upcast(dy)
+    dout = upcast((dyf @ upcast(wo)).to(dt))
+    doh = cuda_attn.heads_view(dout, heads)
+
+    s = torch.einsum("bhid,bhjd->bhij", upcast(q), upcast(k)) * scale
+    allowed = cuda_attn.zorro_allowed(types, fusion_type)[:, None]
+    p = torch.softmax(torch.where(allowed, s, torch.full_like(s, cuda_attn.NEG_INF)), dim=-1)
+    pb = upcast(p.to(dt))
+    oh = torch.einsum("bhij,bhjd->bhid", pb, upcast(v))
+    dv = torch.einsum("bhij,bhid->bhjd", pb, doh)
+    dp = torch.einsum("bhid,bhjd->bhij", doh, upcast(v))
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = upcast((p * (dp - delta)).to(dt))
+    dq = (torch.einsum("bhij,bhjd->bhid", ds, upcast(k)) * scale).to(dt)
+    dk = (torch.einsum("bhij,bhid->bhjd", ds, upcast(q)) * scale).to(dt)
+    dq, dk, dv = (upcast(cuda_attn.merge_heads(t).to(dt)) for t in (dq, dk, dv))
+    out = upcast(cuda_attn.merge_heads(oh).to(dt))
+
+    def rows(t):
+        return t.reshape(b * n, t.shape[-1])
+
+    dwo = rows(dyf).t() @ rows(out)
+    hf = rows(upcast(h))
+    dwq = rows(dq).t() @ hf
+    dkv = torch.cat([dk, dv], dim=-1)
+    dwkv = rows(dkv).t() @ hf
+    dhid = dq @ upcast(wq) + dkv @ upcast(wkv)
+    da, dg2 = _ln_backward(dhid, z2, r2, g2)
+    dx_ln, dg1 = _ln_backward(da, z1, r1, g1)
+    return ((dyf + dx_ln).to(dt), dg1.to(g1.dtype), dg2.to(g2.dtype), dwq.to(wq.dtype), dwkv.to(wkv.dtype),
+            dwo.to(wo.dtype))
+
+
+def _check(name, x, types, g1, g2, wq, wkv, wo, heads, dy=None):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"{name}: x must be [B, N, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    inner = wq.shape[0]
+    for what, t, shape in (("x", x, (b, n, d)), ("g1", g1, (d,)), ("g2", g2, (d,)), ("wq", wq, (inner, d)),
+                           ("wkv", wkv, (2 * inner, d)), ("wo", wo, (d, inner)), ("dy", dy, (b, n, d))):
+        if t is None:
+            continue
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype} for {what}")
+        if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous() or t.data_ptr() % 32:
+            raise ValueError(f"{name}: {what} must be a contiguous, 32-byte aligned tensor of shape {shape} "
+                             f"on {x.device}, got {tuple(t.shape)}")
+    if d % 16:
+        raise ValueError(f"{name}: D = {d} is not a multiple of 16")
+    if inner % heads or inner // heads not in cuda_attn.SUPPORTED_DH:
+        raise ValueError(f"{name}: head dim {inner / heads:g} not in {cuda_attn.SUPPORTED_DH}")
+    if tuple(types.shape) != (b, n) or types.device != x.device:
+        raise ValueError(f"{name}: types must be [B, N] = {(b, n)} on {x.device}")
+    return types.to(torch.int32).contiguous()
+
+
+def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int):
+    """y [B, N, D] of the attention half-block; x [B, N, D], types [B, N]."""
+    if x.device.type == "cpu":
+        return fused_block_attn_reference(x, types, g1, g2, wq, wkv, wo, heads, fusion_type)
+    types = _check("fused_block_attn", x, types, g1, g2, wq, wkv, wo, heads)
+    b, n, d = x.shape
+    inner = wq.shape[0]
+    y = torch.empty_like(x)
+    qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)  # workspace
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.bind("fused_block_attn.cu", "fused_block_attn_fwd_bf16",
+                         [p] * 9 + [i, i, i, i, i, ctypes.c_float, i, p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(), wkv.data_ptr(),
+                 wo.data_ptr(), y.data_ptr(), qkv.data_ptr(), b, n, d, heads, inner // heads,
+                 float((inner // heads) ** -0.5), int(fusion_type), stream)
+    cuda_build.check_launch(err, "fused_block_attn")
+    LAUNCHES["forward"] += 1
+    return y
+
+
+def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fusion_type: int):
+    """(dx, dg1, dg2, dwq, dwkv, dwo) of ``fused_block_attn``, weights in
+    nn.Linear layout."""
+    if x.device.type == "cpu":
+        return fused_block_attn_backward_reference(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type)
+    types = _check("fused_block_attn_backward", x, types, g1, g2, wq, wkv, wo, heads, dy)
+    b, n, d = x.shape
+    inner = wq.shape[0]
+    m = b * n
+    dev, bf = x.device, x.dtype
+    lib = cuda_build.load("fused_block_attn.cu")
+    splits = wgrad_splits(m)
+    dx, dg1, dg2 = torch.empty_like(x), torch.empty_like(g1), torch.empty_like(g2)
+    dw_qkv = torch.empty((3 * inner, d), dtype=bf, device=dev)  # dWq, then dWkv
+    dwo = torch.empty_like(wo)
+    qkv, dqkv = (torch.empty((b, n, 3 * inner), dtype=bf, device=dev) for _ in range(2))
+    h = torch.empty_like(x)
+    out, dout = (torch.empty((b, n, inner), dtype=bf, device=dev) for _ in range(2))
+    lse, delta = (torch.empty((b, heads, n), dtype=torch.float32, device=dev) for _ in range(2))
+    part = torch.empty((splits * (3 * inner * d + d * inner),), dtype=torch.float32, device=dev)
+    vec = torch.empty((-(-m // lib.fused_block_attn_row_block()), 2 * d), dtype=torch.float32, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = cuda_build.bind("fused_block_attn.cu", "fused_block_attn_bwd_bf16",
+                         [p] * 22 + [i, i, i, i, i, ctypes.c_float, i, i, p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(), wkv.data_ptr(),
+                 wo.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), dw_qkv.data_ptr(),
+                 dwo.data_ptr(), qkv.data_ptr(), h.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(), vec.data_ptr(), b, n, d, heads,
+                 inner // heads, float((inner // heads) ** -0.5), int(fusion_type), splits, stream)
+    cuda_build.check_launch(err, "fused_block_attn_backward")
+    LAUNCHES["backward"] += 1
+    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
+
+
+class FusedBlockAttn(torch.autograd.Function):
+    """``fused_block_attn`` with its backward:
+    ``FusedBlockAttn.apply(x, types, g1, g2, wq, wkv, wo, heads,
+    fusion_type)``. Saves the inputs; the backward recomputes the rest, as
+    the TPU kernel does."""
+
+    @staticmethod
+    def forward(ctx, x, types, g1, g2, wq, wkv, wo, heads, fusion_type):
+        ctx.save_for_backward(x, types, g1, g2, wq, wkv, wo)
+        ctx.heads, ctx.fusion_type = heads, fusion_type
+        return fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads, fusion_type)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, types, g1, g2, wq, wkv, wo = ctx.saved_tensors
+        dx, dg1, dg2, dwq, dwkv, dwo = fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy.contiguous(),
+                                                                 ctx.heads, ctx.fusion_type)
+        return dx, None, dg1, dg2, dwq, dwkv, dwo, None, None

@@ -2,11 +2,12 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. A library is
-named after a hash of its source and flags, so an edited source is rebuilt
-and a stale build is never loaded. Builds land in ``build/kernels/`` at the
-root of the checkout (git-ignored). Nothing is built when this module is
-imported: a kernel is built the first time its wrapper launches it, or all of
-them at once by :func:`build_all`.
+named after a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and a stale build is never
+loaded. Builds land in ``build/kernels/`` at the root of the checkout
+(git-ignored). Nothing is built when this module is imported: a kernel is
+built the first time its wrapper launches it, or all of them at once by
+:func:`build_all`.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("zorro_attention.cu", "fused_ffn.cu", "fused_ffn_bwd.cu", "fusion_row_attention.cu",
-           "ms_deform_attn.cu", "point_sample.cu")
+           "ms_deform_attn.cu", "point_sample.cu", "fused_block_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
 
@@ -40,6 +41,8 @@ def nvcc() -> str:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 

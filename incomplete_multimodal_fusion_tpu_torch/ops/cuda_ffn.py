@@ -38,7 +38,7 @@ def _gelu_parts(g: torch.Tensor):
     return g * cdf, cdf + g * pdf
 
 
-def _norm(x, gamma):
+def bias_free_norm(x, gamma):
     """Bias-less LayerNorm in f32: (z, rstd, z * gamma)."""
     xf = upcast(x)
     mean = xf.mean(dim=-1, keepdim=True)
@@ -54,7 +54,7 @@ def geglu_ffn_reference(x, gamma, w_in, w_out):
     the norm and after the GEGLU product. x [M, D], gamma [D],
     w_in [2I, D], w_out [D, I] -> [M, D]."""
     inner = w_out.shape[1]
-    xn = _norm(x, gamma)[2].to(x.dtype)
+    xn = bias_free_norm(x, gamma)[2].to(x.dtype)
     u = upcast(xn) @ upcast(w_in).t()
     val, gate = u[:, :inner], u[:, inner:]
     a = (val * F.gelu(gate)).to(x.dtype)
@@ -70,7 +70,7 @@ def geglu_ffn_backward_reference(x, gamma, w_in, w_out, dy):
     operand's dtype and layout."""
     dt = x.dtype
     inner = w_out.shape[1]
-    z, rstd, xn = _norm(x, gamma)
+    z, rstd, xn = bias_free_norm(x, gamma)
     xn = xn.to(dt)
     u = upcast(xn) @ upcast(w_in).t()
     val, gate = u[:, :inner], u[:, inner:]

@@ -3,8 +3,11 @@ PyTorch versions, on the card, in bf16 (the deformable-attention kernel K4
 in f32), over the edge cases the model's shapes do not reach: ragged N and M
 (not multiples of the tiles), every supported head width, T from 1 to 8
 slots, a query row whose first key tiles are all masked, non-square levels,
-channel counts that are not 32 and sampling locations past every border.
-Also the autograd Functions' launches and the wrappers' refusals. These tests need a CUDA card and skip without one; on a
+channel counts that are not 32 and sampling locations past every border;
+K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile) and the fused
+attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
+(the weight-gradient sums). Also the autograd Functions' launches and the
+wrappers' refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
@@ -16,8 +19,8 @@ import pytest
 import torch
 
 from incomplete_multimodal_fusion_tpu_torch import ops
-from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_ffn, cuda_fusion_attn, cuda_msda,
-                                                        cuda_points)
+from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_ffn, cuda_fusion_attn,
+                                                        cuda_msda, cuda_points, cuda_zorro_sparse)
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +410,151 @@ def test_point_sample_wrapper_refuses_what_the_kernel_does_not_take(dev):
         cuda_points.point_sample(masks.transpose(1, 2), coords)
     with pytest.raises(ValueError, match="bad shapes"):
         cuda_points.point_sample(masks, coords, group=3)
+
+
+# ---------------------------------------------------------------------------
+# K1's separate-q/k/v and tile-skip modes, K6 / K6b
+# ---------------------------------------------------------------------------
+
+def _attention_backward(out, lse, seed=50):
+    return _randn(out.device, *out.shape, seed=seed)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("counts,pad,fusion", [((70, 0, 50), 9, 30), ((1, 1, 1), 0, 1)])
+def test_packed_mode_matches_plain_and_the_slab_kernel(dev, dh, counts, pad, fusion):
+    """Separate q, k, v: within REL_L2 of the plain version, forward and
+    backward, and bitwise the slab kernel's result on the same values."""
+    types = _types(dev, counts, pad, fusion).expand(2, -1).contiguous()
+    heads = 2
+    qkv = _randn(dev, 2, types.shape[1], 3 * heads * dh, seed=51)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    out, lse = cuda_attn.zorro_attention_packed(q, k, v, types, heads, 3, return_lse=True)
+    ref, ref_lse = cuda_attn.zorro_attention_packed_reference(q, k, v, types, heads, 3, return_lse=True)
+    do = _attention_backward(out, lse)
+    grads = cuda_attn.zorro_attention_packed_backward(q, k, v, types, out, lse, do, heads, 3)
+    ref_grads = cuda_attn.zorro_attention_packed_backward_reference(q, k, v, types, ref, ref_lse, do, heads, 3)
+    slab_out, slab_lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+    slab_grads = cuda_attn.zorro_attention_qkv_backward(qkv, types, slab_out, slab_lse, do, heads, 3)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= REL_L2
+    assert _rel_all(grads, ref_grads) <= REL_L2
+    assert torch.equal(out, slab_out) and torch.equal(lse, slab_lse)
+    assert all(torch.equal(g, s) for g, s in zip(grads, slab_grads.chunk(3, dim=-1)))
+
+
+SPARSE_ROWS = {  # (type blocks, tiles): N = 128 x tiles, PAD to the end
+    "flagship": ([(0, 192), (1, 192), (3, 256)], 5),
+    "single-type tiles": ([(0, 128), (1, 128), (2, 128), (3, 128)], 4),
+    "pure-PAD tail tile": ([(0, 100), (1, 100), (2, 100), (3, 100)], 6),
+}
+
+
+def _sparse_types(dev, layout, b):
+    blocks, nt = SPARSE_ROWS[layout]
+    row = [t for t, c in blocks for _ in range(c)]
+    row += [255] * (nt * 128 - len(row))
+    return torch.tensor([row] * b, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", sorted(SPARSE_ROWS))
+def test_sparse_mode_matches_plain_and_dense(dev, dh, layout):
+    """Tile skipping: within REL_L2 of the plain version (allowed & active)
+    on every row, forward and backward, and of dense K1 / K1b on the valid
+    rows."""
+    types = _sparse_types(dev, layout, 2)
+    heads = 2
+    qkv = _randn(dev, 2, types.shape[1], 3 * heads * dh, seed=52)
+    out, lse = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, types, heads, 3, return_lse=True)
+    ref, ref_lse = cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv, types, heads, 3, return_lse=True)
+    do = _attention_backward(out, lse)
+    dqkv = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv, types, out, lse, do, heads, 3)
+    ref_dqkv = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(qkv, types, ref, ref_lse, do,
+                                                                               heads, 3)
+    dense, dense_lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+    dense_dqkv = cuda_attn.zorro_attention_qkv_backward(qkv, types, dense, dense_lse, do, heads, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(dqkv).all()
+    assert _rel(out, ref) <= REL_L2
+    assert _rel_all(dqkv.chunk(3, dim=-1), ref_dqkv.chunk(3, dim=-1)) <= REL_L2
+    valid = types != 255
+    assert _rel(out[valid], dense[valid]) <= REL_L2
+    assert _rel_all(dqkv[valid].chunk(3, dim=-1), dense_dqkv[valid].chunk(3, dim=-1)) <= REL_L2
+
+
+def _block_case(dev, b, n, d, heads, dh, seed=60):
+    inner = heads * dh
+    counts = (n // 4, n // 5, n // 6)
+    fusion = n // 4
+    pad = n - sum(counts) - fusion
+    types = _types(dev, counts, pad, fusion).expand(b, -1).contiguous()
+    x = _randn(dev, b, n, d, seed=seed)
+    g1 = (1 + 0.1 * _randn(dev, d, seed=seed + 1).float()).to(torch.bfloat16)
+    g2 = (1 + 0.1 * _randn(dev, d, seed=seed + 2).float()).to(torch.bfloat16)
+    wq = _randn(dev, inner, d, scale=d ** -0.5, seed=seed + 3)
+    wkv = _randn(dev, 2 * inner, d, scale=d ** -0.5, seed=seed + 4)
+    wo = _randn(dev, d, inner, scale=inner ** -0.5, seed=seed + 5)
+    dy = _randn(dev, b, n, d, seed=seed + 6)
+    return x, types, (g1, g2, wq, wkv, wo), dy
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", [(2, 70, 64, 1, 64), (1, 128, 192, 3, 64), (3, 100, 96, 3, 32),
+                                            (2, 64, 128, 1, 128), (60, 128, 192, 3, 64), (1, 33, 48, 2, 32)])
+def test_fused_block_matches_plain(dev, b, n, d, heads, dh):
+    """K6 and K6b within REL_L2 of the plain versions; the weight and gain
+    gradients are sums over all B x N rows."""
+    x, types, w, dy = _block_case(dev, b, n, d, heads, dh)
+    y = cuda_block_attn.fused_block_attn(x, types, *w, heads, 3)
+    ref = cuda_block_attn.fused_block_attn_reference(x, types, *w, heads, 3)
+    grads = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+    ref_grads = cuda_block_attn.fused_block_attn_backward_reference(x, types, *w, dy, heads, 3)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert _rel(y, ref) <= REL_L2
+    assert [g.shape for g in grads] == [r.shape for r in ref_grads]
+    for name, g, r in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), grads, ref_grads):
+        assert _rel_all([g], [r]) <= REL_L2, name
+
+
+def test_new_functions_launch_their_kernels(dev):
+    """FusedBlockAttn, ZorroAttentionPacked and ZorroSparseAttentionQKV each
+    launch their forward kernel once and their backward kernel once."""
+    ops.reset_kernel_launches()
+    x, types, w, _ = _block_case(dev, 1, 64, 64, 1, 64)
+    x.requires_grad_()
+    w = [t.requires_grad_() for t in w]
+    cuda_block_attn.FusedBlockAttn.apply(x, types, *w, 1, 3).float().sum().backward()
+    q, k, v = (_randn(dev, 1, 64, 64, seed=s).requires_grad_() for s in (70, 71, 72))
+    cuda_attn.ZorroAttentionPacked.apply(q, k, v, types, 1, 3).float().sum().backward()
+    sparse_types = _sparse_types(dev, "single-type tiles", 1)
+    qkv = _randn(dev, 1, 512, 3 * 64, seed=73).requires_grad_()
+    cuda_zorro_sparse.ZorroSparseAttentionQKV.apply(qkv, sparse_types, 1, 3).float().sum().backward()
+    counts = {k_: n for k_, n in ops.kernel_launches().items() if n}
+    assert counts == {"fused_block_attn/forward": 1, "fused_block_attn/backward": 1,
+                      "zorro_attention_packed/zorro": 1, "zorro_attention_packed/zorro_backward": 1,
+                      "zorro_sparse/forward": 1, "zorro_sparse/backward": 1}, counts
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (x, *w, q, k, v, qkv))
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x, types, w, _ = _block_case(dev, 1, 64, 64, 1, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_block_attn.fused_block_attn(x.float(), types, *w, 1, 3)
+    with pytest.raises(ValueError):  # a weight left on the CPU
+        cuda_block_attn.fused_block_attn(x, types, w[0].cpu(), *w[1:], 1, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_block_attn.fused_block_attn(x, types, *w, 4, 3)  # dh 16
+    q = _randn(dev, 1, 64, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_attn.zorro_attention_packed(q.float(), q.float(), q.float(), types, 1, 3)
+    with pytest.raises(ValueError):  # k on the CPU
+        cuda_attn.zorro_attention_packed(q, q.cpu(), q, types, 1, 3)
+    qkv = _randn(dev, 1, 64 * 3, 3 * 64)
+    sparse_types = torch.zeros(1, 192, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, sparse_types, 1, 3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].float(), sparse_types[:, :128], 1, 3)
+    with pytest.raises(ValueError):  # types on the CPU
+        cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].contiguous(), sparse_types[:, :128].cpu(), 1, 3)

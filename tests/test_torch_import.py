@@ -28,6 +28,7 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_points, points\n"
         "from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion\n"
         "from incomplete_multimodal_fusion_tpu_torch.train import downstream\n"
+        "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_block_attn, cuda_zorro_sparse\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
         "assert not bad, bad\n"
