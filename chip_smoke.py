@@ -12,6 +12,7 @@ matching, PointRend criterion, bf16 compute over f32 master weights), and
 checks what comes out.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
 
 Phases (any failure raises; the exit code is then non-zero):
   1. device   -- the card's name and power limit; fails without CUDA.
@@ -26,7 +27,12 @@ Phases (any failure raises; the exit code is then non-zero):
                  POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
                  the card could take (bound_ms, from the bytes and operations
-                 of these inputs).
+                 of these inputs); for K1 / K1b (at the serving, training and
+                 segmentation shapes, N = 1024 B = 30 among them) also the
+                 device-only time of the kernels and of SDPA from the
+                 profiler, its kernel count checked against the wrappers'
+                 launch counts (CUDA events around 20 back-to-back calls
+                 where the profiler dropped events).
   4. serving  -- four requests through serving.infer_closure / infer.infer:
                  launch counts per forward, finite outputs, invariance to
                  the pixels the request drops or masks, relative L2 against
@@ -170,17 +176,15 @@ def back_to_back_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
-                "point_sample", "block_attn")
-MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
-
-
-def device_breakdown(fn, reps: int = 5, top_n=8):
-    """Device time of one call of ``fn`` from torch.profiler over ``reps``
-    calls: total ms of the device kernels and copies (one stream, so their
-    sum is the busy time), their count, ms by kind (the hand-written
-    kernels, the matmul library, everything else) and the top ``top_n`` by
-    name (all of them for None)."""
+def profiled_ms(fn, own=None, reps: int = 10, warmup: int = 3):
+    """Device time of one call of ``fn`` from torch.profiler: the summed
+    durations of the device kernels and copies (one stream, so their sum is
+    the busy time) whose name holds ``own`` (all of them for None) over
+    ``reps`` calls, per call; how many such events a call had; and the ms per
+    call by name."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -190,18 +194,58 @@ def device_breakdown(fn, reps: int = 5, top_n=8):
     for evt in prof.events():
         # device kernels and copies; not the ranges that annotate them
         # (``Optimizer.step`` appears on the device timeline too)
-        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
-            per_name[evt.name] += evt.device_time_total
+        if (evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation
+                and (own is None or own in evt.name)):
+            per_name[evt.name] += evt.device_time_total / reps / 1e3
             count += 1
+    return sum(per_name.values()), count / reps, per_name
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name without namespace, template and arguments."""
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+# K1 / K1b entries: their device time apart from the wrappers' host work
+ATTENTION_ENTRIES = ("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")
+
+
+def attention_device_ms(entry, fn):
+    """The kernels' own device time of one K1 (one kernel) or K1b (two
+    kernels) call from the profiler, checked against the wrappers' launch
+    counts (the profiler has dropped events): where the event count falls
+    short, CUDA events around 20 calls back to back instead. Returns (ms,
+    how it was measured, with the backward's split by kernel)."""
+    per_call = 2 if entry.endswith("backward") else 1
+    before = sum(ops.kernel_launches().values())
+    ms, events, per_name = profiled_ms(fn, own="zorro_attention")
+    launched = (sum(ops.kernel_launches().values()) - before) / 13  # 3 warm-ups and 10 profiled calls
+    if events == launched * per_call:
+        split = " = " + " + ".join(f"{kernel_name(k)} {v:.6g}" for k, v in sorted(per_name.items())) \
+            if per_call > 1 else ""
+        return ms, "profiler" + split
+    return back_to_back_ms(fn), f"back to back (profiler saw {events:g} of {launched * per_call:g} kernels)"
+
+
+HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
+                "point_sample", "block_attn")
+MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
+
+
+def device_breakdown(fn, reps: int = 5, top_n=8):
+    """Device time of one call of ``fn`` from torch.profiler over ``reps``
+    calls (``profiled_ms``, no warm-up): total ms, the count of device
+    kernels and copies, ms by kind (the hand-written kernels, the matmul
+    library, everything else) and the top ``top_n`` by name (all of them for
+    None)."""
+    total, count, per_name = profiled_ms(fn, reps=reps, warmup=0)
     by_kind = collections.Counter()
-    for name, us in per_name.items():
+    for name, ms in per_name.items():
         low = name.lower()
         kind = ("hand-written" if any(k in low for k in HAND_WRITTEN) else
                 "matmul library" if any(k in low for k in MATMUL_LIBRARY) else "other")
-        by_kind[kind] += us / reps / 1e3
-    total = sum(per_name.values()) / reps / 1e3
-    top = [(name, us / reps / 1e3) for name, us in per_name.most_common(top_n)]
-    return total, count / reps, dict(by_kind), top
+        by_kind[kind] += ms
+    return total, count, dict(by_kind), per_name.most_common(top_n)
 
 
 def phase_device() -> str:
@@ -237,10 +281,11 @@ def phase_build():
 
 
 def packed_types(mi: masking.MaskInfo, e: int, f: int, n_dom: int) -> torch.Tensor:
-    """The PAD-coded token types the model hands kernel K1 (multimae.forward)."""
+    """The PAD-coded int32 token types the model hands kernel K1
+    (multimae.pack_tokens)."""
     types = packed_token_types(mi.order, (f,) * n_dom, e, f, n_dom)
     valid = packed_valid(mi.num_visible, e, f)
-    return torch.where(valid, types, torch.full_like(types, cuda_attn.PAD_TYPE))
+    return torch.where(valid, types, torch.full_like(types, cuda_attn.PAD_TYPE)).to(torch.int32)
 
 
 def heads_layout(qkv, heads):
@@ -442,6 +487,10 @@ def phase_kernels(dev):
                     b == 1 and "all" in label)
     for b in (1, 8):
         zorro_cases("none", f"n=256 8x32 B={b}", randn(b, 256, 3 * 256), 8, None, b == 8)
+    # the segmentation and segment-train shape: forward and backward
+    qkv_seg, seg_types = randn(30, 1024, 3 * 192), drop_types(30, ())
+    zorro_cases("zorro", "N=1024 B=30 all modalities", qkv_seg, 3, seg_types, False)
+    zorro_bwd_cases("zorro", "N=1024 B=30 all modalities", qkv_seg, 3, seg_types, False)
     # training shapes: forward and backward
     train_types = packed_types(train_mi, 384, f, 3)
     qkv_train = randn(60, 640, 3 * 192)
@@ -615,6 +664,15 @@ def phase_kernels(dev):
         ms_lib = cuda_ms(library) if library is not None else None
         bound_ms, bound_by = bound(flops, n_bytes, peak)
         fb = f" library fwd+bwd {cuda_ms(fwd_bwd[entry, label]):.6g} ms" if (entry, label) in fwd_bwd else ""
+        device = {}
+        if entry.startswith(ATTENTION_ENTRIES):
+            device["device_ms"], how = attention_device_ms(entry, kernel)
+            device["library_device_ms"], events, _ = profiled_ms(library)
+            lib_how = "profiler"
+            if events == 0:  # the profiler dropped the call's events
+                device["library_device_ms"], lib_how = back_to_back_ms(library), "back to back"
+            fb += (f"; device only: kernel {device['device_ms']:.6g} ms ({how}), library "
+                   f"{device['library_device_ms']:.6g} ms ({lib_how})")
         log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
@@ -626,7 +684,7 @@ def phase_kernels(dev):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if main:
             r.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=bound_ms, bound_by=bound_by,
-                     shape=label)
+                     shape=label, **device)
     return results
 
 
@@ -1337,10 +1395,11 @@ def phase_encoder_variants(dev, ctx):
 
     for label, fn in (("dense K1 + K1b", dense), ("tile-skip K1 + K1b", sparse),
                       ("tile-skip K1 + K1b, every tile active", every_tile_active)):
-        dev_ms, n_kernels, _, top = device_breakdown(fn, reps=5, top_n=None)
-        own = {name.split("(")[0].split("::")[-1]: ms for name, ms in top if "zorro_attention" in name}
+        dev_ms, n_kernels, _, _ = device_breakdown(fn, reps=5)
+        _, own_events, own = profiled_ms(fn, own="zorro_attention", reps=5)
+        note = "" if own_events == 3 else f" (the profiler saw {own_events:g} of the 3 kernels a call: no split)"
         log(f"[encoder-variants] {label} on block 0's slab, device ms a call: "
-            + ", ".join(f"{k} {v:.6g}" for k, v in own.items())
+            + ", ".join(f"{kernel_name(k)} {v:.6g}" for k, v in sorted(own.items())) + note
             + f"; all device work {dev_ms:.6g} in {n_kernels:.0f} kernels/copies; CUDA events around the "
             f"call (phase 3's timing, the host's launch work included) {cuda_ms(fn):.6g} ms, around 20 calls "
             f"back to back {back_to_back_ms(fn):.6g} ms a call")
@@ -1389,11 +1448,13 @@ REPLACES = {
 }
 
 
-def main() -> int:
+def main(argv) -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     kernel_results = phase_kernels(dev)
+    if argv[1:] == ["--kernels-only"]:  # phases 1-3 alone; no result line
+        return 0
     # the main paths, each run with the counts set to 0 just before it
     served = phase_serving(dev)
     trained, train_context = phase_train(dev)
@@ -1410,7 +1471,8 @@ def main() -> int:
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1420,4 +1482,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

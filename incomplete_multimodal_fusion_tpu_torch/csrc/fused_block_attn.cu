@@ -35,13 +35,16 @@
 //      read from device memory, where they stay in L2) into a bf16
 //      [B, N, 3I] workspace;
 //   2. attention pass, one block per (64-row query tile, batch row): for
-//      each head K1's tile loop (zorro_attention.cuh) over the workspace,
+//      each head a flash tile loop on wmma fragments (attend_tile_wmma,
+//      below; it leaves the head's output in shared memory, where this
+//      pass reads it, while K1's wgmma loop keeps it in registers) over the
+//      workspace,
 //      the head's output rounded into a [64, I] tile in shared memory; then
 //      y = x + round(out . Wo^T) for the tile (Wo is 72 KB, read from L2).
 // K6b, seven launches:
 //   1. the projection pass again, also writing h (dWq's and dWkv's operand);
-//   2. per (query tile, batch row): dout = round(dy . Wo), then K1's tile
-//      loop per head for the f32 output o, writing round(o) (dWo's operand),
+//   2. per (query tile, batch row): dout = round(dy . Wo), then the same
+//      tile loop per head for the f32 output o, writing round(o) (dWo's operand),
 //      the row lse and D = rowsum(dout * o);
 //   3-4. K1b's dq and dk/dv kernels with that D (not rowsum over the rounded
 //      o as in K1b), writing dq * scale, dk * scale and dv into a bf16
@@ -68,6 +71,184 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+// K6's attention tile loop: wmma fragments, the scores, probabilities and
+// output accumulator staged in shared memory per 64-key tile, synchronous
+// tile loads. K6's attention pass and K6b's prep read the head output from
+// shared memory (WmmaTile::so, ::l_row, ::m_row).
+template <int DH>
+struct WmmaLayout {
+  static constexpr int LDH = DH + 8;         // bf16 pitch of the q/k/v tiles
+  static constexpr int LDS = zorro::BK + 4;  // f32 pitch of the score tile
+  static constexpr int LDP = zorro::BK + 8;  // bf16 pitch of the probability tile
+  static constexpr int LDO = DH + 4;         // f32 pitch of the output accumulator
+  static constexpr size_t Q = size_t(BQ) * LDH * sizeof(bf16);
+  static constexpr size_t K = size_t(zorro::BK) * LDH * sizeof(bf16);
+  static constexpr size_t S = size_t(BQ) * LDS * sizeof(float);
+  static constexpr size_t P = size_t(BQ) * LDP * sizeof(bf16);
+  static constexpr size_t O = size_t(BQ) * LDO * sizeof(float);
+  static constexpr size_t ROWS = size_t(3) * BQ * sizeof(float);
+  static constexpr size_t TYPES = size_t(BQ + zorro::BK) * sizeof(int);
+  static constexpr size_t BYTES = Q + 2 * K + S + P + O + ROWS + TYPES;
+};
+
+// The forward's shared-memory tiles.
+template <int DH>
+struct WmmaTile {
+  bf16* sq;
+  bf16* sk;
+  bf16* sv;
+  float* ss;
+  bf16* sp;
+  float* so;
+  float* m_row;
+  float* l_row;
+  float* c_row;
+  int* tq;
+  int* tk;
+
+  __device__ explicit WmmaTile(unsigned char* smem) {
+    using L = WmmaLayout<DH>;
+    sq = reinterpret_cast<bf16*>(smem);
+    sk = reinterpret_cast<bf16*>(smem + L::Q);
+    sv = reinterpret_cast<bf16*>(smem + L::Q + L::K);
+    ss = reinterpret_cast<float*>(smem + L::Q + 2 * L::K);
+    sp = reinterpret_cast<bf16*>(smem + L::Q + 2 * L::K + L::S);
+    so = reinterpret_cast<float*>(smem + L::Q + 2 * L::K + L::S + L::P);
+    m_row = reinterpret_cast<float*>(smem + L::Q + 2 * L::K + L::S + L::P + L::O);
+    l_row = m_row + BQ;
+    c_row = l_row + BQ;
+    tq = reinterpret_cast<int*>(c_row + BQ);
+    tk = tq + BQ;
+  }
+};
+
+// Copies rows [r0, r0 + 64) of a dh-wide column slice into shared memory,
+// 8 bf16 (16 bytes) per thread per step; rows at or past n become zeros.
+template <int DH>
+__device__ __forceinline__ void load_tile_sync(bf16* dst, const bf16* src, int r0, int n, long long rstride) {
+  constexpr int CHUNKS = DH / 8;
+  for (int i = threadIdx.x; i < 64 * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * rstride + c);
+    *reinterpret_cast<uint4*>(dst + r * WmmaLayout<DH>::LDH + c) = val;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One head's attention for the 64 query rows [q0, q0 + 64) of batch row b:
+// leaves the f32 numerator of the output in t.so (pitch LDO), the row sums
+// in t.l_row and the row maxima in t.m_row; each warp's 16 rows are its own.
+// tg: batch row b's token types (MODE_ZORRO).
+template <int DH, int MODE>
+__device__ __forceinline__ void attend_tile_wmma(const WmmaTile<DH>& t, const zorro::Operands& in, const int32_t* tg,
+                                            const int32_t* active, int nt, int b, int h, int q0, int n,
+                                            float scale, int fusion_type) {
+  using L = WmmaLayout<DH>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * 16;  // this warp's first query row in the tile
+  const bf16* qg = in.q + (long long)b * in.bstride + h * DH;
+  const bf16* kg = in.k + (long long)b * in.bstride + h * DH;
+  const bf16* vg = in.v + (long long)b * in.bstride + h * DH;
+
+  __syncthreads();  // every warp is done with the tiles' previous use
+  load_tile_sync<DH>(t.sq, qg, q0, n, in.rstride);
+  for (int i = threadIdx.x; i < BQ; i += THREADS)
+    t.tq[i] = (MODE == zorro::MODE_ZORRO && q0 + i < n) ? tg[q0 + i] : zorro::PAD_TYPE;
+  for (int i = lane; i < 16 * DH; i += 32) t.so[(row0 + i / DH) * L::LDO + i % DH] = 0.0f;
+  if (lane < 16) {
+    t.m_row[row0 + lane] = -CUDART_INF_F;  // no key seen yet
+    t.l_row[row0 + lane] = 0.0f;
+  }
+
+  for (int k0 = 0; k0 < n; k0 += zorro::BK) {
+    if (!zorro::pair_active(active, nt, b, q0, k0)) continue;  // the same for the whole block
+    __syncthreads();  // every warp is done with the previous k/v tile
+    load_tile_sync<DH>(t.sk, kg, k0, n, in.rstride);
+    load_tile_sync<DH>(t.sv, vg, k0, n, in.rstride);
+    for (int i = threadIdx.x; i < zorro::BK; i += THREADS)
+      t.tk[i] = (MODE == zorro::MODE_ZORRO && k0 + i < n) ? tg[k0 + i] : zorro::PAD_TYPE;
+    __syncthreads();
+
+    // scores of this warp's 16 rows against the 64 keys: 4 fragments
+    for (int j = 0; j < zorro::BK / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.0f);
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+        wmma::load_matrix_sync(a, t.sq + row0 * L::LDH + kk * 16, L::LDH);
+        wmma::load_matrix_sync(bt, t.sk + (j * 16) * L::LDH + kk * 16, L::LDH);
+        wmma::mma_sync(acc, a, bt, acc);
+      }
+      wmma::store_matrix_sync(t.ss + row0 * L::LDS + j * 16, acc, L::LDS, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // online softmax, one row at a time; lane owns keys lane and lane + 32
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = row0 + rr;
+      const int t_q = t.tq[r];
+      float s[2];
+      bool in_range[2];
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        in_range[u] = k0 + c < n;
+        float v = t.ss[r * L::LDS + c] * scale;  // scale first, then mask
+        if (MODE == zorro::MODE_ZORRO) {
+          const int t_k = t.tk[c];
+          const bool ok = (t_q == t_k) || (t_q == fusion_type && t_k != zorro::PAD_TYPE);
+          v = ok ? v : zorro::NEG_INF;
+        }
+        s[u] = in_range[u] ? v : -CUDART_INF_F;
+      }
+      const float m_old = t.m_row[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
+      float p_sum = 0.0f;
+      for (int u = 0; u < 2; ++u) {
+        const float p = in_range[u] ? expf(s[u] - m_new) : 0.0f;
+        p_sum += p;
+        t.sp[r * L::LDP + lane + 32 * u] = __float2bfloat16(p);
+      }
+      p_sum = zorro::warp_sum(p_sum);
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);  // 0 on the first tile
+        t.l_row[r] = t.l_row[r] * corr + p_sum;
+        t.m_row[r] = m_new;
+        t.c_row[r] = corr;
+      }
+    }
+    __syncwarp();
+
+    for (int i = lane; i < 16 * DH; i += 32) {
+      const int r = row0 + i / DH;
+      t.so[r * L::LDO + i % DH] *= t.c_row[r];
+    }
+    __syncwarp();
+
+    // O[16 rows, DH] += P[16 rows, 64] . V[64, DH]
+    for (int c = 0; c < DH / 16; ++c) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::load_matrix_sync(acc, t.so + row0 * L::LDO + c * 16, L::LDO, wmma::mem_row_major);
+      for (int kk = 0; kk < zorro::BK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+        wmma::load_matrix_sync(a, t.sp + row0 * L::LDP + kk * 16, L::LDP);
+        wmma::load_matrix_sync(bv, t.sv + (kk * 16) * L::LDH + c * 16, L::LDH);
+        wmma::mma_sync(acc, a, bv, acc);
+      }
+      wmma::store_matrix_sync(t.so + row0 * L::LDO + c * 16, acc, L::LDO, wmma::mem_row_major);
+    }
+    __syncwarp();
+  }
+}
 
 constexpr float LN_EPS = 1e-5f;
 constexpr int PM = 64;    // rows per block of the projection pass
@@ -173,7 +354,7 @@ block_attn_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g1, 
 
 template <int DH>
 size_t fwd_bytes(int inner) {
-  return align128(zorro::Layout<DH>::BYTES) + size_t(BQ) * (inner + 8) * sizeof(bf16);
+  return align128(WmmaLayout<DH>::BYTES) + size_t(BQ) * (inner + 8) * sizeof(bf16);
 }
 
 // Attention pass of K6: block (64-row query tile, batch row).
@@ -182,10 +363,10 @@ __global__ void __launch_bounds__(THREADS)
 block_attn_fwd_kernel(const bf16* __restrict__ qkv, const int32_t* __restrict__ types, const bf16* __restrict__ x,
                       const bf16* __restrict__ wo, bf16* __restrict__ y, int n, int heads, int d, float scale,
                       int fusion_type) {
-  using L = zorro::Layout<DH>;
+  using L = WmmaLayout<DH>;
   static_assert(L::LDS == LDST, "the out projection stages in the score tile's rows");
   extern __shared__ __align__(128) unsigned char smem[];
-  const zorro::FwdTile<DH> t(smem);
+  const WmmaTile<DH> t(smem);
   const int inner = heads * DH;
   const int ldo = inner + 8;
   bf16* ot = reinterpret_cast<bf16*>(smem + align128(L::BYTES));  // [64, I] head outputs
@@ -196,7 +377,7 @@ block_attn_fwd_kernel(const bf16* __restrict__ qkv, const int32_t* __restrict__ 
   const zorro::Operands in{qkv, qkv + inner, qkv + 2 * inner, (long long)n * 3 * inner, 3LL * inner};
 
   for (int h = 0; h < heads; ++h) {
-    zorro::attend_tile<DH, zorro::MODE_ZORRO>(t, in, types + (long long)b * n, nullptr, 0, b, h, q0, n, scale,
+    attend_tile_wmma<DH, zorro::MODE_ZORRO>(t, in, types + (long long)b * n, nullptr, 0, b, h, q0, n, scale,
                                               fusion_type);
     for (int i = lane; i < 16 * DH; i += 32) {
       const int r = row0 + i / DH;
@@ -241,7 +422,7 @@ block_attn_fwd_kernel(const bf16* __restrict__ qkv, const int32_t* __restrict__ 
 
 template <int DH>
 __host__ __device__ size_t prep_region(int d) {
-  const size_t tiles = align128(zorro::Layout<DH>::BYTES);
+  const size_t tiles = align128(WmmaLayout<DH>::BYTES);
   const size_t dy_tile = align128(size_t(BQ) * (d + 8) * sizeof(bf16));
   return tiles > dy_tile ? tiles : dy_tile;
 }
@@ -259,9 +440,9 @@ block_attn_bwd_prep_kernel(const bf16* __restrict__ qkv, const int32_t* __restri
                            const bf16* __restrict__ dy, const bf16* __restrict__ wo, bf16* __restrict__ out_ws,
                            bf16* __restrict__ dout_ws, float* __restrict__ lse, float* __restrict__ delta, int n,
                            int heads, int d, float scale, int fusion_type) {
-  using L = zorro::Layout<DH>;
+  using L = WmmaLayout<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const zorro::FwdTile<DH> t(smem);
+  const WmmaTile<DH> t(smem);
   bf16* dyt = reinterpret_cast<bf16*>(smem);  // the dy tile, in the tiles' space before the head loop
   const int inner = heads * DH;
   const int ldo = inner + 8;
@@ -317,7 +498,7 @@ block_attn_bwd_prep_kernel(const bf16* __restrict__ qkv, const int32_t* __restri
   // and D = rowsum(dout * o) on the f32 o, the warp's 16 rows
   const zorro::Operands in{qkv, qkv + inner, qkv + 2 * inner, (long long)n * 3 * inner, 3LL * inner};
   for (int h = 0; h < heads; ++h) {
-    zorro::attend_tile<DH, zorro::MODE_ZORRO>(t, in, types + (long long)b * n, nullptr, 0, b, h, q0, n, scale,
+    attend_tile_wmma<DH, zorro::MODE_ZORRO>(t, in, types + (long long)b * n, nullptr, 0, b, h, q0, n, scale,
                                               fusion_type);
     for (int rr = 0; rr < 16; ++rr) {
       const int r = row0 + rr;

@@ -32,50 +32,98 @@
 //
 // What bounds it on an H100: at the shapes of the model (N = 256..1024,
 // dh 32 or 64) the work is the products per (query tile, key tile) on the
-// tensor cores -- two in the forward, five in the backward -- plus the
-// softmax on the CUDA cores; the bytes are only q/k/v/out and their
-// gradients (a few to a few tens of MB), so the kernels are bound by issue
-// and latency, not by HBM. The [N, N] scores, the mask and the
-// probabilities never leave the SM: they live in shared memory one 64 x 64
-// tile at a time, which is what the Pallas kernels kept in VMEM.
+// tensor cores -- two in the forward, seven in the backward's two kernels
+// -- plus the softmax on the CUDA cores; the bytes are only q/k/v/out and
+// their gradients (a few to a few tens of MB). The [N, N] scores, the mask
+// and the probabilities never leave the SM, which is what the Pallas kernels
+// kept in VMEM. Since the tensor cores are far from their peak at these
+// sizes, what bounds the kernels is issue and latency: the design keeps
+// every accumulator in registers, feeds the tensor cores with wgmma, and
+// overlaps each tile's loads with the previous tile's work.
 //
-// Forward design: one block per (64-row query tile, head, batch row), 4
-// warps, each warp owning 16 query rows. Per key tile of 64: Q.K^T with bf16
-// wmma fragments and f32 accumulators into shared memory, scale in f32, mask
-// (finite NEG_INF = -0.7 * FLT_MAX, as pallas_attn.py:37), online softmax in
-// f32 (running max m, running sum l, output rescaled by exp(m_old - m_new)),
-// P cast to bf16 and P.V accumulated in f32 in shared memory. The output is
-// divided by l at the end, and the row log-sum-exp m + log(l) is written
-// when the caller asks for it (training; serving passes a null pointer).
-// Keys past N (the ragged edge) get probability 0. A query row whose first
-// key tiles are all masked starts from m = NEG_INF with exp(0) = 1 weights;
-// the first real key makes the correction factor exp(NEG_INF - m_new) = 0,
-// which clears them. Self-attention rows are never empty (a query always
-// matches itself; a PAD query matches PAD keys). q, k and v are read as
-// strided column slices of their views, 16 bytes per thread per load.
+// Forward design (zorro_attention.cuh): one warpgroup (4 warps) per
+// (64-row query tile, head, batch row). Per active key tile of 64:
+//   * S = Q K^T by wgmma m64n64k16 with Q and K in shared memory (both
+//     K-major) and the f32 accumulator in registers: a thread holds 2 rows
+//     x 16 keys;
+//   * scale and mask on that fragment: s * scale * log2(e), then masked
+//     keys to the finite NEG_INF = -0.7 * FLT_MAX (pallas_attn.py:37) and
+//     keys past N to -inf, so no masked score can overflow to -inf and make
+//     -inf - (-inf) = NaN; online softmax in f32 with the row max by two
+//     quad shuffles, exp2f, and a thread-partial row sum reduced once at
+//     the end;
+//   * P = exp2(s - m) converted in registers to bf16 A fragments (the
+//     accumulator layout of S is the A layout of the next product) and
+//     O += P V by wgmma m64nDHk16 with A from registers and V MN-major in
+//     shared memory (the transpose bit); O stays in registers and is
+//     rescaled there by exp2(m_old - m_new).
+// The epilogue divides by the row sum, stages O as bf16 in the Q tile and
+// stores it 16 bytes a thread; lse = m ln 2 + ln l when asked for. A row
+// whose first key tiles are all masked has m = NEG_INF with weights
+// exp2(0) = 1 until its first real key, whose correction exp2(NEG_INF -
+// m_new) = 0 clears them. Self-attention rows are never empty.
 //
-// Tile-skip mode: the TPU kernel made two passes over the active tiles of a
-// 128-row tile (max, then exp and P.V). Here the online softmax needs one:
-// a skipped key tile is never loaded and adds nothing to the running max or
-// sum, which a masked tile would not change either (exp(NEG_INF - m) = 0).
-// The diagonal tile is always active, so no row is empty; a PAD query row
-// sees only the PAD keys of the active tiles, as on the TPU.
+// Copies: cp.async (16 bytes a thread, zero-filled past N) into a ring of
+// two stages: tile k + 1's K, V and key types load while tile k computes;
+// cp.async.wait_group, fence.proxy.async (the copies are generic-proxy
+// writes, wgmma reads through the async proxy) and one barrier of the
+// warpgroup per tile. Not TMA: the operands are strided column slices of
+// three views (slab, separate q/k/v, the gradient view) at any N; tensor
+// maps would be encoded on the host per call and per view (the host work
+// that phase 3 showed to matter), and a single warpgroup issues the copies
+// of a 64-row tile in a few instructions a thread. The tiles are written
+// in wgmma's swizzled layout (128-byte rows, 64-byte for dh 32; dh 128 as
+// two 64-column blocks), so the loads, the products and the epilogue's
+// staging are free of bank conflicts.
 //
-// Backward design: no atomics, two kernels. The probabilities are recomputed
-// tile by tile as P = exp(s * scale (masked) - lse), with the forward's lse.
-//   * dq kernel, one block per (query tile, head, batch row): computes
-//     D = rowsum(dO * O) in f32 for its rows (pallas_attn.py:552) and stores
-//     it for the second kernel; then per key tile S = Q K^T, dP = dO V^T,
-//     dS = P (dP - D) cast to bf16, dQ += dS K, kept in wmma accumulators;
-//     dQ * scale is written at the end.
-//   * dk/dv kernel, one block per (key tile, head, batch row), launched
-//     after it on the same stream: per query tile S^T = K Q^T and
-//     dP^T = V dO^T, P^T cast to bf16, dS^T = P^T (dP^T - D) cast to bf16,
-//     dV += P^T dO and dK += dS^T Q in wmma accumulators; dK * scale and dV
-//     are written at the end.
-// Each block writes straight into its strided column slice of the gradient
-// view (one [B, N, 3I] dqkv, or three [B, N, I] tensors). Simple and correct
-// first: no TMA, no wgmma, no pipelining of the next tile.
+// Tile-skip mode: a skipped key tile is never loaded and adds nothing to
+// the running max or sum, which a masked tile would not change either
+// (exp2(NEG_INF - m) = 0). The diagonal tile is always active, so no row
+// is empty; a PAD query row sees only the PAD keys of the active tiles, as
+// on the TPU. The TPU kernel made two passes over the active tiles (max,
+// then exp and P.V); the online softmax needs one.
+//
+// Backward design: no atomics, two kernels, so the gradients are bitwise
+// the same from run to run. P is recomputed from the forward's lse as
+// exp2(s * scale * log2(e) (masked) - lse * log2(e)).
+//   * dq kernel, one warpgroup per (query tile, head, batch row): first
+//     D = rowsum(dO * O) in f32 for its rows, two threads a row with
+//     16-byte loads (pallas_attn.py:552), stored for the second kernel
+//     (K6b passes its own D instead: delta_given); then per key tile S =
+//     Q K^T and dP = dO V^T (wgmma, Q, dO, K, V in shared memory, two
+//     groups: P is computed on the fragment while dP is in flight), dS =
+//     P (dP - D) cast to bf16 A fragments, dQ += dS K by wgmma with K
+//     MN-major; dQ * scale written at the end.
+//   * dk/dv kernel, one warpgroup per (key tile, head, batch row), launched
+//     after it on the same stream: per query tile S^T = K Q^T and dP^T =
+//     V dO^T, so the keys are the rows of every fragment (P^T computed
+//     while dP^T is in flight); P^T and dS^T = P^T (dP^T - D) are cast to
+//     bf16 A fragments in registers, then dV += P^T dO and dK += dS^T Q by
+//     wgmma with dO and Q MN-major. dK * scale and dV are written at the
+//     end. At dh 64 the masked kernel is capped at 168 registers, three
+//     blocks an SM (about 190 registers and two blocks uncapped), which
+//     made it faster on an H100 (tools/ptxas_report.py and chip_smoke.py
+//     phase 3).
+//   Computing the transposed scores in the dk/dv kernel puts every B
+//   operand in shared memory in a layout wgmma takes, so no product needs
+//   mma.sync and nothing but the loaded tiles is staged in shared memory.
+//   Each kernel double-buffers its streamed tiles (K, V and key types; or
+//   Q, dO and the query types, lse and D) by cp.async as the forward does.
+// The accumulators live in registers across the whole loop: O (forward),
+// dQ (dq kernel), dK and dV (dk/dv kernel). Each block writes straight
+// into its strided column slice of the gradient view (one [B, N, 3I] dqkv,
+// or three [B, N, I] tensors), 16 bytes a thread, through the tile it no
+// longer needs.
+//
+// Small batch: serving and segmentation at B = 1, N = 1024, 3 heads give
+// 48 forward blocks for 132 SMs. The key range is not split across blocks:
+// that would add a merge of the partial (m, l, O) -- a second launch or a
+// last-block merge -- to a forward of about 16 key tiles per block, and
+// those paths idle the card 70-87% of their time on the host's launch work
+// (PERF.md section 5), which one more launch per layer would add to.
+//
+// cudaFuncSetAttribute runs once per kernel instantiation and device
+// (allow_smem), not per launch.
 #include "zorro_attention.cuh"
 
 using zorro::bf16;
@@ -132,4 +180,21 @@ extern "C" int zorro_attention_bwd_bf16(const void* q, const void* k, const void
                                                        types_bstride, scale, fusion_type, s);
   return (int)zorro::dispatch_bwd<zorro::MODE_NONE>(dh, in, t, a, nt, op, l, d, grad, dl, 0, batch, n, heads,
                                                     types_bstride, scale, fusion_type, s);
+}
+
+// Dynamic shared memory of one block, in bytes: kernel 0 the forward, 1 the
+// dq kernel, 2 the dk/dv kernel; -1 for a dh it does not take.
+extern "C" long long zorro_attention_smem_bytes(int kernel, int dh) {
+  switch (dh * 4 + kernel) {
+    case 32 * 4 + 0: return zorro::FwdSmem<32>::BYTES;
+    case 32 * 4 + 1: return zorro::DqSmem<32>::BYTES;
+    case 32 * 4 + 2: return zorro::DkdvSmem<32>::BYTES;
+    case 64 * 4 + 0: return zorro::FwdSmem<64>::BYTES;
+    case 64 * 4 + 1: return zorro::DqSmem<64>::BYTES;
+    case 64 * 4 + 2: return zorro::DkdvSmem<64>::BYTES;
+    case 128 * 4 + 0: return zorro::FwdSmem<128>::BYTES;
+    case 128 * 4 + 1: return zorro::DqSmem<128>::BYTES;
+    case 128 * 4 + 2: return zorro::DkdvSmem<128>::BYTES;
+    default: return -1;
+  }
 }

@@ -42,7 +42,7 @@ class PackedLayout(NamedTuple):
     tokens: torch.Tensor  # [B, E+F, D]: visible tokens, zero padding slots, fusion tokens
     types: torch.Tensor  # [B, E+F] token type of each slot
     valid: torch.Tensor  # [B, E+F] bool, False at padding slots
-    kernel_types: torch.Tensor  # types with PAD_TYPE at padding slots: K1's mask input
+    kernel_types: torch.Tensor  # int32 types with PAD_TYPE at padding slots: K1's mask input
     slot: torch.Tensor  # [B, T*F] packed slot of each grid position (mask_info.ids_restore)
     use: torch.Tensor  # [B, T*F] bool: the grid position holds a packed token
 
@@ -62,7 +62,7 @@ def pack_tokens(tokens_in, fusion_tokens: torch.Tensor, mask_info: MaskInfo, e: 
     n_dom, f = len(tokens_in), fusion_tokens.shape[1]
     types = packed_token_types(mask_info.order, (num_patches,) * n_dom, e, f, n_dom)
     valid = packed_valid(mask_info.num_visible, e, f)
-    kernel_types = torch.where(valid, types, torch.full_like(types, PAD_TYPE))
+    kernel_types = torch.where(valid, types, torch.full_like(types, PAD_TYPE)).to(torch.int32)
     slot = mask_info.ids_restore
     use = (slot < e) & (slot < mask_info.num_visible[:, None])
     return PackedLayout(tokens, types, valid, kernel_types, slot, use)

@@ -25,6 +25,7 @@ optional tile-skip table (ops/cuda_zorro_sparse.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -174,7 +175,7 @@ def _check_types(name, types, b, n, fusion_type, device):
         raise ValueError(f"{name}: types must be [B, N] = {(b, n)} on {device}")
     if fusion_type is None:
         raise ValueError(f"{name}: fusion_type is needed with types")
-    return types.to(torch.int32).contiguous()
+    return types.to(torch.int32).contiguous()  # no copy for the model's int32 types
 
 
 def check_qkv(name, qkv, heads, types, fusion_type):
@@ -209,6 +210,32 @@ def slab_view(qkv):
     return qkv.data_ptr(), qkv.data_ptr() + step, qkv.data_ptr() + 2 * step, 3 * inner
 
 
+@functools.cache
+def _forward_entry():
+    """K1's C entry point, bound once."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return cuda_build.bind("zorro_attention.cu", "zorro_attention_bf16",
+                           [p, p, p, ll, ll, p, p, i, p, p, i, i, i, i, ll, ll, ll, ctypes.c_float, i, i, p])
+
+
+@functools.cache
+def _backward_entry():
+    """K1b's C entry point, bound once."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return cuda_build.bind("zorro_attention.cu", "zorro_attention_bwd_bf16",
+                           [p, p, p, ll, ll, p, p, i, p, p, p, p, p, p, ll, ll, p, i, i, i, i, ll,
+                            ctypes.c_float, i, i, p])
+
+
+def _on_device(device, launch):
+    """Calls ``launch(stream)`` with the current stream of ``device``,
+    entering the device's context only when it is not the current device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream(device).cuda_stream)
+
+
 def launch_attention(view: Sequence[int], b: int, n: int, inner: int, heads: int, device,
                      types: Optional[torch.Tensor], fusion_type: Optional[int], scale: float,
                      return_lse: bool, active: Optional[torch.Tensor] = None):
@@ -220,17 +247,12 @@ def launch_attention(view: Sequence[int], b: int, n: int, inner: int, heads: int
     out = torch.empty((b, n, inner), dtype=torch.bfloat16, device=device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=device) if return_lse else None
     nt = 0 if active is None else math.isqrt(active.shape[-1])
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_bf16",
-                         [p, p, p, ll, ll, p, p, i, p, p, i, i, i, i, ll, ll, ll, ctypes.c_float, i, i, p])
     q_ptr, k_ptr, v_ptr, rstride = view
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
-                 0 if active is None else active.data_ptr(), nt, out.data_ptr(),
-                 0 if lse is None else lse.data_ptr(), b, n, heads, inner // heads, n * inner, inner,
-                 0 if types is None else n, float(scale), -1 if fusion_type is None else int(fusion_type),
-                 int(types is not None), stream)
+    err = _on_device(device, lambda stream: _forward_entry()(
+        q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
+        0 if active is None else active.data_ptr(), nt, out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+        b, n, heads, inner // heads, n * inner, inner, 0 if types is None else n, float(scale),
+        -1 if fusion_type is None else int(fusion_type), int(types is not None), stream))
     cuda_build.check_launch(err, "zorro_attention")
     return out, lse
 
@@ -248,19 +270,14 @@ def launch_attention_backward(view: Sequence[int], grad_view: Sequence[int], b: 
         _check_tensor("zorro_attention_backward", what, t, shape, dtype, device)
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=device)  # rowsum(dO * O)
     nt = 0 if active is None else math.isqrt(active.shape[-1])
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = cuda_build.bind("zorro_attention.cu", "zorro_attention_bwd_bf16",
-                         [p, p, p, ll, ll, p, p, i, p, p, p, p, p, p, ll, ll, p, i, i, i, i, ll,
-                          ctypes.c_float, i, i, p])
     q_ptr, k_ptr, v_ptr, rstride = view
     dq_ptr, dk_ptr, dv_ptr, g_rstride = grad_view
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
-                 0 if active is None else active.data_ptr(), nt, o.data_ptr(), lse.data_ptr(),
-                 do.data_ptr(), dq_ptr, dk_ptr, dv_ptr, n * g_rstride, g_rstride, delta.data_ptr(), b, n,
-                 heads, inner // heads, 0 if types is None else n, float(scale),
-                 -1 if fusion_type is None else int(fusion_type), int(types is not None), stream)
+    err = _on_device(device, lambda stream: _backward_entry()(
+        q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
+        0 if active is None else active.data_ptr(), nt, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq_ptr,
+        dk_ptr, dv_ptr, n * g_rstride, g_rstride, delta.data_ptr(), b, n, heads, inner // heads,
+        0 if types is None else n, float(scale), -1 if fusion_type is None else int(fusion_type),
+        int(types is not None), stream))
     cuda_build.check_launch(err, "zorro_attention_backward")
 
 

@@ -44,6 +44,14 @@ def _check_balancer(cfg) -> None:
         raise NotImplementedError(f"task_balancer={cfg.optim.task_balancer!r} is not ported yet")
 
 
+def _check_ema(cfg) -> None:
+    """The JAX step keeps an EMA shadow of the weights (pretrain.py:205-209,
+    :294-298); this port's step does not, so it refuses the option rather
+    than drop it."""
+    if cfg.train.use_ema:
+        raise NotImplementedError("train.use_ema=True (EMA weights) is not ported yet")
+
+
 def make_loss_fn(model: MultiMAE, cfg):
     """loss_fn(params, batch, mask_info) -> (loss, metrics), params a
     {name: tensor} dict of ``model``'s parameters (pretrain.py:87-155)."""
@@ -87,6 +95,7 @@ def make_train_step(model: MultiMAE, cfg, optimizer: optim_lib.FlatAdamW):
     step updates ``model``'s master weights, the optimizer and
     ``state.step`` in place; the metrics are 0-d tensors on the card, the
     loss terms and ``grad_norm`` (the raw global gradient norm)."""
+    _check_ema(cfg)
     loss_fn = make_loss_fn(model, cfg)
     in_domains = tuple(cfg.data.in_domains)
     nums = tuple(cfg.data.num_patches for _ in in_domains)
@@ -118,6 +127,7 @@ def create_train_state(cfg, seed: int, total_steps: int, total_batch_size: Optio
     ``device``), optimizer with the schedules of pretrain.py:240-270, and the
     train state. Returns (model, state, optimizer)."""
     _check_balancer(cfg)
+    _check_ema(cfg)
     generator = torch.Generator().manual_seed(seed)
     model = build_multimae(cfg, device=device, generator=generator)
     total_batch = total_batch_size or cfg.data.batch_size

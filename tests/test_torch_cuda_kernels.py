@@ -2,9 +2,11 @@
 PyTorch versions, on the card, in bf16 (the deformable-attention kernel K4
 in f32), over the edge cases the model's shapes do not reach: ragged N and M
 (not multiples of the tiles), every supported head width, T from 1 to 8
-slots, a query row whose first key tiles are all masked, non-square levels,
+slots, query rows whose first key tiles are all masked, K1 / K1b bitwise
+the same from run to run, non-square levels,
 channel counts that are not 32 and sampling locations past every border;
-K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile) and the fused
+K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile; with every
+tile active, bitwise the slab kernel) and the fused
 attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
 (the weight-gradient sums). Also the autograd Functions' launches and the
 wrappers' refusals. These tests need a CUDA card and skip without one; on a
@@ -139,6 +141,51 @@ def test_zorro_backward_kernel_matches_plain(dev, dh, counts, pad, fusion):
 @pytest.mark.parametrize("n,heads,dh", [(1, 1, 32), (65, 2, 64), (300, 1, 128), (256, 8, 32)])
 def test_unmasked_backward_kernel_matches_plain(dev, n, heads, dh):
     _zorro_backward_case(dev, _randn(dev, 3, n, 3 * heads * dh, seed=1), heads, None)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_rows_whose_first_key_tiles_are_all_masked(dev, dh):
+    """Rows 150-199 (type 1) see only masked keys in key tiles 0 and 1: the
+    kernels score in log2 units, so the mask must be the finite NEG_INF
+    applied after the scale (NEG_INF * log2(e) would overflow to -inf and
+    -inf - (-inf) is NaN). N = 200 is ragged too."""
+    types = _types(dev, (150, 50), 0, 0).expand(2, -1).contiguous()
+    qkv = _randn(dev, 2, types.shape[1], 3 * 2 * dh, seed=2)
+    out = cuda_attn.zorro_attention_qkv(qkv, 2, types, 3)
+    ref = cuda_attn.zorro_attention_qkv_reference(qkv, 2, types, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _rel(out[:, 150:], ref[:, 150:]) <= REL_L2
+    _zorro_backward_case(dev, qkv, 2, types)
+
+
+@pytest.mark.parametrize("n,dh", [(65, 32), (190, 32), (100, 64), (255, 64)])
+def test_ragged_n_forward_and_backward(dev, n, dh):
+    """N not a multiple of the 64-row tiles: the last tile's rows past N are
+    zero-filled, never written, and add nothing."""
+    counts = (n // 3, n // 4, 0)
+    fusion = n // 5
+    types = _types(dev, counts, n - sum(counts) - fusion, fusion).expand(3, -1).contiguous()
+    qkv = _randn(dev, 3, n, 3 * 3 * dh, seed=3)
+    out = cuda_attn.zorro_attention_qkv(qkv, 3, types, 3)
+    ref = cuda_attn.zorro_attention_qkv_reference(qkv, 3, types, 3)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= REL_L2
+    _zorro_backward_case(dev, qkv, 3, types)
+
+
+def test_backward_is_bitwise_the_same_from_run_to_run(dev):
+    """No atomics: two runs of K1 and K1b on the same inputs agree bit for
+    bit."""
+    types = _types(dev, (300, 200, 184), 40, 256).expand(4, -1).contiguous()
+    qkv = _randn(dev, 4, types.shape[1], 3 * 192, seed=4)
+    do = _randn(dev, 4, types.shape[1], 192, seed=5)
+    runs = []
+    for _ in range(2):
+        out, lse = cuda_attn.zorro_attention_qkv(qkv, 3, types, 3, return_lse=True)
+        runs.append((out, lse, cuda_attn.zorro_attention_qkv_backward(qkv, types, out, lse, do, 3, 3)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("m", [1, 31, 33, 1000])
@@ -481,6 +528,27 @@ def test_sparse_mode_matches_plain_and_dense(dev, dh, layout):
     valid = types != 255
     assert _rel(out[valid], dense[valid]) <= REL_L2
     assert _rel_all(dqkv[valid].chunk(3, dim=-1), dense_dqkv[valid].chunk(3, dim=-1)) <= REL_L2
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_sparse_mode_with_every_tile_active_is_the_slab_kernel(dev, dh):
+    """With an activity table that skips nothing, the tile-skip mode runs
+    the slab kernel's loop over the same tiles: bitwise its results."""
+    types = _sparse_types(dev, "flagship", 2)
+    b, n = types.shape
+    qkv = _randn(dev, b, n, 3 * 2 * dh, seed=53)
+    do = _randn(dev, b, n, 2 * dh, seed=54)
+    scale = cuda_attn.default_scale(2 * dh, 2, None)
+    all_active = torch.ones((b, 1, (n // 128) ** 2), dtype=torch.int32, device=dev)
+    out, lse = cuda_attn.launch_attention(cuda_attn.slab_view(qkv), b, n, 2 * dh, 2, dev, types, 3, scale, True,
+                                          all_active)
+    dqkv = torch.empty_like(qkv)
+    cuda_attn.launch_attention_backward(cuda_attn.slab_view(qkv), cuda_attn.slab_view(dqkv), b, n, 2 * dh, 2, dev,
+                                        types, 3, out, lse, do, scale, all_active)
+    dense, dense_lse = cuda_attn.zorro_attention_qkv(qkv, 2, types, 3, return_lse=True)
+    dense_dqkv = cuda_attn.zorro_attention_qkv_backward(qkv, types, dense, dense_lse, do, 2, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense) and torch.equal(lse, dense_lse) and torch.equal(dqkv, dense_dqkv)
 
 
 def _block_case(dev, b, n, d, heads, dh, seed=60):
