@@ -27,12 +27,12 @@ Phases (any failure raises; the exit code is then non-zero):
                  POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
                  the card could take (bound_ms, from the bytes and operations
-                 of these inputs); for K1 / K1b (at the serving, training and
-                 segmentation shapes, N = 1024 B = 30 among them) also the
-                 device-only time of the kernels and of SDPA from the
-                 profiler, its kernel count checked against the wrappers'
-                 launch counts (CUDA events around 20 back-to-back calls
-                 where the profiler dropped events).
+                 of these inputs); for every row also the device-only time
+                 of the kernels and of the library call (SDPA for K1 / K1b,
+                 grid_sample for K5 / K5b) from the profiler, its kernel
+                 count checked against the wrappers' launch counts (CUDA
+                 events around 20 back-to-back calls where the profiler
+                 dropped events).
   4. serving  -- four requests through serving.infer_closure / infer.infer:
                  launch counts per forward, finite outputs, invariance to
                  the pixels the request drops or masks, relative L2 against
@@ -179,9 +179,11 @@ def back_to_back_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def profiled_ms(fn, own=None, reps: int = 10, warmup: int = 3):
     """Device time of one call of ``fn`` from torch.profiler: the summed
     durations of the device kernels and copies (one stream, so their sum is
-    the busy time) whose name holds ``own`` (all of them for None) over
-    ``reps`` calls, per call; how many such events a call had; and the ms per
-    call by name."""
+    the busy time) whose name holds ``own`` (a string or a tuple of strings,
+    any of which; all of them for None) over ``reps`` calls, per call; how
+    many such events a call had; and the ms per call by name."""
+    if isinstance(own, str):
+        own = (own,)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -195,36 +197,76 @@ def profiled_ms(fn, own=None, reps: int = 10, warmup: int = 3):
         # device kernels and copies; not the ranges that annotate them
         # (``Optimizer.step`` appears on the device timeline too)
         if (evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation
-                and (own is None or own in evt.name)):
+                and (own is None or any(o in evt.name for o in own))):
             per_name[evt.name] += evt.device_time_total / reps / 1e3
             count += 1
     return sum(per_name.values()), count / reps, per_name
 
 
 def kernel_name(name: str) -> str:
-    """A device kernel's name without namespace, template and arguments."""
-    return name.split("(")[0].split("<")[0].split("::")[-1]
+    """A device kernel's name without return type, namespace, template and
+    arguments."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1]
 
 
-# K1 / K1b entries: their device time apart from the wrappers' host work
-ATTENTION_ENTRIES = ("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")
+WIDE = "(base, wide path)"  # the label of K2b's rows past the row pass's widths
 
 
-def attention_device_ms(entry, fn):
-    """The kernels' own device time of one K1 (one kernel) or K1b (two
-    kernels) call from the profiler, checked against the wrappers' launch
-    counts (the profiler has dropped events): where the event count falls
-    short, CUDA events around 20 calls back to back instead. Returns (ms,
-    how it was measured, with the backward's split by kernel)."""
-    per_call = 2 if entry.endswith("backward") else 1
-    before = sum(ops.kernel_launches().values())
-    ms, events, per_name = profiled_ms(fn, own="zorro_attention")
-    launched = (sum(ops.kernel_launches().values()) - before) / 13  # 3 warm-ups and 10 profiled calls
-    if events == launched * per_call:
-        split = " = " + " + ".join(f"{kernel_name(k)} {v:.6g}" for k, v in sorted(per_name.items())) \
-            if per_call > 1 else ""
-        return ms, "profiler" + split
-    return back_to_back_ms(fn), f"back to back (profiler saw {events:g} of {launched * per_call:g} kernels)"
+def entry_kernels(entry: str, label: str = ""):
+    """The device kernels of one call of a phase-3 entry's wrapper (on the
+    row ``label``): the substrings of their names, and how many the call
+    launches."""
+    backward = entry.endswith("backward")
+    if entry.startswith("fused_ffn/") and WIDE in label:  # K2b's wide path: (norm), rows, dx, (LN), wgrad's two
+        return ("ffn_bwd", "wgrad"), 6 if entry.startswith("fused_ffn/geglu") else 4
+    if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
+        return ("zorro_attention",), 2 if backward else 1  # K1b: dq, dk/dv
+    if entry.startswith("fused_ffn/"):  # K2b: row pass, weight-gradient product, reduction
+        return (("ffn_bwd", "wgrad"), 3) if backward else (("fused_ffn_kernel",), 1)
+    if entry.startswith("fusion_row_attention/"):
+        return ("fusion_row_bwd",) if backward else ("fusion_row_kernel",), 1
+    if entry.startswith("ms_deform_attn/"):
+        return ("ms_deform_attn_bwd",) if backward else ("ms_deform_attn_fwd",), 1
+    if entry.startswith("point_sample/"):
+        return ("point_sample_bwd",) if backward else ("point_sample_fwd",), 1
+    if entry.startswith("fused_block_attn/"):  # K6: 2 launches; K6b: 7 (K1b's two, wgrad's two)
+        return (("block_attn", "zorro_attention", "wgrad"), 7) if backward else (("block_attn",), 2)
+    raise KeyError(entry)
+
+
+def device_only_ms(fn, names, per_call: int, tries: int = 3):
+    """The kernels' own device time of one call ``fn`` of a wrapper from the
+    profiler, apart from the wrapper's host work: the device kernels whose
+    name holds any of ``names``, ``per_call`` of them a call, their event
+    count checked against the wrappers' launch counters. The profiler may
+    drop events, so it is run up to ``tries`` times; where every run falls
+    short the time is None, never a time taken another way. Returns (ms or
+    None, how it was measured, with a multi-kernel call's split by
+    kernel)."""
+    for _ in range(tries):
+        before = sum(ops.kernel_launches().values())
+        ms, events, per_name = profiled_ms(fn, own=names)
+        launched = (sum(ops.kernel_launches().values()) - before) / 13  # 3 warm-ups and 10 profiled calls
+        if events == launched * per_call:
+            split = " = " + " + ".join(f"{kernel_name(k)} {v:.6g}" for k, v in sorted(per_name.items())) \
+                if per_call > 1 else ""
+            return ms, "profiler" + split
+    return None, f"not measured: the profiler saw {events:g} of {launched * per_call:g} kernels, {tries} runs"
+
+
+def library_device_ms(fn, tries: int = 3):
+    """The device time of one library call (all its kernels) from the
+    profiler, up to ``tries`` runs; None where it saw no kernel in any."""
+    for _ in range(tries):
+        ms, events, _ = profiled_ms(fn)
+        if events > 0:
+            return ms, "profiler"
+    return None, f"not measured: the profiler saw no kernel, {tries} runs"
+
+
+def fmt_ms(ms) -> str:
+    return "-" if ms is None else f"{ms:.6g} ms"
 
 
 HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
@@ -404,8 +446,10 @@ def msda_bwd_work(value, locs, aw, dout):
 
 
 # the criterion's point-sampling calls at B = 30, G = 8, 100 queries,
-# 12544 points: (label, masks, coords rows, group)
+# 12544 points (set_criterion.py:162-163, :86, :242-244): (label, masks,
+# coords rows, group)
 POINT_SHAPES = (("matcher queries [3000, 64^2] x 12544, shared per image", (3000, 64, 64), 30, 100),
+                ("matcher targets [240, 256^2] x 12544, shared per image", (240, 256, 256), 30, 8),
                 ("targets [240, 256^2] x 12544", (240, 256, 256), 240, 1),
                 ("uncertainty [240, 64^2] x 37632", (240, 64, 64), 240, 1),
                 ("loss predictions [240, 64^2] x 12544", (240, 64, 64), 240, 1))
@@ -554,7 +598,7 @@ def phase_kernels(dev):
                                                                               3, 3),
                   block_attn_work(x_blk, 192, 3, zorro_mask(train_types), True), None, True))
 
-    def ffn_work(m, backward, geglu):
+    def ffn_work(m, backward, geglu, d=d, inner_ff=inner_ff, dd=dd, hid=hid):
         if geglu:
             weights = 3 * inner_ff * d + d
             flops = (16 if backward else 6) * m * d * inner_ff
@@ -588,6 +632,23 @@ def phase_kernels(dev):
                   lambda: cuda_ffn.mlp_ffn_backward(x, *mlp_w, dy),
                   lambda: cuda_ffn.mlp_ffn_backward_reference(x, *mlp_w, dy),
                   ffn_work(15360, True, False), None, True))
+
+    # K2b's wide path at the `base` widths (d = 768, I = 2048, H = 3072), past
+    # the row pass's d <= 256; no main path runs it
+    bd, b_inner, b_hid = 768, 2048, 3072
+    base_geglu_w = ((1 + 0.1 * torch.randn(bd, device=dev, generator=g)).to(bf),
+                    randn(2 * b_inner, bd, scale=bd ** -0.5), randn(bd, b_inner, scale=b_inner ** -0.5))
+    base_mlp_w = (randn(b_hid, bd, scale=bd ** -0.5), randn(b_hid, scale=0.1), randn(bd, b_hid, scale=b_hid ** -0.5),
+                  randn(bd, scale=0.1))
+    x_base, dy_base = randn(8192, bd), randn(8192, bd)
+    cases.append(("fused_ffn/geglu_backward", f"M=8192 d={bd} I={b_inner} {WIDE}",
+                  lambda: cuda_ffn.geglu_ffn_backward(x_base, *base_geglu_w, dy_base),
+                  lambda: cuda_ffn.geglu_ffn_backward_reference(x_base, *base_geglu_w, dy_base),
+                  ffn_work(8192, True, True, d=bd, inner_ff=b_inner), None, False))
+    cases.append(("fused_ffn/mlp_backward", f"M=8192 d={bd} H={b_hid} {WIDE}",
+                  lambda: cuda_ffn.mlp_ffn_backward(x_base, *base_mlp_w, dy_base),
+                  lambda: cuda_ffn.mlp_ffn_backward_reference(x_base, *base_mlp_w, dy_base),
+                  ffn_work(8192, True, False, dd=bd, hid=b_hid), None, False))
 
     for b in (1, 8, 60):
         q, kvg, kvf = randn(b, f, 192), randn(b, 3 * f, 384), randn(b, f, 384)
@@ -639,7 +700,7 @@ def phase_kernels(dev):
         cases.append(("point_sample/forward", label,
                       lambda m=masks, c=coords, gr=group: cuda_points.point_sample(m, c, gr),
                       lambda m=masks, c=coords, gr=group: cuda_points.point_sample_reference(m, c, gr),
-                      work, grid_sample_case(masks, coords, group), group > 1))
+                      work, grid_sample_case(masks, coords, group), group == 100))
         if label.startswith("loss"):
             ds = torch.randn(n, p, device=dev, generator=g)
             work = (8.0 * n * p, nbytes(coords, ds, masks), PEAK_F32)  # coords, dS in; dmasks out
@@ -664,15 +725,12 @@ def phase_kernels(dev):
         ms_lib = cuda_ms(library) if library is not None else None
         bound_ms, bound_by = bound(flops, n_bytes, peak)
         fb = f" library fwd+bwd {cuda_ms(fwd_bwd[entry, label]):.6g} ms" if (entry, label) in fwd_bwd else ""
-        device = {}
-        if entry.startswith(ATTENTION_ENTRIES):
-            device["device_ms"], how = attention_device_ms(entry, kernel)
-            device["library_device_ms"], events, _ = profiled_ms(library)
-            lib_how = "profiler"
-            if events == 0:  # the profiler dropped the call's events
-                device["library_device_ms"], lib_how = back_to_back_ms(library), "back to back"
-            fb += (f"; device only: kernel {device['device_ms']:.6g} ms ({how}), library "
-                   f"{device['library_device_ms']:.6g} ms ({lib_how})")
+        device = {"library_device_ms": None, "library_device_how": None}
+        device["device_ms"], device["device_how"] = device_only_ms(kernel, *entry_kernels(entry, label))
+        fb += f"; device only: kernel {fmt_ms(device['device_ms'])} ({device['device_how']})"
+        if library is not None:
+            device["library_device_ms"], device["library_device_how"] = library_device_ms(library)
+            fb += f", library {fmt_ms(device['library_device_ms'])} ({device['library_device_how']})"
         log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
@@ -686,6 +744,21 @@ def phase_kernels(dev):
             r.update(ms=ms_k, plain_ms=ms_p, library_ms=ms_lib, bound_ms=bound_ms, bound_by=bound_by,
                      shape=label, **device)
     return results
+
+
+DEVICE_KEYS = ("device_ms", "device_how", "library_device_ms", "library_device_how")
+
+
+def kernel_entry(name: str, r: dict, launches: int) -> dict:
+    """One kernel's entry of the kernels line from its phase-3 result: the
+    CUDA-event times (``ms``, ``plain_ms``, ``library_ms``), the bound, and
+    the device-only times with how each was measured (``device_how``; the
+    time is null where the profiler's event count never matched)."""
+    src, replaces = REPLACES[name]
+    return {"name": name, "route": "cuda", "source": f"{PKG}/{src}", "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": r["shape"], **{k: r[k] for k in DEVICE_KEYS}}
 
 
 PER_FORWARD = {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 6,
@@ -1462,17 +1535,11 @@ def main(argv) -> int:
     seg_trained = phase_segment_train(dev)
     variants = phase_encoder_variants(dev, train_context)
     entries = []
-    for name, (src, replaces) in REPLACES.items():
-        r = kernel_results[name]
+    for name in REPLACES:
         launches = served[name] + trained[name] + segmented[name] + seg_trained[name] + variants[name]
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
-        entries.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
-                        "replaces": replaces, "launches": launches,
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"],
-                        **{k: r[k] for k in ("device_ms", "library_device_ms") if k in r}})
+        entries.append(kernel_entry(name, kernel_results[name], launches))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

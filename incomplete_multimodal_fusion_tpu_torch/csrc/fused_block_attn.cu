@@ -53,10 +53,13 @@
 //      LayerNorm backwards (statistics recomputed from x), dx, and the
 //      block's column sums of dg1 and dg2 (shared-memory atomics, f32);
 //   6-7. the weight gradients dWqkv = dqkv^T . h and dWo = dy^T . round(o)
-//      and the reduction of all partials (wgrad.cuh), cast to bf16 once.
+//      and the reduction of all partials (wgrad.cuh, a wgmma product since
+//      K2b's redesign), cast to bf16 once.
 // The workspaces cost device memory (about 135 MB at the pretraining shape)
 // and a write and a read each; keeping them on chip is work for a later
-// version. Simple and correct first: wmma, no TMA, no wgmma.
+// version. The projection, attention and row passes are wmma, no TMA.
+#include <mma.h>
+
 #include "wgrad.cuh"
 #include "zorro_attention.cuh"
 
@@ -716,6 +719,13 @@ bool shape_ok(int batch, int n, int d, int heads) {
 // f32 [ceil(B * N / this), 2 * D].
 extern "C" int fused_block_attn_row_block() { return RM; }
 
+// The row ranges of the backward's weight-gradient products at M = B * N
+// rows (wgrad::splits_for): the backward's `splits`, by which its caller
+// sizes `part`.
+extern "C" int fused_block_attn_bwd_splits(int m, int d, int inner) {
+  return wgrad::splits_for(3 * inner, d, d, inner, m);
+}
+
 // Forward: x, y [B, N, D]; types int32 [B, N] (PAD_TYPE = padding); g1, g2
 // [D]; wq [I, D]; wkv [2I, D]; wo [D, I]; workspace qkv [B, N, 3I]. All bf16
 // but types, contiguous. D % 16 == 0, dh in {32, 64, 128}. Two launches;
@@ -749,7 +759,8 @@ extern "C" int fused_block_attn_fwd_bf16(const void* x, const void* types, const
 // Backward: the forward's operands and dy [B, N, D]; outputs dx [B, N, D],
 // dg1, dg2 [D], dw_qkv [3I, D] (dWq then dWkv), dwo [D, I]; bf16
 // workspaces qkv and dqkv [B, N, 3I], h [B, N, D], out and dout [B, N, I];
-// f32 workspaces lse and delta [B, H, N], part [splits * (3I * D + D * I)],
+// f32 workspaces lse and delta [B, H, N], part [splits * (3I * D + D * I)]
+// (splits: fused_block_attn_bwd_splits),
 // vec [ceil(B * N / row_block), 2D]. Seven launches; returns the first
 // cudaError_t.
 extern "C" int fused_block_attn_bwd_bf16(const void* x, const void* types, const void* g1, const void* g2,

@@ -25,7 +25,7 @@ import torch
 
 from . import cuda_attn, cuda_build
 from .attention import upcast
-from .cuda_ffn import bias_free_norm, wgrad_splits
+from .cuda_ffn import bias_free_norm
 
 # launches of the kernels; only the wrappers' launches add to them
 LAUNCHES = {"forward": 0, "backward": 0}
@@ -176,7 +176,8 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
     m = b * n
     dev, bf = x.device, x.dtype
     lib = cuda_build.load("fused_block_attn.cu")
-    splits = wgrad_splits(m)
+    with torch.cuda.device(dev):
+        splits = lib.fused_block_attn_bwd_splits(m, d, inner)
     dx, dg1, dg2 = torch.empty_like(x), torch.empty_like(g1), torch.empty_like(g2)
     dw_qkv = torch.empty((3 * inner, d), dtype=bf, device=dev)  # dWq, then dWkv
     dwo = torch.empty_like(wo)

@@ -17,6 +17,7 @@ tensor launches the kernel (bf16 only) or raises. ``GegluFFN`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -189,23 +190,35 @@ def mlp_ffn(x, w1, b1, w2, b2):
     return y
 
 
-def wgrad_splits(m: int) -> int:
-    """How many row ranges the backward's weight-gradient products split M
-    into (one f32 partial each, summed in a fixed order): about 4096 rows a
-    range, at most 16."""
-    return max(1, min(16, -(-m // 4096)))
+@functools.cache
+def _geglu_bwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_ffn_bwd.cu", "geglu_ffn_bwd_bf16", [p] * 13 + [i, i, i, p])
 
 
-def _bwd_workspace(x, m, widths, vec_width):
-    """The backward's scratch: bf16 [M, w] row-pass outputs for each of
-    ``widths``, the f32 weight-gradient partials and the per-row-block f32
-    partial sums of the vectors (dgamma, or db1 and db2)."""
-    lib = cuda_build.load("fused_ffn_bwd.cu")
-    row_block = lib.ffn_bwd_row_block()
-    n_blocks = -(-m // row_block)
-    rows = [torch.empty((m, w), dtype=x.dtype, device=x.device) for w in widths]
-    vec = torch.empty((n_blocks, vec_width), dtype=torch.float32, device=x.device)
-    return rows, vec
+@functools.cache
+def _mlp_bwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_ffn_bwd.cu", "mlp_ffn_bwd_bf16", [p] * 13 + [i, i, i, i, p])
+
+
+@functools.cache
+def _bwd_scratch_fn():
+    fn = cuda_build.load("fused_ffn_bwd.cu").ffn_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _bwd_scratch(name, x, mode, m, d, hid, d_out):
+    """The backward's f32 scratch, as large as its library asks for the
+    shapes (mode 0 GEGLU, 1 MLP): the weight-gradient partials, the row
+    blocks' vector partials and the wide path's dxn."""
+    with torch.cuda.device(x.device):
+        floats = _bwd_scratch_fn()(mode, m, d, hid, d_out)
+    if floats < 0:
+        raise ValueError(f"{name}: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
+    return torch.empty((floats,), dtype=torch.float32, device=x.device)
 
 
 def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
@@ -218,19 +231,16 @@ def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
     if dy.shape != x.shape:
         raise ValueError(f"geglu_ffn_backward: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
     m, d = x.shape
-    splits = wgrad_splits(m)
-    (du, a, xn), vec = _bwd_workspace(x, m, (2 * inner, inner, d), d)
-    part = torch.empty((splits * 3 * inner * d,), dtype=torch.float32, device=x.device)
+    du, a, xn = (torch.empty((m, w), dtype=x.dtype, device=x.device) for w in (2 * inner, inner, d))
+    scratch = _bwd_scratch("geglu_ffn_backward", x, 0, m, d, inner, d)
     dx, dgamma = torch.empty_like(x), torch.empty_like(gamma)
     dw_in, dw_out = torch.empty_like(w_in), torch.empty_like(w_out)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_ffn_bwd.cu", "geglu_ffn_bwd_bf16", [p] * 14 + [i, i, i, i, p])
+    fn = _geglu_bwd_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), gamma.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dgamma.data_ptr(), dw_in.data_ptr(), dw_out.data_ptr(),
-                 du.data_ptr(), a.data_ptr(), xn.data_ptr(), part.data_ptr(), vec.data_ptr(),
-                 m, d, inner, splits, stream)
+                 du.data_ptr(), a.data_ptr(), xn.data_ptr(), scratch.data_ptr(), m, d, inner, stream)
     cuda_build.check_launch(err, "geglu_ffn_backward")
     LAUNCHES["geglu_backward"] += 1
     return dx, dgamma, dw_in, dw_out
@@ -246,19 +256,16 @@ def mlp_ffn_backward(x, w1, b1, w2, b2, dy):
     m, d = x.shape
     if dy.shape != (m, out):
         raise ValueError(f"mlp_ffn_backward: dy {tuple(dy.shape)} must be {(m, out)}")
-    splits = wgrad_splits(m)
-    (dh, a), vec = _bwd_workspace(x, m, (hidden, hidden), hidden + out)
-    part = torch.empty((splits * hidden * (d + out),), dtype=torch.float32, device=x.device)
+    dh, a = (torch.empty((m, hidden), dtype=x.dtype, device=x.device) for _ in range(2))
+    scratch = _bwd_scratch("mlp_ffn_backward", x, 1, m, d, hidden, out)
     dx, dw1, db1 = torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_ffn_bwd.cu", "mlp_ffn_bwd_bf16", [p] * 14 + [i, i, i, i, i, p])
+    fn = _mlp_bwd_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
                  dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-                 dh.data_ptr(), a.data_ptr(), part.data_ptr(), vec.data_ptr(),
-                 m, d, hidden, out, splits, stream)
+                 dh.data_ptr(), a.data_ptr(), scratch.data_ptr(), m, d, hidden, out, stream)
     cuda_build.check_launch(err, "mlp_ffn_backward")
     LAUNCHES["mlp_backward"] += 1
     return dx, dw1, db1, dw2, db2

@@ -14,6 +14,7 @@ kernel's backward does (pallas_points.py:63-95).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -22,6 +23,23 @@ from .points import point_sample as point_sample_reference
 
 # launches of the kernels; only the wrappers' launches add to them
 LAUNCHES = {"forward": 0, "backward": 0}
+
+
+@functools.cache
+def _fwd_fn():
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("point_sample.cu", "point_sample_fwd_f32", [ptr, ptr, ptr, i, i, i, i, i, ptr])
+
+
+@functools.cache
+def _bwd_fn():
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("point_sample.cu", "point_sample_bwd_f32", [ptr, ptr, ptr, ptr, ptr, i, i, i, i, i, ptr])
+
+
+@functools.cache
+def _bwd_uses_smem(h: int, w: int) -> bool:
+    return bool(cuda_build.bind("point_sample.cu", "point_sample_bwd_uses_smem", [ctypes.c_int, ctypes.c_int])(h, w))
 
 
 def _check(name, masks, coords, group, *more):
@@ -60,8 +78,7 @@ def point_sample(masks: torch.Tensor, coords: torch.Tensor, group: int = 1) -> t
         return point_sample_reference(masks, coords, group)
     n, h, w, p = _check("point_sample", masks, coords, group)
     out = torch.empty((n, p), dtype=torch.float32, device=masks.device)
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("point_sample.cu", "point_sample_fwd_f32", [ptr, ptr, ptr, i, i, i, i, i, ptr])
+    fn = _fwd_fn()
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         err = fn(masks.data_ptr(), coords.data_ptr(), out.data_ptr(), n, p, h, w, group, stream)
@@ -76,14 +93,11 @@ def point_sample_backward(masks, coords, ds, group: int = 1, coords_grad: bool =
     if masks.device.type == "cpu":
         return point_sample_backward_reference(masks, coords, ds, group, coords_grad)
     n, h, w, p = _check("point_sample_backward", masks, coords, group, ds)
-    smem = cuda_build.bind("point_sample.cu", "point_sample_bwd_uses_smem",
-                           [ctypes.c_int, ctypes.c_int])(h, w)
+    smem = _bwd_uses_smem(h, w)
     # the shared-memory path writes every element; the global one adds
     dmasks = (torch.empty_like if smem else torch.zeros_like)(masks)
     dcoords = torch.empty((n, p, 2), dtype=torch.float32, device=masks.device) if coords_grad else None
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("point_sample.cu", "point_sample_bwd_f32",
-                         [ptr, ptr, ptr, ptr, ptr, i, i, i, i, i, ptr])
+    fn = _bwd_fn()
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         err = fn(masks.data_ptr(), coords.data_ptr(), ds.data_ptr(), dmasks.data_ptr(),

@@ -215,6 +215,77 @@ def test_mlp_backward_kernel_matches_plain(dev, m, d, hidden, out_dim):
     assert _rel_all(out, ref) <= REL_L2
 
 
+# K2b's widths: (d, I) for GEGLU, (d, H, out) for MLP. "model": the port's
+# model paths (encoder and fusion blocks; decoder); "base": the `base`
+# config's d = 768, past the row pass's d <= 256 (the wide path).
+_FFN_WIDTHS = {"model": {"geglu": (192, 512), "mlp": (256, 1024, 256)},
+               "base": {"geglu": (768, 2048), "mlp": (768, 3072, 768)}}
+
+
+def _ffn_case(dev, mode, m, seed=80, widths="model"):
+    if mode == "geglu":
+        d, inner = _FFN_WIDTHS[widths][mode] if isinstance(widths, str) else widths
+        w = ((1 + 0.1 * _randn(dev, d, seed=seed).float()).to(torch.bfloat16),
+             _randn(dev, 2 * inner, d, scale=d ** -0.5, seed=seed + 1),
+             _randn(dev, d, inner, scale=inner ** -0.5, seed=seed + 2))
+        return _randn(dev, m, d, seed=seed + 3), w, _randn(dev, m, d, seed=seed + 4)
+    d, hidden, out = _FFN_WIDTHS[widths][mode] if isinstance(widths, str) else widths
+    w = (_randn(dev, hidden, d, scale=d ** -0.5, seed=seed), _randn(dev, hidden, scale=0.1, seed=seed + 1),
+         _randn(dev, out, hidden, scale=hidden ** -0.5, seed=seed + 2), _randn(dev, out, scale=0.1, seed=seed + 3))
+    return _randn(dev, m, d, seed=seed + 4), w, _randn(dev, m, out, seed=seed + 5)
+
+
+_FFN_BACKWARD = {"geglu": (cuda_ffn.geglu_ffn_backward, cuda_ffn.geglu_ffn_backward_reference),
+                 "mlp": (cuda_ffn.mlp_ffn_backward, cuda_ffn.mlp_ffn_backward_reference)}
+
+
+def _check_ffn_backward(dev, mode, m, widths):
+    x, w, dy = _ffn_case(dev, mode, m, widths=widths)
+    kernel, plain = _FFN_BACKWARD[mode]
+    out = kernel(x, *w, dy)
+    ref = plain(x, *w, dy)
+    torch.cuda.synchronize()
+    assert [o.shape for o in out] == [r.shape for r in ref]
+    assert all(torch.isfinite(o).all() for o in out)
+    for o, r in zip(out, ref):
+        assert _rel_all([o], [r]) <= REL_L2
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 38400])
+def test_ffn_backward_at_the_model_widths(dev, mode, m):
+    """K2b at the model's widths, M below, at and past the 64-row warpgroup
+    tile and the 128-row block (a partial last tile), and the pretraining
+    shape (several weight-gradient row ranges)."""
+    _check_ffn_backward(dev, mode, m, "model")
+
+
+@pytest.mark.parametrize("mode,widths", [
+    ("geglu", "base"), ("mlp", "base"),
+    ("geglu", (320, 512)),  # just past the row pass
+    ("mlp", (256, 1024, 320)),  # only the output width past it
+    ("mlp", (320, 512, 256)),  # only the input width past it
+    ("geglu", (1040, 256)),  # a partial last window and column tile
+])
+@pytest.mark.parametrize("m", [1, 65, 4100])
+def test_ffn_backward_past_the_row_pass_widths(dev, mode, widths, m):
+    """K2b's wide path, for d or the MLP's output width past 256 (the `base`
+    and `large` configs): the same gradients as the plain version, at M
+    below, past and well over a 128-row block."""
+    _check_ffn_backward(dev, mode, m, widths)
+
+
+@pytest.mark.parametrize("mode,widths", [("geglu", "model"), ("mlp", "model"), ("geglu", "base"), ("mlp", "base")])
+def test_ffn_backward_is_bitwise_the_same_from_run_to_run(dev, mode, widths):
+    """No atomics: every partial is summed in a fixed order."""
+    x, w, dy = _ffn_case(dev, mode, 15360 if widths == "model" else 4100, seed=90, widths=widths)
+    kernel, _ = _FFN_BACKWARD[mode]
+    first = kernel(x, *w, dy)
+    second = kernel(x, *w, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("t_mod", [1, 3, 8])
 @pytest.mark.parametrize("heads,dh", [(3, 64), (1, 32), (2, 128)])
 def test_fusion_row_backward_kernel_matches_plain(dev, t_mod, heads, dh):
@@ -436,6 +507,91 @@ def test_point_sample_backward_kernel_matches_plain(dev, n, h, w, p, group, coor
         assert out[1] is None and ref[1] is None
 
 
+@pytest.mark.parametrize("n,h,w,p,group", [
+    (800, 64, 64, 3001, 100),  # the matcher's queries: 8 coords rows, a ragged last chunk
+    (3000, 64, 64, 12544, 100),  # the matcher's queries at full size
+    (240, 256, 256, 12544, 8),  # the matcher's targets: 30 rows of 8 masks, read through L1 / L2
+    (48, 256, 256, 4097, 8),
+    (6, 128, 128, 2049, 3),  # 64 KB masks: staged two at a time
+    (4, 240, 200, 5000, 2),  # 188 KB: staged one at a time
+    (5, 96, 160, 777, 5),  # non-square, staged two at a time
+    (3, 131, 101, 999, 3),  # 53 KB, a size that is no multiple of 4 floats (4-byte copies)
+    (4, 244, 240, 3000, 2),  # 229 KB, past a block's shared memory: read through L1 / L2
+])
+def test_point_sample_kernel_groups_and_mask_sizes(dev, n, h, w, p, group):
+    """The taps computed once per point serve every mask of the group, at
+    every mask size and point count."""
+    masks, coords = _points_inputs(dev, n, h, w, p, group, seed=43)
+    out = cuda_points.point_sample(masks, coords, group)
+    ref = cuda_points.point_sample_reference(masks, coords, group)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (n, p)
+    assert _rel(out, ref) <= POINTS_REL_L2
+
+
+def _edge_coords(dev, h, w, rows, extra_rand=500, seed=44):
+    """Points on pixel centres and edges and between them around the rows
+    127 / 128 and the middle column, on and past every border, then random
+    ones."""
+    ys = [(127.5 + f) / h for f in (-1.0, -0.5, -0.25, 0.0, 0.25, 0.5, 0.75, 1.0, 1.5)]
+    ys += [0.0, 0.5 / h, 1.0 - 0.5 / h, 1.0, -0.25 / h, -1.0 / h, 1.0 + 0.25 / h, 1.0 + 1.0 / h, -0.5, 1.5]
+    xs = [0.0, 0.5 / w, 0.5, (w / 2 + 0.5) / w, 1.0 - 0.5 / w, 1.0, -0.25 / w, -1.0 / w, 1.0 + 0.25 / w,
+          1.0 + 1.0 / w, -0.5, 1.5]
+    grid = torch.tensor([(x, y) for y in ys for x in xs], dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = -0.1 + 1.2 * torch.rand(extra_rand, 2, device=dev, generator=g)
+    return torch.cat([grid, rand])[None].expand(rows, -1, -1).contiguous()
+
+
+@pytest.mark.parametrize("n,h,w,group", [(16, 256, 256, 8), (3, 256, 256, 1), (6, 64, 64, 3)])
+def test_point_sample_kernel_on_the_middle_rows_and_past_the_borders(dev, n, h, w, group):
+    """At 256^2 the points on and across rows 127 / 128 and the columns
+    either side of the middle, on pixel centres and edges, and past every
+    border: the same four taps as the plain version."""
+    coords = _edge_coords(dev, h, w, n // group)
+    masks = torch.randn(n, h, w, device=dev, generator=torch.Generator(device=dev).manual_seed(45))
+    out = cuda_points.point_sample(masks, coords, group)
+    ref = cuda_points.point_sample_reference(masks, coords, group)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= POINTS_REL_L2
+    far = (coords[..., 0] <= -1.0 / w) | (coords[..., 0] >= 1.0 + 1.0 / w) | \
+        (coords[..., 1] <= -1.0 / h) | (coords[..., 1] >= 1.0 + 1.0 / h)
+    assert float(out[:, far[0]].abs().max()) == 0.0  # no tap inside: weight 0, nothing read
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (256, 256)])
+def test_point_sample_kernels_share_the_taps_at_pixel_edges(dev, h, w):
+    """K5 and K5b take one taps_of: at pixel centres and edges, where the
+    derivative in the coordinates is one-sided, K5b's dcoords is the plain
+    version's, and K5's samples are the plain ones."""
+    group = 2
+    coords = _edge_coords(dev, h, w, 2, extra_rand=0)
+    masks = torch.randn(2 * group, h, w, device=dev, generator=torch.Generator(device=dev).manual_seed(46))
+    ds = torch.randn(2 * group, coords.shape[1], device=dev, generator=torch.Generator(device=dev).manual_seed(47))
+    out = cuda_points.point_sample(masks, coords, group)
+    dm, dc = cuda_points.point_sample_backward(masks, coords, ds, group, True)
+    ref = cuda_points.point_sample_reference(masks, coords, group)
+    ref_dm, ref_dc = cuda_points.point_sample_backward_reference(masks, coords, ds, group, True)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= POINTS_REL_L2
+    assert _rel(dm, ref_dm) <= POINTS_REL_L2
+    assert _rel(dc, ref_dc) <= POINTS_REL_L2
+
+
+def test_point_sample_kernel_on_masks_that_start_off_16_bytes(dev):
+    """A contiguous view 4 bytes into its storage: the staged path takes
+    4-byte copies rather than fault on 16-byte ones."""
+    n, h, w, p, group = 6, 64, 64, 3001, 3
+    _, coords = _points_inputs(dev, n, h, w, p, group, seed=48)
+    flat = torch.randn(n * h * w + 1, device=dev, generator=torch.Generator(device=dev).manual_seed(49))
+    masks = flat[1:].view(n, h, w)
+    assert masks.is_contiguous() and masks.data_ptr() % 16 == 4
+    out = cuda_points.point_sample(masks, coords, group)
+    ref = cuda_points.point_sample_reference(masks, coords, group)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= POINTS_REL_L2
+
+
 def test_point_sample_function_launches_and_gradients(dev):
     ops.reset_kernel_launches()
     masks, coords = _points_inputs(dev, 8, 16, 16, 100, group=2, seed=42)
@@ -568,7 +724,8 @@ def _block_case(dev, b, n, d, heads, dh, seed=60):
 
 
 @pytest.mark.parametrize("b,n,d,heads,dh", [(2, 70, 64, 1, 64), (1, 128, 192, 3, 64), (3, 100, 96, 3, 32),
-                                            (2, 64, 128, 1, 128), (60, 128, 192, 3, 64), (1, 33, 48, 2, 32)])
+                                            (2, 64, 128, 1, 128), (60, 128, 192, 3, 64), (1, 33, 48, 2, 32),
+                                            (60, 640, 192, 3, 64)])
 def test_fused_block_matches_plain(dev, b, n, d, heads, dh):
     """K6 and K6b within REL_L2 of the plain versions; the weight and gain
     gradients are sums over all B x N rows."""
