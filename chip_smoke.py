@@ -22,7 +22,10 @@ Phases (any failure raises; the exit code is then non-zero):
                  K5 and K5b in f32) at the serving, training and
                  segmentation shapes (K1's separate-q/k/v and tile-skip
                  modes and the fused attention half-block K6 at the
-                 pretraining shape): max abs error and relative L2 error
+                 pretraining shape; K2 and K2b also at the `base` and
+                 `large` widths, K4b also near the reference points, and
+                 beside each K2 row, for reference, the unfused cuBLAS
+                 chain's time): max abs error and relative L2 error
                  (bound KERNEL_REL_L2, K4 and K4b MSDA_REL_L2, K5 and K5b
                  POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
@@ -119,7 +122,8 @@ SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 # K4 / K4b in f32 against their f32 plain versions: only the order of the
-# sums differs (K4b's dV sums in an order its atomics set, run to run)
+# sums differs (K4b's dV sums in an order its shared-memory adds set, run
+# to run)
 MSDA_REL_L2 = 1e-4
 # K5 / K5b in f32 against the plain point sample: the same four taps
 POINTS_REL_L2 = 1e-5
@@ -210,20 +214,25 @@ def kernel_name(name: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1].split(" ")[-1]
 
 
-WIDE = "(base, wide path)"  # the label of K2b's rows past the row pass's widths
+WIDE = "(base, wide path)"  # the label of K2 / K2b rows past their row paths' widths
+WIDE_LARGE = "(large, wide path)"
 
 
 def entry_kernels(entry: str, label: str = ""):
     """The device kernels of one call of a phase-3 entry's wrapper (on the
     row ``label``): the substrings of their names, and how many the call
-    launches."""
+    launches. K2's forward and K4b launch 1 here; phase 3 takes their count
+    on a row from their libraries' plans (``cuda_ffn.forward_kernels``,
+    ``cuda_msda.backward_kernels``), which split the work over more kernels
+    at some shapes."""
     backward = entry.endswith("backward")
-    if entry.startswith("fused_ffn/") and WIDE in label:  # K2b's wide path: (norm), rows, dx, (LN), wgrad's two
+    if entry.startswith("fused_ffn/") and backward and label.endswith("wide path)"):  # K2b's wide path (WIDE,
+        # WIDE_LARGE): (norm), rows, dx, (LN), wgrad's two
         return ("ffn_bwd", "wgrad"), 6 if entry.startswith("fused_ffn/geglu") else 4
     if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
         return ("zorro_attention",), 2 if backward else 1  # K1b: dq, dk/dv
     if entry.startswith("fused_ffn/"):  # K2b: row pass, weight-gradient product, reduction
-        return (("ffn_bwd", "wgrad"), 3) if backward else (("fused_ffn_kernel",), 1)
+        return (("ffn_bwd", "wgrad"), 3) if backward else (("ffn_fwd",), 1)
     if entry.startswith("fusion_row_attention/"):
         return ("fusion_row_bwd",) if backward else ("fusion_row_kernel",), 1
     if entry.startswith("ms_deform_attn/"):
@@ -269,7 +278,7 @@ def fmt_ms(ms) -> str:
     return "-" if ms is None else f"{ms:.6g} ms"
 
 
-HAND_WRITTEN = ("zorro_attention", "fused_ffn", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
+HAND_WRITTEN = ("zorro_attention", "ffn_fwd", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
                 "point_sample", "block_attn")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
@@ -469,6 +478,27 @@ def grid_sample_case(masks, coords, group, ds=None):
     return lambda: torch.autograd.grad(out, m, ds, retain_graph=True)
 
 
+def unfused_geglu(x, gamma, w_in, w_out):
+    """K2's GEGLU function as the unfused PyTorch chain: F.layer_norm (no
+    bias), F.linear, the GEGLU product, F.linear, in bf16 (cuBLAS). Printed
+    beside the K2 rows for reference; not the library column, and the port
+    never calls it."""
+    F = torch.nn.functional
+    inner = w_out.shape[1]
+
+    def run():
+        u = F.linear(F.layer_norm(x, (x.shape[1],), gamma, None, 1e-5), w_in)
+        return F.linear(u[:, :inner] * F.gelu(u[:, inner:]), w_out)
+    return run
+
+
+def unfused_mlp(x, w1, b1, w2, b2):
+    """K2's MLP function as the unfused chain F.linear, F.gelu, F.linear
+    (bf16, cuBLAS), for reference beside the K2 rows."""
+    F = torch.nn.functional
+    return lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+
 def outputs(r):
     return list(r) if isinstance(r, (tuple, list)) else [r]
 
@@ -502,6 +532,8 @@ def phase_kernels(dev):
     #  library call or None, main shape of the entry?)
     cases = []
     fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
+    chains = {}  # the unfused cuBLAS chain beside the K2 rows, for reference only
+    per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
 
     def zorro_cases(entry_mode, label, qkv, heads, types, main):
         cases.append((f"zorro_attention_qkv/{entry_mode}", label,
@@ -609,12 +641,22 @@ def phase_kernels(dev):
             acts = (3 if backward else 2) * m * dd
         return flops, 2 * (acts + (2 if backward else 1) * weights), PEAK_BF16
 
+    def geglu_case(label, x, w, main, work):
+        cases.append(("fused_ffn/geglu", label, lambda: cuda_ffn.geglu_ffn(x, *w),
+                      lambda: cuda_ffn.geglu_ffn_reference(x, *w), work, None, main))
+        chains["fused_ffn/geglu", label] = unfused_geglu(x, *w)
+        per_call["fused_ffn/geglu", label] = cuda_ffn.forward_kernels(True, *x.shape, w[2].shape[1], x.shape[1])
+
+    def mlp_case(label, x, w, main, work):
+        cases.append(("fused_ffn/mlp", label, lambda: cuda_ffn.mlp_ffn(x, *w),
+                      lambda: cuda_ffn.mlp_ffn_reference(x, *w), work, None, main))
+        chains["fused_ffn/mlp", label] = unfused_mlp(x, *w)
+        per_call["fused_ffn/mlp", label] = cuda_ffn.forward_kernels(False, *x.shape, w[0].shape[0], w[2].shape[0])
+
     for m in (1024, 256, 4096, 38400, 15360):
-        x = randn(m, d)
-        cases.append(("fused_ffn/geglu", f"M={m} d=192 I=512",
-                      lambda x=x: cuda_ffn.geglu_ffn(x, *geglu_w),
-                      lambda x=x: cuda_ffn.geglu_ffn_reference(x, *geglu_w),
-                      ffn_work(m, False, True), None, m == 1024))
+        geglu_case(f"M={m} d=192 I=512", randn(m, d), geglu_w, m == 1024, ffn_work(m, False, True))
+    # an M that is not a multiple of the 128-row tile
+    geglu_case("M=15300 d=192 I=512", randn(15300, d), geglu_w, False, ffn_work(15300, False, True))
     for m in (38400, 15360):
         x, dy = randn(m, d), randn(m, d)
         cases.append(("fused_ffn/geglu_backward", f"M={m} d=192 I=512",
@@ -622,25 +664,25 @@ def phase_kernels(dev):
                       lambda x=x, dy=dy: cuda_ffn.geglu_ffn_backward_reference(x, *geglu_w, dy),
                       ffn_work(m, True, True), None, m == 38400))
     for m in (256, 2048, 15360):
-        x = randn(m, dd)
-        cases.append(("fused_ffn/mlp", f"M={m} d=256 H=1024",
-                      lambda x=x: cuda_ffn.mlp_ffn(x, *mlp_w),
-                      lambda x=x: cuda_ffn.mlp_ffn_reference(x, *mlp_w),
-                      ffn_work(m, False, False), None, m == 2048))
+        mlp_case(f"M={m} d=256 H=1024", randn(m, dd), mlp_w, m == 2048, ffn_work(m, False, False))
     x, dy = randn(15360, dd), randn(15360, dd)
     cases.append(("fused_ffn/mlp_backward", "M=15360 d=256 H=1024",
                   lambda: cuda_ffn.mlp_ffn_backward(x, *mlp_w, dy),
                   lambda: cuda_ffn.mlp_ffn_backward_reference(x, *mlp_w, dy),
                   ffn_work(15360, True, False), None, True))
 
-    # K2b's wide path at the `base` widths (d = 768, I = 2048, H = 3072), past
-    # the row pass's d <= 256; no main path runs it
+    # K2's and K2b's wide paths at the `base` widths (d = 768, I = 2048,
+    # H = 3072), past the row paths' d <= 256; no main path runs them
     bd, b_inner, b_hid = 768, 2048, 3072
     base_geglu_w = ((1 + 0.1 * torch.randn(bd, device=dev, generator=g)).to(bf),
                     randn(2 * b_inner, bd, scale=bd ** -0.5), randn(bd, b_inner, scale=b_inner ** -0.5))
     base_mlp_w = (randn(b_hid, bd, scale=bd ** -0.5), randn(b_hid, scale=0.1), randn(bd, b_hid, scale=b_hid ** -0.5),
                   randn(bd, scale=0.1))
     x_base, dy_base = randn(8192, bd), randn(8192, bd)
+    geglu_case(f"M=8192 d={bd} I={b_inner} {WIDE}", x_base, base_geglu_w, False,
+               ffn_work(8192, False, True, d=bd, inner_ff=b_inner))
+    mlp_case(f"M=8192 d={bd} H={b_hid} {WIDE}", x_base, base_mlp_w, False,
+             ffn_work(8192, False, False, dd=bd, hid=b_hid))
     cases.append(("fused_ffn/geglu_backward", f"M=8192 d={bd} I={b_inner} {WIDE}",
                   lambda: cuda_ffn.geglu_ffn_backward(x_base, *base_geglu_w, dy_base),
                   lambda: cuda_ffn.geglu_ffn_backward_reference(x_base, *base_geglu_w, dy_base),
@@ -649,6 +691,18 @@ def phase_kernels(dev):
                   lambda: cuda_ffn.mlp_ffn_backward(x_base, *base_mlp_w, dy_base),
                   lambda: cuda_ffn.mlp_ffn_backward_reference(x_base, *base_mlp_w, dy_base),
                   ffn_work(8192, True, False, dd=bd, hid=b_hid), None, False))
+    # the `large` widths: d = 1024 and the GEGLU inner width int(1024 * 8 / 3)
+    # = 2730, not a multiple of 16, which the wrappers zero-pad to 2736
+    ld, l_inner = 1024, 2730
+    large_w = ((1 + 0.1 * torch.randn(ld, device=dev, generator=g)).to(bf),
+               randn(2 * l_inner, ld, scale=ld ** -0.5), randn(ld, l_inner, scale=l_inner ** -0.5))
+    x_large, dy_large = randn(4096, ld), randn(4096, ld)
+    geglu_case(f"M=4096 d={ld} I={l_inner} {WIDE_LARGE}", x_large, large_w, False,
+               ffn_work(4096, False, True, d=ld, inner_ff=l_inner))
+    cases.append(("fused_ffn/geglu_backward", f"M=4096 d={ld} I={l_inner} {WIDE_LARGE}",
+                  lambda: cuda_ffn.geglu_ffn_backward(x_large, *large_w, dy_large),
+                  lambda: cuda_ffn.geglu_ffn_backward_reference(x_large, *large_w, dy_large),
+                  ffn_work(4096, True, True, d=ld, inner_ff=l_inner), None, False))
 
     for b in (1, 8, 60):
         q, kvg, kvf = randn(b, f, 192), randn(b, 3 * f, 384), randn(b, f, 384)
@@ -674,21 +728,27 @@ def phase_kernels(dev):
     for b, near in ((1, False), (30, False), (30, True)):
         value, locs, aw = msda_inputs(dev, g, b, near_reference=near)
         label = f"B={b} Lq=S=1344 8x32 L=3 P=4" + (" near reference" if near else "")
+        per_call["ms_deform_attn/backward", label] = cuda_msda.backward_kernels(
+            b, locs.shape[1], value.shape[2], value.shape[3], MSDA_LEVELS, locs.shape[4])
         cases.append(("ms_deform_attn/forward", label,
                       lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn(v, MSDA_LEVELS, lc, a),
                       lambda v=value, lc=locs, a=aw: cuda_msda.ms_deform_attn_core(v, MSDA_LEVELS, lc, a),
                       msda_work(value, locs, aw), None, b == 30 and not near))
     # K4b at the same shapes, random locations (off the pixel centres, where
-    # the derivative is one-sided, almost surely)
-    for b in (1, 30):
-        value, locs, aw = msda_inputs(dev, g, b)
+    # the derivative is one-sided, almost surely) and near the reference
+    # points, as the trained decoder samples
+    for b, near in ((1, False), (30, False), (1, True), (30, True)):
+        value, locs, aw = msda_inputs(dev, g, b, near_reference=near)
         dout = torch.randn(b, locs.shape[1], value.shape[2] * value.shape[3], device=dev, generator=g)
-        cases.append(("ms_deform_attn/backward", f"B={b} Lq=S=1344 8x32 L=3 P=4",
+        label = f"B={b} Lq=S=1344 8x32 L=3 P=4" + (" near reference" if near else "")
+        per_call["ms_deform_attn/backward", label] = cuda_msda.backward_kernels(
+            b, locs.shape[1], value.shape[2], value.shape[3], MSDA_LEVELS, locs.shape[4])
+        cases.append(("ms_deform_attn/backward", label,
                       lambda v=value, lc=locs, a=aw, do=dout: cuda_msda.ms_deform_attn_backward(
                           v, MSDA_LEVELS, lc, a, do),
                       lambda v=value, lc=locs, a=aw, do=dout: cuda_msda.ms_deform_attn_backward_reference(
                           v, MSDA_LEVELS, lc, a, do),
-                      msda_bwd_work(value, locs, aw, dout), None, b == 30))
+                      msda_bwd_work(value, locs, aw, dout), None, b == 30 and not near))
     # K5 at the criterion's four shapes, K5b at the loss's; coords uniform in
     # [-0.05, 1.05], past the borders too
     for label, (n, h, w), rows, group in POINT_SHAPES:
@@ -725,8 +785,14 @@ def phase_kernels(dev):
         ms_lib = cuda_ms(library) if library is not None else None
         bound_ms, bound_by = bound(flops, n_bytes, peak)
         fb = f" library fwd+bwd {cuda_ms(fwd_bwd[entry, label]):.6g} ms" if (entry, label) in fwd_bwd else ""
+        if (entry, label) in chains:  # for reference only: not the library column
+            chain = chains[entry, label]
+            fb += (f"; unfused cuBLAS chain {cuda_ms(chain):.6g} ms, device only "
+                   f"{fmt_ms(library_device_ms(chain)[0])}")
         device = {"library_device_ms": None, "library_device_how": None}
-        device["device_ms"], device["device_how"] = device_only_ms(kernel, *entry_kernels(entry, label))
+        names, kernels = entry_kernels(entry, label)
+        device["device_ms"], device["device_how"] = device_only_ms(kernel, names,
+                                                                    per_call.get((entry, label), kernels))
         fb += f"; device only: kernel {fmt_ms(device['device_ms'])} ({device['device_how']})"
         if library is not None:
             device["library_device_ms"], device["library_device_how"] = library_device_ms(library)

@@ -39,6 +39,11 @@
 // weight 0, so every load is unconditional. No shared memory, no atomics.
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int MAX_LEVELS = 16;
@@ -134,12 +139,6 @@ __global__ void ms_deform_attn_fwd_kernel(const float* __restrict__ value,
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
 // K4b: the gradient of K4's function. Replaces the Pallas TPU kernel
 // ops/pallas_msda.py _bwd_kernel (pallas_call in _msda_level_bwd), whose
 // per-level hat matmuls exist only because the TPU has no gather; this is
@@ -147,111 +146,252 @@ __device__ __forceinline__ float warp_sum(float v) {
 // gathered exactly as the forward gathers them, and from them
 //   daw     = sum_t w_t <v_t, g>                       (g = dOut of the head)
 //   dloc_x  = aw * W * sum_t dw_t/dpx <v_t, g>, dloc_y likewise with H,
-//   dV[t]  += aw * w_t * g                             (f32 atomics)
+//   dV[t]  += aw * w_t * g
 // with w_t the bilinear weight of tap t (0 outside the level). The channel
-// sums <., g> are warp reductions (lane d holds channel d; a wider D strides
-// the lanes over chunks and sums the chunks first).
-//
-// One warp per (b, q, m), as the forward. Lane j loads sample j's pixel
-// position and attention weight (coalesced), the warp then walks the
-// samples taking each one's from its lane by shuffles, every lane
-// recomputing the taps, and lane j keeps sample j's three results for one
-// coalesced write at the end.
+// sums <., g> are reductions over the lanes that hold the sample's channels
+// (a wider D strides them over 32-channel passes and sums the passes first).
 //
 // What bounds it on an H100: the operands (value, loc, aw, dOut read once;
-// dV, dloc, daw written once, 217 MB at B = 30) set a 0.065 ms floor, but
-// every tap of every sample adds its 32 channels into dV with a reduction
-// (red.global.add.f32): 4 taps x 32 channels per sample, about 495 M at
-// B = 30, many aimed at the same rows (the 8^2 level takes 336 samples per
-// position and head), so the atomics' throughput in L2 sets its time. Their
-// order varies from run to run; dV's sums vary in the last bits with it.
-__global__ void ms_deform_attn_bwd_kernel(const float* __restrict__ value,
-                                          const float* __restrict__ loc,
-                                          const float* __restrict__ aw,
-                                          const float* __restrict__ dout,
-                                          float* __restrict__ dvalue, float* __restrict__ dloc,
-                                          float* __restrict__ daw, long long rows, int s, int lq,
-                                          int heads, int dim, int points, Levels lv) {
-  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int m = (int)(row % heads);
-  const long long b = row / heads / lq;
-  const int samples = lv.n * points;
-  const float* loc_row = loc + row * samples * 2;
-  const float* aw_row = aw + row * samples;
-  float* dloc_row = dloc + row * samples * 2;
-  float* daw_row = daw + row * samples;
-  const int pos_stride = heads * dim;
-  const long long vbase = b * s * pos_stride + (long long)m * dim;
-  const float* grow = dout + row * dim;
+// dV, dloc, daw written once, 217 MB at B = 30) set a 0.065 ms floor. The
+// first design, a warp per (query, head) walking its samples one at a time
+// with every lane on one channel, added every tap's 32 channels into dV in
+// device memory (red.global.add.f32, about 495 M at B = 30, piled on the
+// coarse rows: the 8^2 level takes 336 tap-adds per position and head,
+// against about 21 on the 32^2 level) and took 1.16 ms. Here:
+//   * a block owns one (batch, head) slice: dV of its positions [0, s_dv)
+//     (whole levels, coarse first: all of S x D x 4 = 172,032 bytes at the
+//     pixel decoder's levels 8^2, 16^2, 32^2) in shared memory, summed
+//     there, then written once with coalesced rows, so no global atomics
+//     and no zeroed dV;
+//   * a warp still takes one query: lane j prepares sample j's taps, then
+//     the lanes work as CPL = 4 groups of 8, each group one sample, each
+//     lane 4 channels by 16-byte loads (where dim is a multiple of 4 and
+//     value and dOut are 16-byte aligned): four samples in flight a warp,
+//     the channel sums over 8 lanes (the first design's walk was bound by
+//     its instructions and their latency, not by its atomics);
+//   * the dV adds go one tap row at a time, lane c on channel c, the row
+//     and aw * w_t broadcast from the sample's group: sm_90 has no
+//     shared-memory f32 add instruction (atomicAdd becomes an
+//     ATOMS.CAST.SPIN compare-and-swap loop), and such a loop costs more
+//     the more rows one instruction touches, so each covers one row (on
+//     an H100, builds without these adds or without the value gathers,
+//     timed by tools/bench_msda_bwd.py, were only 10% and 5% faster: the
+//     time is spread over each sample's whole chain of work);
+//   * where the (batch, head) slices are fewer than the SMs (B = 1: 8
+//     slices), a slice's queries are split over `splits` blocks, each
+//     writing its partial slice to a scratch, and a second launch sums the
+//     partials in a fixed order and writes dV;
+//   * levels past the shared memory (never at the pixel decoder's shapes)
+//     keep f32 atomics into dV, whose rows the launcher zeroes first.
+// The order of the shared-memory adds varies from run to run, so dV's sums
+// vary in the last bits with it.
+constexpr int BWD_THREADS = 1024;  // 32 warps: the gathers' latency needs them, and one block fills an SM
+constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90 (227 KB)
+constexpr int MIN_SPLIT_QUERIES = 32;  // a split's queries: at least one a warp
 
-  for (int c0 = 0; c0 < samples; c0 += 32) {
-    // lane j: sample c0 + j's pixel position and attention weight
-    const int i = c0 + lane;
-    float my_px = -2.0f, my_py = -2.0f, my_a = 0.0f;
-    if (i < samples) {
-      const int l = i / points;
-      my_px = pixel_of(loc_row[2 * i], lv.w[l]);
-      my_py = pixel_of(loc_row[2 * i + 1], lv.h[l]);
-      my_a = aw_row[i];
-    }
-    float r_aw = 0.0f, r_x = 0.0f, r_y = 0.0f;  // lane j's sample's results
-    const int n = min(32, samples - c0);
-    for (int j = 0; j < n; ++j) {
-      const float px = __shfl_sync(FULL, my_px, j);
-      const float py = __shfl_sync(FULL, my_py, j);
-      const float a = __shfl_sync(FULL, my_a, j);
-      const int l = (c0 + j) / points;
-      const int h = lv.h[l];
-      const int w = lv.w[l];
-      // a sample with all four taps outside its level has zero gradients
-      // (the test also keeps the integer conversions in range)
-      if (!(px >= -1.0f && py >= -1.0f && px < (float)w && py < (float)h)) continue;
-      const float x0f = floorf(px);
-      const float y0f = floorf(py);
-      const float dx = px - x0f;
-      const float dy = py - y0f;
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const bool xin0 = x0 >= 0, xin1 = x0 + 1 < w;
-      const bool yin0 = y0 >= 0, yin1 = y0 + 1 < h;
-      const bool in[4] = {yin0 && xin0, yin0 && xin1, yin1 && xin0, yin1 && xin1};
-      const int base = lv.start[l] + y0 * w + x0;
-      const int pos[4] = {base, base + 1, base + w, base + w + 1};
-      // the bilinear weights and their derivatives in px and py, per tap
-      const float wt[4] = {(1.0f - dy) * (1.0f - dx), (1.0f - dy) * dx, dy * (1.0f - dx), dy * dx};
-      const float gx[4] = {-(1.0f - dy), 1.0f - dy, -dy, dy};
-      const float gy[4] = {-(1.0f - dx), -dx, 1.0f - dx, dx};
-      float s_aw = 0.0f, s_x = 0.0f, s_y = 0.0f;
-      for (int d0 = 0; d0 < dim; d0 += 32) {
-        const int d = d0 + lane;
-        if (d >= dim) continue;
-        const float g = grow[d];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          if (!in[t]) continue;
-          const long long off = vbase + (long long)pos[t] * pos_stride + d;
-          const float sv = value[off] * g;
-          s_aw += wt[t] * sv;
-          s_x += gx[t] * sv;
-          s_y += gy[t] * sv;
-          atomicAdd(dvalue + off, a * wt[t] * g);
+// How the backward runs for a shape: the positions of a slice whose dV
+// sits in shared memory (s_dv), blocks per slice, the dynamic shared
+// memory, and the partial slices' scratch in floats
+struct BwdPlan {
+  int s_dv, splits;
+  size_t smem;
+  long long scratch;
+};
+
+BwdPlan plan_bwd(const Levels& lv, int batch, int lq, int heads, int dim) {
+  const size_t row = (size_t)dim * sizeof(float);
+  BwdPlan p{0, 1, 0, 0};
+  for (int l = 0; l < lv.n && (p.s_dv + lv.h[l] * lv.w[l]) * row <= (size_t)MAX_SMEM; ++l)
+    p.s_dv += lv.h[l] * lv.w[l];
+  p.smem = (size_t)p.s_dv * row;
+  const int slices = batch * heads, sms = hopper::sm_count();
+  if (slices < sms && p.s_dv > 0) {
+    p.splits = sms / slices;
+    const int by_queries = (lq + MIN_SPLIT_QUERIES - 1) / MIN_SPLIT_QUERIES;
+    p.splits = p.splits < by_queries ? p.splits : by_queries;
+    p.splits = p.splits < 1 ? 1 : p.splits;
+  }
+  p.scratch = p.splits > 1 ? (long long)p.splits * slices * p.s_dv * dim : 0;
+  return p;
+}
+
+// CPL channels of a row into registers (one 16-byte load for 4)
+template <int CPL>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[CPL]) {
+  if constexpr (CPL == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// block = (slice, split), slice = b * heads + m; queries [q0, q1) of the
+// split, a warp a query. CPL: channels a lane (4 for 16-byte loads, else
+// 1). Lane j first prepares sample j of the query (its taps, from one load
+// of its location and weight), then the warp's lanes form CPL groups of
+// LPG = 32 / CPL lanes, and each group takes one prepared sample at a time
+// (CPL samples in flight a warp), a lane CPL channels of its 32-channel
+// pass; the dV adds go a row at a time, a lane a channel.
+template <int CPL>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+ms_deform_attn_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+                          const float* __restrict__ aw, const float* __restrict__ dout,
+                          float* __restrict__ dvalue, float* __restrict__ dloc, float* __restrict__ daw,
+                          float* __restrict__ partial, int s, int lq, int heads, int dim, int points, Levels lv,
+                          int s_dv, int splits) {
+  constexpr int LPG = 32 / CPL;  // lanes a group: LPG * CPL = 32 channels a pass
+  extern __shared__ float sdv[];  // [s_dv][dim]: this slice's dV sums
+  const int slice = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int b = slice / heads, m = slice % heads;
+  const int qps = (lq + splits - 1) / splits;
+  const int q0 = split * qps, q1 = min(lq, q0 + qps);
+  const int pos_stride = heads * dim;
+  const long long vbase = (long long)b * s * pos_stride + (long long)m * dim;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  constexpr int WARPS = BWD_THREADS / 32;
+  for (int i = threadIdx.x; i < s_dv * dim; i += BWD_THREADS) sdv[i] = 0.0f;
+  __syncthreads();
+
+  const int grp = lane / LPG, gl = lane % LPG;
+  const int samples = lv.n * points;
+  for (int q = q0 + warp; q < q1; q += WARPS) {
+    const long long row = ((long long)b * lq + q) * heads + m;
+    for (int c0 = 0; c0 < samples; c0 += 32) {
+      // lane j prepares sample c0 + j: its first tap's position, its level's
+      // width, the in-level flags of its four taps, its attention weight and
+      // fractional pixel offsets; a sample with all four taps outside its
+      // level keeps zeros (the test also keeps the integer conversions in range)
+      int my_base = 0, my_w = 1, my_in = 0;
+      float my_a = 0.0f, my_fx = 0.0f, my_fy = 0.0f;
+      if (c0 + lane < samples) {
+        const int smp = c0 + lane, l = smp / points;
+        const int h = lv.h[l];
+        my_w = lv.w[l];
+        const float a = aw[row * samples + smp];
+        const float px = pixel_of(loc[(row * samples + smp) * 2], my_w);
+        const float py = pixel_of(loc[(row * samples + smp) * 2 + 1], h);
+        if (px >= -1.0f && py >= -1.0f && px < (float)my_w && py < (float)h) {
+          my_a = a;
+          const float x0f = floorf(px), y0f = floorf(py);
+          my_fx = px - x0f;
+          my_fy = py - y0f;
+          const int x0 = (int)x0f, y0 = (int)y0f;
+          const bool xin0 = x0 >= 0, xin1 = x0 + 1 < my_w, yin0 = y0 >= 0, yin1 = y0 + 1 < h;
+          my_in = (yin0 && xin0) | (yin0 && xin1) << 1 | (yin1 && xin0) << 2 | (yin1 && xin1) << 3;
+          my_base = lv.start[l] + y0 * my_w + x0;
         }
       }
-      s_aw = warp_sum(s_aw);
-      s_x = warp_sum(s_x);
-      s_y = warp_sum(s_y);
-      if (lane == j) {
-        r_aw = s_aw;
-        r_x = a * (float)w * s_x;
-        r_y = a * (float)h * s_y;
+      const int n = min(32, samples - c0);
+      for (int s0 = 0; s0 < n; s0 += CPL) {
+        // this group's sample, from the lane that prepared it
+        const int src = s0 + grp;
+        const int base = __shfl_sync(FULL, my_base, src), w = __shfl_sync(FULL, my_w, src);
+        const int inm = __shfl_sync(FULL, my_in, src);
+        const float a = __shfl_sync(FULL, my_a, src), fx = __shfl_sync(FULL, my_fx, src);
+        const float fy = __shfl_sync(FULL, my_fy, src);
+        const bool in[4] = {(inm & 1) != 0, (inm & 2) != 0, (inm & 4) != 0, (inm & 8) != 0};
+        const int pos[4] = {base, base + 1, base + w, base + w + 1};
+        // the bilinear weights and their derivatives in px and py, per tap
+        const float wt[4] = {(1.0f - fy) * (1.0f - fx), (1.0f - fy) * fx, fy * (1.0f - fx), fy * fx};
+        const float gx[4] = {-(1.0f - fy), 1.0f - fy, -fy, fy};
+        const float gy[4] = {-(1.0f - fx), -fx, 1.0f - fx, fx};
+        float s_aw = 0.0f, s_x = 0.0f, s_y = 0.0f;
+        for (int d0 = 0; d0 < dim; d0 += 32) {
+          const int d = d0 + gl * CPL;
+          if (d < dim) {  // dim is a multiple of CPL: the lane's channels are all in or all out
+            float g[CPL], v[4][CPL];
+            load_row<CPL>(dout + row * dim + d, g);
+            // the four taps' values first (independent loads), then their sums
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              if (in[t])
+                load_row<CPL>(value + vbase + (long long)pos[t] * pos_stride + d, v[t]);
+              else
+#pragma unroll
+                for (int c = 0; c < CPL; ++c) v[t][c] = 0.0f;
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+#pragma unroll
+              for (int c = 0; c < CPL; ++c) {
+                const float sv_t = v[t][c] * g[c];
+                s_aw += wt[t] * sv_t;
+                s_x += gx[t] * sv_t;
+                s_y += gy[t] * sv_t;
+              }
+          }
+          // dV: the CPL samples' taps one row at a time, lane c adding
+          // aw * w_t * dOut[d0 + c] into channel d0 + c of the tap's row, so
+          // every add instruction covers one contiguous row (shared-memory
+          // float adds are compare-and-swap loops whose cost grows with the
+          // rows an instruction touches)
+          const int dc = d0 + lane;
+          const float gc = dc < dim ? dout[row * dim + dc] : 0.0f;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i)
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const float coef = __shfl_sync(FULL, a * wt[t], i * LPG);
+              const int p = __shfl_sync(FULL, in[t] ? pos[t] : -1, i * LPG);
+              if (p < 0 || dc >= dim) continue;
+              if (p < s_dv)
+                atomicAdd(sdv + p * dim + dc, coef * gc);
+              else
+                atomicAdd(dvalue + vbase + (long long)p * pos_stride + dc, coef * gc);
+            }
+        }
+        // the channel sums over the group's lanes
+#pragma unroll
+        for (int o = LPG / 2; o > 0; o >>= 1) {
+          s_aw += __shfl_xor_sync(FULL, s_aw, o);
+          s_x += __shfl_xor_sync(FULL, s_x, o);
+          s_y += __shfl_xor_sync(FULL, s_y, o);
+        }
+        const int smp = c0 + src;
+        if (gl == 0 && src < n) {
+          const int h = lv.h[smp / points];
+          daw[row * samples + smp] = s_aw;
+          dloc[(row * samples + smp) * 2] = a * (float)w * s_x;
+          dloc[(row * samples + smp) * 2 + 1] = a * (float)h * s_y;
+        }
       }
     }
-    if (i < samples) {
-      daw_row[i] = r_aw;
-      dloc_row[2 * i] = r_x;
-      dloc_row[2 * i + 1] = r_y;
+  }
+  __syncthreads();
+  // the slice (or this split's partial of it) out, each element once: a
+  // position's dim channels are one contiguous row in both layouts
+  if (splits == 1) {
+    for (int r = warp; r < s_dv; r += WARPS)
+      for (int c = lane; c < dim; c += 32) dvalue[vbase + (long long)r * pos_stride + c] = sdv[r * dim + c];
+  } else {
+    const int slices = gridDim.x / splits;
+    float* out = partial + ((long long)split * slices + slice) * s_dv * dim;
+    for (int i = threadIdx.x; i < s_dv * dim; i += BWD_THREADS) out[i] = sdv[i];
+  }
+}
+
+// dV of positions [0, s_dv), the splits' partial slices summed in order: a
+// warp per row (b, p, m) of dvalue, a lane per channel
+__global__ void ms_deform_attn_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dvalue,
+                                                 int batch, int s, int heads, int dim, int s_dv, int splits) {
+  const long long rows = (long long)batch * s_dv * heads;
+  const long long slice_floats = (long long)s_dv * dim, split_floats = (long long)batch * heads * slice_floats;
+  const int lane = threadIdx.x % 32;
+  for (long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32; r < rows;
+       r += (long long)gridDim.x * blockDim.x / 32) {
+    const int m = (int)(r % heads);
+    const int p = (int)(r / heads % s_dv);
+    const long long b = r / heads / s_dv;
+    const float* src = partial + (b * heads + m) * slice_floats + (long long)p * dim;
+    float* dst = dvalue + ((b * s + p) * heads + m) * dim;
+    for (int c = lane; c < dim; c += 32) {
+      float acc = 0.0f;
+      for (int k = 0; k < splits; ++k) acc += src[k * split_floats + c];
+      dst[c] = acc;
     }
   }
 }
@@ -288,20 +428,48 @@ extern "C" int ms_deform_attn_fwd_f32(const float* value, const float* loc, cons
   return (int)cudaGetLastError();
 }
 
+// The f32 scratch one backward needs for its partial slices, in floats (0
+// where a block owns a whole slice); -1 for shapes the kernel does not take.
+extern "C" long long ms_deform_attn_bwd_scratch_floats(int batch, int s, int lq, int heads, int dim, int levels,
+                                                       int points, const int* level_hw) {
+  Levels lv;
+  if (batch < 1 || lq < 1 || heads < 1 || dim < 1 || points < 1 || !make_levels(levels, level_hw, s, &lv))
+    return -1;
+  return plan_bwd(lv, batch, lq, heads, dim).scratch;
+}
+
 // The gradients of ms_deform_attn_fwd_f32's output: dvalue [B, S, M, D]
-// (must be zeroed by the caller: the kernel adds into it), dloc
-// [B, Lq, M, L, P, 2] and daw [B, Lq, M, L, P], all f32.
+// (written whole: nothing needs zeroing), dloc [B, Lq, M, L, P, 2] and daw
+// [B, Lq, M, L, P], all f32; scratch: ms_deform_attn_bwd_scratch_floats
+// floats (null when that is 0).
 extern "C" int ms_deform_attn_bwd_f32(const float* value, const float* loc, const float* aw,
                                       const float* dout, float* dvalue, float* dloc, float* daw,
-                                      int batch, int s, int lq, int heads, int dim, int levels,
-                                      int points, const int* level_hw, cudaStream_t stream) {
+                                      float* scratch, int batch, int s, int lq, int heads, int dim,
+                                      int levels, int points, const int* level_hw, cudaStream_t stream) {
+  static std::atomic<unsigned> ready4{0}, ready1{0};
   Levels lv;
   if (batch < 1 || lq < 1 || heads < 1 || dim < 1 || points < 1 ||
       !make_levels(levels, level_hw, s, &lv))
     return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)batch * lq * heads;
-  const long long blocks = (rows * 32 + THREADS - 1) / THREADS;
-  ms_deform_attn_bwd_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
-      value, loc, aw, dout, dvalue, dloc, daw, rows, s, lq, heads, dim, points, lv);
+  const BwdPlan p = plan_bwd(lv, batch, lq, heads, dim);
+  if (p.scratch > 0 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  // 16-byte loads of value and dOut rows where their channels allow them
+  const bool vec = dim % 4 == 0 && (uintptr_t)value % 16 == 0 && (uintptr_t)dout % 16 == 0;
+  auto kernel = vec ? ms_deform_attn_bwd_kernel<4> : ms_deform_attn_bwd_kernel<1>;
+  cudaError_t err = hopper::allow_smem((const void*)kernel, MAX_SMEM, vec ? ready4 : ready1);
+  if (err != cudaSuccess) return (int)err;
+  if (p.s_dv < s) {  // the levels past shared memory take atomics: zero their rows first
+    const size_t row = (size_t)heads * dim * sizeof(float);
+    err = cudaMemset2DAsync(dvalue + (long long)p.s_dv * heads * dim, s * row, 0, (s - p.s_dv) * row, batch,
+                            stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<batch * heads * p.splits, BWD_THREADS, p.smem, stream>>>(
+      value, loc, aw, dout, dvalue, dloc, daw, scratch, s, lq, heads, dim, points, lv, p.s_dv, p.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return (int)err;
+  const long long blocks = ((long long)batch * p.s_dv * heads + 7) / 8;  // 8 warps a block, a warp a row
+  ms_deform_attn_bwd_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      scratch, dvalue, batch, s, heads, dim, p.s_dv, p.splits);
   return (int)cudaGetLastError();
 }

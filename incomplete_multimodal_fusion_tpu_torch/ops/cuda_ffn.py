@@ -13,6 +13,13 @@ transposes, and the backward returns weight gradients in the port's layout.
 GELU is the exact (erf) form. A CPU tensor goes to the plain version; a CUDA
 tensor launches the kernel (bf16 only) or raises. ``GegluFFN`` and
 ``MlpFFN`` are the autograd Functions the model calls.
+
+The kernels take hidden widths that are multiples of 16. A GEGLU inner
+width that is not (the `large` config's int(1024 * 8 / 3) = 2730) is
+zero-padded in the weights before the launch (``pad_geglu_hidden``): a
+padded val and gate row gives a = val gelu(gate) = 0, which adds nothing to
+y, dx or the real rows and columns of the weight gradients, so the padding
+is exact; the backward drops the padded gradient rows and columns.
 """
 from __future__ import annotations
 
@@ -134,10 +141,39 @@ def _check(name, x, *tensors):
 def _check_geglu(name, x, gamma, w_in, w_out):
     d = x.shape[1]
     inner = w_out.shape[1]
-    if gamma.shape != (d,) or w_in.shape != (2 * inner, d) or w_out.shape != (d, inner) or inner % 16:
+    if gamma.shape != (d,) or w_in.shape != (2 * inner, d) or w_out.shape != (d, inner):
         raise ValueError(f"{name}: bad shapes gamma {tuple(gamma.shape)}, w_in "
                          f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)} for D = {d}")
     return inner
+
+
+HIDDEN_MULTIPLE = 16  # the kernels' hidden widths
+
+
+def pad_geglu_hidden(w_in, w_out):
+    """GEGLU weights with the inner width I zero-padded up to a multiple of
+    HIDDEN_MULTIPLE: w_in [2I, D] -> [2Ip, D] (val rows, zeros, gate rows,
+    zeros), w_out [D, I] -> [D, Ip] (zero columns). The padded units give
+    a = 0, so the function is unchanged. Weights already aligned come back
+    as they are."""
+    inner = w_out.shape[1]
+    pad = -inner % HIDDEN_MULTIPLE
+    if pad == 0:
+        return w_in, w_out
+    zeros = w_in.new_zeros((pad, w_in.shape[1]))
+    w_in = torch.cat([w_in[:inner], zeros, w_in[inner:], zeros]).contiguous()
+    return w_in, F.pad(w_out, (0, pad)).contiguous()
+
+
+def unpad_geglu_grads(dw_in, dw_out, inner: int):
+    """The gradients of the unpadded weights from those of
+    ``pad_geglu_hidden``'s: the val and gate rows of dW_in and the first
+    ``inner`` columns of dW_out."""
+    padded = dw_out.shape[1]
+    if padded == inner:
+        return dw_in, dw_out
+    return (torch.cat([dw_in[:inner], dw_in[padded:padded + inner]]),
+            dw_out[:, :inner].contiguous())
 
 
 def _check_mlp(name, x, w1, b1, w2, b2):
@@ -150,21 +186,79 @@ def _check_mlp(name, x, w1, b1, w2, b2):
     return hidden, out
 
 
+@functools.cache
+def _geglu_fwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_ffn.cu", "geglu_ffn_bf16", [p] * 6 + [i, i, i, p])
+
+
+@functools.cache
+def _mlp_fwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_ffn.cu", "mlp_ffn_bf16", [p] * 7 + [i, i, i, i, p])
+
+
+@functools.cache
+def _fwd_workspace_fn():
+    fn = cuda_build.load("fused_ffn.cu").ffn_fwd_workspace_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+@functools.cache
+def _fwd_kernels_fn():
+    fn = cuda_build.load("fused_ffn.cu").ffn_fwd_kernels
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def forward_kernels(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
+    """How many kernels one forward launches on the card for these shapes
+    (M rows, input width d, GEGLU inner or MLP hidden width ``hid``, output
+    width ``d_out``), as the library plans it: 1, or 2 where the row path
+    splits the hidden width at small M; 3 (GEGLU) or 2 (MLP) past the row
+    path's widths. A GEGLU inner width is counted padded, as launched."""
+    if geglu:
+        hid += -hid % HIDDEN_MULTIPLE
+    n = _fwd_kernels_fn()(0 if geglu else 1, m, d, hid, d_out)
+    if n < 0:
+        raise ValueError(f"fused_ffn: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
+    return n
+
+
+def _fwd_workspace(name, x, mode, m, d, hid, d_out):
+    """The forward's workspace (mode 0 GEGLU, 1 MLP), as large as its library
+    asks for the shapes: the row path's partial outputs where it splits the
+    hidden width at small M, xn and the activation past the row path's
+    widths; None where it needs none."""
+    size = _fwd_workspace_fn()(mode, m, d, hid, d_out)
+    if size < 0:
+        raise ValueError(f"{name}: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
+    return torch.empty((size,), dtype=torch.uint8, device=x.device) if size else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def geglu_ffn(x, gamma, w_in, w_out):
     """Fused LayerNorm + GEGLU FF. x [M, D], gamma [D], w_in [2I, D],
     w_out [D, I] -> [M, D]."""
     if x.device.type == "cpu":
         return geglu_ffn_reference(x, gamma, w_in, w_out)
     _check("geglu_ffn", x, gamma, w_in, w_out)
-    inner = _check_geglu("geglu_ffn", x, gamma, w_in, w_out)
+    _check_geglu("geglu_ffn", x, gamma, w_in, w_out)
+    w_in, w_out = pad_geglu_hidden(w_in, w_out)
+    inner = w_out.shape[1]
     m, d = x.shape
     y = torch.empty_like(x)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_ffn.cu", "geglu_ffn_bf16", [p, p, p, p, p, i, i, i, p])
     with torch.cuda.device(x.device):
+        ws = _fwd_workspace("geglu_ffn", x, 0, m, d, inner, d)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), gamma.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), y.data_ptr(),
-                 m, d, inner, stream)
+        err = _geglu_fwd_fn()(x.data_ptr(), gamma.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), y.data_ptr(),
+                              _ptr(ws), m, d, inner, stream)
     cuda_build.check_launch(err, "geglu_ffn")
     LAUNCHES["geglu"] += 1
     return y
@@ -179,12 +273,11 @@ def mlp_ffn(x, w1, b1, w2, b2):
     hidden, out = _check_mlp("mlp_ffn", x, w1, b1, w2, b2)
     m, d = x.shape
     y = torch.empty((m, out), dtype=x.dtype, device=x.device)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_ffn.cu", "mlp_ffn_bf16", [p, p, p, p, p, p, i, i, i, i, p])
     with torch.cuda.device(x.device):
+        ws = _fwd_workspace("mlp_ffn", x, 1, m, d, hidden, out)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 y.data_ptr(), m, d, hidden, out, stream)
+        err = _mlp_fwd_fn()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                            y.data_ptr(), _ptr(ws), m, d, hidden, out, stream)
     cuda_build.check_launch(err, "mlp_ffn")
     LAUNCHES["mlp"] += 1
     return y
@@ -227,9 +320,11 @@ def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
     if x.device.type == "cpu":
         return geglu_ffn_backward_reference(x, gamma, w_in, w_out, dy)
     _check("geglu_ffn_backward", x, gamma, w_in, w_out, dy)
-    inner = _check_geglu("geglu_ffn_backward", x, gamma, w_in, w_out)
+    real_inner = _check_geglu("geglu_ffn_backward", x, gamma, w_in, w_out)
     if dy.shape != x.shape:
         raise ValueError(f"geglu_ffn_backward: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    w_in, w_out = pad_geglu_hidden(w_in, w_out)
+    inner = w_out.shape[1]
     m, d = x.shape
     du, a, xn = (torch.empty((m, w), dtype=x.dtype, device=x.device) for w in (2 * inner, inner, d))
     scratch = _bwd_scratch("geglu_ffn_backward", x, 0, m, d, inner, d)
@@ -243,7 +338,7 @@ def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
                  du.data_ptr(), a.data_ptr(), xn.data_ptr(), scratch.data_ptr(), m, d, inner, stream)
     cuda_build.check_launch(err, "geglu_ffn_backward")
     LAUNCHES["geglu_backward"] += 1
-    return dx, dgamma, dw_in, dw_out
+    return (dx, dgamma, *unpad_geglu_grads(dw_in, dw_out, real_inner))
 
 
 def mlp_ffn_backward(x, w1, b1, w2, b2, dy):

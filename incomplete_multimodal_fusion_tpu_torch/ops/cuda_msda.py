@@ -13,6 +13,7 @@ launches the kernel (contiguous f32 only) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -53,6 +54,41 @@ def _level_hw(spatial_shapes):
     return (ctypes.c_int * (2 * len(spatial_shapes)))(*[int(v) for hw in spatial_shapes for v in hw])
 
 
+@functools.cache
+def _fwd_fn():
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("ms_deform_attn.cu", "ms_deform_attn_fwd_f32",
+                           [ptr, ptr, ptr, ptr, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int), ptr])
+
+
+@functools.cache
+def _bwd_fn():
+    ptr, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("ms_deform_attn.cu", "ms_deform_attn_bwd_f32",
+                           [ptr] * 8 + [i] * 7 + [ctypes.POINTER(ctypes.c_int), ptr])
+
+
+@functools.cache
+def _bwd_scratch_fn():
+    fn = cuda_build.load("ms_deform_attn.cu").ms_deform_attn_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def backward_kernels(batch: int, lq: int, heads: int, dim: int, spatial_shapes, points: int) -> int:
+    """How many kernels one backward launches on the card for these shapes,
+    as the library plans it: 2 where a (batch, head) slice's queries split
+    over blocks (a scratch of partial slices, summed by a second kernel),
+    else 1."""
+    s = level_starts(spatial_shapes)[-1]
+    floats = _bwd_scratch_fn()(batch, s, lq, heads, dim, len(spatial_shapes), points,
+                               _level_hw(spatial_shapes))
+    if floats < 0:
+        raise ValueError(f"ms_deform_attn_backward: no kernel for spatial shapes {tuple(spatial_shapes)}")
+    return 2 if floats > 0 else 1
+
+
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor, attention_weights: torch.Tensor) -> torch.Tensor:
     """value [B, S, M, D]; spatial_shapes [(H, W), ...] low -> high
@@ -64,9 +100,7 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]
     b, s, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
     out = torch.empty((b, lq, m * d), dtype=torch.float32, device=value.device)
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("ms_deform_attn.cu", "ms_deform_attn_fwd_f32",
-                         [ptr, ptr, ptr, ptr, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int), ptr])
+    fn = _fwd_fn()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = fn(value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
@@ -95,18 +129,19 @@ def ms_deform_attn_backward(value, spatial_shapes, sampling_locations, attention
     _check(value, spatial_shapes, sampling_locations, attention_weights, dout)
     b, s, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
-    dvalue = torch.zeros_like(value)  # the kernel adds into it
+    dvalue = torch.empty_like(value)  # the kernel writes every element
     dloc = torch.empty_like(sampling_locations)
     dweights = torch.empty_like(attention_weights)
-    ptr, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("ms_deform_attn.cu", "ms_deform_attn_bwd_f32",
-                         [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i, i, i, i, i, i, i,
-                          ctypes.POINTER(ctypes.c_int), ptr])
+    level_hw = _level_hw(spatial_shapes)
     with torch.cuda.device(value.device):
+        # the partial (batch, head) slices where a slice's queries are split
+        # over blocks (fewer slices than SMs); none otherwise
+        floats = _bwd_scratch_fn()(b, s, lq, m, d, l, p, level_hw)
+        scratch = torch.empty((floats,), dtype=torch.float32, device=value.device) if floats > 0 else None
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = fn(value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
-                 dout.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(), dweights.data_ptr(),
-                 b, s, lq, m, d, l, p, _level_hw(spatial_shapes), stream)
+        err = _bwd_fn()(value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(),
+                        dout.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(), dweights.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), b, s, lq, m, d, l, p, level_hw, stream)
     cuda_build.check_launch(err, "ms_deform_attn_backward")
     LAUNCHES["backward"] += 1
     return dvalue, dloc, dweights

@@ -47,9 +47,61 @@ def test_every_kernel_entry_has_its_device_kernels(smoke):
 
 @pytest.mark.parametrize("entry,kernels", [
     ("fused_ffn/geglu_backward", 3), ("fused_ffn/mlp_backward", 3), ("point_sample/forward", 1),
-    ("point_sample/backward", 1), ("zorro_attention_qkv/zorro_backward", 2), ("fused_block_attn/backward", 7)])
+    ("point_sample/backward", 1), ("zorro_attention_qkv/zorro_backward", 2), ("fused_block_attn/backward", 7),
+    ("fused_ffn/geglu", 1), ("fused_ffn/mlp", 1), ("ms_deform_attn/backward", 1)])
 def test_kernels_per_call(smoke, entry, kernels):
     assert smoke.entry_kernels(entry)[1] == kernels
+
+
+def test_every_forward_kernel_of_k2_is_profiled(smoke):
+    """K2's forward launches its row kernel, with its split's reduction at
+    small M, or its wide path's kernels; phase 3 profiles them all by one
+    name."""
+    names, _ = smoke.entry_kernels("fused_ffn/geglu")
+    kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn.cu")
+    assert {"ffn_fwd_rows_kernel", "ffn_fwd_split_reduce_kernel", "ffn_fwd_wide_norm_kernel",
+            "ffn_fwd_wide_hidden_kernel", "ffn_fwd_wide_out_kernel"} == kernels_of_source
+    assert all(any(n in k for n in names) for k in kernels_of_source)
+
+
+def test_every_backward_kernel_of_k4b_is_profiled(smoke):
+    """K4b launches its kernel and, where a slice's queries split over
+    blocks, the reduction of the partial slices; phase 3 profiles both by
+    one name."""
+    names, _ = smoke.entry_kernels("ms_deform_attn/backward")
+    kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / "ms_deform_attn.cu")
+    assert {"ms_deform_attn_bwd_kernel", "ms_deform_attn_bwd_reduce_kernel"} <= kernels_of_source
+    assert all(any(n in k for n in names) for k in kernels_of_source if "bwd" in k)
+
+
+@pytest.mark.parametrize("geglu,hid,launched,planned", [(True, 2730, 2736, 3), (True, 512, 512, 2),
+                                                         (False, 1024, 1024, 1)])
+def test_k2_forward_kernels_are_the_librarys_plan(monkeypatch, geglu, hid, launched, planned):
+    """Phase 3 counts K2's kernels a call as the library plans them, asked
+    at the hidden width it launches (a GEGLU inner width padded to 16)."""
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_ffn
+    asked = []
+    monkeypatch.setattr(cuda_ffn, "_fwd_kernels_fn", lambda: lambda *a: asked.append(a) or planned)
+    assert cuda_ffn.forward_kernels(geglu, 1024, 192, hid, 192) == planned
+    assert asked == [(0 if geglu else 1, 1024, 192, launched, 192)]
+
+
+def test_k2_forward_kernels_refuse_shapes_the_library_does_not_take(monkeypatch):
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_ffn
+    monkeypatch.setattr(cuda_ffn, "_fwd_kernels_fn", lambda: lambda *a: -1)
+    with pytest.raises(ValueError):
+        cuda_ffn.forward_kernels(False, 1024, 200, 1024, 200)
+
+
+@pytest.mark.parametrize("floats,kernels", [(0, 1), (2_752_512, 2)])
+def test_k4b_kernels_follow_the_librarys_scratch(monkeypatch, floats, kernels):
+    """K4b launches a second kernel exactly where its library asks for a
+    scratch of partial slices (a slice's queries split over blocks)."""
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_msda
+    asked = []
+    monkeypatch.setattr(cuda_msda, "_bwd_scratch_fn", lambda: lambda *a: asked.append(a[:7]) or floats)
+    assert cuda_msda.backward_kernels(1, 1344, 8, 32, ((8, 8), (16, 16), (32, 32)), 4) == kernels
+    assert asked == [(1, 1344, 1344, 8, 32, 3, 4)]
 
 
 @pytest.mark.parametrize("entry,kernels", [("fused_ffn/geglu_backward", 6), ("fused_ffn/mlp_backward", 4)])

@@ -8,8 +8,11 @@ channel counts that are not 32 and sampling locations past every border;
 K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile; with every
 tile active, bitwise the slab kernel) and the fused
 attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
-(the weight-gradient sums). Also the autograd Functions' launches and the
-wrappers' refusals. These tests need a CUDA card and skip without one; on a
+(the weight-gradient sums); K2's row path (with its hidden split at small
+M), its wide path and `large`'s padded inner width; K4b's shared-memory dV
+at B = 1 and 30, near and off the reference points, and with levels past
+shared memory. Also the autograd Functions' launches and the wrappers'
+refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from incomplete_multimodal_fusion_tpu_torch import ops
+from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
 from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_ffn, cuda_fusion_attn,
                                                         cuda_msda, cuda_points, cuda_zorro_sparse)
 
@@ -286,6 +290,69 @@ def test_ffn_backward_is_bitwise_the_same_from_run_to_run(dev, mode, widths):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+_FFN_FORWARD = {"geglu": (cuda_ffn.geglu_ffn, cuda_ffn.geglu_ffn_reference),
+                "mlp": (cuda_ffn.mlp_ffn, cuda_ffn.mlp_ffn_reference)}
+
+
+def _check_ffn_forward(dev, mode, m, widths):
+    x, w, _ = _ffn_case(dev, mode, m, seed=100, widths=widths)
+    kernel, plain = _FFN_FORWARD[mode]
+    out = kernel(x, *w)
+    ref = plain(x, *w)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert _rel(out, ref) <= REL_L2
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+@pytest.mark.parametrize("m", [1, 127, 256, 1024, 15300, 15360, 38400])
+def test_ffn_forward_at_the_model_widths(dev, mode, m):
+    """K2's row path at the model's widths: the serving and training M, and
+    M below and not a multiple of the 128-row tile."""
+    _check_ffn_forward(dev, mode, m, "model")
+
+
+@pytest.mark.parametrize("mode,widths", [
+    ("geglu", "base"), ("mlp", "base"),
+    ("geglu", (256, 512)),  # the row path's shared memory does not hold d = 256 in GEGLU mode
+    ("mlp", (256, 1024, 320)),  # only the output width past the row path
+    ("mlp", (320, 512, 256)),  # only the input width past it
+    ("geglu", (1040, 208)),  # a partial last window, hidden chunk and column tile
+])
+@pytest.mark.parametrize("m", [1, 130, 4100])
+def test_ffn_forward_past_the_row_path_widths(dev, mode, widths, m):
+    """K2's wide path (the xn and activation workspaces and two wgmma
+    products), for widths the row path does not take."""
+    _check_ffn_forward(dev, mode, m, widths)
+
+
+@pytest.mark.parametrize("mode,widths,m", [("geglu", "model", 15360), ("mlp", "model", 15360), ("geglu", "model", 1024),
+                                          ("mlp", "model", 2048), ("geglu", "base", 4100), ("mlp", "base", 4100)])
+def test_ffn_forward_is_bitwise_the_same_from_run_to_run(dev, mode, widths, m):
+    """No atomics: at small M (1024, 2048) the hidden split's partial outputs
+    are summed in a fixed order."""
+    x, w, _ = _ffn_case(dev, mode, m, seed=110, widths=widths)
+    kernel, _ = _FFN_FORWARD[mode]
+    first, second = kernel(x, *w), kernel(x, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("m", [1, 300, 4096])
+def test_geglu_at_the_large_width_pads_its_inner_width(dev, m):
+    """`large`: d = 1024 and the inner width int(1024 * 8 / 3) = 2730, not a
+    multiple of 16; the wrappers zero-pad it, forward and backward, and
+    return gradients of the unpadded weights."""
+    x, w, dy = _ffn_case(dev, "geglu", m, seed=120, widths=(1024, 2730))
+    out, ref = cuda_ffn.geglu_ffn(x, *w), cuda_ffn.geglu_ffn_reference(x, *w)
+    grads, ref_grads = cuda_ffn.geglu_ffn_backward(x, *w, dy), cuda_ffn.geglu_ffn_backward_reference(x, *w, dy)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= REL_L2
+    assert [g.shape for g in grads] == [r.shape for r in ref_grads] == [t.shape for t in (x, *w)]
+    for g, r in zip(grads, ref_grads):
+        assert torch.isfinite(g).all() and _rel_all([g], [r]) <= REL_L2
+
+
 @pytest.mark.parametrize("t_mod", [1, 3, 8])
 @pytest.mark.parametrize("heads,dh", [(3, 64), (1, 32), (2, 128)])
 def test_fusion_row_backward_kernel_matches_plain(dev, t_mod, heads, dh):
@@ -459,6 +526,137 @@ def test_msda_backward_far_outside_is_zero(dev):
     dv, dl, da = cuda_msda.ms_deform_attn_backward(value, FULL_LEVELS, torch.full_like(locs, 2.0), aw,
                                                    dout)
     assert float(dv.abs().max()) == float(dl.abs().max()) == float(da.abs().max()) == 0.0
+
+
+def _near_reference(dev, b, shapes, heads, points, seed=36):
+    """Locations near each query's reference point on every level (N(0, 2
+    pixels) offsets), as a trained pixel decoder samples; every position a
+    query."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    ref = reference_points_for(shapes, device=dev)[None, :, None, :, None, :]
+    size = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
+    noise = 2.0 * torch.randn(b, s, heads, len(shapes), points, 2, device=dev, generator=g)
+    return ref + noise / size[None, None, None, :, None, :]
+
+
+@pytest.mark.parametrize("b", [1, 30])
+@pytest.mark.parametrize("near", [False, True])
+def test_msda_backward_at_the_pixel_decoder_shapes(dev, b, near):
+    """K4b with every (batch, head) slice's dV in shared memory: B = 30 (a
+    block a slice) and B = 1 (a slice's queries split over blocks, the
+    partial slices summed in a second launch), random locations and near the
+    reference points, where the coarse rows take most adds."""
+    value, locs, aw = _msda_inputs(dev, b, 1344, 8, 32, 4, FULL_LEVELS, seed=37)
+    if near:
+        locs = _near_reference(dev, b, FULL_LEVELS, 8, 4)
+    locs = _off_integer(locs, FULL_LEVELS)
+    dout = torch.randn(b, 1344, 8 * 32, device=dev, generator=torch.Generator(device=dev).manual_seed(38))
+    out = cuda_msda.ms_deform_attn_backward(value, FULL_LEVELS, locs, aw, dout)
+    ref = cuda_msda.ms_deform_attn_backward_reference(value, FULL_LEVELS, locs, aw, dout)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o).all() for o in out)
+    for o, r in zip(out, ref):
+        assert _rel_all([o], [r]) <= MSDA_REL_L2
+
+
+@pytest.mark.parametrize("b,shapes,d", [
+    (2, ((8, 8), (16, 16), (32, 32), (64, 64)), 32),  # the 64^2 level past shared memory
+    (1, ((8, 8), (16, 16), (32, 32), (64, 64)), 32),  # the same with split queries
+    (2, ((48, 48), (64, 64)), 32),  # no level fits: every tap by atomics
+    (3, ((5, 3), (9, 11), (48, 40)), 40),  # D over one warp's lanes, a slice of 325 KB
+])
+def test_msda_backward_with_levels_past_shared_memory(dev, b, shapes, d):
+    """Where a (batch, head) slice of dV does not fit in shared memory, the
+    coarse levels stay there and the rest take f32 atomics into dV, whose
+    rows the kernel's launcher zeroes (the wrapper allocates dV empty)."""
+    lq, m, p = 300, 4, 4
+    value, locs, aw = _msda_inputs(dev, b, lq, m, d, p, shapes, seed=39)
+    locs = _off_integer(locs, shapes)
+    dout = torch.randn(b, lq, m * d, device=dev, generator=torch.Generator(device=dev).manual_seed(40))
+    out = cuda_msda.ms_deform_attn_backward(value, shapes, locs, aw, dout)
+    ref = cuda_msda.ms_deform_attn_backward_reference(value, shapes, locs, aw, dout)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.isfinite(o).all() and _rel_all([o], [r]) <= MSDA_REL_L2
+
+
+def test_msda_backward_writes_every_element_of_dvalue(dev):
+    """dV comes from torch.empty: positions no sample touches must read 0,
+    however the allocator's memory was filled before."""
+    shapes = ((8, 8), (16, 16), (32, 32))
+    for fill in (float("nan"), 7.0):
+        torch.cuda.empty_cache()
+        junk = torch.full((8, 1344, 8, 32), fill, device=dev)
+        del junk
+        value, locs, aw = _msda_inputs(dev, 8, 10, 8, 32, 4, shapes, lo=0.2, hi=0.3, seed=41)
+        dv, _, _ = cuda_msda.ms_deform_attn_backward(value, shapes, locs, aw, torch.ones(8, 10, 256, device=dev))
+        torch.cuda.synchronize()
+        assert torch.isfinite(dv).all()
+        assert float(dv[:, 64 + 256 + 700:].abs().max()) == 0.0  # past every sample of [0.2, 0.3]
+
+
+def _offset_copy(t, floats):
+    """A contiguous copy of ``t`` whose storage starts ``floats`` elements
+    into a larger buffer (a data pointer off 16 bytes for 1, 2 or 3)."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("floats", [1, 2])
+def test_msda_backward_on_views_that_start_off_16_bytes(dev, floats):
+    """K4b reads value and dOut 4 channels at a time only where both start
+    on 16 bytes; contiguous views that do not take the 1-channel kernel and
+    give the plain version's gradients."""
+    value, locs, aw = _msda_inputs(dev, 1, 1344, 8, 32, 4, FULL_LEVELS, seed=42)
+    locs = _off_integer(locs, FULL_LEVELS)
+    dout = torch.randn(1, 1344, 8 * 32, device=dev, generator=torch.Generator(device=dev).manual_seed(43))
+    ref = cuda_msda.ms_deform_attn_backward_reference(value, FULL_LEVELS, locs, aw, dout)
+    for v, do in ((_offset_copy(value, floats), dout), (value, _offset_copy(dout, floats))):
+        assert v.is_contiguous() and do.is_contiguous() and (v.data_ptr() % 16 or do.data_ptr() % 16)
+        out = cuda_msda.ms_deform_attn_backward(v, FULL_LEVELS, locs, aw, do)
+        torch.cuda.synchronize()
+        assert _rel_all(out, ref) <= MSDA_REL_L2
+
+
+def _device_kernels(fn, name):
+    """The device kernels one call of ``fn`` launches whose name holds
+    ``name``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+
+
+@pytest.mark.parametrize("mode,widths,m,planned", [("geglu", "model", 38400, 1), ("geglu", "model", 1024, 2),
+                                                   ("mlp", "model", 2048, 2), ("geglu", "base", 130, 3),
+                                                   ("mlp", "base", 130, 2), ("geglu", (1024, 2730), 300, 3)])
+def test_k2_forward_launches_the_kernels_its_library_plans(dev, mode, widths, m, planned):
+    """``cuda_ffn.forward_kernels``, which phase 3 of chip_smoke.py counts
+    K2's kernels by, is what a forward launches: the row path, its hidden
+    split at small M, the wide path."""
+    x, w, _ = _ffn_case(dev, mode, m, seed=120, widths=widths)
+    kernel, _ = _FFN_FORWARD[mode]
+    hid, d_out = (w[2].shape[1], x.shape[1]) if mode == "geglu" else (w[0].shape[0], w[2].shape[0])
+    assert cuda_ffn.forward_kernels(mode == "geglu", m, x.shape[1], hid, d_out) == planned
+    assert _device_kernels(lambda: kernel(x, *w), "ffn_fwd") == planned
+
+
+@pytest.mark.parametrize("b,planned", [(1, 2), (30, 1)])
+def test_k4b_launches_the_kernels_its_library_plans(dev, b, planned):
+    """``cuda_msda.backward_kernels``: at B = 1 a slice's queries split over
+    blocks and a second kernel sums the partial slices."""
+    value, locs, aw = _msda_inputs(dev, b, 1344, 8, 32, 4, FULL_LEVELS, seed=44)
+    dout = torch.randn(b, 1344, 8 * 32, device=dev)
+    assert cuda_msda.backward_kernels(b, 1344, 8, 32, FULL_LEVELS, 4) == planned
+    run = lambda: cuda_msda.ms_deform_attn_backward(value, FULL_LEVELS, locs, aw, dout)  # noqa: E731
+    assert _device_kernels(run, "ms_deform_attn_bwd") == planned
 
 
 POINTS_REL_L2 = 1e-5  # f32 both sides: the same taps, sums in another order

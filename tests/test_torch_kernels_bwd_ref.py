@@ -77,6 +77,53 @@ def test_unmasked_backward_reference_matches_pallas_and_xla():
     np.testing.assert_allclose(got, xla, **TOL)
 
 
+@pytest.mark.parametrize("inner", [42, 170])
+def test_geglu_padded_hidden_width_is_exact(inner):
+    """The wrappers zero-pad a GEGLU inner width that is not a multiple of 16
+    (the `large` config's 2730) before launching K2 / K2b: the plain forward
+    and backward on the padded weights equal those on the unpadded ones and
+    JAX's ``geglu_ffn_xla`` (and its vjp) at d = 64, once the padded
+    gradient rows and columns are dropped."""
+    m, d = 96, 64
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    w_in = (rng.standard_normal((d, 2 * inner)) * d ** -0.5).astype(np.float32)
+    w_out = (rng.standard_normal((inner, d)) * inner ** -0.5).astype(np.float32)
+    dy = rng.standard_normal((m, d)).astype(np.float32)
+    tx, tgamma, tw_in, tw_out, tdy = map(torch.from_numpy, (x, gamma, w_in.T.copy(), w_out.T.copy(), dy))
+    pw_in, pw_out = cuda_ffn.pad_geglu_hidden(tw_in, tw_out)
+    assert pw_out.shape[1] % cuda_ffn.HIDDEN_MULTIPLE == 0 and pw_out.shape[1] > inner
+    assert pw_in.shape == (2 * pw_out.shape[1], d)
+
+    padded = to_np(cuda_ffn.geglu_ffn_reference(tx, tgamma, pw_in, pw_out))
+    np.testing.assert_allclose(padded, to_np(cuda_ffn.geglu_ffn_reference(tx, tgamma, tw_in, tw_out)), **TOL)
+    args = tuple(map(jnp.asarray, (x, gamma[None], w_in, w_out)))
+    np.testing.assert_allclose(padded, np.asarray(jffn.geglu_ffn_xla(*args)), **TOL)
+
+    dx, dgamma, dw_in_p, dw_out_p = cuda_ffn.geglu_ffn_backward_reference(tx, tgamma, pw_in, pw_out, tdy)
+    dw_in, dw_out = cuda_ffn.unpad_geglu_grads(dw_in_p, dw_out_p, inner)
+    pad = pw_out.shape[1] - inner
+    assert float(dw_out_p[:, inner:].abs().max()) == 0.0 and pad > 0
+    assert float(dw_in_p[inner:inner + pad].abs().max()) == float(dw_in_p[-pad:].abs().max()) == 0.0
+    unpadded = cuda_ffn.geglu_ffn_backward_reference(tx, tgamma, tw_in, tw_out, tdy)
+    for a, b in zip((dx, dgamma, dw_in, dw_out), unpadded):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(to_np(a), to_np(b), **TOL)
+    jdx, jdgamma, jdw_in, jdw_out = _vjp(jffn.geglu_ffn_xla, (x, gamma[None], w_in, w_out), dy)
+    np.testing.assert_allclose(to_np(dx), jdx, **TOL)
+    np.testing.assert_allclose(to_np(dgamma), jdgamma[0], **TOL)
+    np.testing.assert_allclose(to_np(dw_in), jdw_in.T, **TOL)
+    np.testing.assert_allclose(to_np(dw_out), jdw_out.T, **TOL)
+
+
+def test_aligned_geglu_weights_are_not_copied():
+    w_in, w_out = torch.zeros(64, 8), torch.zeros(8, 32)
+    pw_in, pw_out = cuda_ffn.pad_geglu_hidden(w_in, w_out)
+    assert pw_in is w_in and pw_out is w_out
+    assert cuda_ffn.unpad_geglu_grads(w_in, w_out, 32) == (w_in, w_out)
+
+
 @pytest.mark.parametrize("m,d,inner", [(256, 64, 170), (256, 32, 48)])
 def test_geglu_backward_reference_matches_pallas_and_xla(m, d, inner):
     """M = 256 runs as two JAX row tiles, so the weight gradients there are
