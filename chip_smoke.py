@@ -23,7 +23,7 @@ Phases (any failure raises; the exit code is then non-zero):
                  segmentation shapes (K1's separate-q/k/v and tile-skip
                  modes and the fused attention half-block K6 at the
                  pretraining shape; K2 and K2b also at the `base` and
-                 `large` widths, K4b also near the reference points, and
+                 `large` widths, K4 and K4b also near the reference points, and
                  beside each K2 row, for reference, the unfused cuBLAS
                  chain's time): max abs error and relative L2 error
                  (bound KERNEL_REL_L2, K4 and K4b MSDA_REL_L2, K5 and K5b
@@ -221,7 +221,9 @@ WIDE_LARGE = "(large, wide path)"
 def entry_kernels(entry: str, label: str = ""):
     """The device kernels of one call of a phase-3 entry's wrapper (on the
     row ``label``): the substrings of their names, and how many the call
-    launches. K2's forward and K4b launch 1 here; phase 3 takes their count
+    launches (K4 and K3b: one kernel at every shape, its instantiation
+    chosen by the operands' widths and alignment). K2's forward and K4b
+    launch 1 here; phase 3 takes their count
     on a row from their libraries' plans (``cuda_ffn.forward_kernels``,
     ``cuda_msda.backward_kernels``), which split the work over more kernels
     at some shapes."""

@@ -27,17 +27,29 @@
 // q, k and v in registers, warp shuffles for the dot products, and the
 // T + 1 softmax weights kept in registers. No shared memory.
 //
-// The backward is bound the same way (it reads q, the grid, kv_f and dO once
-// and writes dq, dkv_grid and dkv_f once, under two flops a byte) and has the
-// same design: one warp per (batch, position, head) recomputes the slot
-// sims and the softmax, forms dattn_t = dO . v_t in f32, ds_t = attn_t
-// (dattn_t - sum_s attn_s dattn_s), and writes dq = sum_t ds_t k_t * scale,
-// dk_t = ds_t * qh and dv_t = bf16(attn_t) * dO rounded to bf16, the cast
-// points of pallas_fusion_attn.py:95-126. Every output element has one
-// writer, so there are no atomics.
+// The backward (K3b) is bound the same way: it reads q, the grid, kv_f and
+// dO once and writes dq, dkv_grid and dkv_f once (112 MB at B = 60, F = 256,
+// T = 3, 3 x 64), under two flops a byte. Per (batch, position, head) it
+// recomputes the slot sims and the softmax, forms dattn_t = dO . v_t in f32,
+// ds_t = attn_t (dattn_t - sum_s attn_s dattn_s), and writes
+// dq = sum_t ds_t k_t * scale, dk_t = ds_t * qh and dv_t = bf16(attn_t) * dO
+// rounded to bf16, the cast points of pallas_fusion_attn.py:95-126. Every
+// output element has one writer, so there are no atomics. The forward's
+// layout (a warp per (position, head), 2-byte accesses, each slot's loads
+// feeding two warp reductions before the next slot's are needed) keeps few
+// bytes in flight: on this pass it reaches 43% of the HBM rate of an H100.
+// So here a lane owns 8 contiguous channels and moves them by 16-byte loads and
+// stores, DH / 8 lanes serve one (position, head) and reduce over
+// shuffles, every thread issues all of its 2(T + 1) + 2 loads (q, dO, each
+// slot's k and v) before its first reduction (T is a template parameter,
+// so the rows stay in registers), and 256-thread blocks cover 256 x 8 / DH
+// (position, head) pairs. Where an operand does not start on 16 bytes the
+// same kernel moves the channels 2 bytes at a time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -111,79 +123,194 @@ cudaError_t launch(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* o
   return cudaGetLastError();
 }
 
-// grid (F, B), block heads * 32 threads, as the forward.
-template <int DH>
-__global__ void fusion_row_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
-                                      const bf16* __restrict__ kv_f, const bf16* __restrict__ dout,
-                                      bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
-                                      bf16* __restrict__ dkv_f, int f, int t_mod, int heads, float scale) {
-  constexpr int PER = DH / 32;
-  const int pos = blockIdx.x;
-  const int b = blockIdx.y;
-  const int h = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int inner = heads * DH;
-  const int c0 = h * DH + lane * PER;
+constexpr int BWD_THREADS = 256;
 
-  const long long qoff = ((long long)b * f + pos) * inner;
-  float qs[PER], dos[PER];
-  for (int i = 0; i < PER; ++i) {
-    qs[i] = round_bf16(__bfloat162float(q[qoff + c0 + i]) * scale);
-    dos[i] = __bfloat162float(dout[qoff + c0 + i]);
+// 8 bf16 channels from p: one 16-byte load where VEC, else eight 2-byte loads
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const bf16* p) {
+  if constexpr (VEC) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(p);
+    return make_uint4(s[0] | (unsigned)s[1] << 16, s[2] | (unsigned)s[3] << 16, s[4] | (unsigned)s[5] << 16,
+                      s[6] | (unsigned)s[7] << 16);
   }
+}
 
-  long long rows[MAX_SLOTS];  // element offset of each slot's kv row
-  for (int t = 0; t < t_mod; ++t) rows[t] = ((long long)b * t_mod * f + (long long)t * f + pos) * 2 * inner;
-  rows[t_mod] = ((long long)b * f + pos) * 2 * inner;
-
-  float attn[MAX_SLOTS], dattn[MAX_SLOTS];
-  float mx = -3.0e38f;
-  for (int t = 0; t <= t_mod; ++t) {
-    const bf16* kv = t < t_mod ? kv_grid + rows[t] : kv_f + rows[t];
-    float s = 0.0f, da = 0.0f;
-    for (int i = 0; i < PER; ++i) {
-      s += qs[i] * __bfloat162float(kv[c0 + i]);
-      da += dos[i] * __bfloat162float(kv[inner + c0 + i]);
+// 8 bf16 channels to p, as load8 reads them
+template <bool VEC>
+__device__ __forceinline__ void store8(bf16* p, uint4 v) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(p) = v;
+  } else {
+    unsigned short* s = reinterpret_cast<unsigned short*>(p);
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[2 * i] = (unsigned short)(w[i] & 0xffffu);
+      s[2 * i + 1] = (unsigned short)(w[i] >> 16);
     }
-    attn[t] = warp_sum(s);
-    dattn[t] = warp_sum(da);
-    mx = fmaxf(mx, attn[t]);
   }
+}
+
+// the 8 bf16 of v as floats, channel order
+__device__ __forceinline__ void unpack8(uint4 v, float (&f)[8]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 8 floats rounded to bf16, as unpack8 reads them
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(hopper::pack_bf16(f[0], f[1]), hopper::pack_bf16(f[2], f[3]), hopper::pack_bf16(f[4], f[5]),
+                    hopper::pack_bf16(f[6], f[7]));
+}
+
+// Thread i of the grid owns channels [8 i, 8 i + 8) of q and dO, which are
+// channels 8 (i % LP) .. of head h of row (b, pos), with
+// (b * F + pos) * heads + h = i / LP, LP = DH / 8 lanes a head.
+template <int DH, int T, bool VEC>
+__device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
+                                               const bf16* __restrict__ kv_f, const bf16* __restrict__ dout,
+                                               bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
+                                               bf16* __restrict__ dkv_f, long long threads, int f, int heads,
+                                               float scale) {
+  constexpr int LP = DH / 8;
+  const long long i = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  // a thread past the end computes the last thread's head and writes
+  // nothing; the heads are whole, so its shuffles reach no live lane
+  const bool live = i < threads;
+  const long long ti = live ? i : threads - 1;
+  const long long unit = ti / LP, row = unit / heads;  // row = b * F + pos
+  const int h = (int)(unit % heads), inner = heads * DH;
+  const long long b = row / f, pos = row % f;
+  const int c = h * DH + (int)(ti % LP) * 8;  // the lane's first channel in a row of I
+
+  // every load first: q, dO, and each slot's k and v (slot T: the fusion token's own)
+  long long kv[T + 1];  // element offset of each slot's k in its row of 2I
+#pragma unroll
+  for (int t = 0; t < T; ++t) kv[t] = (b * T * f + (long long)t * f + pos) * 2 * inner + c;
+  kv[T] = row * 2 * inner + c;
+  const uint4 q8 = load8<VEC>(q + ti * 8), do8 = load8<VEC>(dout + ti * 8);
+  uint4 k8[T + 1], v8[T + 1];
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    const bf16* src = (t < T ? kv_grid : kv_f) + kv[t];
+    k8[t] = load8<VEC>(src);
+    v8[t] = load8<VEC>(src + inner);
+  }
+
+  float qs[8], dos[8];
+  unpack8(q8, qs);
+  unpack8(do8, dos);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qs[j] = __bfloat162float(__float2bfloat16(qs[j] * scale));
+  float attn[T + 1], dattn[T + 1];
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    float kf[8], vf[8];
+    unpack8(k8[t], kf);
+    unpack8(v8[t], vf);
+    float s = 0.0f, da = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s += qs[j] * kf[j];
+      da += dos[j] * vf[j];
+    }
+    attn[t] = s;
+    dattn[t] = da;
+  }
+  // the sums over the head's LP lanes
+#pragma unroll
+  for (int o = LP / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int t = 0; t <= T; ++t) {
+      attn[t] += __shfl_xor_sync(0xffffffffu, attn[t], o);
+      dattn[t] += __shfl_xor_sync(0xffffffffu, dattn[t], o);
+    }
+  float mx = -3.0e38f;
+#pragma unroll
+  for (int t = 0; t <= T; ++t) mx = fmaxf(mx, attn[t]);
   float denom = 0.0f;
-  for (int t = 0; t <= t_mod; ++t) {
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
     attn[t] = expf(attn[t] - mx);
     denom += attn[t];
   }
   float mix = 0.0f;
-  for (int t = 0; t <= t_mod; ++t) {
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
     attn[t] /= denom;
     mix += attn[t] * dattn[t];
   }
 
-  float dqs[PER];
-  for (int i = 0; i < PER; ++i) dqs[i] = 0.0f;
-  for (int t = 0; t <= t_mod; ++t) {
+  float dqs[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dqs[j] = 0.0f;
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
     const float ds = attn[t] * (dattn[t] - mix);
-    const float ab = round_bf16(attn[t]);
-    const bf16* kv = t < t_mod ? kv_grid + rows[t] : kv_f + rows[t];
-    bf16* dkv = t < t_mod ? dkv_grid + rows[t] : dkv_f + rows[t];
-    for (int i = 0; i < PER; ++i) {
-      dqs[i] += ds * __bfloat162float(kv[c0 + i]);
-      dkv[c0 + i] = __float2bfloat16(ds * qs[i]);
-      dkv[inner + c0 + i] = __float2bfloat16(ab * dos[i]);
+    const float ab = __bfloat162float(__float2bfloat16(attn[t]));
+    float kf[8], dk[8], dv[8];
+    unpack8(k8[t], kf);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dqs[j] += ds * kf[j];
+      dk[j] = ds * qs[j];
+      dv[j] = ab * dos[j];
+    }
+    if (live) {
+      bf16* dst = (t < T ? dkv_grid : dkv_f) + kv[t];
+      store8<VEC>(dst, pack8(dk));
+      store8<VEC>(dst + inner, pack8(dv));
     }
   }
-  for (int i = 0; i < PER; ++i) dq[qoff + c0 + i] = __float2bfloat16(dqs[i] * scale);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dqs[j] *= scale;
+  if (live) store8<VEC>(dq + ti * 8, pack8(dqs));
+}
+
+template <int DH, int T>
+__global__ void __launch_bounds__(BWD_THREADS)
+fusion_row_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid, const bf16* __restrict__ kv_f,
+                      const bf16* __restrict__ dout, bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
+                      bf16* __restrict__ dkv_f, long long threads, int f, int heads, float scale, bool vec) {
+  if (vec)
+    fusion_row_bwd<DH, T, true>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
+  else
+    fusion_row_bwd<DH, T, false>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
+}
+
+template <int DH, int T>
+cudaError_t launch_bwd_slots(const bf16* q, const bf16* kv_grid, const bf16* kv_f, const bf16* dout, bf16* dq,
+                             bf16* dkv_grid, bf16* dkv_f, int batch, int f, int heads, float scale,
+                             cudaStream_t stream) {
+  const long long threads = (long long)batch * f * heads * (DH / 8);
+  // 16-byte accesses where every operand starts on 16 bytes (rows of I and
+  // 2I bf16 keep that alignment: I is a multiple of 32)
+  const bool vec = ((uintptr_t)q | (uintptr_t)kv_grid | (uintptr_t)kv_f | (uintptr_t)dout | (uintptr_t)dq |
+                    (uintptr_t)dkv_grid | (uintptr_t)dkv_f) % 16 == 0;
+  fusion_row_bwd_kernel<DH, T><<<(unsigned)((threads + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0, stream>>>(
+      q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale, vec);
+  return cudaGetLastError();
 }
 
 template <int DH>
 cudaError_t launch_bwd(const bf16* q, const bf16* kv_grid, const bf16* kv_f, const bf16* dout, bf16* dq,
                        bf16* dkv_grid, bf16* dkv_f, int batch, int f, int t_mod, int heads, float scale,
                        cudaStream_t stream) {
-  dim3 grid(f, batch);
-  fusion_row_bwd_kernel<DH><<<grid, heads * 32, 0, stream>>>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, f,
-                                                             t_mod, heads, scale);
-  return cudaGetLastError();
+  switch (t_mod) {
+#define SLOTS(T) \
+  case T:        \
+    return launch_bwd_slots<DH, T>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, batch, f, heads, scale, stream);
+    SLOTS(1) SLOTS(2) SLOTS(3) SLOTS(4) SLOTS(5) SLOTS(6) SLOTS(7) SLOTS(8)
+#undef SLOTS
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

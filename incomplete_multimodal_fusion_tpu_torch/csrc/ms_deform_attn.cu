@@ -27,16 +27,45 @@
 // on 4 gathered values, so it is bound by bytes. The operands (value, loc,
 // aw and out, each moved once) are the floor, but the gathers move more:
 // every value row is read by each query that samples near it, one 128-byte
-// row per tap (D = 32: lane d reads channel d; a wider D strides the lanes
-// over channel chunks), about 2 GB between L2 and the SMs at B = 30 against
-// 129 MB of operands. The design keeps everything else minimal: one warp per
-// (b, q, m), the sum in a register, each output element written once. A
-// sample's four gathers wait on its location, so the warp's lanes first
-// prepare one sample each in parallel (lane j: sample j's tap positions and
-// weights, the attention weight folded in, 0 for a tap outside its level,
-// from one load per lane), then walk the samples, taking each one's taps
-// from its lane by shuffles. A tap outside its level reads position 0 with
-// weight 0, so every load is unconditional. No shared memory, no atomics.
+// row per tap (D = 32), about 2 GB at B = 30 against 129 MB of operands.
+// Gathered from L2, that traffic runs at about what L2 delivers (0.40 ms at
+// B = 30 on an H100), so the gathers read shared memory instead:
+//   * a block stages the value rows of one (batch, head) slice,
+//     value[b, :, m, :], in shared memory by 16-byte cp.async copies: all
+//     S x D x 4 = 172,032 bytes at the pixel decoder's levels 8^2, 16^2 and
+//     32^2 (62 MB staged at B = 30, restaging included, instead of 2 GB
+//     gathered from L2); where
+//     a slice does not fit (a 512^2 input, D = 64), the positions that fit,
+//     coarse levels first, are staged and the taps past them are gathered
+//     from global memory;
+//   * the grid is persistent, a block an SM: block i takes the i-th of
+//     equal ranges of the (slice, query) items in that order, restaging
+//     where its range enters a new slice, so the blocks finish together at
+//     any B (B = 1: 8 slices, each staged by about 16 blocks);
+//   * a warp works as CPL = 4 groups of 8 lanes, each group one query (four
+//     queries in flight a warp), each lane 4 channels by 16-byte loads
+//     (where dim is a multiple of 4 and value and out start on 16 bytes;
+//     else a group of 32 lanes, a channel a lane): a tap is one 128-byte
+//     row of shared memory read by one group, conflict-free;
+//   * a group's lanes first prepare one sample each (its four taps'
+//     positions and weights, the attention weight folded in, from one load
+//     of its location and weight), then the group walks its query's
+//     samples, taking each one's taps from the lane that prepared it by
+//     shuffles: where the whole slice is staged, every position is under
+//     2^16 and two positions share a shuffle, six shuffles a sample, and
+//     the group's lanes do no arithmetic on a sample but its sum (passing
+//     the base position, flags and offsets instead and rebuilding the taps
+//     in every lane took twice the instructions). A tap outside its level
+//     reads position 0 with weight 0, so every load is unconditional;
+//   * each output element is written once, by the group of its query, its
+//     sum taken in a fixed order: no atomics, and the output is bitwise the
+//     same from run to run.
+// The floor of this design is shared-memory bandwidth: the same 2 GB at
+// 128 bytes a clock an SM, about 0.07 ms at B = 30. It does not bind yet:
+// on an H100, builds without the shared-memory reads or without the
+// shuffles (wrong outputs, timed by tools/bench_msda_bwd.py --forward) ran
+// only 12% and 18% faster, and one that staged each block's first slice
+// only, 9%.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -47,7 +76,9 @@
 namespace {
 
 constexpr int MAX_LEVELS = 16;
-constexpr int THREADS = 256;  // 8 warps a block
+constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90 (227 KB)
+constexpr int FWD_THREADS = 1024;  // 32 warps: a block an SM, and its gathers' latency needs them
+constexpr int MIN_BLOCK_QUERIES = 64;  // K4: the least (slice, query) items worth a block
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Levels {
@@ -67,75 +98,164 @@ __device__ __forceinline__ float pixel_of(float loc, int size) {
   return __fmul_rn(__fsub_rn(__fmul_rn(g, (float)size), 1.0f), 0.5f);
 }
 
-// one warp per (b, q, m): warp index = (b * Lq + q) * M + m
-__global__ void ms_deform_attn_fwd_kernel(const float* __restrict__ value,
-                                          const float* __restrict__ loc,
-                                          const float* __restrict__ aw, float* __restrict__ out,
-                                          long long rows, int s, int lq, int heads, int dim,
-                                          int points, Levels lv) {
-  const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int m = (int)(row % heads);
-  const long long b = row / heads / lq;
-  const int samples = lv.n * points;
-  const float* loc_row = loc + row * samples * 2;
-  const float* aw_row = aw + row * samples;
-  const int pos_stride = heads * dim;  // one spatial position of value
-  const float* vbase = value + b * s * pos_stride + (long long)m * dim;
-  float* orow = out + row * dim;
+// CPL channels of a row into registers (one 16-byte load for 4)
+template <int CPL>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[CPL]) {
+  if constexpr (CPL == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
 
-  for (int d0 = 0; d0 < dim; d0 += 32) {
-    const int d = d0 + lane;
-    const bool in_dim = d < dim;
-    const float* vd = vbase + (in_dim ? d : 0);
-    float acc = 0.0f;
-    for (int c0 = 0; c0 < samples; c0 += 32) {
-      // lane j prepares sample c0 + j: its taps' positions in the flattened
-      // sequence and their weights
-      int pos[4] = {0, 0, 0, 0};
-      float wt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const int i = c0 + lane;
-      if (i < samples) {
-        const int l = i / points;
-        const int h = lv.h[l];
-        const int w = lv.w[l];
-        const float px = pixel_of(loc_row[2 * i], w);
-        const float py = pixel_of(loc_row[2 * i + 1], h);
-        // a sample with all four taps outside its level keeps weights 0
-        // (the test also keeps the integer conversions in range; at
-        // px = -1 exactly the tap at 0 is in, with weight 0 but a derivative)
-        if (px >= -1.0f && py >= -1.0f && px < (float)w && py < (float)h) {
-          const float a = aw_row[i];
-          const float x0f = floorf(px);
-          const float y0f = floorf(py);
-          const float dx = px - x0f;
-          const float dy = py - y0f;
-          const int x0 = (int)x0f;
-          const int y0 = (int)y0f;
-          const int base = lv.start[l] + y0 * w + x0;
-          const bool xin0 = x0 >= 0, xin1 = x0 + 1 < w;
-          const bool yin0 = y0 >= 0, yin1 = y0 + 1 < h;
-          if (yin0 && xin0) { pos[0] = base;         wt[0] = a * ((1.0f - dy) * (1.0f - dx)); }
-          if (yin0 && xin1) { pos[1] = base + 1;     wt[1] = a * ((1.0f - dy) * dx); }
-          if (yin1 && xin0) { pos[2] = base + w;     wt[2] = a * (dy * (1.0f - dx)); }
-          if (yin1 && xin1) { pos[3] = base + w + 1; wt[3] = a * (dy * dx); }
+// The positions of a (batch, head) slice whose value rows K4 stages in
+// shared memory: the first ones (the coarse levels), all where they fit
+int staged_positions(int s, int dim) {
+  const int fit = MAX_SMEM / (dim * (int)sizeof(float));
+  return s < fit ? s : fit;
+}
+
+// K4. The items are the (slice, query) pairs, slice = b * heads + m, in that
+// order; block i takes the i-th of gridDim.x equal ranges of them. For each
+// slice its range enters, the block stages the slice's positions [0, s_v)
+// (a row of dim floats each) and its warps then take the range's queries
+// of the slice, CPL queries a warp: a group of LPG = 32 / CPL lanes a
+// query, a lane CPL channels of each 32-channel pass. CPL: 4 for 16-byte
+// loads, else 1. ALL: the whole slice is staged (s_v == s), so every tap
+// reads shared memory.
+template <int CPL, bool ALL>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+ms_deform_attn_fwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+                          const float* __restrict__ aw, float* __restrict__ out, long long items, int s, int lq,
+                          int heads, int dim, int points, Levels lv, int s_v) {
+  constexpr int LPG = 32 / CPL;  // lanes a group: LPG * CPL = 32 channels a pass
+  constexpr int WARPS = FWD_THREADS / 32;
+  extern __shared__ __align__(16) float sv[];  // [s_v][dim]: the slice's value rows
+  // the warp index taken from lane 0 by a shuffle: the compiler then knows
+  // it is the same across the warp, and so are the query loop's bounds, and
+  // compiles the shuffles inside for a converged warp (3% faster at B = 30
+  // on an H100)
+  const int lane = threadIdx.x % 32, warp = __shfl_sync(FULL, (int)threadIdx.x / 32, 0);
+  const int grp = lane / LPG, gl = lane % LPG;
+  const int samples = lv.n * points;
+  const int pos_stride = heads * dim;  // one spatial position of value
+  const long long g1 = items * (blockIdx.x + 1) / gridDim.x;
+  for (long long g = items * blockIdx.x / gridDim.x; g < g1;) {
+    const int slice = (int)(g / lq);
+    const int b = slice / heads, m = slice % heads;
+    const int qa = (int)(g - (long long)slice * lq);
+    const int qb = (int)min((long long)lq, qa + (g1 - g));
+    const float* vs = value + (long long)b * s * pos_stride + (long long)m * dim;
+    if (s_v > 0) {
+      __syncthreads();  // every warp is done with the previous slice's rows
+      if constexpr (CPL == 4) {
+        const int chunks = dim / 4;  // 16-byte chunks a row
+        for (int i = threadIdx.x; i < s_v * chunks; i += FWD_THREADS) {
+          const int p = i / chunks, c = (i - p * chunks) * 4;
+          hopper::cp_async16(hopper::smem_addr(sv + p * dim + c), vs + (long long)p * pos_stride + c, true);
+        }
+      } else {
+        for (int i = threadIdx.x; i < s_v * dim; i += FWD_THREADS) {
+          const int p = i / dim;
+          hopper::cp_async4(hopper::smem_addr(sv + i), vs + (long long)p * pos_stride + (i - p * dim), true);
         }
       }
-      const int n = min(32, samples - c0);
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        float v = 0.0f;
+      hopper::cp_async_commit();
+      hopper::cp_async_wait_all();
+      __syncthreads();
+    }
+    for (int q0 = qa + warp * CPL; q0 < qb; q0 += WARPS * CPL) {
+      const int q = q0 + grp;
+      const bool live = q < qb;  // a group past the range computes q0's query and writes nothing
+      const long long row = ((long long)b * lq + (live ? q : q0)) * heads + m;
+      for (int d0 = 0; d0 < dim; d0 += 32) {
+        const int d = d0 + gl * CPL;
+        const bool in_dim = d < dim;  // dim is a multiple of CPL: a lane's channels are all in or all out
+        float acc[CPL];
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int p = __shfl_sync(FULL, pos[t], j);
-          const float c = __shfl_sync(FULL, wt[t], j);
-          v += c * vd[(long long)p * pos_stride];
+        for (int c = 0; c < CPL; ++c) acc[c] = 0.0f;
+        for (int c0 = 0; c0 < samples; c0 += LPG) {
+          // lane gl prepares sample c0 + gl of its group's query: its taps'
+          // positions and weights, the attention weight folded in; a tap
+          // outside its level reads position 0 with weight 0 (and a sample
+          // with all four taps outside keeps zeros; the test also keeps the
+          // integer conversions in range)
+          int pos[4] = {0, 0, 0, 0};
+          float wt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          const int i = c0 + gl;
+          if (i < samples) {
+            const int l = i / points, h = lv.h[l], w = lv.w[l];
+            const float px = pixel_of(loc[(row * samples + i) * 2], w);
+            const float py = pixel_of(loc[(row * samples + i) * 2 + 1], h);
+            if (px >= -1.0f && py >= -1.0f && px < (float)w && py < (float)h) {
+              const float a = aw[row * samples + i];
+              const float x0f = floorf(px), y0f = floorf(py);
+              const float dx = px - x0f, dy = py - y0f;
+              const int x0 = (int)x0f, y0 = (int)y0f;
+              const int base = lv.start[l] + y0 * w + x0;
+              const bool xin0 = x0 >= 0, xin1 = x0 + 1 < w, yin0 = y0 >= 0, yin1 = y0 + 1 < h;
+              if (yin0 && xin0) { pos[0] = base;         wt[0] = a * ((1.0f - dy) * (1.0f - dx)); }
+              if (yin0 && xin1) { pos[1] = base + 1;     wt[1] = a * ((1.0f - dy) * dx); }
+              if (yin1 && xin0) { pos[2] = base + w;     wt[2] = a * (dy * (1.0f - dx)); }
+              if (yin1 && xin1) { pos[3] = base + w + 1; wt[3] = a * (dy * dx); }
+            }
+          }
+          // with the whole slice staged every position is under 2^16
+          // (MAX_SMEM / 4 bytes), so two shuffles carry the four positions
+          const unsigned p01 = (unsigned)pos[0] | (unsigned)pos[1] << 16;
+          const unsigned p23 = (unsigned)pos[2] | (unsigned)pos[3] << 16;
+          const int n = min(LPG, samples - c0);
+#pragma unroll 4
+          for (int j = 0; j < n; ++j) {
+            // sample c0 + j of the group's query, from the lane that prepared it
+            const int src = grp * LPG + j;
+            int tp[4];
+            float tw[4];
+            if constexpr (ALL) {
+              const unsigned a = __shfl_sync(FULL, p01, src), b = __shfl_sync(FULL, p23, src);
+              tp[0] = (int)(a & 0xffffu);
+              tp[1] = (int)(a >> 16);
+              tp[2] = (int)(b & 0xffffu);
+              tp[3] = (int)(b >> 16);
+            } else {
+#pragma unroll
+              for (int t = 0; t < 4; ++t) tp[t] = __shfl_sync(FULL, pos[t], src);
+            }
+#pragma unroll
+            for (int t = 0; t < 4; ++t) tw[t] = __shfl_sync(FULL, wt[t], src);
+            if (in_dim) {
+              // the four taps first (independent loads), then their sum
+              float v[4][CPL];
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                if (ALL || tp[t] < s_v)
+                  load_row<CPL>(sv + tp[t] * dim + d, v[t]);
+                else
+                  load_row<CPL>(vs + (long long)tp[t] * pos_stride + d, v[t]);
+              }
+#pragma unroll
+              for (int c = 0; c < CPL; ++c) {
+                float x = 0.0f;
+#pragma unroll
+                for (int t = 0; t < 4; ++t) x += tw[t] * v[t][c];
+                acc[c] += x;
+              }
+            }
+          }
         }
-        acc += v;
+        if (live && in_dim) {
+          if constexpr (CPL == 4)
+            *reinterpret_cast<float4*>(out + row * dim + d) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+          else
+            out[row * dim + d] = acc[0];
+        }
       }
     }
-    if (in_dim) orow[d] = acc;
+    g += qb - qa;
   }
 }
 
@@ -186,7 +306,6 @@ __global__ void ms_deform_attn_fwd_kernel(const float* __restrict__ value,
 // The order of the shared-memory adds varies from run to run, so dV's sums
 // vary in the last bits with it.
 constexpr int BWD_THREADS = 1024;  // 32 warps: the gathers' latency needs them, and one block fills an SM
-constexpr int MAX_SMEM = 232448;   // a block's shared memory on sm_90 (227 KB)
 constexpr int MIN_SPLIT_QUERIES = 32;  // a split's queries: at least one a warp
 
 // How the backward runs for a shape: the positions of a slice whose dV
@@ -213,20 +332,6 @@ BwdPlan plan_bwd(const Levels& lv, int batch, int lq, int heads, int dim) {
   }
   p.scratch = p.splits > 1 ? (long long)p.splits * slices * p.s_dv * dim : 0;
   return p;
-}
-
-// CPL channels of a row into registers (one 16-byte load for 4)
-template <int CPL>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[CPL]) {
-  if constexpr (CPL == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = *p;
-  }
 }
 
 // block = (slice, split), slice = b * heads + m; queries [q0, q1) of the
@@ -417,14 +522,24 @@ extern "C" int ms_deform_attn_fwd_f32(const float* value, const float* loc, cons
                                       float* out, int batch, int s, int lq, int heads, int dim,
                                       int levels, int points, const int* level_hw,
                                       cudaStream_t stream) {
+  static std::atomic<unsigned> ready[4];  // per instantiation: [vec][all]
   Levels lv;
   if (batch < 1 || lq < 1 || heads < 1 || dim < 1 || points < 1 ||
       !make_levels(levels, level_hw, s, &lv))
     return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)batch * lq * heads;
-  const long long blocks = (rows * 32 + THREADS - 1) / THREADS;
-  ms_deform_attn_fwd_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
-      value, loc, aw, out, rows, s, lq, heads, dim, points, lv);
+  // 16-byte copies, loads and stores where the channels and pointers allow them
+  const bool vec = dim % 4 == 0 && (uintptr_t)value % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const int s_v = staged_positions(s, dim);
+  const bool all = s_v == s;
+  auto kernel = vec ? (all ? ms_deform_attn_fwd_kernel<4, true> : ms_deform_attn_fwd_kernel<4, false>)
+                    : (all ? ms_deform_attn_fwd_kernel<1, true> : ms_deform_attn_fwd_kernel<1, false>);
+  const cudaError_t err = hopper::allow_smem((const void*)kernel, MAX_SMEM, ready[vec * 2 + all]);
+  if (err != cudaSuccess) return (int)err;
+  // a persistent grid, a block an SM, or fewer where the items are few
+  const long long items = (long long)batch * heads * lq, sms = hopper::sm_count();
+  const long long wanted = (items + MIN_BLOCK_QUERIES - 1) / MIN_BLOCK_QUERIES;
+  kernel<<<(unsigned)(wanted < sms ? wanted : sms), FWD_THREADS, (size_t)s_v * dim * sizeof(float), stream>>>(
+      value, loc, aw, out, items, s, lq, heads, dim, points, lv, s_v);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,7 @@ is the autograd Function the model calls.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -95,6 +96,20 @@ def _check(name, q, kv_grid, kv_f, heads, dh, *more):
     return b, f, t_mod
 
 
+@functools.cache
+def _fwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bf16",
+                           [p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
+
+
+@functools.cache
+def _bwd_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bwd_bf16",
+                           [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
+
+
 def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
     """q [B, F, I]; kv_grid [B, T*F, 2I] t-major; kv_f [B, F, 2I]. Returns
     [B, F, I]: softmax over the T + 1 slots per fusion position, the fusion
@@ -103,13 +118,10 @@ def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
         return fusion_row_attention_reference(q, kv_grid, kv_f, heads, dh)
     b, f, t_mod = _check("fusion_row_attention", q, kv_grid, kv_f, heads, dh)
     out = torch.empty_like(q)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bf16",
-                         [p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), out.data_ptr(),
-                 b, f, t_mod, heads, dh, float(dh ** -0.5), stream)
+        err = _fwd_fn()(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), out.data_ptr(),
+                        b, f, t_mod, heads, dh, float(dh ** -0.5), stream)
     cuda_build.check_launch(err, "fusion_row_attention")
     LAUNCHES["fusion_row"] += 1
     return out
@@ -122,14 +134,11 @@ def fusion_row_attention_backward(q, kv_grid, kv_f, do, heads: int, dh: int):
         return fusion_row_attention_backward_reference(q, kv_grid, kv_f, do, heads, dh)
     b, f, t_mod = _check("fusion_row_attention_backward", q, kv_grid, kv_f, heads, dh, do)
     dq, dkv_grid, dkv_f = torch.empty_like(q), torch.empty_like(kv_grid), torch.empty_like(kv_f)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bwd_bf16",
-                         [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                 dkv_grid.data_ptr(), dkv_f.data_ptr(), b, f, t_mod, heads, dh,
-                 float(dh ** -0.5), stream)
+        err = _bwd_fn()(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                        dkv_grid.data_ptr(), dkv_f.data_ptr(), b, f, t_mod, heads, dh,
+                        float(dh ** -0.5), stream)
     cuda_build.check_launch(err, "fusion_row_attention_backward")
     LAUNCHES["fusion_row_backward"] += 1
     return dq, dkv_grid, dkv_f

@@ -48,7 +48,8 @@ def test_every_kernel_entry_has_its_device_kernels(smoke):
 @pytest.mark.parametrize("entry,kernels", [
     ("fused_ffn/geglu_backward", 3), ("fused_ffn/mlp_backward", 3), ("point_sample/forward", 1),
     ("point_sample/backward", 1), ("zorro_attention_qkv/zorro_backward", 2), ("fused_block_attn/backward", 7),
-    ("fused_ffn/geglu", 1), ("fused_ffn/mlp", 1), ("ms_deform_attn/backward", 1)])
+    ("fused_ffn/geglu", 1), ("fused_ffn/mlp", 1), ("ms_deform_attn/backward", 1), ("ms_deform_attn/forward", 1),
+    ("fusion_row_attention/fusion_row_backward", 1), ("fusion_row_attention/fusion_row", 1)])
 def test_kernels_per_call(smoke, entry, kernels):
     assert smoke.entry_kernels(entry)[1] == kernels
 
@@ -72,6 +73,20 @@ def test_every_backward_kernel_of_k4b_is_profiled(smoke):
     kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / "ms_deform_attn.cu")
     assert {"ms_deform_attn_bwd_kernel", "ms_deform_attn_bwd_reduce_kernel"} <= kernels_of_source
     assert all(any(n in k for n in names) for k in kernels_of_source if "bwd" in k)
+
+
+@pytest.mark.parametrize("entry,source,kernels", [
+    ("ms_deform_attn/forward", "ms_deform_attn.cu", {"ms_deform_attn_fwd_kernel"}),
+    ("fusion_row_attention/fusion_row_backward", "fusion_row_attention.cu", {"fusion_row_bwd_kernel"}),
+    ("fusion_row_attention/fusion_row", "fusion_row_attention.cu", {"fusion_row_kernel"})])
+def test_k4_and_k3_kernels_are_the_ones_profiled(smoke, entry, source, kernels):
+    """K4 launches one kernel whatever the shape (the slice staged in
+    shared memory, the taps past it from global memory) and K3 / K3b one
+    each; phase 3 profiles exactly those by their names."""
+    names, per_call = smoke.entry_kernels(entry)
+    kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / source)
+    assert kernels <= kernels_of_source and per_call == 1
+    assert {k for k in kernels_of_source if any(n in k for n in names)} == kernels
 
 
 @pytest.mark.parametrize("geglu,hid,launched,planned", [(True, 2730, 2736, 3), (True, 512, 512, 2),

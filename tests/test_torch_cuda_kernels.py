@@ -9,9 +9,11 @@ K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile; with every
 tile active, bitwise the slab kernel) and the fused
 attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
 (the weight-gradient sums); K2's row path (with its hidden split at small
-M), its wide path and `large`'s padded inner width; K4b's shared-memory dV
-at B = 1 and 30, near and off the reference points, and with levels past
-shared memory. Also the autograd Functions' launches and the wrappers'
+M), its wide path and `large`'s padded inner width; K4's staged value
+slice at B = 1 and 30, past shared memory and off 16 bytes, bitwise the
+same from run to run; K3b's 2-byte path on an operand off 16 bytes; K4b's
+shared-memory dV at B = 1 and 30, near and off the reference points, and
+with levels past shared memory. Also the autograd Functions' launches and the wrappers'
 refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
@@ -366,6 +368,23 @@ def test_fusion_row_backward_kernel_matches_plain(dev, t_mod, heads, dh):
     assert _rel_all(out, ref) <= REL_L2
 
 
+@pytest.mark.parametrize("operand", ["q", "kv_grid", "kv_f", "do"])
+def test_fusion_row_backward_on_an_operand_that_starts_off_16_bytes(dev, operand):
+    """K3b moves 8 channels by 16-byte accesses only where every operand
+    starts on 16 bytes; a contiguous view one bf16 into its storage takes
+    the kernel's 2-byte path and gives the plain backward."""
+    b, f, heads, dh, t_mod = 2, 20, 3, 64, 3
+    operands = dict(q=_randn(dev, b, f, heads * dh, seed=11),
+                    kv_grid=_randn(dev, b, t_mod * f, 2 * heads * dh, seed=12),
+                    kv_f=_randn(dev, b, f, 2 * heads * dh, seed=13), do=_randn(dev, b, f, heads * dh, seed=24))
+    ref = cuda_fusion_attn.fusion_row_attention_backward_reference(*operands.values(), heads, dh)
+    operands[operand] = _offset_copy(operands[operand], 1)
+    assert operands[operand].is_contiguous() and operands[operand].data_ptr() % 16
+    out = cuda_fusion_attn.fusion_row_attention_backward(*operands.values(), heads, dh)
+    torch.cuda.synchronize()
+    assert _rel_all(out, ref) <= REL_L2
+
+
 def test_functions_launch_forward_and_backward_kernels(dev):
     """Each autograd Function launches its forward kernel once and, in the
     backward, its backward kernel once."""
@@ -431,6 +450,11 @@ def _msda_inputs(dev, b, lq, m, d, p, shapes, lo=-0.1, hi=1.1, seed=30):
     (1, 37, 2, 5, 3, ((3, 5), (6, 4), (7, 9))),  # narrow D, non-square levels, odd Lq
     (3, 101, 4, 40, 2, ((5, 3), (9, 11))),  # D over one warp's 32 lanes
     (1, 17, 1, 64, 1, ((1, 1), (2, 7), (12, 1), (4, 4))),
+    (1, 1344, 8, 32, 4, FULL_LEVELS),  # B = 1: a slice's queries over about 16 blocks
+    (2, 300, 4, 32, 4, ((16, 16), (32, 32), (64, 64))),  # the 64^2 level past shared memory
+    (1, 300, 4, 32, 4, ((16, 16), (32, 32), (64, 64))),
+    (2, 300, 8, 64, 4, FULL_LEVELS),  # D = 64: part of the 32^2 level past shared memory
+    (3, 101, 2, 40, 4, ((48, 48), (64, 64))),  # D over one warp's lanes, most levels past shared memory
 ])
 def test_msda_kernel_matches_plain(dev, b, lq, m, d, p, shapes):
     value, locs, aw = _msda_inputs(dev, b, lq, m, d, p, shapes)
@@ -451,6 +475,31 @@ def test_msda_kernel_locations_past_the_borders(dev):
     edges = torch.tensor([-0.02, -1e-3, 0.0, 1.0, 1.0 + 1e-3, 1.02], device=dev)
     locs = edges[torch.randint(0, 6, locs.shape, device=dev, generator=g)]
     out = cuda_msda.ms_deform_attn(value, FULL_LEVELS, locs, aw)
+    ref = cuda_msda.ms_deform_attn_core(value, FULL_LEVELS, locs, aw)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= MSDA_REL_L2
+
+
+def test_msda_kernel_is_bitwise_the_same_from_run_to_run(dev):
+    """Each output element is summed by one group of lanes in a fixed order:
+    no atomics, so two runs agree bit for bit (B = 30: blocks restage where
+    their range of queries enters a new slice)."""
+    value, locs, aw = _msda_inputs(dev, 30, 1344, 8, 32, 4, FULL_LEVELS, seed=45)
+    first = cuda_msda.ms_deform_attn(value, FULL_LEVELS, locs, aw)
+    second = cuda_msda.ms_deform_attn(value, FULL_LEVELS, locs, aw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("floats", [1, 2])
+def test_msda_kernel_on_a_value_that_starts_off_16_bytes(dev, floats):
+    """K4 stages and reads value 4 channels at a time only where value and
+    the output start on 16 bytes; a contiguous view that does not takes the
+    1-channel kernel and gives the plain version's output."""
+    value, locs, aw = _msda_inputs(dev, 2, 1344, 8, 32, 4, FULL_LEVELS, seed=46)
+    v = _offset_copy(value, floats)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    out = cuda_msda.ms_deform_attn(v, FULL_LEVELS, locs, aw)
     ref = cuda_msda.ms_deform_attn_core(value, FULL_LEVELS, locs, aw)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= MSDA_REL_L2
