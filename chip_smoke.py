@@ -106,6 +106,7 @@ from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerC
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
+from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion
 from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
 from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_build, cuda_ffn,
                                                         cuda_fusion_attn, cuda_msda, cuda_points, cuda_zorro_sparse)
@@ -221,8 +222,9 @@ WIDE_LARGE = "(large, wide path)"
 def entry_kernels(entry: str, label: str = ""):
     """The device kernels of one call of a phase-3 entry's wrapper (on the
     row ``label``): the substrings of their names, and how many the call
-    launches (K4 and K3b: one kernel at every shape, its instantiation
-    chosen by the operands' widths and alignment). K2's forward and K4b
+    launches (K4, K3 and K3b: one kernel at every shape, its instantiation
+    chosen by the operands' widths and alignment; K5b one, its fixed-point
+    kernel or, past shared memory, the global-atomics one). K2's forward and K4b
     launch 1 here; phase 3 takes their count
     on a row from their libraries' plans (``cuda_ffn.forward_kernels``,
     ``cuda_msda.backward_kernels``), which split the work over more kernels
@@ -480,6 +482,46 @@ def grid_sample_case(masks, coords, group, ds=None):
     return lambda: torch.autograd.grad(out, m, ds, retain_graph=True)
 
 
+def criterion_points(dev, g, n: int = 240, size: int = 64, points: int = 12544):
+    """Mask logits [n, size, size] and the points the set criterion samples
+    on them for its mask losses (losses/set_criterion.uncertain_point_coords:
+    3 x oversampled uniform points, the 75% most uncertain kept, the rest
+    fresh uniform ones; its point sampling runs K5): seeded logits that are
+    smooth blobs (8^2 noise upsampled bilinearly, x 4), as predicted masks
+    are, so the kept points cluster on the masks' edges."""
+    low = torch.randn(n, 1, 8, 8, device=dev, generator=g)
+    logits = 4.0 * torch.nn.functional.interpolate(low, size=(size, size), mode="bilinear", align_corners=False)
+    logits = logits[:, 0].contiguous()
+    return logits, set_criterion.uncertain_point_coords(g, logits, points)
+
+
+def fusion_row_stacked(q, kv_grid, kv_f, heads: int):
+    """K3's operands in scaled_dot_product_attention's layout: each fusion
+    position's query [B * F, h, 1, dh] and the keys and values of its T + 1
+    slots (the fusion token's own last) stacked to [B * F, h, T + 1, dh]."""
+    b, f, inner = q.shape
+    t_mod, dh = kv_grid.shape[1] // f, inner // heads
+    k_g, v_g = kv_grid.reshape(b, t_mod, f, 2, heads, dh).permute(3, 0, 2, 4, 1, 5).unbind(0)  # [B, F, h, T, dh]
+    k_f, v_f = kv_f.reshape(b, f, 2, heads, dh).permute(2, 0, 1, 3, 4)[..., None, :].unbind(0)
+    k, v = (torch.cat([s_g, s_f], dim=3).reshape(b * f, heads, t_mod + 1, dh) for s_g, s_f in ((k_g, k_f), (v_g, v_f)))
+    return q.reshape(b * f, heads, 1, dh), k, v
+
+
+def fusion_row_sdpa_case(q, kv_grid, kv_f, heads: int, part: str):
+    """One PyTorch call computing K3's function ('forward') or its gradient
+    ('backward', on a retained graph, the output gradient drawn from the
+    global generator): scaled_dot_product_attention on the operands stacked
+    beforehand by ``fusion_row_stacked`` (the stacking is not timed). Timed
+    as library_ms; the port never calls it."""
+    F = torch.nn.functional
+    qh, k, v = (t.detach().requires_grad_(part != "forward") for t in fusion_row_stacked(q, kv_grid, kv_f, heads))
+    if part == "forward":
+        return lambda: F.scaled_dot_product_attention(qh, k, v)
+    out = F.scaled_dot_product_attention(qh, k, v)
+    do = torch.randn_like(out)
+    return lambda: torch.autograd.grad(out, (qh, k, v), do, retain_graph=True)
+
+
 def unfused_geglu(x, gamma, w_in, w_out):
     """K2's GEGLU function as the unfused PyTorch chain: F.layer_norm (no
     bias), F.linear, the GEGLU product, F.linear, in bf16 (cuBLAS). Printed
@@ -713,14 +755,15 @@ def phase_kernels(dev):
                       lambda q=q, kvg=kvg, kvf=kvf: cuda_fusion_attn.fusion_row_attention(
                           q, kvg, kvf, 3, 64),
                       lambda q=q, kvg=kvg, kvf=kvf: cuda_fusion_attn.fusion_row_attention_reference(
-                          q, kvg, kvf, 3, 64), work, None, b == 8))
+                          q, kvg, kvf, 3, 64), work, fusion_row_sdpa_case(q, kvg, kvf, 3, "forward"), b == 8))
         if b == 60:
             do = randn(b, f, 192)
             work = (8.0 * 64 * 4 * b * f * 3, 2 * nbytes(q, kvg, kvf) + nbytes(do), PEAK_F32)
             cases.append(("fusion_row_attention/fusion_row_backward", "F=256 T=3 3x64 B=60",
                           lambda: cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, 3, 64),
                           lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(
-                              q, kvg, kvf, do, 3, 64), work, None, True))
+                              q, kvg, kvf, do, 3, 64), work, fusion_row_sdpa_case(q, kvg, kvf, 3, "backward"),
+                          True))
 
     # K4 (f32) at the pixel decoder's shapes: levels 8^2, 16^2, 32^2, 8 heads
     # x 32, 4 points, every position a query; random locations in
@@ -771,6 +814,15 @@ def phase_kernels(dev):
                           lambda m=masks, c=coords, d=ds: cuda_points.point_sample_backward_reference(
                               m, c, d)[0],
                           work, grid_sample_case(masks, coords, 1, ds), True))
+            # the same at the points the criterion samples (clustered on the
+            # edges of smooth logits), on those logits
+            logits, crit = criterion_points(dev, g, n, h, p)
+            cases.append(("point_sample/backward", label + ", criterion's points",
+                          lambda m=logits, c=crit, d=ds: cuda_points.point_sample_backward(m, c, d)[0],
+                          lambda m=logits, c=crit, d=ds: cuda_points.point_sample_backward_reference(
+                              m, c, d)[0],
+                          (8.0 * n * p, nbytes(crit, ds, logits), PEAK_F32),
+                          grid_sample_case(logits, crit, 1, ds), False))
 
     results = {}
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:

@@ -19,32 +19,29 @@
 // keeping all three kernels on one build route (nvcc + ctypes) keeps the
 // build to one tool and seconds per file.
 //
-// What bounds it on an H100: it does (T + 1) * 4 * dh flops per (position,
-// head) on (1 + 2(T + 1)) * dh * 2 bytes, under one flop per byte, so it is
-// bound by HBM bandwidth: the whole kv grid is read once. The design
-// therefore reads every operand exactly once, coalesced: one warp per
-// (batch, position, head), each lane holding dh / 32 contiguous elements of
-// q, k and v in registers, warp shuffles for the dot products, and the
-// T + 1 softmax weights kept in registers. No shared memory.
-//
-// The backward (K3b) is bound the same way: it reads q, the grid, kv_f and
-// dO once and writes dq, dkv_grid and dkv_f once (112 MB at B = 60, F = 256,
+// What bounds it on an H100: the forward does (T + 1) * 4 * dh flops per
+// (position, head) on (1 + 2(T + 1)) * dh * 2 bytes, under one flop per byte,
+// so it is bound by HBM bandwidth: the whole kv grid is read once. The
+// backward (K3b) is bound the same way: it reads q, the grid, kv_f and dO
+// once and writes dq, dkv_grid and dkv_f once (112 MB at B = 60, F = 256,
 // T = 3, 3 x 64), under two flops a byte. Per (batch, position, head) it
 // recomputes the slot sims and the softmax, forms dattn_t = dO . v_t in f32,
 // ds_t = attn_t (dattn_t - sum_s attn_s dattn_s), and writes
 // dq = sum_t ds_t k_t * scale, dk_t = ds_t * qh and dv_t = bf16(attn_t) * dO
 // rounded to bf16, the cast points of pallas_fusion_attn.py:95-126. Every
-// output element has one writer, so there are no atomics. The forward's
-// layout (a warp per (position, head), 2-byte accesses, each slot's loads
-// feeding two warp reductions before the next slot's are needed) keeps few
-// bytes in flight: on this pass it reaches 43% of the HBM rate of an H100.
-// So here a lane owns 8 contiguous channels and moves them by 16-byte loads and
-// stores, DH / 8 lanes serve one (position, head) and reduce over
-// shuffles, every thread issues all of its 2(T + 1) + 2 loads (q, dO, each
-// slot's k and v) before its first reduction (T is a template parameter,
-// so the rows stay in registers), and 256-thread blocks cover 256 x 8 / DH
-// (position, head) pairs. Where an operand does not start on 16 bytes the
-// same kernel moves the channels 2 bytes at a time.
+// output element has one writer, so there are no atomics.
+//
+// So both move every operand once, with many bytes in flight: a lane owns
+// 8 contiguous channels and moves them by 16-byte loads and stores, DH / 8
+// lanes serve one (position, head) and reduce over shuffles, every thread
+// issues all of its loads (q, each slot's k and v, and the backward's dO)
+// before its first reduction (T is a template parameter, so the rows stay
+// in registers), and 256-thread blocks cover 256 x 8 / DH (position, head)
+// pairs, whatever the head count. Where an operand does not start on 16
+// bytes the same kernels move the channels 2 bytes at a time. (A warp a
+// (position, head), 2-byte accesses and each slot's loads feeding two warp
+// reductions before the next slot's were needed kept few bytes in flight:
+// 41-43% of the HBM rate of an H100.)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,74 +53,7 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr int MAX_SLOTS = 9;  // T + 1 <= 9
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// grid (F, B), block heads * 32 threads: warp h of block (f, b) serves head h.
-template <int DH>
-__global__ void fusion_row_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
-                                  const bf16* __restrict__ kv_f, bf16* __restrict__ out, int f,
-                                  int t_mod, int heads, float scale) {
-  constexpr int PER = DH / 32;
-  const int pos = blockIdx.x;
-  const int b = blockIdx.y;
-  const int h = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int inner = heads * DH;
-  const int c0 = h * DH + lane * PER;
-
-  const bf16* qrow = q + ((long long)b * f + pos) * inner;
-  float qs[PER];
-  for (int i = 0; i < PER; ++i) qs[i] = round_bf16(__bfloat162float(qrow[c0 + i]) * scale);
-
-  const bf16* krows[MAX_SLOTS];
-  for (int t = 0; t < t_mod; ++t)
-    krows[t] = kv_grid + ((long long)b * t_mod * f + (long long)t * f + pos) * 2 * inner;
-  krows[t_mod] = kv_f + ((long long)b * f + pos) * 2 * inner;
-
-  float sim[MAX_SLOTS];
-  float mx = -3.0e38f;
-  for (int t = 0; t <= t_mod; ++t) {
-    float part = 0.0f;
-    for (int i = 0; i < PER; ++i) part += qs[i] * __bfloat162float(krows[t][c0 + i]);
-    sim[t] = warp_sum(part);
-    mx = fmaxf(mx, sim[t]);
-  }
-  float denom = 0.0f;
-  for (int t = 0; t <= t_mod; ++t) {
-    sim[t] = expf(sim[t] - mx);
-    denom += sim[t];
-  }
-
-  float acc[PER];
-  for (int t = 0; t <= t_mod; ++t) {
-    const float a = round_bf16(sim[t] / denom);
-    const bf16* vrow = krows[t] + inner;
-    for (int i = 0; i < PER; ++i) {
-      const float prod = round_bf16(a * __bfloat162float(vrow[c0 + i]));
-      acc[i] = t == 0 ? prod : round_bf16(acc[i] + prod);
-    }
-  }
-  bf16* orow = out + ((long long)b * f + pos) * inner;
-  for (int i = 0; i < PER; ++i) orow[c0 + i] = __float2bfloat16(acc[i]);
-}
-
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* out, int batch, int f,
-                   int t_mod, int heads, float scale, cudaStream_t stream) {
-  dim3 grid(f, batch);
-  fusion_row_kernel<DH><<<grid, heads * 32, 0, stream>>>(q, kv_grid, kv_f, out, f, t_mod, heads, scale);
-  return cudaGetLastError();
-}
-
-constexpr int BWD_THREADS = 256;
+constexpr int THREADS = 256;
 
 // 8 bf16 channels from p: one 16-byte load where VEC, else eight 2-byte loads
 template <bool VEC>
@@ -169,9 +99,139 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
                     hopper::pack_bf16(f[6], f[7]));
 }
 
-// Thread i of the grid owns channels [8 i, 8 i + 8) of q and dO, which are
-// channels 8 (i % LP) .. of head h of row (b, pos), with
-// (b * F + pos) * heads + h = i / LP, LP = DH / 8 lanes a head.
+// the 8 floats rounded to bf16 and read back, two a conversion
+__device__ __forceinline__ void round8(float (&f)[8]) {
+  unpack8(pack8(f), f);
+}
+
+// Thread i of the grid owns channels [8 i, 8 i + 8) of q and of out (or
+// dO and dq), which are channels 8 (i % LP) .. of head h of row
+// (b, pos), with (b * F + pos) * heads + h = i / LP, LP = DH / 8 lanes a
+// head. A thread past the end takes the last thread's channels and writes
+// nothing; the heads are whole, so its shuffles reach no live lane.
+template <int DH, int T>
+struct Lane {
+  bool live;
+  long long ti;  // the thread whose channels these are
+  long long kv[T + 1];  // element offset of each slot's k in its row of 2I (slot T: kv_f's)
+
+  __device__ __forceinline__ Lane(long long threads, int f, int heads) {
+    const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+    live = i < threads;
+    ti = live ? i : threads - 1;
+    const long long unit = ti / (DH / 8), row = unit / heads;  // row = b * F + pos
+    const int inner = heads * DH;
+    const long long b = row / f, pos = row % f;
+    const int c = (int)(unit % heads) * DH + (int)(ti % (DH / 8)) * 8;  // the first channel in a row of I
+#pragma unroll
+    for (int t = 0; t < T; ++t) kv[t] = (b * T * f + (long long)t * f + pos) * 2 * inner + c;
+    kv[T] = row * 2 * inner + c;
+  }
+};
+
+template <int DH, int T, bool VEC>
+__device__ __forceinline__ void fusion_row_fwd(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
+                                               const bf16* __restrict__ kv_f, bf16* __restrict__ out,
+                                               long long threads, int f, int heads, float scale) {
+  constexpr int LP = DH / 8;
+  const Lane<DH, T> lane(threads, f, heads);
+  const int inner = heads * DH;
+
+  // every load first: q, and each slot's k and v (slot T: the fusion token's own)
+  const uint4 q8 = load8<VEC>(q + lane.ti * 8);
+  uint4 k8[T + 1], v8[T + 1];
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    const bf16* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
+    k8[t] = load8<VEC>(src);
+    v8[t] = load8<VEC>(src + inner);
+  }
+
+  // q * scale rounded to bf16, read as f32; keys in f32
+  float qs[8];
+  unpack8(q8, qs);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qs[j] *= scale;
+  round8(qs);
+  float attn[T + 1];
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    float kf[8];
+    unpack8(k8[t], kf);
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += qs[j] * kf[j];
+    attn[t] = s;
+  }
+  // the sums over the head's LP lanes
+#pragma unroll
+  for (int o = LP / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int t = 0; t <= T; ++t) attn[t] += __shfl_xor_sync(0xffffffffu, attn[t], o);
+  float mx = -3.0e38f;
+#pragma unroll
+  for (int t = 0; t <= T; ++t) mx = fmaxf(mx, attn[t]);
+  float denom = 0.0f;
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    attn[t] = expf(attn[t] - mx);
+    denom += attn[t];
+  }
+
+  // the mix in bf16: each weight, each product a * v and the running sum
+  // (from slot 0 on) rounded to bf16
+  float acc[8];
+#pragma unroll
+  for (int t = 0; t <= T; ++t) {
+    const float a = __bfloat162float(__float2bfloat16(attn[t] / denom));
+    float prod[8];
+    unpack8(v8[t], prod);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) prod[j] *= a;
+    round8(prod);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = t == 0 ? prod[j] : acc[j] + prod[j];
+    if (t > 0) round8(acc);
+  }
+  if (lane.live) store8<VEC>(out + lane.ti * 8, pack8(acc));
+}
+
+template <int DH, int T>
+__global__ void __launch_bounds__(THREADS)
+fusion_row_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid, const bf16* __restrict__ kv_f,
+                  bf16* __restrict__ out, long long threads, int f, int heads, float scale, bool vec) {
+  if (vec)
+    fusion_row_fwd<DH, T, true>(q, kv_grid, kv_f, out, threads, f, heads, scale);
+  else
+    fusion_row_fwd<DH, T, false>(q, kv_grid, kv_f, out, threads, f, heads, scale);
+}
+
+template <int DH, int T>
+cudaError_t launch_slots(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* out, int batch, int f,
+                         int heads, float scale, cudaStream_t stream) {
+  const long long threads = (long long)batch * f * heads * (DH / 8);
+  // 16-byte accesses where every operand starts on 16 bytes (rows of I and
+  // 2I bf16 keep that alignment: I is a multiple of 32)
+  const bool vec = ((uintptr_t)q | (uintptr_t)kv_grid | (uintptr_t)kv_f | (uintptr_t)out) % 16 == 0;
+  fusion_row_kernel<DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      q, kv_grid, kv_f, out, threads, f, heads, scale, vec);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* out, int batch, int f, int t_mod,
+                   int heads, float scale, cudaStream_t stream) {
+  switch (t_mod) {
+#define SLOTS(T) \
+  case T:        \
+    return launch_slots<DH, T>(q, kv_grid, kv_f, out, batch, f, heads, scale, stream);
+    SLOTS(1) SLOTS(2) SLOTS(3) SLOTS(4) SLOTS(5) SLOTS(6) SLOTS(7) SLOTS(8)
+#undef SLOTS
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <int DH, int T, bool VEC>
 __device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
                                                const bf16* __restrict__ kv_f, const bf16* __restrict__ dout,
@@ -179,26 +239,15 @@ __device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const
                                                bf16* __restrict__ dkv_f, long long threads, int f, int heads,
                                                float scale) {
   constexpr int LP = DH / 8;
-  const long long i = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
-  // a thread past the end computes the last thread's head and writes
-  // nothing; the heads are whole, so its shuffles reach no live lane
-  const bool live = i < threads;
-  const long long ti = live ? i : threads - 1;
-  const long long unit = ti / LP, row = unit / heads;  // row = b * F + pos
-  const int h = (int)(unit % heads), inner = heads * DH;
-  const long long b = row / f, pos = row % f;
-  const int c = h * DH + (int)(ti % LP) * 8;  // the lane's first channel in a row of I
+  const Lane<DH, T> lane(threads, f, heads);
+  const int inner = heads * DH;
 
   // every load first: q, dO, and each slot's k and v (slot T: the fusion token's own)
-  long long kv[T + 1];  // element offset of each slot's k in its row of 2I
-#pragma unroll
-  for (int t = 0; t < T; ++t) kv[t] = (b * T * f + (long long)t * f + pos) * 2 * inner + c;
-  kv[T] = row * 2 * inner + c;
-  const uint4 q8 = load8<VEC>(q + ti * 8), do8 = load8<VEC>(dout + ti * 8);
+  const uint4 q8 = load8<VEC>(q + lane.ti * 8), do8 = load8<VEC>(dout + lane.ti * 8);
   uint4 k8[T + 1], v8[T + 1];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    const bf16* src = (t < T ? kv_grid : kv_f) + kv[t];
+    const bf16* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
     k8[t] = load8<VEC>(src);
     v8[t] = load8<VEC>(src + inner);
   }
@@ -262,19 +311,19 @@ __device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const
       dk[j] = ds * qs[j];
       dv[j] = ab * dos[j];
     }
-    if (live) {
-      bf16* dst = (t < T ? dkv_grid : dkv_f) + kv[t];
+    if (lane.live) {
+      bf16* dst = (t < T ? dkv_grid : dkv_f) + lane.kv[t];
       store8<VEC>(dst, pack8(dk));
       store8<VEC>(dst + inner, pack8(dv));
     }
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) dqs[j] *= scale;
-  if (live) store8<VEC>(dq + ti * 8, pack8(dqs));
+  if (lane.live) store8<VEC>(dq + lane.ti * 8, pack8(dqs));
 }
 
 template <int DH, int T>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(THREADS)
 fusion_row_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid, const bf16* __restrict__ kv_f,
                       const bf16* __restrict__ dout, bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
                       bf16* __restrict__ dkv_f, long long threads, int f, int heads, float scale, bool vec) {
@@ -293,7 +342,7 @@ cudaError_t launch_bwd_slots(const bf16* q, const bf16* kv_grid, const bf16* kv_
   // 2I bf16 keep that alignment: I is a multiple of 32)
   const bool vec = ((uintptr_t)q | (uintptr_t)kv_grid | (uintptr_t)kv_f | (uintptr_t)dout | (uintptr_t)dq |
                     (uintptr_t)dkv_grid | (uintptr_t)dkv_f) % 16 == 0;
-  fusion_row_bwd_kernel<DH, T><<<(unsigned)((threads + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS, 0, stream>>>(
+  fusion_row_bwd_kernel<DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale, vec);
   return cudaGetLastError();
 }
@@ -320,7 +369,7 @@ cudaError_t launch_bwd(const bf16* q, const bf16* kv_grid, const bf16* kv_f, con
 extern "C" int fusion_row_attention_bf16(const void* q, const void* kv_grid, const void* kv_f, void* out,
                                          int batch, int f, int t_mod, int heads, int dh, float scale,
                                          void* stream) {
-  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1 || heads > 32) return (int)cudaErrorInvalidValue;
+  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* gp = static_cast<const bf16*>(kv_grid);
   const bf16* fp = static_cast<const bf16*>(kv_f);
@@ -344,7 +393,7 @@ extern "C" int fusion_row_attention_bwd_bf16(const void* q, const void* kv_grid,
                                              const void* dout, void* dq, void* dkv_grid, void* dkv_f,
                                              int batch, int f, int t_mod, int heads, int dh, float scale,
                                              void* stream) {
-  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1 || heads > 32) return (int)cudaErrorInvalidValue;
+  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* gp = static_cast<const bf16*>(kv_grid);
   const bf16* fp = static_cast<const bf16*>(kv_f);

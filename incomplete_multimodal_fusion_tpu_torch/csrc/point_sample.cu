@@ -45,14 +45,28 @@
 // Every load is unconditional: a tap outside the mask reads element 0 with
 // weight 0.
 //
-// K5b scatters dS * w_tap into dmasks. A mask's gradient is small (64^2
-// f32 = 16 KB on the loss path), so one block per mask holds it in shared
-// memory, adds the taps there with shared-memory atomics and writes it once,
-// plainly; coords and dS are read once (40 MB for [240, 64^2] at 12544
-// points, 0.012 ms). Where [H, W] does not fit in a block's shared memory,
-// blocks of points add straight into dmasks with global atomics (zeroed by
-// the caller). dcoords, when asked for, comes from the same taps: the
-// derivatives of the bilinear weights in x and y against the mask values.
+// K5b scatters dS * w_tap into dmasks (40 MB for [240, 64^2] at 12544
+// points: coords and dS read once, dmasks written once; 0.012 ms). sm_90 has
+// no shared-memory float add: a float atomicAdd there is a compare-and-swap
+// loop of about 23 instructions. So where a mask's gradient fits in shared
+// memory (64^2 on the loss path), one block per mask adds the taps in fixed
+// point with the native integer adds: the block first takes the largest
+// |dS| of its mask, M, and a power of two, S, with P * M * S < 2^44; each
+// tap's dS * w_tap * S is split into a high part (the floor of it over 2^14)
+// and a low part (the rest, rounded to an integer in [0, 2^14]), each added
+// to its own int32 image. Every sum fits (the high parts' under 2^30 + P,
+// the low parts' under 2^14 * P < 2^32 for P < 2^18), so the result,
+// (high * 2^14 + low) / S, is the fixed-point sum at a step under
+// 2 P M / 2^44, and it is bitwise the same from run to run:
+// integer adds give one sum in any order. Each point's coords are one
+// 8-byte load, and each thread has 8 points' loads in flight. (Measured
+// slower on the loss path by tools/bench_points_bwd.py: binning the points
+// by their top-left tap, a scan and a gather a pixel; red.global.add.f32
+// into an L2-resident dmasks; a 2-block cluster a mask; three parts or an
+// int64 a tap.) Where [H, W] does not fit (or P >= 2^18), blocks of points add
+// straight into dmasks with global float atomics (zeroed by the caller).
+// dcoords, when asked for, comes from the same taps: the derivatives of the
+// bilinear weights in x and y against the mask values.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -68,6 +82,13 @@ constexpr int MASK_THREADS = 256;  // the one-mask forward (a group of 1)
 constexpr int MASK_CHUNK = 2048;   // its points per block
 constexpr int CACHED_THREADS = 1024;  // the forward of masks past shared memory
 constexpr int BWD_THREADS = 512;
+constexpr int BWD_POINTS = 8;  // points a thread of the fixed-point backward has in flight
+constexpr int LO_BITS = 14;  // the low part of a fixed-point tap: under 2^14 (or equal)
+constexpr float LO_SPAN = 1 << LO_BITS;
+constexpr float ROUNDER = 12582912.0f;  // 1.5 * 2^23
+constexpr int FIXED_BITS = 44;       // P * max |dS| * S < 2^FIXED_BITS
+constexpr int MAX_FIXED_POINTS = (1 << 18) - 1;  // the low parts' sums stay under 2^32
+constexpr int FIXED_STATIC_SMEM = 1024;     // the fixed-point kernel's static shared memory, at most
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on sm_90 (227 KB)
 
 struct Taps {
@@ -265,32 +286,86 @@ __device__ __forceinline__ void write_dcoords(const Taps& t, const float* m, flo
   dc[1] = ds * (float)h * sy;
 }
 
-// grid (N): one block per mask, its gradient in shared memory
-__global__ void point_sample_bwd_smem_kernel(const float* __restrict__ masks,
-                                             const float* __restrict__ coords,
-                                             const float* __restrict__ ds,
-                                             float* __restrict__ dmasks,
-                                             float* __restrict__ dcoords, int p, int h, int w,
-                                             int group) {
-  extern __shared__ float acc[];
+// grid (N): one block per mask, its gradient in shared memory as two int32
+// images (high and low parts of the fixed-point taps), BWD_POINTS points a
+// thread in flight; VEC: dmasks' rows of H * W floats start on 16 bytes
+// (16-byte stores)
+template <bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
+point_sample_bwd_fixed_kernel(const float* __restrict__ masks, const float* __restrict__ coords,
+                              const float* __restrict__ ds, float* __restrict__ dmasks, float* __restrict__ dcoords,
+                              int p, int h, int w, int group) {
+  extern __shared__ __align__(16) int parts[];
+  __shared__ float warp_max[BWD_THREADS / 32];  // within FIXED_STATIC_SMEM
   const int n = blockIdx.x;
   const int hw = h * w;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const float* crow = coords + (long long)(n / group) * p * 2;
+  // each image has 32 slots past the mask, one a lane, that take the taps
+  // outside it (adds of 0), so that no tap needs a branch and none contends
+  int* hi = parts;
+  unsigned* lo = reinterpret_cast<unsigned*>(parts + hw + 32);
+  for (int i = threadIdx.x; i < 2 * (hw + 32); i += BWD_THREADS) parts[i] = 0;
   const float* dsrow = ds + (long long)n * p;
-  const float* m = masks + (long long)n * hw;
-  for (int j = threadIdx.x; j < p; j += blockDim.x) {
-    const Taps t = taps_of(crow[2 * j], crow[2 * j + 1], h, w);
-    const float g = dsrow[j];
+  // BWD_POINTS points a thread in flight: all their loads are issued before
+  // the first is used
+  float mx = 0.0f;
+  for (int j0 = threadIdx.x; j0 < p; j0 += BWD_POINTS * BWD_THREADS) {
+    float g[BWD_POINTS];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (t.wt[k] != 0.0f) atomicAdd(acc + t.idx[k], g * t.wt[k]);
-    if (dcoords != nullptr) write_dcoords(t, m, g, h, w, dcoords + ((long long)n * p + j) * 2);
+    for (int u = 0; u < BWD_POINTS; ++u) g[u] = j0 + u * BWD_THREADS < p ? dsrow[j0 + u * BWD_THREADS] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < BWD_POINTS; ++u) mx = fmaxf(mx, fabsf(g[u]));
+  }
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = mx;
+  __syncthreads();  // the images are zeroed, the warps' maxima written
+  mx = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BWD_THREADS / 32; ++i) mx = fmaxf(mx, warp_max[i]);
+  // P * M < 2^e (e = -126 for 0 and subnormals)
+  const int e = max((int)((__float_as_uint(mx * (float)p) >> 23) & 0xffu), 1) - 126;
+  const int shift = min(FIXED_BITS - e, 126);
+  const float scale = ldexpf(1.0f, shift), unscale = ldexpf(1.0f, -shift);
+
+  const float2* crow = reinterpret_cast<const float2*>(coords) + (long long)(n / group) * p;
+  const float* m = masks + (long long)n * hw;
+  for (int j0 = threadIdx.x; j0 < p; j0 += BWD_POINTS * BWD_THREADS) {
+    float2 c[BWD_POINTS];
+    float g[BWD_POINTS];
+#pragma unroll
+    for (int u = 0; u < BWD_POINTS; ++u) {
+      const int j = j0 + u * BWD_THREADS;
+      c[u] = j < p ? crow[j] : make_float2(-4.0f, -4.0f);  // past P: no tap inside
+      g[u] = j < p ? dsrow[j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_POINTS; ++u) {
+      const Taps t = taps_of(c[u].x, c[u].y, h, w);
+      const float gs = g[u] * scale;  // exact: S is a power of two
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float v = gs * t.wt[k];
+        const int at = t.wt[k] != 0.0f ? t.idx[k] : hw + (int)(threadIdx.x % 32);
+        const float high = floorf(v * (1.0f / LO_SPAN));
+        // the rest, exact in [0, 2^14), rounded to an integer by adding
+        // 1.5 * 2^23 (its integer in the low mantissa bits)
+        const float rest = fmaf(-high, LO_SPAN, v) + ROUNDER;
+        atomicAdd(hi + at, (int)high);
+        atomicAdd(lo + at, __float_as_uint(rest) - __float_as_uint(ROUNDER));
+      }
+      const int j = j0 + u * BWD_THREADS;
+      if (dcoords != nullptr && j < p) write_dcoords(t, m, g[u], h, w, dcoords + ((long long)n * p + j) * 2);
+    }
   }
   __syncthreads();
   float* dm = dmasks + (long long)n * hw;
-  for (int i = threadIdx.x; i < hw; i += blockDim.x) dm[i] = acc[i];
+  auto value = [&](int i) { return __ll2float_rn((long long)hi[i] * (1LL << LO_BITS) + lo[i]) * unscale; };
+  if (VEC) {
+    for (int i = threadIdx.x; i < hw / 4; i += BWD_THREADS)
+      reinterpret_cast<float4*>(dm)[i] = make_float4(value(4 * i), value(4 * i + 1), value(4 * i + 2),
+                                                     value(4 * i + 3));
+  } else {
+    for (int i = threadIdx.x; i < hw; i += BWD_THREADS) dm[i] = value(i);
+  }
 }
 
 // grid (ceil(P / BWD_THREADS), N): masks too large for shared memory; adds
@@ -322,6 +397,12 @@ bool bad_args(int n, int p, int h, int w, int group) {
 }
 
 bool fits_smem(int h, int w) { return (long long)h * w * (long long)sizeof(float) <= MAX_SMEM; }
+
+// whether the backward takes the fixed-point shared-memory path, which
+// writes every element of dmasks
+bool bwd_fixed(int p, int h, int w) {
+  return 2 * ((long long)h * w + 32) * (long long)sizeof(int) <= MAX_SMEM - FIXED_STATIC_SMEM && p <= MAX_FIXED_POINTS;
+}
 
 // The forward's point chunk for `rows` coords rows of p points: at most
 // MAX_PPT points a thread, and about `target` blocks in all (at least one
@@ -383,19 +464,21 @@ extern "C" int point_sample_fwd_f32(const float* masks, const float* coords, flo
 }
 
 // dcoords may be null (no coordinate gradient asked for). Where
-// point_sample_bwd_uses_smem(h, w) is 0 the caller must have zeroed dmasks:
-// the global path adds into it; the shared-memory path writes every element.
+// point_sample_bwd_writes_all(p, h, w) is 0 the caller must have zeroed
+// dmasks: the global path adds into it; the fixed-point path writes every
+// element. coords must start on 8 bytes (one 8-byte load a point).
 extern "C" int point_sample_bwd_f32(const float* masks, const float* coords, const float* ds,
                                     float* dmasks, float* dcoords, int n, int p, int h, int w,
                                     int group, cudaStream_t stream) {
   if (bad_args(n, p, h, w, group)) return (int)cudaErrorInvalidValue;
-  const long long bytes = (long long)h * w * (long long)sizeof(float);
-  if (fits_smem(h, w)) {
-    static std::atomic<unsigned> ready{0};
-    const cudaError_t e = hopper::allow_smem((const void*)point_sample_bwd_smem_kernel, MAX_SMEM, ready);
+  if (bwd_fixed(p, h, w)) {
+    const size_t bytes = 2 * ((size_t)h * w + 32) * sizeof(int);
+    const bool vec = (h * w) % 4 == 0 && reinterpret_cast<uintptr_t>(dmasks) % 16 == 0;
+    static std::atomic<unsigned> ready[2];
+    auto kernel = vec ? point_sample_bwd_fixed_kernel<true> : point_sample_bwd_fixed_kernel<false>;
+    const cudaError_t e = hopper::allow_smem((const void*)kernel, MAX_SMEM - FIXED_STATIC_SMEM, ready[vec]);
     if (e != cudaSuccess) return (int)e;
-    point_sample_bwd_smem_kernel<<<n, BWD_THREADS, (size_t)bytes, stream>>>(
-        masks, coords, ds, dmasks, dcoords, p, h, w, group);
+    kernel<<<n, BWD_THREADS, bytes, stream>>>(masks, coords, ds, dmasks, dcoords, p, h, w, group);
   } else {
     const dim3 grid((p + BWD_THREADS - 1) / BWD_THREADS, n);
     point_sample_bwd_global_kernel<<<grid, BWD_THREADS, 0, stream>>>(
@@ -404,5 +487,6 @@ extern "C" int point_sample_bwd_f32(const float* masks, const float* coords, con
   return (int)cudaGetLastError();
 }
 
-// whether point_sample_bwd_f32 takes the shared-memory path for [h, w]
-extern "C" int point_sample_bwd_uses_smem(int h, int w) { return fits_smem(h, w) ? 1 : 0; }
+// whether point_sample_bwd_f32 writes every element of dmasks for P points
+// of [h, w] masks (the fixed-point path); else it adds into them
+extern "C" int point_sample_bwd_writes_all(int p, int h, int w) { return bwd_fixed(p, h, w) ? 1 : 0; }

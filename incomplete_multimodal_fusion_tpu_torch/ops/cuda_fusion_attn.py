@@ -89,7 +89,7 @@ def _check(name, q, kv_grid, kv_f, heads, dh, *more):
             raise ValueError(f"{name}: operands must be contiguous bfloat16 tensors on {q.device}")
     t_mod = kv_grid.shape[1] // f
     if (inner != heads * dh or dh not in SUPPORTED_DH or not 1 <= t_mod <= MAX_MODALITIES
-            or heads > 32 or kv_grid.shape != (b, t_mod * f, 2 * inner)
+            or kv_grid.shape != (b, t_mod * f, 2 * inner)
             or kv_f.shape != (b, f, 2 * inner) or any(t.shape != q.shape for t in more)):
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, kv_grid "
                          f"{tuple(kv_grid.shape)}, kv_f {tuple(kv_f.shape)} for {heads} x {dh}")

@@ -38,8 +38,10 @@ def _bwd_fn():
 
 
 @functools.cache
-def _bwd_uses_smem(h: int, w: int) -> bool:
-    return bool(cuda_build.bind("point_sample.cu", "point_sample_bwd_uses_smem", [ctypes.c_int, ctypes.c_int])(h, w))
+def _bwd_writes_all(p: int, h: int, w: int) -> bool:
+    """Whether the backward kernel writes every element of dmasks at these
+    sizes (else it adds into them, zeroed first)."""
+    return bool(cuda_build.bind("point_sample.cu", "point_sample_bwd_writes_all", [ctypes.c_int] * 3)(p, h, w))
 
 
 def _check(name, masks, coords, group, *more):
@@ -53,6 +55,8 @@ def _check(name, masks, coords, group, *more):
             or coords.shape[0] * group != masks.shape[0] or min(masks.shape) < 1 or coords.shape[1] < 1:
         raise ValueError(f"{name}: bad shapes masks {tuple(masks.shape)}, coords "
                          f"{tuple(coords.shape)} in groups of {group}")
+    if coords.data_ptr() % 8:
+        raise ValueError(f"{name}: coords must start on 8 bytes (the kernels load a point's (x, y) at once)")
     n, h, w = masks.shape
     p = coords.shape[1]
     if any(t.shape != (n, p) for t in more):
@@ -93,9 +97,8 @@ def point_sample_backward(masks, coords, ds, group: int = 1, coords_grad: bool =
     if masks.device.type == "cpu":
         return point_sample_backward_reference(masks, coords, ds, group, coords_grad)
     n, h, w, p = _check("point_sample_backward", masks, coords, group, ds)
-    smem = _bwd_uses_smem(h, w)
-    # the shared-memory path writes every element; the global one adds
-    dmasks = (torch.empty_like if smem else torch.zeros_like)(masks)
+    # the fixed-point path writes every element; the global one adds
+    dmasks = (torch.empty_like if _bwd_writes_all(p, h, w) else torch.zeros_like)(masks)
     dcoords = torch.empty((n, p, 2), dtype=torch.float32, device=masks.device) if coords_grad else None
     fn = _bwd_fn()
     with torch.cuda.device(masks.device):

@@ -78,15 +78,47 @@ def test_every_backward_kernel_of_k4b_is_profiled(smoke):
 @pytest.mark.parametrize("entry,source,kernels", [
     ("ms_deform_attn/forward", "ms_deform_attn.cu", {"ms_deform_attn_fwd_kernel"}),
     ("fusion_row_attention/fusion_row_backward", "fusion_row_attention.cu", {"fusion_row_bwd_kernel"}),
-    ("fusion_row_attention/fusion_row", "fusion_row_attention.cu", {"fusion_row_kernel"})])
+    ("fusion_row_attention/fusion_row", "fusion_row_attention.cu", {"fusion_row_kernel"}),
+    ("point_sample/backward", "point_sample.cu", {"point_sample_bwd_fixed_kernel", "point_sample_bwd_global_kernel"})])
 def test_k4_and_k3_kernels_are_the_ones_profiled(smoke, entry, source, kernels):
     """K4 launches one kernel whatever the shape (the slice staged in
-    shared memory, the taps past it from global memory) and K3 / K3b one
-    each; phase 3 profiles exactly those by their names."""
+    shared memory, the taps past it from global memory), K3 / K3b one each,
+    and K5b one (its fixed-point kernel, or past shared memory its
+    global-atomics one); phase 3 profiles exactly those by their names."""
     names, per_call = smoke.entry_kernels(entry)
     kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / source)
     assert kernels <= kernels_of_source and per_call == 1
     assert {k for k in kernels_of_source if any(n in k for n in names)} == kernels
+
+
+@pytest.mark.parametrize("t_mod", [1, 3, 8])
+def test_fusion_row_library_call_computes_k3s_function(smoke, t_mod):
+    """The library call phase 3 times beside K3 and K3b (SDPA over each
+    position's stacked slots) computes the plain K3's function and, on its
+    retained graph, the plain K3b's gradients; in f32 on the CPU only the
+    order of the sums differs (rel-L2 1e-5)."""
+    import torch
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_fusion_attn
+
+    g = torch.Generator().manual_seed(t_mod)
+    b, f, heads, dh = 2, 5, 3, 32
+    q, kvg, kvf = (torch.randn(*s, generator=g) for s in ((b, f, heads * dh), (b, t_mod * f, 2 * heads * dh),
+                                                          (b, f, 2 * heads * dh)))
+
+    def rel(a, r):
+        return float((a - r).norm() / r.norm())
+
+    out = smoke.fusion_row_sdpa_case(q, kvg, kvf, heads, "forward")()
+    assert rel(out.reshape(b, f, heads * dh), cuda_fusion_attn.fusion_row_attention_reference(q, kvg, kvf, heads,
+                                                                                               dh)) <= 1e-5
+    torch.manual_seed(7)
+    grads = smoke.fusion_row_sdpa_case(q, kvg, kvf, heads, "backward")()
+    torch.manual_seed(7)
+    do = torch.randn(b * f, heads, 1, dh).reshape(b, f, heads * dh)
+    ref = smoke.fusion_row_stacked(*cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, heads,
+                                                                                            dh), heads)
+    for got, want in zip(grads, ref):
+        assert got.shape == want.shape and rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("geglu,hid,launched,planned", [(True, 2730, 2736, 3), (True, 512, 512, 2),

@@ -11,7 +11,9 @@ attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
 (the weight-gradient sums); K2's row path (with its hidden split at small
 M), its wide path and `large`'s padded inner width; K4's staged value
 slice at B = 1 and 30, past shared memory and off 16 bytes, bitwise the
-same from run to run; K3b's 2-byte path on an operand off 16 bytes; K4b's
+same from run to run; K3's and K3b's 2-byte paths on operands off 16 bytes
+and both at 40 heads; K5b's fixed-point adds on skewed points and at
+ragged P, bitwise the same from run to run; K4b's
 shared-memory dV at B = 1 and 30, near and off the reference points, and
 with levels past shared memory. Also the autograd Functions' launches and the wrappers'
 refusals. These tests need a CUDA card and skip without one; on a
@@ -383,6 +385,42 @@ def test_fusion_row_backward_on_an_operand_that_starts_off_16_bytes(dev, operand
     out = cuda_fusion_attn.fusion_row_attention_backward(*operands.values(), heads, dh)
     torch.cuda.synchronize()
     assert _rel_all(out, ref) <= REL_L2
+
+
+@pytest.mark.parametrize("operand", ["q", "kv_grid", "kv_f", "all"])
+def test_fusion_row_kernel_on_an_operand_that_starts_off_16_bytes(dev, operand):
+    """K3 moves 8 channels by 16-byte accesses only where every operand
+    starts on 16 bytes; a contiguous view one bf16 into its storage (or all
+    three such views) takes the kernel's 2-byte path and gives the plain
+    forward."""
+    b, f, heads, dh, t_mod = 2, 20, 3, 64, 3
+    operands = dict(q=_randn(dev, b, f, heads * dh, seed=11),
+                    kv_grid=_randn(dev, b, t_mod * f, 2 * heads * dh, seed=12),
+                    kv_f=_randn(dev, b, f, 2 * heads * dh, seed=13))
+    ref = cuda_fusion_attn.fusion_row_attention_reference(*operands.values(), heads, dh)
+    for name in operands if operand == "all" else [operand]:
+        operands[name] = _offset_copy(operands[name], 1)
+        assert operands[name].is_contiguous() and operands[name].data_ptr() % 16
+    out = cuda_fusion_attn.fusion_row_attention(*operands.values(), heads, dh)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= REL_L2
+
+
+@pytest.mark.parametrize("t_mod", [1, 3])
+def test_fusion_row_kernels_take_more_than_32_heads(dev, t_mod):
+    """K3 and K3b cover (position, head) units in 256-thread blocks, so any
+    head count runs; 40 heads of 32 against the plain versions."""
+    b, f, heads, dh = 2, 9, 40, 32
+    q, kvg, kvf = _randn(dev, b, f, heads * dh, seed=14), _randn(dev, b, t_mod * f, 2 * heads * dh, seed=15), \
+        _randn(dev, b, f, 2 * heads * dh, seed=16)
+    do = _randn(dev, b, f, heads * dh, seed=17)
+    out = cuda_fusion_attn.fusion_row_attention(q, kvg, kvf, heads, dh)
+    grads = cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, heads, dh)
+    ref = cuda_fusion_attn.fusion_row_attention_reference(q, kvg, kvf, heads, dh)
+    ref_grads = cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, heads, dh)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= REL_L2
+    assert _rel_all(grads, ref_grads) <= REL_L2
 
 
 def test_functions_launch_forward_and_backward_kernels(dev):
@@ -837,6 +875,101 @@ def test_point_sample_kernel_on_masks_that_start_off_16_bytes(dev):
     ref = cuda_points.point_sample_reference(masks, coords, group)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= POINTS_REL_L2
+
+
+def _skewed_coords(dev, kind, h, w, p, seed=50):
+    """[1, p, 2] coords of one skewed kind: every point in one cell (their
+    taps on the same four pixels); on the -1 border row and column (the
+    pixel coordinate in [-1, 0): one tap row or column inside); far outside
+    (no tap inside); or uniform past the borders."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(1, p, 2, device=dev, generator=g)
+    size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+    if kind == "one cell":  # pixel (x, y) in [20, 21) x [7, 8)
+        return (torch.tensor([20.0, 7.0], device=dev) + u + 0.5) / size
+    if kind == "border":  # x or y (or both) in [-1, 0), the other anywhere
+        px = -1.0 + (w + 1.0) * u[..., 0]
+        py = -1.0 + (h + 1.0) * u[..., 1]
+        edge = torch.arange(p, device=dev) % 3
+        px = torch.where(edge != 1, -u[..., 0], px)
+        py = torch.where(edge != 0, -u[..., 1], py)
+        return (torch.stack([px, py], dim=-1) + 0.5) / size
+    if kind == "far outside":
+        return torch.where(u < 0.5, -3.0 - u, 4.0 + u)
+    return -0.2 + 1.4 * u
+
+
+@pytest.mark.parametrize("kind,p", [("one cell", 12544), ("border", 12544), ("far outside", 12544),
+                                    ("uniform", 12543), ("uniform", 1), ("uniform", 777)])
+def test_point_sample_backward_on_skewed_points(dev, kind, p):
+    """K5b's fixed-point adds at points that pile up: all 12544 in one cell,
+    on the -1 border row and column, far outside (dmasks all zero), and at
+    ragged P; dcoords from the same taps."""
+    n, h, w = 4, 64, 64
+    coords = _skewed_coords(dev, kind, h, w, p).expand(n, -1, -1).contiguous()
+    g = torch.Generator(device=dev).manual_seed(51)
+    masks = torch.randn(n, h, w, device=dev, generator=g)
+    ds = torch.randn(n, p, device=dev, generator=g)
+    dm, dc = cuda_points.point_sample_backward(masks, coords, ds, 1, True)
+    ref_dm, ref_dc = cuda_points.point_sample_backward_reference(masks, coords, ds, 1, True)
+    torch.cuda.synchronize()
+    if kind == "far outside":
+        assert float(dm.abs().max()) == 0.0 and float(ref_dm.abs().max()) == 0.0
+        assert float(dc.abs().max()) == 0.0
+    else:
+        assert _rel(dm, ref_dm) <= POINTS_REL_L2
+        assert _rel(dc, ref_dc) <= 1e-4  # one-sided derivatives at pixel edges are rare
+
+
+def test_point_sample_backward_on_masks_that_start_off_16_bytes(dev):
+    """Masks (read for dcoords) in a contiguous view 4 bytes into its
+    storage: the same gradients as the plain backward."""
+    n, h, w, p = 6, 64, 64, 3001
+    _, coords = _points_inputs(dev, n, h, w, p, seed=52)
+    flat = torch.randn(n * h * w + 1, device=dev, generator=torch.Generator(device=dev).manual_seed(53))
+    masks = flat[1:].view(n, h, w)
+    assert masks.is_contiguous() and masks.data_ptr() % 16 == 4
+    ds = torch.randn(n, p, device=dev, generator=torch.Generator(device=dev).manual_seed(54))
+    dm, dc = cuda_points.point_sample_backward(masks, coords, ds, 1, True)
+    ref_dm, ref_dc = cuda_points.point_sample_backward_reference(masks, coords, ds, 1, True)
+    torch.cuda.synchronize()
+    assert _rel(dm, ref_dm) <= POINTS_REL_L2
+    assert _rel(dc, ref_dc) <= 1e-4
+
+
+def test_point_sample_backward_with_gradients_over_a_wide_range(dev):
+    """dS spread over six decades: the fixed-point step follows the mask's
+    largest |dS|, and dmasks stays within POINTS_REL_L2."""
+    n, h, w, p = 8, 64, 64, 12544
+    masks, coords = _points_inputs(dev, n, h, w, p, seed=55)
+    g = torch.Generator(device=dev).manual_seed(56)
+    ds = torch.randn(n, p, device=dev, generator=g) * 10.0 ** (6.0 * torch.rand(n, p, device=dev, generator=g) - 3)
+    dm = cuda_points.point_sample_backward(masks, coords, ds)[0]
+    ref = cuda_points.point_sample_backward_reference(masks, coords, ds)[0]
+    torch.cuda.synchronize()
+    assert _rel(dm, ref) <= POINTS_REL_L2
+
+
+def test_point_sample_backward_is_bitwise_the_same_from_run_to_run(dev):
+    """K5b adds its taps as integers, so the order of the adds leaves no
+    trace: two runs give the same bits (the loss path's shape)."""
+    masks, coords = _points_inputs(dev, 240, 64, 64, 12544, seed=57)
+    ds = torch.randn(240, 12544, device=dev, generator=torch.Generator(device=dev).manual_seed(58))
+    first = cuda_points.point_sample_backward(masks, coords, ds)[0]
+    for _ in range(3):
+        assert torch.equal(cuda_points.point_sample_backward(masks, coords, ds)[0], first)
+
+
+def test_point_sample_wrapper_refuses_coords_off_8_bytes(dev):
+    """The kernels load a point's (x, y) as one 8 bytes; a coords view 4
+    bytes into its storage is refused, not read misaligned."""
+    masks, coords = _points_inputs(dev, 4, 8, 8, 10)
+    off = _offset_copy(coords, 1)
+    assert off.is_contiguous() and off.data_ptr() % 8 == 4
+    with pytest.raises(ValueError, match="8 bytes"):
+        cuda_points.point_sample(masks, off)
+    with pytest.raises(ValueError, match="8 bytes"):
+        cuda_points.point_sample_backward(masks, off, torch.randn(4, 10, device=dev))
 
 
 def test_point_sample_function_launches_and_gradients(dev):

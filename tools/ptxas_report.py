@@ -3,7 +3,7 @@ the port, as ptxas reports them (``nvcc -Xptxas -v`` with the port's build
 flags), one line per kernel instantiation; for zorro_attention.cu also each
 kernel's dynamic shared memory per block (``zorro_attention_smem_bytes``).
 
-    python3 tools/ptxas_report.py [source.cu ...]   # default: zorro_attention.cu
+    python3 tools/ptxas_report.py [source.cu ...]   # default: every source of csrc/
 
 Needs nvcc (the machine with the card); imports nothing of the JAX package.
 """
@@ -57,11 +57,11 @@ def report(source: str):
             rows.append((name, int(m.group(1)), 0, *spills))
             name, spills = None, (0, 0)
     names = demangle([r[0] for r in rows])
-    return [(n.replace("(int)", "").split("(")[0], *r[1:]) for n, r in zip(names, rows)]
+    return [(n.replace("(int)", "").replace("(bool)", "").split("(")[0], *r[1:]) for n, r in zip(names, rows)]
 
 
 def main(argv) -> int:
-    sources = argv[1:] or ["zorro_attention.cu"]
+    sources = argv[1:] or list(cuda_build.SOURCES)
     for source in sources:
         smem = None
         if source == "zorro_attention.cu":
