@@ -73,7 +73,7 @@ Phases (any failure raises; the exit code is then non-zero):
                  blocks (K6 / K6b) against the default kernel step (bounds
                  TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2), exact launch counts per
                  step, 3 warm-up and 10 timed steps beside the default step,
-                 profiled device time, peak device memory; (b) on each
+                 profiled device time of both steps, peak device memory; (b) on each
                  block's qkv slab of one step, K1's separate-q/k/v mode
                  against K1 / K1b on every row and its tile-skip mode against
                  K1 / K1b on the non-PAD rows and against its plain version on
@@ -243,8 +243,9 @@ def entry_kernels(entry: str, label: str = ""):
         return ("ms_deform_attn_bwd",) if backward else ("ms_deform_attn_fwd",), 1
     if entry.startswith("point_sample/"):
         return ("point_sample_bwd",) if backward else ("point_sample_fwd",), 1
-    if entry.startswith("fused_block_attn/"):  # K6: 2 launches; K6b: 7 (K1b's two, wgrad's two)
-        return (("block_attn", "zorro_attention", "wgrad"), 7) if backward else (("block_attn",), 2)
+    if entry.startswith("fused_block_attn/"):  # K6: projection, K1, out projection; K6b: projection, dout,
+        # K1 with its D epilogue, K1b's two, the row pass, wgrad's two
+        return (("block_attn", "zorro_attention", "wgrad"), 8) if backward else (("block_attn", "zorro_attention"), 3)
     raise KeyError(entry)
 
 
@@ -1496,12 +1497,16 @@ def phase_encoder_variants(dev, ctx):
     dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=3)
     set_fused_block(model, False)
     times_d, _ = step_times(lambda: step(state, batch)[1], steps=5, warmup=2)
+    dev_d, n_kernels_d, by_kind_d, _ = device_breakdown(lambda: step(state, batch), reps=3)
     p50 = statistics.median(times)
     log(f"[encoder-variants] fused step: losses {[round(x, 4) for x in losses]}; p50 {p50:.6g} ms (the default "
         f"kernel step p50 {statistics.median(times_d):.6g} ms now, {ctx['p50']:.6g} ms in phase 5); profile: "
         f"device {dev_ms:.6g} ms a step in {n_kernels:.0f} kernels/copies, busy {dev_ms / p50:.3f} of the p50 "
         "wall; by kind " + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items()))
         + f"; peak device memory {peak / 2 ** 30:.4g} GiB")
+    log(f"[encoder-variants] device ms a step: fused {dev_ms:.6g} in {n_kernels:.0f} kernels/copies, default "
+        f"kernel step {dev_d:.6g} in {n_kernels_d:.0f} (by kind "
+        + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind_d.items())) + ")")
     for name, ms in top:
         log(f"[encoder-variants]     {ms:9.4f} ms  {name[:100]}")
 
@@ -1654,6 +1659,7 @@ def main(argv) -> int:
     segmented = phase_segment(dev)
     seg_trained = phase_segment_train(dev)
     variants = phase_encoder_variants(dev, train_context)
+    del train_context
     entries = []
     for name in REPLACES:
         launches = served[name] + trained[name] + segmented[name] + seg_trained[name] + variants[name]

@@ -1,8 +1,9 @@
 // The tile loops of K1 (zorro attention forward) and K1b (its backward),
 // shared by zorro_attention.cu (K1 / K1b on the fused qkv slab, on separate
-// q, k, v and with a tile-skip table) and fused_block_attn.cu (K6b, the
-// fused attention half-block's backward, calls launch_bwd). The design
-// notes are in zorro_attention.cu.
+// q, k, v and with a tile-skip table) and fused_block_attn.cu (K6 and K6b,
+// the fused attention half-block, call launch and launch_bwd; K6b's
+// forward pass with the D epilogue, below). The design notes are in
+// zorro_attention.cu.
 //
 // An attention's operands are views: base pointers of q, k and v at (batch
 // row 0, token 0, head 0) and the element strides between batch rows and
@@ -51,6 +52,14 @@ struct Operands {
   const bf16* v;
   long long bstride;  // elements between batch rows
   long long rstride;  // elements between tokens
+};
+
+// K6b's D epilogue of the forward (DELTA): D = rowsum(dO * O) on each row's
+// normalised f32 output O before its rounding (pallas_block_attn.py:160),
+// which K1b's dq kernel cannot form from the rounded O it reads.
+struct DeltaOut {
+  const bf16* dout;  // dO [B, N, H * DH], contiguous
+  float* delta;      // D [B, H, N]
 };
 
 struct GradOperands {
@@ -180,22 +189,25 @@ __device__ __forceinline__ void store_tile(const unsigned char* tile, bf16* dst,
 // Forward (K1)
 // ---------------------------------------------------------------------------
 
-// Shared memory of the forward: [Q][K0][V0][K1][V1][key types 0][key types 1]
-template <int DH>
+// Shared memory of the forward: [Q][K0][V0][K1][V1][key types 0][key types
+// 1], and with the D epilogue the dO tile after them
+template <int DH, bool DELTA = false>
 struct FwdSmem {
   static constexpr uint32_t T = Tile<DH>::BYTES;
-  static constexpr uint32_t Q = 0, K = T, V = 2 * T, STAGE = 2 * T, TYPES = 5 * T;
-  static constexpr size_t BYTES = 5 * T + 2 * 256 + 1024;  // + the alignment slack
+  static constexpr uint32_t Q = 0, K = T, V = 2 * T, STAGE = 2 * T, TYPES = 5 * T, DO = 5 * T + 1024;
+  static constexpr size_t BYTES = (DELTA ? 6 * T + 1024 : 5 * T + 2 * 256) + 1024;  // + the alignment slack
 };
 
 // K1: block (query tile, head, batch row), one warpgroup; out [B, N, H * DH]
-// with the given strides, lse f32 [B, H, N] or null.
-template <int DH, int MODE>
+// with the given strides, lse f32 [B, H, N] or null. DELTA: also D of each
+// row into dlt.delta (DeltaOut); off, dlt is not read.
+template <int DH, int MODE, bool DELTA = false>
 __global__ void __launch_bounds__(THREADS)
 zorro_attention_kernel(Operands in, const int32_t* __restrict__ types, const int32_t* __restrict__ active,
                        int nt, bf16* __restrict__ out, float* __restrict__ lse, int n, long long out_bstride,
-                       long long out_rstride, long long types_bstride, float scale, int fusion_type) {
-  using L = FwdSmem<DH>;
+                       long long out_rstride, long long types_bstride, float scale, int fusion_type,
+                       DeltaOut dlt) {
+  using L = FwdSmem<DH, DELTA>;
   using TL = Tile<DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
@@ -219,6 +231,8 @@ zorro_attention_kernel(Operands in, const int32_t* __restrict__ types, const int
 
   int k0 = next_key_tile(active, nt, b, q0, 0, n);  // the diagonal tile is always active
   load_tile<DH>(sa + L::Q, in.q + (long long)b * in.bstride + h * DH, q0, n, in.rstride);
+  if constexpr (DELTA) load_tile<DH>(sa + L::DO, dlt.dout + (long long)b * n * gridDim.y * DH + h * DH, q0, n,
+                                     gridDim.y * DH);
   load_kv(k0, 0);
   cp_async_commit();
 
@@ -327,24 +341,44 @@ zorro_attention_kernel(Operands in, const int32_t* __restrict__ types, const int
       if (q < n) lse[((long long)b * gridDim.y + h) * n + q] = m[hi] * LN2 + logf(l[hi]);
     }
   }
+  if constexpr (DELTA) {  // D: the thread's columns of dO . O, summed over the quad that shares the row
+    float part[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const float2 d2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sm + L::DO + Tile<DH>::offset(row + 8 * hi, j) + 4 * t4));
+        part[hi] += o[4 * j + 2 * hi] * d2.x + o[4 * j + 2 * hi + 1] * d2.y;
+      }
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      part[hi] += __shfl_xor_sync(0xffffffffu, part[hi], 1);
+      part[hi] += __shfl_xor_sync(0xffffffffu, part[hi], 2);
+      const int q = q0 + row + 8 * hi;
+      if (t4 == 0 && q < n) dlt.delta[((long long)b * gridDim.y + h) * n + q] = part[hi] / l[hi];
+    }
+  }
   __syncthreads();  // every warp is done with the Q tile: it stages the output
   stage_fragment<DH>(sm + L::Q, o, row, t4, 1.0f / l[0], 1.0f / l[1]);
   __syncthreads();
   store_tile<DH>(sm + L::Q, out + (long long)b * out_bstride + h * DH, q0, n, out_rstride);
 }
 
-template <int DH, int MODE>
+// (DELTA: dlt's dO [B, N, heads * DH] contiguous, D written to dlt.delta)
+template <int DH, int MODE, bool DELTA = false>
 static cudaError_t launch(const Operands& in, const int32_t* types, const int32_t* active, int nt, bf16* out,
                           float* lse, int batch, int n, int heads, long long out_bstride, long long out_rstride,
-                          long long types_bstride, float scale, int fusion_type, cudaStream_t stream) {
+                          long long types_bstride, float scale, int fusion_type, cudaStream_t stream,
+                          DeltaOut dlt = {nullptr, nullptr}) {
   static std::atomic<unsigned> ready{0};
-  auto kernel = zorro_attention_kernel<DH, MODE>;
-  const size_t bytes = FwdSmem<DH>::BYTES;
+  auto kernel = zorro_attention_kernel<DH, MODE, DELTA>;
+  const size_t bytes = FwdSmem<DH, DELTA>::BYTES;
   cudaError_t err = allow_smem((const void*)kernel, bytes, ready);
   if (err != cudaSuccess) return err;
   dim3 grid((n + BQ - 1) / BQ, heads, batch);
   kernel<<<grid, THREADS, bytes, stream>>>(in, types, active, nt, out, lse, n, out_bstride, out_rstride,
-                                           types_bstride, scale, fusion_type);
+                                           types_bstride, scale, fusion_type, dlt);
   return cudaGetLastError();
 }
 

@@ -13,13 +13,18 @@ before the residual add; the backward's are listed at
 Weights are in nn.Linear layout: wq [I, D], wkv [2I, D], wo [D, I], gains
 g1, g2 [D] (the JAX function takes the transposes and [1, D] gains); the
 backward returns the gradients in the same layout. A CPU tensor goes to the
-plain version; a CUDA tensor launches the kernel (bf16 only, D % 16 == 0,
-dh in 32, 64, 128) or raises. ``FusedBlockAttn`` is the autograd Function
-``EncoderBlock(fused_block=True)`` calls.
+plain version; a CUDA tensor launches the kernels (bf16 only, D % 16 == 0,
+D and I up to ``MAX_D``, dh in 32, 64, 128) or raises: the forward three
+(the projection pass, K1's forward, the out projection), the backward eight
+(the projection pass, dout, K1's forward with its D epilogue, K1b's two, the
+row pass, the weight-gradient product and its reduction).
+``FusedBlockAttn`` is the autograd Function ``EncoderBlock(fused_block=True)``
+calls.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,7 +33,13 @@ from .attention import upcast
 from .cuda_ffn import bias_free_norm
 
 # launches of the kernels; only the wrappers' launches add to them
-LAUNCHES = {"forward": 0, "backward": 0}
+# ("attention_with_delta": K6b's attention pass alone, which no path calls)
+LAUNCHES = {"forward": 0, "backward": 0, "attention_with_delta": 0}
+# the widest D (and I) the kernels take: the row products keep a 64-row
+# bf16 tile of that width in shared memory beside two 64 x 64 weight windows
+# (every width the earlier design took: D = I up to 832, I up to 1,248, D
+# up to 1,632)
+MAX_D = 1664
 
 
 def block_attn_supported(n: int, d: int, inner: int) -> bool:
@@ -134,13 +145,43 @@ def _check(name, x, types, g1, g2, wq, wkv, wo, heads, dy=None):
         if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name}: {what} must be a contiguous, 32-byte aligned tensor of shape {shape} "
                              f"on {x.device}, got {tuple(t.shape)}")
-    if d % 16:
-        raise ValueError(f"{name}: D = {d} is not a multiple of 16")
+    if d % 16 or d > MAX_D or inner > MAX_D:
+        raise ValueError(f"{name}: D = {d} must be a multiple of 16 and D, I = {inner} at most {MAX_D}")
     if inner % heads or inner // heads not in cuda_attn.SUPPORTED_DH:
         raise ValueError(f"{name}: head dim {inner / heads:g} not in {cuda_attn.SUPPORTED_DH}")
     if tuple(types.shape) != (b, n) or types.device != x.device:
         raise ValueError(f"{name}: types must be [B, N] = {(b, n)} on {x.device}")
     return types.to(torch.int32).contiguous()
+
+
+@functools.cache
+def _fwd_fn():
+    """The forward's C entry point, bound once."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_block_attn.cu", "fused_block_attn_fwd_bf16",
+                           [p] * 10 + [i, i, i, i, i, ctypes.c_float, i, p])
+
+
+@functools.cache
+def _bwd_fn():
+    """The backward's C entry point, bound once."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_block_attn.cu", "fused_block_attn_bwd_bf16",
+                           [p] * 23 + [i, i, i, i, i, ctypes.c_float, i, i, p])
+
+
+@functools.cache
+def _bwd_sizes_fn():
+    """(splits(m, d, inner), row_block(), dh_floats(m, d)): the backward's
+    workspace sizes, from its library (the weight gradients' row ranges,
+    the row pass's rows a block, its dhid workspace)."""
+    lib = cuda_build.load("fused_block_attn.cu")
+    lib.fused_block_attn_bwd_splits.argtypes = [ctypes.c_int] * 3
+    lib.fused_block_attn_row_block.argtypes = []
+    lib.fused_block_attn_bwd_dh_floats.argtypes = [ctypes.c_int] * 2
+    lib.fused_block_attn_bwd_splits.restype = lib.fused_block_attn_row_block.restype = ctypes.c_int
+    lib.fused_block_attn_bwd_dh_floats.restype = ctypes.c_longlong
+    return lib.fused_block_attn_bwd_splits, lib.fused_block_attn_row_block, lib.fused_block_attn_bwd_dh_floats
 
 
 def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int):
@@ -151,15 +192,13 @@ def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int
     b, n, d = x.shape
     inner = wq.shape[0]
     y = torch.empty_like(x)
-    qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)  # workspace
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_block_attn.cu", "fused_block_attn_fwd_bf16",
-                         [p] * 9 + [i, i, i, i, i, ctypes.c_float, i, p])
+    qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)  # workspaces
+    out = torch.empty((b, n, inner), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(), wkv.data_ptr(),
-                 wo.data_ptr(), y.data_ptr(), qkv.data_ptr(), b, n, d, heads, inner // heads,
-                 float((inner // heads) ** -0.5), int(fusion_type), stream)
+        err = _fwd_fn()(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(),
+                        wkv.data_ptr(), wo.data_ptr(), y.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, d, heads,
+                        inner // heads, float((inner // heads) ** -0.5), int(fusion_type), stream)
     cuda_build.check_launch(err, "fused_block_attn")
     LAUNCHES["forward"] += 1
     return y
@@ -175,9 +214,10 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
     inner = wq.shape[0]
     m = b * n
     dev, bf = x.device, x.dtype
-    lib = cuda_build.load("fused_block_attn.cu")
+    splits_fn, row_block_fn, dh_floats_fn = _bwd_sizes_fn()
     with torch.cuda.device(dev):
-        splits = lib.fused_block_attn_bwd_splits(m, d, inner)
+        splits = splits_fn(m, d, inner)
+    row_block = row_block_fn()
     dx, dg1, dg2 = torch.empty_like(x), torch.empty_like(g1), torch.empty_like(g2)
     dw_qkv = torch.empty((3 * inner, d), dtype=bf, device=dev)  # dWq, then dWkv
     dwo = torch.empty_like(wo)
@@ -185,21 +225,65 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
     h = torch.empty_like(x)
     out, dout = (torch.empty((b, n, inner), dtype=bf, device=dev) for _ in range(2))
     lse, delta = (torch.empty((b, heads, n), dtype=torch.float32, device=dev) for _ in range(2))
+    dhid = torch.empty((max(dh_floats_fn(m, d), 1),), dtype=torch.float32, device=dev)
     part = torch.empty((splits * (3 * inner * d + d * inner),), dtype=torch.float32, device=dev)
-    vec = torch.empty((-(-m // lib.fused_block_attn_row_block()), 2 * d), dtype=torch.float32, device=dev)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = cuda_build.bind("fused_block_attn.cu", "fused_block_attn_bwd_bf16",
-                         [p] * 22 + [i, i, i, i, i, ctypes.c_float, i, i, p])
+    vec = torch.empty((-(-m // row_block), 2 * d), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(), wkv.data_ptr(),
-                 wo.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg1.data_ptr(), dg2.data_ptr(), dw_qkv.data_ptr(),
-                 dwo.data_ptr(), qkv.data_ptr(), h.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dqkv.data_ptr(), part.data_ptr(), vec.data_ptr(), b, n, d, heads,
-                 inner // heads, float((inner // heads) ** -0.5), int(fusion_type), splits, stream)
+        err = _bwd_fn()(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(),
+                        wkv.data_ptr(), wo.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg1.data_ptr(), dg2.data_ptr(),
+                        dw_qkv.data_ptr(), dwo.data_ptr(), qkv.data_ptr(), h.data_ptr(), out.data_ptr(),
+                        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dqkv.data_ptr(), dhid.data_ptr(),
+                        part.data_ptr(), vec.data_ptr(), b, n, d, heads, inner // heads, float((inner // heads) ** -0.5),
+                        int(fusion_type), splits, stream)
     cuda_build.check_launch(err, "fused_block_attn_backward")
     LAUNCHES["backward"] += 1
     return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
+
+
+@functools.cache
+def _attend_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_block_attn.cu", "fused_block_attn_attend_bf16",
+                           [p] * 6 + [i, i, i, i, ctypes.c_float, i, p])
+
+
+def attention_with_delta_reference(qkv, types, dout, heads: int, fusion_type: int):
+    """Plain version of K6b's attention pass: (round(o), lse, D) with o the
+    f32 head outputs (P = round(p) times V) and D = rowsum(dout * o) on the
+    unrounded o (pallas_block_attn.py:160); [B, N, I], [B, H, N], [B, H,
+    N]."""
+    inner = qkv.shape[-1] // 3
+    q, k, v = qkv.split(inner, dim=-1)
+    s = cuda_attn._scores(q, k, heads, cuda_attn.zorro_allowed(types, fusion_type), (inner // heads) ** -0.5)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhij,bhjd->bhid", upcast(p.to(qkv.dtype)), upcast(cuda_attn.heads_view(v, heads)))
+    delta = (upcast(cuda_attn.heads_view(dout, heads)) * o).sum(dim=-1)
+    return cuda_attn.merge_heads(o).to(qkv.dtype), lse, delta
+
+
+def attention_with_delta(qkv, types, dout, heads: int, fusion_type: int):
+    """K6b's attention pass alone (K1's forward with its D epilogue), for
+    holding it against K1 and its plain version: qkv [B, N, 3I], types
+    [B, N], dout [B, N, I] -> (out [B, N, I], lse [B, H, N], delta [B, H,
+    N])."""
+    if qkv.device.type == "cpu":
+        return attention_with_delta_reference(qkv, types, dout, heads, fusion_type)
+    types = cuda_attn.check_qkv("attention_with_delta", qkv, heads, types, fusion_type)
+    b, n, three_i = qkv.shape
+    inner = three_i // 3
+    cuda_attn._check_tensor("attention_with_delta", "dout", dout, (b, n, inner), torch.bfloat16, qkv.device)
+    out = torch.empty((b, n, inner), dtype=qkv.dtype, device=qkv.device)
+    lse, delta = (torch.empty((b, heads, n), dtype=torch.float32, device=qkv.device) for _ in range(2))
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _attend_fn()(qkv.data_ptr(), types.data_ptr(), dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), b, n, heads, inner // heads, float((inner // heads) ** -0.5),
+                           int(fusion_type), stream)
+    cuda_build.check_launch(err, "attention_with_delta")
+    LAUNCHES["attention_with_delta"] += 1
+    return out, lse, delta
 
 
 class FusedBlockAttn(torch.autograd.Function):

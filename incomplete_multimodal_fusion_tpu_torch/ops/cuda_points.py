@@ -6,7 +6,8 @@ masks [N, H, W] f32 sampled at coords [N / group, P, 2] f32 (x, y) in
 [0, 1] -- mask i at coords row i // group, so the matcher's queries of one
 image share their points without a broadcast copy -- give [N, P] f32. A CPU
 tensor goes to the plain version (``ops.points.point_sample``); a CUDA
-tensor launches the kernel (contiguous f32 only) or raises.
+tensor launches the kernel (contiguous f32 only; coords that start off 8
+bytes are copied to an aligned buffer first) or raises.
 ``PointSampleFunction`` is the autograd Function the criterion calls: its
 backward gives dmasks always and dcoords when asked for, as the TPU
 kernel's backward does (pallas_points.py:63-95).
@@ -55,13 +56,18 @@ def _check(name, masks, coords, group, *more):
             or coords.shape[0] * group != masks.shape[0] or min(masks.shape) < 1 or coords.shape[1] < 1:
         raise ValueError(f"{name}: bad shapes masks {tuple(masks.shape)}, coords "
                          f"{tuple(coords.shape)} in groups of {group}")
-    if coords.data_ptr() % 8:
-        raise ValueError(f"{name}: coords must start on 8 bytes (the kernels load a point's (x, y) at once)")
     n, h, w = masks.shape
     p = coords.shape[1]
     if any(t.shape != (n, p) for t in more):
         raise ValueError(f"{name}: the output gradient must be [{n}, {p}]")
     return n, h, w, p
+
+
+def _aligned(coords: torch.Tensor) -> torch.Tensor:
+    """coords as the kernels read them, a point's (x, y) as one 8-byte load:
+    a view that starts off 8 bytes is copied into a fresh buffer (which the
+    allocator starts on 512 bytes), any other is passed as it is."""
+    return coords if coords.data_ptr() % 8 == 0 else coords.clone()
 
 
 def point_sample_backward_reference(masks, coords, ds, group: int = 1, coords_grad: bool = False):
@@ -81,6 +87,7 @@ def point_sample(masks: torch.Tensor, coords: torch.Tensor, group: int = 1) -> t
     if masks.device.type == "cpu":
         return point_sample_reference(masks, coords, group)
     n, h, w, p = _check("point_sample", masks, coords, group)
+    coords = _aligned(coords)
     out = torch.empty((n, p), dtype=torch.float32, device=masks.device)
     fn = _fwd_fn()
     with torch.cuda.device(masks.device):
@@ -97,6 +104,7 @@ def point_sample_backward(masks, coords, ds, group: int = 1, coords_grad: bool =
     if masks.device.type == "cpu":
         return point_sample_backward_reference(masks, coords, ds, group, coords_grad)
     n, h, w, p = _check("point_sample_backward", masks, coords, group, ds)
+    coords = _aligned(coords)
     # the fixed-point path writes every element; the global one adds
     dmasks = (torch.empty_like if _bwd_writes_all(p, h, w) else torch.zeros_like)(masks)
     dcoords = torch.empty((n, p, 2), dtype=torch.float32, device=masks.device) if coords_grad else None

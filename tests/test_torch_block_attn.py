@@ -190,3 +190,31 @@ def test_fused_block_function_gradcheck():
     wq, wkv, wo = rand(8, 8, scale=0.3), rand(16, 8, scale=0.3), rand(8, 8, scale=0.3)
     assert torch.autograd.gradcheck(
         lambda *a: cuda_block_attn.FusedBlockAttn.apply(a[0], types, *a[1:], 2, 3), (x, g1, g2, wq, wkv, wo))
+
+
+def _earlier_design_took(d: int, inner: int, dh: int) -> bool:
+    """Whether the earlier wmma design of K6 / K6b fitted its shared memory
+    (227 KB) at these widths: its projection pass (64 rows of h), attention
+    pass and prep (a 64-query tile with every head's output), and row pass
+    (16 rows of dqkv and of dhid)."""
+    a128 = lambda b: (b + 127) // 128 * 128  # noqa: E731
+    ldh = dh + 8
+    tile = 64 * ldh * 2 * 3 + 64 * 68 * 4 + 64 * 72 * 2 + 64 * (dh + 4) * 4 + 3 * 64 * 4 + 128 * 4
+    sizes = (a128(64 * (d + 8) * 2) + 4 * 16 * 68 * 4, a128(tile) + 64 * (inner + 8) * 2,
+             max(a128(tile), a128(64 * (d + 8) * 2)) + a128(64 * (inner + 8) * 2) + 64 * 68 * 4,
+             a128(16 * (3 * inner + 8) * 2) + 16 * (d + 4) * 4 + 2 * d * 4)
+    return max(sizes) <= 232448
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_kernel_widths_hold_every_width_the_earlier_design_took(dh):
+    took = [(d, i) for d in range(16, 2049, 16) for i in range(dh, 2049, dh) if _earlier_design_took(d, i, dh)]
+    assert max(d for d, _ in took) >= 1536 and max(i for _, i in took) >= 768
+    assert all(d <= cuda_block_attn.MAX_D and i <= cuda_block_attn.MAX_D for d, i in took)
+
+
+def test_kernel_widths_hold_every_equal_width_jax_admits():
+    """Every D = I (multiple of 64) that JAX's gate admits at any N is
+    within the kernels' MAX_D."""
+    admitted = [d for d in range(64, 4097, 64) if any(jblock.block_attn_supported(n, d, d) for n in (8, 64, 256))]
+    assert admitted and max(admitted) <= cuda_block_attn.MAX_D

@@ -47,11 +47,33 @@ def test_every_kernel_entry_has_its_device_kernels(smoke):
 
 @pytest.mark.parametrize("entry,kernels", [
     ("fused_ffn/geglu_backward", 3), ("fused_ffn/mlp_backward", 3), ("point_sample/forward", 1),
-    ("point_sample/backward", 1), ("zorro_attention_qkv/zorro_backward", 2), ("fused_block_attn/backward", 7),
-    ("fused_ffn/geglu", 1), ("fused_ffn/mlp", 1), ("ms_deform_attn/backward", 1), ("ms_deform_attn/forward", 1),
+    ("point_sample/backward", 1), ("zorro_attention_qkv/zorro_backward", 2), ("fused_block_attn/backward", 8),
+    ("fused_block_attn/forward", 3), ("fused_ffn/geglu", 1), ("fused_ffn/mlp", 1), ("ms_deform_attn/backward", 1), ("ms_deform_attn/forward", 1),
     ("fusion_row_attention/fusion_row_backward", 1), ("fusion_row_attention/fusion_row", 1)])
 def test_kernels_per_call(smoke, entry, kernels):
     assert smoke.entry_kernels(entry)[1] == kernels
+
+
+def test_k6_launches_are_the_ones_profiled(smoke):
+    """K6 launches its projection pass, K1's forward and its out
+    projection; K6b its projection pass, dout, K1's forward with the D
+    epilogue, K1b's dq and dk/dv kernels, its row pass and wgrad.cuh's
+    product and reduction: phase 3 profiles each by its name, and no K6
+    kernel is left out."""
+    source = ROOT / smoke.PKG / "csrc" / "fused_block_attn.cu"
+    kernels = _kernels_of(source)
+    own = {k for k in kernels if "block_attn" in k}
+    assert own == {"block_attn_proj_kernel", "block_attn_out_kernel", "block_attn_dout_kernel",
+                   "block_attn_bwd_rows_kernel"}
+    for entry, used in (("fused_block_attn/forward", {"block_attn_proj_kernel", "block_attn_out_kernel",
+                                                      "zorro_attention_kernel"}),
+                        ("fused_block_attn/backward", own - {"block_attn_out_kernel"} | {
+                            "zorro_attention_kernel", "zorro_attention_dq_kernel", "zorro_attention_dkdv_kernel",
+                            "wgrad_kernel", "wgrad_reduce_kernel"})):
+        names, per_call = smoke.entry_kernels(entry)
+        assert per_call == len(used) and used <= kernels
+        assert all(any(n in k for n in names) for k in used), entry
+    assert "atomicAdd" not in source.read_text()
 
 
 def test_every_forward_kernel_of_k2_is_profiled(smoke):

@@ -962,14 +962,19 @@ def test_point_sample_backward_is_bitwise_the_same_from_run_to_run(dev):
 
 def test_point_sample_wrapper_refuses_coords_off_8_bytes(dev):
     """The kernels load a point's (x, y) as one 8 bytes; a coords view 4
-    bytes into its storage is refused, not read misaligned."""
-    masks, coords = _points_inputs(dev, 4, 8, 8, 10)
+    bytes into its storage is no longer refused (the JAX kernel takes any
+    coords): the wrapper copies it to an aligned buffer, and K5 and K5b
+    give bitwise the results of the aligned coords, dcoords too."""
+    masks, coords = _points_inputs(dev, 4, 8, 8, 10, group=2)
     off = _offset_copy(coords, 1)
-    assert off.is_contiguous() and off.data_ptr() % 8 == 4
-    with pytest.raises(ValueError, match="8 bytes"):
-        cuda_points.point_sample(masks, off)
-    with pytest.raises(ValueError, match="8 bytes"):
-        cuda_points.point_sample_backward(masks, off, torch.randn(4, 10, device=dev))
+    assert off.is_contiguous() and off.data_ptr() % 8 == 4 and torch.equal(off, coords)
+    ds = torch.randn(4, 10, device=dev)
+    assert torch.equal(cuda_points.point_sample(masks, off, 2), cuda_points.point_sample(masks, coords, 2))
+    got = cuda_points.point_sample_backward(masks, off, ds, 2, coords_grad=True)
+    want = cuda_points.point_sample_backward(masks, coords, ds, 2, coords_grad=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(off, coords)  # the caller's view is left as it was
 
 
 def test_point_sample_function_launches_and_gradients(dev):
@@ -1163,3 +1168,130 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
         cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].float(), sparse_types[:, :128], 1, 3)
     with pytest.raises(ValueError):  # types on the CPU
         cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].contiguous(), sparse_types[:, :128].cpu(), 1, 3)
+
+
+def _head_outputs_f32(qkv, types, heads, dh):
+    """The kernel's own f32 head outputs o [B, N, H, dh] before their
+    rounding, read through the D epilogue: with dO one-hot at column c of
+    every head, D = o[..., c] exactly (one product by 1, the rest by 0)."""
+    b, n, _ = qkv.shape
+    o = torch.empty(b, n, heads, dh, device=qkv.device)
+    for c in range(dh):
+        onehot = torch.zeros(b, n, heads, dh, dtype=torch.bfloat16, device=qkv.device)
+        onehot[..., c] = 1
+        _, _, delta = cuda_block_attn.attention_with_delta(qkv, types, onehot.reshape(b, n, heads * dh), heads, 3)
+        o[..., c] = delta.transpose(1, 2)
+    return o
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("b,n", [(2, 70), (3, 640)])
+def test_attention_with_delta_is_k1_with_d(dev, dh, b, n):
+    """K6b's attention pass (K1's forward with the D epilogue): out and lse
+    bitwise K1's; D = rowsum(dO * o) on the f32 head outputs o before their
+    rounding (rel-L2 1e-5, o read back through one-hot dO, and rounding to
+    the kernel's bf16 out within one bf16 step); and within REL_L2 of the
+    plain version, which rounds the normalised p (not exp(s - m) before the
+    division by the row sum, as K1 does)."""
+    heads = 2
+    counts = (n // 4, n // 5, n // 6)
+    types = _types(dev, counts, n - sum(counts) - n // 4, n // 4).expand(b, -1).contiguous()
+    qkv = _randn(dev, b, n, 3 * heads * dh, seed=80)
+    dout = _randn(dev, b, n, heads * dh, seed=81)
+    out, lse, delta = cuda_block_attn.attention_with_delta(qkv, types, dout, heads, 3)
+    k1_out, k1_lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+    ref_out, ref_lse, ref_delta = cuda_block_attn.attention_with_delta_reference(qkv, types, dout, heads, 3)
+    o = _head_outputs_f32(qkv, types, heads, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k1_out) and torch.equal(lse, k1_lse)
+    rounded = out.reshape(b, n, heads, dh).float()
+    assert ((o - rounded).abs() <= rounded.abs() * 2.0 ** -8 + 1e-30).all()
+    want = (dout.reshape(b, n, heads, dh).double() * o.double()).sum(dim=-1).transpose(1, 2)
+    assert _rel(delta.double(), want) <= 1e-5
+    assert _rel_all([out, lse, delta], [ref_out, ref_lse, ref_delta]) <= REL_L2
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", [(60, 640, 192, 3, 64), (2, 100, 832, 13, 64)])
+def test_fused_block_backward_is_bitwise_the_same_run_to_run(dev, b, n, d, heads, dh):
+    """K6b has no atomics (the row pass adds its warps' dg1 / dg2 sums in a
+    fixed order, the weight gradients sum their row ranges in order): two
+    runs give bitwise the same six gradients, at the pretraining shape and
+    at a width the row pass takes in several slabs."""
+    x, types, w, dy = _block_case(dev, b, n, d, heads, dh)
+    first = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+    second = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), first, second):
+        assert torch.equal(a, b_), name
+
+
+def _check_block_widths(dev, d, inner):
+    heads, dh = (inner // 32, 32) if inner % 64 else ((inner // 128, 128) if inner % 128 == 0 else (inner // 64, 64))
+    x, types, w, dy = _block_case(dev, 2, 100, d, heads, dh, seed=90)
+    y = cuda_block_attn.fused_block_attn(x, types, *w, heads, 3)
+    grads = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+    ref = cuda_block_attn.fused_block_attn_reference(x, types, *w, heads, 3)
+    ref_grads = cuda_block_attn.fused_block_attn_backward_reference(x, types, *w, dy, heads, 3)
+    torch.cuda.synchronize()
+    assert _rel(y, ref) <= REL_L2
+    for name, g, r in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), grads, ref_grads):
+        assert _rel(g, r) <= REL_L2, name
+
+
+@pytest.mark.parametrize("d", [48, 64, 96, 128, 192, 256, 320, 768, 832, 1024, 1664])
+def test_fused_block_row_products_at_every_width(dev, d):
+    """The projection pass, the out projection and dout stream their
+    weights in windows: D and I not multiples of 64 leave a tail window,
+    D = 768 fills the 128-row tile's shared memory, D = 832 .. 1664 take
+    64-row tiles (1664 = MAX_D, the staging tile in a window slot); the
+    row pass takes D past 256 in slabs of 256 columns."""
+    _check_block_widths(dev, d, d)
+
+
+@pytest.mark.parametrize("d,inner", [(64, 1280), (1632, 64), (192, 1664), (1664, 256)])
+def test_fused_block_at_unequal_widths(dev, d, inner):
+    """D and I on either side of the 128-row tiles' 768: the projection
+    pass and dout tile by D, the out projection by I."""
+    _check_block_widths(dev, d, inner)
+
+
+F32_SMALL = dict(in_domains=("s1", "s2", "dem"), out_domains=("s1", "s2", "dem"), image_size=64, patch_size=16,
+                 dim_tokens=64, depth=2, dim_head=32, heads=2, ff_mult=4, num_fusion_tokens=16, decoder_dim=64,
+                 decoder_depth=2, decoder_num_heads=2)
+
+
+def test_f32_on_the_card_is_refused_not_routed_plain(dev):
+    """f32 on the card under attn_impl='auto' reaches the kernel wrappers,
+    which refuse it (TypeError or ValueError naming bfloat16, nothing
+    launched): the bf16 kernels have no
+    f32 instance yet, and a CUDA tensor never falls back to the plain
+    versions. 'xla' runs the f32 model; the same model in bf16 reaches its
+    kernels (widths the kernels take: dh 32, D 64)."""
+    import numpy as np
+
+    from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
+    from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE
+    from incomplete_multimodal_fusion_tpu_torch.ops import masking
+
+    torch.manual_seed(0)
+    model = MultiMAE(**F32_SMALL).to(dev).eval()
+    for blk in model.blocks:
+        blk.fused_block = True
+    doms = F32_SMALL["in_domains"]
+    x = {d: torch.from_numpy(v).to(dev) for d, v in synthetic_batch(np.random.default_rng(0), doms, 2, 64).items()}
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(0), doms, (16,) * 3, 24, 2, device=dev)
+    ops.reset_kernel_launches()
+    with torch.no_grad(), pytest.raises((TypeError, ValueError), match="bfloat16"):
+        model(x, mi, 24)
+    assert not any(ops.kernel_launches().values())
+    model.attn_impl = "xla"
+    with torch.no_grad():
+        out = model(x, mi, 24)
+    assert all(torch.isfinite(out["preds"][d]).all() and out["preds"][d].dtype == torch.float32 for d in doms)
+    assert not any(ops.kernel_launches().values())
+    model.to(torch.bfloat16).attn_impl = "auto"
+    with torch.no_grad():
+        model({d: v.to(torch.bfloat16) for d, v in x.items()}, mi, 24)
+    bf16 = {k: n for k, n in ops.kernel_launches().items() if n}
+    assert bf16 == {"fused_block_attn/forward": 2, "fusion_row_attention/fusion_row": 2, "fused_ffn/geglu": 4,
+                    "zorro_attention_qkv/none": 6, "fused_ffn/mlp": 6}, bf16

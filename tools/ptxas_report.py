@@ -1,7 +1,8 @@
-"""Registers, shared memory and spills of every kernel of a CUDA source of
-the port, as ptxas reports them (``nvcc -Xptxas -v`` with the port's build
-flags), one line per kernel instantiation; for zorro_attention.cu also each
-kernel's dynamic shared memory per block (``zorro_attention_smem_bytes``).
+"""Registers, shared memory, spills and stack frame of every kernel of a
+CUDA source of the port, as ptxas reports them (``nvcc -Xptxas -v`` with the
+port's build flags), one line per kernel instantiation; for
+zorro_attention.cu also each kernel's dynamic shared memory per block
+(``zorro_attention_smem_bytes``).
 
     python3 tools/ptxas_report.py [source.cu ...]   # default: every source of csrc/
 
@@ -40,22 +41,22 @@ def report(source: str):
                                "-o", os.path.join(tmp, "k.o")], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source}:\n{proc.stderr}")
-    rows, name, spills = [], None, (0, 0)
+    rows, name, spills = [], None, (0, 0, 0)
     for line in proc.stderr.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spills = (int(m.group(1)), int(m.group(2)))
+            spills = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and name:
             rows.append((name, int(m.group(1)), int(m.group(2)), *spills))
-            name, spills = None, (0, 0)
+            name, spills = None, (0, 0, 0)
         elif "Used" in line and name:  # no static shared memory
             m = re.search(r"Used (\d+) registers", line)
             rows.append((name, int(m.group(1)), 0, *spills))
-            name, spills = None, (0, 0)
+            name, spills = None, (0, 0, 0)
     names = demangle([r[0] for r in rows])
     return [(n.replace("(int)", "").replace("(bool)", "").split("(")[0], *r[1:]) for n, r in zip(names, rows)]
 
@@ -68,15 +69,15 @@ def main(argv) -> int:
             fn = cuda_build.bind(source, "zorro_attention_smem_bytes", [ctypes.c_int, ctypes.c_int])
             fn.restype = ctypes.c_longlong
             smem = fn
-        for kernel, regs, static, st, ld in report(source):
+        for kernel, regs, static, st, ld, stack in report(source):
             extra = ""
-            m = re.search(r"(zorro_attention(?:_dq|_dkdv)?_kernel)<(\d+), (\d+)>", kernel)
+            m = re.search(r"(zorro_attention(?:_dq|_dkdv)?_kernel)<(\d+), (\d+)(, \d+)?>", kernel)
             if smem is not None and m:
                 which = {"zorro_attention_kernel": 0, "zorro_attention_dq_kernel": 1,
                          "zorro_attention_dkdv_kernel": 2}[m.group(1)]
                 extra = f", dynamic smem {smem(which, int(m.group(2)))} bytes"
             print(f"[ptxas] {source}: {kernel}: {regs} registers, static smem {static} bytes{extra}, "
-                  f"spill stores {st} bytes, spill loads {ld} bytes", flush=True)
+                  f"spill stores {st} bytes, spill loads {ld} bytes, stack frame {stack} bytes", flush=True)
     return 0
 
 
