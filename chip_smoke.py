@@ -8,8 +8,9 @@ compute over f32 master weights, B = 60), and the full-width downstream
 MaskFormer (MaskFormerConfig defaults, seeded random weights, bf16 backbone
 and f32 head) through the segmentation entry points and through the
 downstream instance-segmentation training step (B = 30, exact Hungarian
-matching, PointRend criterion, bf16 compute over f32 master weights), and
-checks what comes out.
+matching, PointRend criterion, bf16 compute over f32 master weights), then
+the f32 paths through the kernels' f32 instances and the semantic
+downstream training step, and checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -30,7 +31,10 @@ Phases (any failure raises; the exit code is then non-zero):
                  POINTS_REL_L2), kernel, plain and library times
                  (CUDA events, median of 20 after warm-up) and the least time
                  the card could take (bound_ms, from the bytes and operations
-                 of these inputs); for every row also the device-only time
+                 of these inputs); the f32 instances of K1 (every mode), K2,
+                 K2b, K3, K3b, K6 and K6b at the f32 paths' shapes against
+                 their f32 plain versions (bound F32_REL_L2, library calls
+                 in f32); for every row also the device-only time
                  of the kernels and of the library call (SDPA for K1 / K1b,
                  grid_sample for K5 / K5b) from the profiler, its kernel
                  count checked against the wrappers' launch counts (CUDA
@@ -81,12 +85,36 @@ Phases (any failure raises; the exit code is then non-zero):
                  share of 128 x 128 tiles skipped, and block 0's K1 + K1b
                  device time dense, with its tiles skipped and with every
                  tile active.
+  9. f32      -- TF32 off in every part. (a) the pretraining step with
+                 compute_dtype='float32' at B = 60, kernel path against
+                 plain path on one set of masks (bounds F32_LOSS_REL,
+                 F32_GRAD_REL_L2), exact launch counts of f32 keys only, 3
+                 warm-up and 5 timed steps, peak memory, the fused_block
+                 step (K6 / K6b f32) against the default f32 step, and K1's
+                 two modes in f32 on each block's qkv slab; (b) one f32
+                 serving request against the plain path
+                 (F32_FORWARD_REL_L2); (c) phase 7's downstream step with
+                 compute_dtype='float32' on phase 7's weights, masks,
+                 matches and points, kernel path against plain path, beside
+                 phase 7's bf16 numbers, with the head's attention-mask bits
+                 that differ between the two paths in both dtypes.
+ 10. semantic-train -- train.downstream.make_downstream_train_step at
+                 MaskFormerConfig(num_classes=10), B = 30, seeded label
+                 maps through targets_from_semantic_labels (G = 10),
+                 dense_masks=True, bf16 compute, exact matching: loss and
+                 gradients against the plain path on the same masks and
+                 matches, exact launch counts (K5 for the matcher, K5b
+                 none), 3 warm-up and 10 timed steps, p50, images/s, peak
+                 memory, profiled device time; then one step each with
+                 'greedy' and 'auction' matching, whose assignments on the
+                 card must equal the CPU's from the same costs.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -130,6 +158,15 @@ MSDA_REL_L2 = 1e-4
 POINTS_REL_L2 = 1e-5
 # segmentation forward (bf16 backbone, f32 head), kernels vs plain path
 SEG_REL_L2 = 5e-2
+# the f32 instances of K1-K3 / K6 against their f32 plain versions: f32
+# operands, products and sums on both sides, only the order differs (TF32
+# off: phase_device sets both flags)
+F32_REL_L2 = 1e-5
+# a whole f32 step, kernel path vs plain path on the same weights and
+# masks: f32 throughout; the gathers' scatter-add backward on the card sums
+# in an order that varies from run to run
+F32_LOSS_REL = 1e-4
+F32_GRAD_REL_L2 = 1e-3
 SEED = 0
 # an H100 SXM's published peaks (NVIDIA data sheet): dense bf16 tensor-core
 # and f32 CUDA-core operations per second, HBM3 bytes per second
@@ -230,6 +267,13 @@ def entry_kernels(entry: str, label: str = ""):
     ``cuda_msda.backward_kernels``), which split the work over more kernels
     at some shapes."""
     backward = entry.endswith("backward")
+    if is_f32(entry):  # the f32 instances (simt_f32.cuh, zorro_attention_f32.cuh, K3 on float)
+        if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
+            return ("zorro_attention_f32",), 2 if backward else 1  # K1b: dq, dk/dv
+        if entry.startswith("fused_ffn/"):  # GEGLU: norm, u, a, y; MLP: a, y; backward 9 each
+            return ("simt_f32",), 9 if backward else (4 if entry.startswith("fused_ffn/geglu") else 2)
+        if entry.startswith("fused_block_attn/"):  # forward 6, backward 15 (fused_block_attn.cu)
+            return ("simt_f32", "zorro_attention_f32"), 15 if backward else 6
     if entry.startswith("fused_ffn/") and backward and label.endswith("wide path)"):  # K2b's wide path (WIDE,
         # WIDE_LARGE): (norm), rows, dx, (LN), wgrad's two
         return ("ffn_bwd", "wgrad"), 6 if entry.startswith("fused_ffn/geglu") else 4
@@ -247,6 +291,24 @@ def entry_kernels(entry: str, label: str = ""):
         # K1 with its D epilogue, K1b's two, the row pass, wgrad's two
         return (("block_attn", "zorro_attention", "wgrad"), 8) if backward else (("block_attn", "zorro_attention"), 3)
     raise KeyError(entry)
+
+
+def is_f32(entry: str) -> bool:
+    """Whether a launch key is an f32 instance's ("zorro_f32",
+    "geglu_f32_backward", "f32_forward", ...)."""
+    return "f32" in entry.split("/")[1]
+
+
+def f32_key(entry: str) -> str:
+    """The launch key of the f32 instance of a bf16 entry: "zorro" ->
+    "zorro_f32", "zorro_backward" -> "zorro_f32_backward", "forward" ->
+    "f32_forward"."""
+    kernel, mode = entry.split("/")
+    if mode in ("forward", "backward"):
+        return f"{kernel}/f32_{mode}"
+    if mode.endswith("_backward"):
+        return f"{kernel}/{mode[:-len('_backward')]}_f32_backward"
+    return f"{kernel}/{mode}_f32"
 
 
 def device_only_ms(fn, names, per_call: int, tries: int = 3):
@@ -284,7 +346,7 @@ def fmt_ms(ms) -> str:
 
 
 HAND_WRITTEN = ("zorro_attention", "ffn_fwd", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
-                "point_sample", "block_attn")
+                "point_sample", "block_attn", "simt_f32")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
@@ -375,17 +437,23 @@ def sdpa_case(qkv, heads, mask, part: str):
                                        (q, k, v), do)
 
 
+def peak_of(t: torch.Tensor) -> float:
+    """The card's peak operation rate for t's dtype: bf16 on the tensor
+    cores, f32 on the CUDA cores (the f32 instances use FFMA)."""
+    return PEAK_F32 if t.dtype == torch.float32 else PEAK_BF16
+
+
 def attention_work(qkv, heads, mask, backward: bool):
     """Operations and bytes of K1 (or K1b) on these inputs: 4 (10 backward)
     flops per allowed (query, key) pair and head dim element -- the products
     over pairs ``mask`` [B, N, N] allows, what these inputs need -- against
-    the qkv (and o, dO, lse, dqkv) bytes."""
+    the qkv (and o, dO, lse, dqkv) bytes; at the peak of qkv's dtype."""
     b, n, three_i = qkv.shape
     dh = three_i // 3 // heads
     pairs = b * n * n if mask is None else int(mask.sum())
     if not backward:
-        return 4.0 * pairs * dh * heads, nbytes(qkv) * 4 / 3, PEAK_BF16
-    return 10.0 * pairs * dh * heads, nbytes(qkv) * 2 + nbytes(qkv) * 2 / 3 + b * heads * n * 4, PEAK_BF16
+        return 4.0 * pairs * dh * heads, nbytes(qkv) * 4 / 3, peak_of(qkv)
+    return 10.0 * pairs * dh * heads, nbytes(qkv) * 2 + nbytes(qkv) * 2 / 3 + b * heads * n * 4, peak_of(qkv)
 
 
 def block_attn_work(x, inner, heads, mask, backward: bool):
@@ -399,13 +467,13 @@ def block_attn_work(x, inner, heads, mask, backward: bool):
     b, n, d = x.shape
     m, dh = b * n, inner // heads
     pairs = int(mask.sum())
-    weights = (4 * inner * d + 2 * d) * 2
+    weights = (4 * inner * d + 2 * d) * x.element_size()
     proj = 2.0 * m * d * 3 * inner
     if not backward:
-        return proj + 4.0 * pairs * dh * heads + 2.0 * m * inner * d, 2 * nbytes(x) + weights + m * 4, PEAK_BF16
+        return proj + 4.0 * pairs * dh * heads + 2.0 * m * inner * d, 2 * nbytes(x) + weights + m * 4, peak_of(x)
     flops = proj + 2.0 * m * d * inner + 12.0 * pairs * dh * heads + 2 * (2.0 * m * 3 * inner * d) \
         + 2.0 * m * d * inner
-    return flops, 3 * nbytes(x) + 2 * weights + m * 4, PEAK_BF16
+    return flops, 3 * nbytes(x) + 2 * weights + m * 4, peak_of(x)
 
 
 MSDA_LEVELS = ((8, 8), (16, 16), (32, 32))  # the pixel decoder's levels at 256^2, low -> high
@@ -675,7 +743,7 @@ def phase_kernels(dev):
                                                                               3, 3),
                   block_attn_work(x_blk, 192, 3, zorro_mask(train_types), True), None, True))
 
-    def ffn_work(m, backward, geglu, d=d, inner_ff=inner_ff, dd=dd, hid=hid):
+    def ffn_work(m, backward, geglu, d=d, inner_ff=inner_ff, dd=dd, hid=hid, elem=2, peak=PEAK_BF16):
         if geglu:
             weights = 3 * inner_ff * d + d
             flops = (16 if backward else 6) * m * d * inner_ff
@@ -684,7 +752,7 @@ def phase_kernels(dev):
             weights = 2 * hid * dd + hid + dd
             flops = (6 if backward else 2) * m * dd * hid + (4 if backward else 2) * m * hid * dd
             acts = (3 if backward else 2) * m * dd
-        return flops, 2 * (acts + (2 if backward else 1) * weights), PEAK_BF16
+        return flops, elem * (acts + (2 if backward else 1) * weights), peak
 
     def geglu_case(label, x, w, main, work):
         cases.append(("fused_ffn/geglu", label, lambda: cuda_ffn.geglu_ffn(x, *w),
@@ -825,6 +893,103 @@ def phase_kernels(dev):
                           (8.0 * n * p, nbytes(crit, ds, logits), PEAK_F32),
                           grid_sample_case(logits, crit, 1, ds), False))
 
+    # the f32 instances of K1-K3 and K6, each against its f32 plain version
+    # at the shapes of the f32 paths (the pretraining step and the
+    # downstream backbone in f32); library calls in f32 (TF32 off)
+    def randf(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    def f32_attention_cases(mode, label, qkv, heads, types, main):
+        fwd, bwd = f"zorro_attention_qkv/{mode}_f32", f"zorro_attention_qkv/{mode}_f32_backward"
+        o, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+        do = randf(*o.shape)
+        mask = zorro_mask(types)
+        cases.append((fwd, label, lambda: cuda_attn.zorro_attention_qkv(qkv, heads, types, 3),
+                      lambda: cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3),
+                      attention_work(qkv, heads, mask, False), sdpa_case(qkv, heads, mask, "forward"), main))
+        cases.append((bwd, label, lambda: cuda_attn.zorro_attention_qkv_backward(qkv, types, o, lse, do, heads, 3),
+                      lambda: cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, 3),
+                      attention_work(qkv, heads, mask, True), sdpa_case(qkv, heads, mask, "backward"), main))
+
+    qkv_train32 = randf(60, 640, 3 * 192)
+    f32_attention_cases("zorro", train_label, qkv_train32, 3, train_types, True)
+    f32_attention_cases("none", "n=256 8x32 B=60", randf(60, 256, 3 * 256), 8, None, True)
+    f32_attention_cases("zorro", "N=1024 B=30 all modalities", randf(30, 1024, 3 * 192), 3, seg_types, False)
+    q32, k32, v32 = (t.contiguous() for t in qkv_train32.chunk(3, dim=-1))
+    o_p32, lse_p32 = cuda_attn.zorro_attention_packed(q32, k32, v32, train_types, 3, 3, return_lse=True)
+    o_s32, lse_s32 = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv_train32, train_types, 3, 3, return_lse=True)
+    do32 = randf(*o_p32.shape)
+    train_mask = zorro_mask(train_types)
+    cases.append(("zorro_attention_packed/zorro_f32", train_label,
+                  lambda: cuda_attn.zorro_attention_packed(q32, k32, v32, train_types, 3, 3),
+                  lambda: cuda_attn.zorro_attention_packed_reference(q32, k32, v32, train_types, 3, 3),
+                  attention_work(qkv_train32, 3, train_mask, False),
+                  sdpa_case(qkv_train32, 3, train_mask, "forward"), True))
+    cases.append(("zorro_attention_packed/zorro_f32_backward", train_label,
+                  lambda: cuda_attn.zorro_attention_packed_backward(q32, k32, v32, train_types, o_p32, lse_p32, do32,
+                                                                    3, 3),
+                  lambda: cuda_attn.zorro_attention_packed_backward_reference(q32, k32, v32, train_types, o_p32,
+                                                                              lse_p32, do32, 3, 3),
+                  attention_work(qkv_train32, 3, train_mask, True),
+                  sdpa_case(qkv_train32, 3, train_mask, "backward"), True))
+    cases.append(("zorro_sparse/f32_forward", train_label,
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv_train32, train_types, 3, 3),
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv_train32, train_types, 3, 3),
+                  attention_work(qkv_train32, 3, sparse_mask, False),
+                  sdpa_case(qkv_train32, 3, sparse_mask, "forward"), True))
+    cases.append(("zorro_sparse/f32_backward", train_label,
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv_train32, train_types, o_s32,
+                                                                                lse_s32, do32, 3, 3),
+                  lambda: cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(
+                      qkv_train32, train_types, o_s32, lse_s32, do32, 3, 3),
+                  attention_work(qkv_train32, 3, sparse_mask, True),
+                  sdpa_case(qkv_train32, 3, sparse_mask, "backward"), True))
+
+    def f32_ffn_cases(label, geglu, w, m, main, d_in, d_out, **widths):
+        x, dy = randf(m, d_in), randf(m, d_out)
+        fwd = ((cuda_ffn.geglu_ffn, cuda_ffn.geglu_ffn_reference, cuda_ffn.geglu_ffn_backward,
+                cuda_ffn.geglu_ffn_backward_reference) if geglu else
+               (cuda_ffn.mlp_ffn, cuda_ffn.mlp_ffn_reference, cuda_ffn.mlp_ffn_backward,
+                cuda_ffn.mlp_ffn_backward_reference))
+        mode = "geglu" if geglu else "mlp"
+        cases.append((f"fused_ffn/{mode}_f32", label, lambda: fwd[0](x, *w), lambda: fwd[1](x, *w),
+                      ffn_work(m, False, geglu, elem=4, peak=PEAK_F32, **widths), None, main))
+        cases.append((f"fused_ffn/{mode}_f32_backward", label, lambda: fwd[2](x, *w, dy), lambda: fwd[3](x, *w, dy),
+                      ffn_work(m, True, geglu, elem=4, peak=PEAK_F32, **widths), None, main))
+
+    geglu_w32, mlp_w32 = tuple(t.float() for t in geglu_w), tuple(t.float() for t in mlp_w)
+    f32_ffn_cases("M=38400 d=192 I=512", True, geglu_w32, 38400, True, d, d)
+    f32_ffn_cases("M=15360 d=192 I=512", True, geglu_w32, 15360, False, d, d)
+    f32_ffn_cases("M=15360 d=256 H=1024", False, mlp_w32, 15360, True, dd, dd)
+    f32_ffn_cases(f"M=8192 d={bd} I={b_inner} (base)", True, tuple(t.float() for t in base_geglu_w), 8192, False,
+                  bd, bd, d=bd, inner_ff=b_inner)
+    f32_ffn_cases(f"M=4096 d={ld} I={l_inner} (large, unpadded)", True, tuple(t.float() for t in large_w), 4096,
+                  False, ld, ld, d=ld, inner_ff=l_inner)
+
+    q3, kvg3, kvf3, do3 = randf(60, f, 192), randf(60, 3 * f, 384), randf(60, f, 384), randf(60, f, 192)
+    cases.append(("fusion_row_attention/fusion_row_f32", "F=256 T=3 3x64 B=60",
+                  lambda: cuda_fusion_attn.fusion_row_attention(q3, kvg3, kvf3, 3, 64),
+                  lambda: cuda_fusion_attn.fusion_row_attention_reference(q3, kvg3, kvf3, 3, 64),
+                  (4.0 * 64 * 4 * 60 * f * 3, nbytes(q3, kvg3, kvf3, q3), PEAK_F32),
+                  fusion_row_sdpa_case(q3, kvg3, kvf3, 3, "forward"), True))
+    cases.append(("fusion_row_attention/fusion_row_f32_backward", "F=256 T=3 3x64 B=60",
+                  lambda: cuda_fusion_attn.fusion_row_attention_backward(q3, kvg3, kvf3, do3, 3, 64),
+                  lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(q3, kvg3, kvf3, do3, 3, 64),
+                  (8.0 * 64 * 4 * 60 * f * 3, 2 * nbytes(q3, kvg3, kvf3) + nbytes(do3), PEAK_F32),
+                  fusion_row_sdpa_case(q3, kvg3, kvf3, 3, "backward"), True))
+
+    x_blk32, dy_blk32 = x_blk.float(), dy_blk.float()
+    blk_w32 = tuple(t.float() for t in blk_w)
+    cases.append(("fused_block_attn/f32_forward", train_label,
+                  lambda: cuda_block_attn.fused_block_attn(x_blk32, train_types, *blk_w32, 3, 3),
+                  lambda: cuda_block_attn.fused_block_attn_reference(x_blk32, train_types, *blk_w32, 3, 3),
+                  block_attn_work(x_blk32, 192, 3, train_mask, False), None, True))
+    cases.append(("fused_block_attn/f32_backward", train_label,
+                  lambda: cuda_block_attn.fused_block_attn_backward(x_blk32, train_types, *blk_w32, dy_blk32, 3, 3),
+                  lambda: cuda_block_attn.fused_block_attn_backward_reference(x_blk32, train_types, *blk_w32,
+                                                                              dy_blk32, 3, 3),
+                  block_attn_work(x_blk32, 192, 3, train_mask, True), None, True))
+
     results = {}
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
         outs, refs = outputs(kernel()), outputs(plain())
@@ -856,7 +1021,8 @@ def phase_kernels(dev):
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
         rel_bound = (MSDA_REL_L2 if entry.startswith("ms_deform_attn/") else
-                     POINTS_REL_L2 if entry.startswith("point_sample/") else KERNEL_REL_L2)
+                     POINTS_REL_L2 if entry.startswith("point_sample/") else
+                     F32_REL_L2 if is_f32(entry) else KERNEL_REL_L2)
         if not rel <= rel_bound:
             raise RuntimeError(f"[kernels] {entry} {label}: rel L2 {rel} > {rel_bound}")
         r = results.setdefault(entry, {"max_abs_err": 0.0})
@@ -1034,6 +1200,26 @@ def step_times(run, steps: int, warmup: int):
     return times, losses
 
 
+def loss_and_grads(model, run):
+    """run()'s loss and every parameter's f32 gradient, the grads cleared
+    before and after."""
+    model.zero_grad(set_to_none=True)
+    loss = run()
+    loss.backward()
+    out = float(loss.detach()), flat_grads(model)
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def compare_grads(g_a, g_b, names=None):
+    """Relative L2 of the flat gradient ``g_a`` against ``g_b`` over
+    ``names`` (all for None), and the five worst parameters."""
+    names = list(g_b) if names is None else names
+    diff = torch.cat([(g_a[n] - g_b[n]).reshape(-1) for n in names])
+    rel = float(diff.norm() / torch.cat([g_b[n].reshape(-1) for n in names]).norm())
+    return rel, sorted(((rel_l2(g_a[n], g_b[n]), n) for n in names), reverse=True)[:5]
+
+
 def phase_train(dev):
     """The pretraining step at PretrainConfig() defaults (B = 60, bf16
     compute over f32 masters) through create_train_state / make_train_step.
@@ -1051,27 +1237,23 @@ def phase_train(dev):
     # kernel path against the plain path: the same weights, batch and masks
     mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, b, device=dev)
     loss_fn = pretrain.make_loss_fn(model, cfg)
-    results = {}
-    for impl in ("auto", "xla"):
-        model.attn_impl = impl
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(dict(model.named_parameters()), batch, mi)
-        loss.backward()
-        results[impl] = (float(loss.detach()), flat_grads(model))
+
+    def run_loss():
+        return loss_fn(dict(model.named_parameters()), batch, mi)[0]
+
+    loss_k, g_k = loss_and_grads(model, run_loss)
+    model.attn_impl = "xla"
+    loss_p, g_p = loss_and_grads(model, run_loss)
     model.attn_impl = "auto"
-    model.zero_grad(set_to_none=True)
-    (loss_k, g_k), (loss_p, g_p) = results["auto"], results["xla"]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    diff = torch.cat([(g_k[n] - g_p[n]).reshape(-1) for n in g_p])
-    grad_rel = float(diff.norm() / torch.cat([g.reshape(-1) for g in g_p.values()]).norm())
-    worst = sorted(((rel_l2(g_k[n], g_p[n]), n) for n in g_p), reverse=True)[:5]
+    grad_rel, worst = compare_grads(g_k, g_p)
     log(f"[train] loss kernel path {loss_k:.6g}, plain path {loss_p:.6g}, rel diff {loss_rel:.3g}; "
         f"flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
         + ", ".join(f"{n} {r:.3g}" for r, n in worst))
     if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
         raise RuntimeError(f"[train] kernel path vs plain path: loss rel {loss_rel} "
                            f"(bound {TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2})")
-    del results, g_k, g_p, diff
+    del g_k, g_p
 
     # the main path's run: one step with masks from the state's generator
     ops.reset_kernel_launches()
@@ -1287,6 +1469,30 @@ def synthetic_instances(rng, b, s, num_classes, g=8):
     return x, SegTargets(labels, masks, valid)
 
 
+def head_masks(model, run):
+    """``run()``'s result and the Mask2Former head's attention masks over
+    that call (the ``allowed`` bits each cross-attention layer reads, one
+    [B, 1, Q, h w] tensor a layer)."""
+    dec = model.predictor
+    real, masks = dec._heads, []
+
+    def spy(*args):
+        out = real(*args)
+        masks.append(out[2].detach())
+        return out
+
+    dec._heads = spy
+    result = run()
+    del dec._heads
+    return result, masks[:dec.dec_layers]
+
+
+def mask_bits_differ(a, b):
+    """How many of the head's attention-mask bits differ between two runs,
+    and how many there are."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b)), sum(x.numel() for x in a)
+
+
 def phase_segment_train(dev):
     """The downstream instance-segmentation training step at
     MaskFormerConfig(num_classes=1) widths (scripts/train_downstream.py
@@ -1312,8 +1518,8 @@ def phase_segment_train(dev):
                                          SEG_TRAIN_BATCH, device=dev)
     present = present.to(dev)
     model.zero_grad(set_to_none=True)
-    loss_k, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
-                                  return_aux=True)
+    (loss_k, _, aux), bits_k = head_masks(model, lambda: step.loss_fn(
+        dict(model.named_parameters()), batch, targets, mi, present, SEED, return_aux=True))
     loss_k.backward()
     g_k = flat_grads(model)
     # the kernel path once more on the same inputs: its run-to-run spread
@@ -1324,8 +1530,9 @@ def phase_segment_train(dev):
     g_k2 = flat_grads(model)
     model.attn_impl = "xla"
     model.zero_grad(set_to_none=True)
-    loss_p, _ = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
-                             matched_override=aux["matched"], point_coords_override=aux["point_coords"])
+    (loss_p, _), bits_p = head_masks(model, lambda: step.loss_fn(
+        dict(model.named_parameters()), batch, targets, mi, present, SEED, matched_override=aux["matched"],
+        point_coords_override=aux["point_coords"]))
     loss_p.backward()
     g_p = flat_grads(model)
     model.attn_impl = "auto"
@@ -1335,26 +1542,28 @@ def phase_segment_train(dev):
     # the mask embedding's gradient stands apart (MASK_EMB_GRAD_REL_L2)
     emb = "backbone.mask_embedding"
     rest = [n for n in g_p if n != emb]
-
-    def flat_rel(a, b):
-        diff = torch.cat([(a[n] - b[n]).reshape(-1) for n in rest])
-        return float(diff.norm() / torch.cat([b[n].reshape(-1) for n in rest]).norm())
-
-    grad_rel, emb_rel = flat_rel(g_k, g_p), rel_l2(g_k[emb], g_p[emb])
-    worst = sorted(((rel_l2(g_k[n], g_p[n]), n) for n in rest), reverse=True)[:5]
+    grad_rel, worst = compare_grads(g_k, g_p, rest)
+    emb_rel = rel_l2(g_k[emb], g_p[emb])
+    bits = mask_bits_differ(bits_k, bits_p)
     log(f"[segment-train] present {present.tolist()}, {int(mi.num_visible[0])} visible tokens; loss "
         f"kernel path {loss_k:.6g}, plain path {loss_p:.6g}, rel diff {loss_rel:.3g}; flat gradient "
         f"of all but the mask embedding rel_l2 {grad_rel:.3g}, the mask embedding's {emb_rel:.3g} "
         f"(norm {float(g_p[emb].norm()):.6g} of all "
         f"{float(torch.cat([v.reshape(-1) for v in g_p.values()]).norm()):.6g}); the kernel path run "
         f"twice: loss rel diff {abs(loss_k - loss_k2) / abs(loss_k):.3g}, flat gradient "
-        f"{flat_rel(g_k2, g_k):.3g}, the mask embedding's {rel_l2(g_k2[emb], g_k[emb]):.3g}; worst "
+        f"{compare_grads(g_k2, g_k, rest)[0]:.3g}, the mask embedding's {rel_l2(g_k2[emb], g_k[emb]):.3g}; the head's "
+        f"attention-mask bits that differ between the two paths: {bits[0]} of {bits[1]}; worst "
         "parameters: " + ", ".join(f"{n} {r:.3g}" for r, n in worst))
     if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
             and emb_rel <= MASK_EMB_GRAD_REL_L2):
         raise RuntimeError(f"[segment-train] kernel path vs plain path: loss rel {loss_rel} (bound "
                            f"{TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2}), "
                            f"mask embedding {emb_rel} (bound {MASK_EMB_GRAD_REL_L2})")
+    # what the f32 phase's downstream step reuses: the same weights, masks,
+    # matches and points, and this phase's bf16 numbers
+    context = dict(model=model, cfg=cfg, optimizer=optimizer, batch=batch, targets=targets, mask_info=mi,
+                   present=present, matched=aux["matched"], point_coords=aux["point_coords"],
+                   bf16=dict(loss_rel=loss_rel, grad_rel=grad_rel, emb_rel=emb_rel, bits=bits))
     del aux, g_k, g_k2, g_p
 
     # the main path's run: one step with the state's draws
@@ -1414,7 +1623,7 @@ def phase_segment_train(dev):
         f"cost copy p50 {statistics.median(fetch_ms):.6g} ms, scipy p50 {statistics.median(scipy_ms):.6g} "
         f"ms for {host.shape[0]} levels x {host.shape[1]} images; peak device memory "
         f"{peak / 2 ** 30:.4g} GiB")
-    return launches
+    return launches, context
 
 
 # one fused step: every encoder block's attention half as K6 / K6b, so K1
@@ -1462,23 +1671,17 @@ def phase_encoder_variants(dev, ctx):
     results = {}
     for fused in (False, True):
         set_fused_block(model, fused)
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(dict(model.named_parameters()), batch, mi)
-        loss.backward()
-        results[fused] = (float(loss.detach()), flat_grads(model))
-    model.zero_grad(set_to_none=True)
+        results[fused] = loss_and_grads(model, lambda: loss_fn(dict(model.named_parameters()), batch, mi)[0])
     (loss_f, g_f), (loss_d, g_d) = results[True], results[False]
     loss_rel = abs(loss_f - loss_d) / abs(loss_d)
-    diff = torch.cat([(g_f[n] - g_d[n]).reshape(-1) for n in g_d])
-    grad_rel = float(diff.norm() / torch.cat([g.reshape(-1) for g in g_d.values()]).norm())
-    worst = sorted(((rel_l2(g_f[n], g_d[n]), n) for n in g_d), reverse=True)[:5]
+    grad_rel, worst = compare_grads(g_f, g_d)
     log(f"[encoder-variants] fused step loss {loss_f:.6g}, default kernel step {loss_d:.6g}, rel diff "
         f"{loss_rel:.3g}; flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
         + ", ".join(f"{n} {r:.3g}" for r, n in worst))
     if not (math.isfinite(loss_f) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
         raise RuntimeError(f"[encoder-variants] fused vs default step: loss rel {loss_rel} (bound "
                            f"{TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2})")
-    del results, g_f, g_d, diff
+    del results, g_f, g_d
 
     # the fused step's main-path run: one step with masks from the state's generator
     set_fused_block(model, True)
@@ -1604,6 +1807,325 @@ def phase_encoder_variants(dev, ctx):
     return {k: launches[k] + mode_launches[k] for k in launches}
 
 
+F32_PER_STEP = {f32_key(k): n for k, n in PER_STEP.items()}
+F32_FUSED_PER_STEP = {f32_key(k): n for k, n in FUSED_PER_STEP.items()}
+F32_PER_FORWARD = {f32_key(k): n for k, n in PER_FORWARD.items()}
+F32_MODE_LAUNCHES = {f32_key(k): n for k, n in MODE_LAUNCHES.items()}
+F32_SEG_TRAIN_PER_STEP = {(k if k.startswith(("ms_deform_attn/", "point_sample/")) else f32_key(k)): n
+                          for k, n in SEG_TRAIN_PER_STEP.items()}
+# one f32 serving forward, kernel path vs plain path: f32 throughout, the
+# sums' order differs over 12 blocks
+F32_FORWARD_REL_L2 = 1e-4
+
+
+def phase_f32(dev, seg_ctx):
+    """The paths that run in f32 on the card through the f32 instances of
+    K1-K3 and K6: (a) the pretraining step with compute_dtype='float32' at
+    B = 60 (default and fused_block), and K1's two modes on its qkv slabs;
+    (b) an f32 serving request; (c) phase 7's downstream step with
+    compute_dtype='float32' on phase 7's weights, masks, matches and points,
+    beside phase 7's bf16 numbers and the head's attention-mask bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[f32] every part with TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    launches = collections.Counter()
+
+    # (a) the f32 pretraining step, kernel path against plain path
+    cfg = PretrainConfig()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    doms = tuple(cfg.data.in_domains)
+    nums = (cfg.data.num_patches,) * len(doms)
+    e, b = cfg.mask.num_encoded_tokens, cfg.data.batch_size
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), doms, b, cfg.data.input_size).items()}
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, b, device=dev)
+    loss_fn = pretrain.make_loss_fn(model, cfg)
+
+    def run_loss():
+        return loss_fn(dict(model.named_parameters()), batch, mi)[0]
+
+    loss_k, g_k = loss_and_grads(model, run_loss)
+    model.attn_impl = "xla"
+    loss_p, g_p = loss_and_grads(model, run_loss)
+    model.attn_impl = "auto"
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = compare_grads(g_k, g_p)
+    log(f"[f32] (a) pretraining step B={b}: loss kernel path {loss_k:.8g}, plain path {loss_p:.8g}, rel diff "
+        f"{loss_rel:.3g}; flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= F32_LOSS_REL and grad_rel <= F32_GRAD_REL_L2):
+        raise RuntimeError(f"[f32] pretraining step, kernel vs plain path: loss rel {loss_rel} (bound "
+                           f"{F32_LOSS_REL}), gradient rel L2 {grad_rel} (bound {F32_GRAD_REL_L2})")
+    del g_p
+    set_fused_block(model, True)
+    loss_f, g_f = loss_and_grads(model, run_loss)
+    fused_rel = abs(loss_f - loss_k) / abs(loss_k)
+    fused_grad_rel, worst = compare_grads(g_f, g_k)
+    log(f"[f32] (a) the fused step (K6 / K6b f32 on all blocks) against the default f32 step: loss rel diff "
+        f"{fused_rel:.3g}, flat gradient rel_l2 {fused_grad_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_f) and fused_rel <= F32_LOSS_REL and fused_grad_rel <= F32_GRAD_REL_L2):
+        raise RuntimeError(f"[f32] fused vs default f32 step: loss rel {fused_rel}, gradient rel L2 "
+                           f"{fused_grad_rel}")
+    del g_f, g_k
+
+    # the main paths' runs: the default f32 step, then the fused one
+    for fused, expected in ((False, F32_PER_STEP), (True, F32_FUSED_PER_STEP)):
+        set_fused_block(model, fused)
+        ops.reset_kernel_launches()
+        step(state, batch)
+        torch.cuda.synchronize()
+        counts = ops.kernel_launches()
+        if {k: n for k, n in counts.items() if n} != expected:
+            raise RuntimeError(f"[f32] launches per {'fused ' if fused else ''}f32 step {counts}, expected "
+                               f"{expected}")
+        launches.update(counts)
+    set_fused_block(model, False)
+    log(f"[f32] (a) launches in one f32 step {F32_PER_STEP}; in one fused f32 step {F32_FUSED_PER_STEP}")
+    before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = step_times(lambda: step(state, batch)[1], steps=5, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = float((torch.cat([p.detach().reshape(-1) for p in model.parameters()]) - before).abs().max())
+    if not all(math.isfinite(x) for x in losses) or moved == 0.0:
+        raise RuntimeError(f"[f32] f32 step losses {losses}, max weight change {moved}")
+    dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=2)
+    log(f"[f32] (a) f32 step: losses {[round(x, 4) for x in losses]}, max weight change {moved:.3g}; p50 "
+        f"{statistics.median(times):.6g} ms over 5 steps after 3 warm-ups; peak device memory "
+        f"{peak / 2 ** 30:.4g} GiB; profile: device {dev_ms:.6g} ms a step in {n_kernels:.0f} kernels/copies, "
+        f"busy {dev_ms / statistics.median(times):.3f} of the p50 wall; by kind "
+        + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+    for name, ms in top:
+        log(f"[f32]     {ms:9.4f} ms  {name[:100]}")
+
+    # K1's separate-q/k/v and tile-skip modes in f32 on each block's slab
+    slabs = capture_qkv_slabs(model, loss_fn, batch, mi)
+    heads, fusion = model.blocks[0].attn.heads, model.fusion_type
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    ops.reset_kernel_launches()
+    runs = []
+    for qkv, types in slabs:
+        q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+        do = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, device=dev, generator=g)
+        o_p, lse_p = cuda_attn.zorro_attention_packed(q, k, v, types, heads, fusion, return_lse=True)
+        grads_p = cuda_attn.zorro_attention_packed_backward(q, k, v, types, o_p, lse_p, do, heads, fusion)
+        o_s, lse_s = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, types, heads, fusion, return_lse=True)
+        dqkv_s = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv, types, o_s, lse_s, do, heads, fusion)
+        runs.append((do, o_p, grads_p, o_s, lse_s, dqkv_s))
+    torch.cuda.synchronize()
+    counts = ops.kernel_launches()
+    if {k: n for k, n in counts.items() if n} != F32_MODE_LAUNCHES:
+        raise RuntimeError(f"[f32] mode launches {counts}, expected {F32_MODE_LAUNCHES}")
+    launches.update(counts)
+    worst_mode = 0.0
+    for (qkv, types), (do, o_p, grads_p, o_s, lse_s, dqkv_s) in zip(slabs, runs):
+        o1, lse1 = cuda_attn.zorro_attention_qkv(qkv, heads, types, fusion, return_lse=True)
+        d1 = cuda_attn.zorro_attention_qkv_backward(qkv, types, o1, lse1, do, heads, fusion)
+        ref_s, ref_lse = cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv, types, heads, fusion,
+                                                                                return_lse=True)
+        ref_d = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(qkv, types, ref_s, ref_lse, do,
+                                                                                heads, fusion)
+        worst_mode = max(worst_mode, rel_l2(o_p, o1), *(rel_l2(a, b_) for a, b_ in zip(grads_p, d1.chunk(3, dim=-1))),
+                         rel_l2(o_s, ref_s), *(rel_l2(a, b_) for a, b_ in zip(dqkv_s.chunk(3, dim=-1),
+                                                                              ref_d.chunk(3, dim=-1))))
+    log(f"[f32] (a) K1's f32 modes on the {len(slabs)} blocks' slabs: worst rel_l2 {worst_mode:.3g} (packed vs "
+        "K1 f32, tile-skip vs its plain version on every row, forward and backward)")
+    if not worst_mode <= F32_REL_L2:
+        raise RuntimeError(f"[f32] K1's f32 modes: rel L2 {worst_mode} > {F32_REL_L2}")
+    del model, state, optimizer, step, batch, slabs, runs
+
+    # (b) one f32 serving request against the plain path
+    model = build_multimae(PretrainConfig(), device=dev, generator=torch.Generator().manual_seed(SEED)).eval()
+    closure = serving.infer_closure(model, None, model.in_domains)
+    run, _ = serve_request(model, closure, np.random.default_rng(SEED), 1, ())
+    ops.reset_kernel_launches()
+    preds, pooled = run()
+    torch.cuda.synchronize()
+    counts = ops.kernel_launches()
+    if {k: n for k, n in counts.items() if n} != F32_PER_FORWARD:
+        raise RuntimeError(f"[f32] launches per f32 forward {counts}, expected {F32_PER_FORWARD}")
+    launches.update(counts)
+    model.attn_impl = "xla"
+    preds_p, pooled_p = run()
+    model.attn_impl = "auto"
+    rel = max([rel_l2(preds[d], preds_p[d]) for d in preds] + [rel_l2(pooled, pooled_p)])
+    finite = all(torch.isfinite(p).all() and p.dtype == torch.float32 for p in (*preds.values(), pooled))
+    lat = wall_ms(run, reps=10, warmup=3)
+    log(f"[f32] (b) serving B=1 all modalities (N=1024) in f32: launches {F32_PER_FORWARD}, rel_l2 vs plain "
+        f"path {rel:.3g}, p50 {statistics.median(lat):.6g} ms")
+    if not (finite and rel <= F32_FORWARD_REL_L2):
+        raise RuntimeError(f"[f32] serving: finite {finite}, rel L2 {rel} > {F32_FORWARD_REL_L2}")
+    del model, closure
+
+    # (c) phase 7's downstream step in f32, kernel path against plain path
+    model, cfg7 = seg_ctx["model"], seg_ctx["cfg"]
+    step32 = downstream.make_downstream_train_step(model, cfg7, seg_ctx["optimizer"], compute_dtype="float32")
+    args = (seg_ctx["batch"], seg_ctx["targets"], seg_ctx["mask_info"], seg_ctx["present"], SEED)
+    over = dict(matched_override=seg_ctx["matched"], point_coords_override=seg_ctx["point_coords"])
+    results = {}
+    for impl in ("auto", "xla"):
+        model.attn_impl = impl
+        (loss, grads), masks = head_masks(model, lambda: loss_and_grads(
+            model, lambda: step32.loss_fn(dict(model.named_parameters()), *args, **over)[0]))
+        results[impl] = (loss, grads, masks)
+    model.attn_impl = "auto"
+    (loss_k, g_k, m_k), (loss_p, g_p, m_p) = results["auto"], results["xla"]
+    emb = "backbone.mask_embedding"
+    rest = [n for n in g_p if n != emb]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = compare_grads(g_k, g_p, rest)
+    emb_rel = rel_l2(g_k[emb], g_p[emb])
+    bits = mask_bits_differ(m_k, m_p)
+    bf = seg_ctx["bf16"]
+    log(f"[f32] (c) the downstream step (phase 7's weights, masks, matches and points), kernel path vs plain "
+        f"path: f32 loss rel diff {loss_rel:.3g} (bf16, phase 7: {bf['loss_rel']:.3g}); flat gradient of all but "
+        f"the mask embedding rel_l2 {grad_rel:.3g} (bf16 {bf['grad_rel']:.3g}); the mask embedding's "
+        f"{emb_rel:.3g} (bf16 {bf['emb_rel']:.3g}); the head's attention-mask bits that differ: f32 {bits[0]} "
+        f"of {bits[1]}, bf16 {bf['bits'][0]} of {bf['bits'][1]}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+            and emb_rel <= MASK_EMB_GRAD_REL_L2):
+        raise RuntimeError(f"[f32] downstream f32 step: loss rel {loss_rel}, gradient rel L2 {grad_rel}, mask "
+                           f"embedding {emb_rel}")
+    del results, g_k, g_p
+    state32 = downstream.DownstreamState(model, seg_ctx["optimizer"], torch.Generator().manual_seed(SEED))
+    ops.reset_kernel_launches()
+    _, metrics = step32(state32, seg_ctx["batch"], seg_ctx["targets"])
+    torch.cuda.synchronize()
+    counts = ops.kernel_launches()
+    if {k: n for k, n in counts.items() if n} != F32_SEG_TRAIN_PER_STEP or not math.isfinite(float(metrics["loss"])):
+        raise RuntimeError(f"[f32] launches per f32 downstream step {counts}, expected {F32_SEG_TRAIN_PER_STEP}")
+    launches.update(counts)
+    log(f"[f32] (c) launches in one f32 downstream step: {F32_SEG_TRAIN_PER_STEP}")
+    return launches
+
+
+SEM_TRAIN_PER_STEP = {**{k: n for k, n in SEG_TRAIN_PER_STEP.items() if k != "point_sample/backward"},
+                      "point_sample/forward": 8}  # the matcher's points only: 4 levels x (queries, targets)
+
+
+def semantic_batch(rng, b, s, num_classes):
+    """Rasters and label maps [B, S, S]: an 8 x 8 grid of seeded classes 1 ..
+    num_classes - 1 per image (channel 0 is the dead class), painted into
+    the rasters."""
+    cells = rng.integers(1, num_classes, (b, 8, 8))
+    label_map = np.repeat(np.repeat(cells, s // 8, axis=1), s // 8, axis=2).astype(np.int32)
+    x = {d: (rng.standard_normal((b, s, s, c)) + label_map[..., None]).astype(np.float32)
+         for d, c in (("s1", 1), ("s2", 3), ("dem", 1))}
+    return x, label_map
+
+
+def phase_semantic_train(dev):
+    """The semantic downstream training step: MaskFormerConfig(num_classes=
+    10), B = 30, seeded label maps through targets_from_semantic_labels (G
+    = 10), dense_masks=True, bf16 compute, exact matching (the CLI's
+    default); then one step each with 'greedy' and 'auction' matching."""
+    cfg = MaskFormerConfig(num_classes=SEG_CLASSES)
+    model = segment_model(dev, SEG_CLASSES, serving=False)
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=cfg.frozen_stages)
+    step = downstream.make_downstream_train_step(model, cfg, optimizer, dense_masks=True)
+    state = downstream.DownstreamState(model, optimizer, torch.Generator().manual_seed(SEED))
+    x, label_map = semantic_batch(np.random.default_rng(SEED), SEG_TRAIN_BATCH, cfg.image_size, SEG_CLASSES)
+    batch = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    targets = set_criterion.targets_from_semantic_labels(torch.from_numpy(label_map).to(dev), SEG_CLASSES)
+    doms, nums = cfg.in_domains, (cfg.num_patches,) * len(cfg.in_domains)
+
+    # kernel path against the plain path: the same weights, masks and matches
+    g = torch.Generator().manual_seed(SEED)
+    present = masking.sample_modality_subset(g, len(doms))
+    mi = masking.incomplete_random_masks(g, doms, nums, present, cfg.max_encoded_tokens, SEG_TRAIN_BATCH, device=dev)
+    present = present.to(dev)
+    aux = {}
+
+    def kernel_loss():
+        loss, _, aux["criterion"] = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                                 return_aux=True)
+        return loss
+
+    loss_k, g_k = loss_and_grads(model, kernel_loss)
+    model.attn_impl = "xla"
+    loss_p, g_p = loss_and_grads(model, lambda: step.loss_fn(
+        dict(model.named_parameters()), batch, targets, mi, present, SEED,
+        matched_override=aux["criterion"]["matched"])[0])
+    model.attn_impl = "auto"
+    emb = "backbone.mask_embedding"
+    rest = [n for n in g_p if n != emb]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = compare_grads(g_k, g_p, rest)
+    emb_rel = rel_l2(g_k[emb], g_p[emb])
+    log(f"[semantic-train] {int(targets.valid.sum())} of {targets.valid.numel()} target columns valid; loss "
+        f"kernel path {loss_k:.6g}, plain path {loss_p:.6g}, rel diff {loss_rel:.3g}; flat gradient of all but "
+        f"the mask embedding rel_l2 {grad_rel:.3g}, the mask embedding's {emb_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+            and emb_rel <= MASK_EMB_GRAD_REL_L2 and aux["criterion"]["point_coords"] is None):
+        raise RuntimeError(f"[semantic-train] kernel path vs plain path: loss rel {loss_rel}, gradient rel L2 "
+                           f"{grad_rel}, mask embedding {emb_rel}")
+    del g_k, g_p
+
+    # the main path's run: one step with the state's draws
+    ops.reset_kernel_launches()
+    step(state, batch, targets)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    if {k: n for k, n in launches.items() if n} != SEM_TRAIN_PER_STEP:
+        raise RuntimeError(f"[semantic-train] launches per step {launches}, expected {SEM_TRAIN_PER_STEP}")
+    log(f"[semantic-train] launches in one step: {SEM_TRAIN_PER_STEP} (K5b: 0, no PointRend points)")
+    trainable = downstream.freeze_mask(model, cfg.frozen_stages)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if trainable[n]}
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = step_times(lambda: step(state, batch, targets)[1], steps=10, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = max(float((p.detach() - before[n]).abs().max()) for n, p in model.named_parameters() if trainable[n])
+    if not all(math.isfinite(v) for v in losses) or moved == 0.0:
+        raise RuntimeError(f"[semantic-train] losses {losses}, max trainable change {moved}")
+    del before
+    p50 = statistics.median(times)
+    dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch, targets), reps=2, top_n=8)
+    log(f"[semantic-train] B={SEG_TRAIN_BATCH} G={SEG_CLASSES} dense masks, exact matching: losses "
+        f"{[round(v, 4) for v in losses]}; step p50 {p50:.6g} ms ({SEG_TRAIN_BATCH / p50 * 1e3:.6g} images/s); "
+        f"peak device memory {peak / 2 ** 30:.4g} GiB; profile: device {dev_ms:.6g} ms a step in {n_kernels:.0f} "
+        f"kernels/copies, busy {dev_ms / p50:.3f} of the p50 wall; by kind "
+        + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+    for name, ms in top:
+        log(f"[semantic-train]     {ms:9.4f} ms  {name[:100]}")
+
+    # the exact matching's host part, then greedy and auction on the card
+    costs = step.cost_step(state, batch, targets)
+    host_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scipy_assign_host(costs.float().cpu().numpy())
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    for mode in ("greedy", "auction"):
+        mode_step = downstream.make_downstream_train_step(model, cfg, optimizer, dense_masks=True, match_mode=mode)
+        costs = mode_step.cost_step(state, batch, targets)
+        on_card = set_criterion.hungarian_match(costs, mode=mode)
+        on_cpu = set_criterion.hungarian_match(costs.cpu(), mode=mode)
+        if not torch.equal(on_card.cpu(), on_cpu):
+            raise RuntimeError(f"[semantic-train] {mode}: the card's assignment differs from the CPU's on the "
+                               f"same costs ({int((on_card.cpu() != on_cpu).sum())} of {on_cpu.numel()})")
+        ops.reset_kernel_launches()
+        mode_step(state, batch, targets)
+        torch.cuda.synchronize()
+        counts = ops.kernel_launches()
+        if {k: n for k, n in counts.items() if n} != SEM_TRAIN_PER_STEP:
+            raise RuntimeError(f"[semantic-train] {mode}: launches per step {counts}")
+        launches = {k: launches[k] + counts[k] for k in launches}
+        mode_times, mode_losses = step_times(lambda: mode_step(state, batch, targets)[1], steps=3, warmup=1)
+        if not all(math.isfinite(v) for v in mode_losses):
+            raise RuntimeError(f"[semantic-train] {mode}: losses {mode_losses}")
+        log(f"[semantic-train] match_mode={mode}: the card's assignment of {tuple(costs.shape)} costs equals the "
+            f"CPU's; step p50 {statistics.median(mode_times):.6g} ms (exact: step p50 {p50:.6g} ms, of which "
+            f"the host's cost copy and scipy p50 {statistics.median(host_ms):.6g} ms)")
+    return launches
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -1646,6 +2168,12 @@ REPLACES = {
 }
 
 
+# the f32 instances of K1-K3 and K6 (the TPU kernels take f32 too): the same
+# sources and TPU kernels as their bf16 instances
+REPLACES.update({f32_key(name): where for name, where in list(REPLACES.items())
+                 if not name.startswith(("ms_deform_attn/", "point_sample/"))})
+
+
 def main(argv) -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1657,12 +2185,15 @@ def main(argv) -> int:
     served = phase_serving(dev)
     trained, train_context = phase_train(dev)
     segmented = phase_segment(dev)
-    seg_trained = phase_segment_train(dev)
+    seg_trained, seg_context = phase_segment_train(dev)
     variants = phase_encoder_variants(dev, train_context)
     del train_context
+    in_f32 = phase_f32(dev, seg_context)
+    del seg_context
+    sem_trained = phase_semantic_train(dev)
     entries = []
     for name in REPLACES:
-        launches = served[name] + trained[name] + segmented[name] + seg_trained[name] + variants[name]
+        launches = sum(run[name] for run in (served, trained, segmented, seg_trained, variants, in_f32, sem_trained))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

@@ -82,10 +82,27 @@
 // the next row tile's A in flight (one block an SM: projection 0.168 ms
 // against 0.107), or with 64-wide windows and three blocks an SM (0.103,
 // but the out projection 0.038 against 0.035).
+//
+// The f32 instance (fused_block_attn_fwd_f32, fused_block_attn_bwd_f32),
+// for the f32 paths the TPU kernel also takes: the same function with no
+// cast points, every product and sum in f32 on the CUDA cores, from the
+// pieces of simt_f32.cuh and K1's f32 instance (zorro_attention_f32.cuh),
+// through an f32 workspace (fused_block_attn_f32_scratch_floats). Forward,
+// six launches: the two LayerNorms (a, then h), q = h Wq^T and kv = h
+// Wkv^T into the slab, K1's f32 forward, y = x + out Wo^T. Backward,
+// fifteen: a and h, the slab, dout = dy Wo, K1's f32 forward (out, lse),
+// K1b's f32 dq and dk/dv kernels (D = rowsum(dout * out): without the bf16
+// rounding of o, the stored o is the unrounded one), dhid = dq Wq + dkv
+// Wkv, both LayerNorm backwards (da, then dx = dy + dx_ln, the gains'
+// partials a row block), the dWqkv and dWo partials over ranges of rows,
+// and one reduction of all partials in a fixed order: no atomics, bitwise
+// the same run to run.
 #include <type_traits>
 
+#include "simt_f32.cuh"
 #include "wgrad.cuh"
 #include "zorro_attention.cuh"
+#include "zorro_attention_f32.cuh"
 
 namespace {
 
@@ -1007,4 +1024,147 @@ extern "C" int fused_block_attn_bwd_bf16(const void* x, const void* types, const
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The f32 instance
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct BlockF32Scratch {  // float offsets into the f32 workspace
+  long long a, h, qkv, out, dout, lse, delta, dqkv, dhid, da, part_qkv, part_o, part_g2, part_g1, floats;
+};
+
+BlockF32Scratch block_f32_scratch(int backward, int batch, int n, int d, int inner, int heads) {
+  const long long m = (long long)batch * n, sp = simt_f32::splits_for((int)m);
+  BlockF32Scratch s{};
+  s.a = 0;
+  s.h = s.a + m * d;
+  s.qkv = s.h + m * d;
+  s.out = s.qkv + 3 * m * inner;
+  s.floats = s.out + m * inner;
+  if (backward) {
+    s.dout = s.floats;
+    s.lse = s.dout + m * inner;
+    s.delta = s.lse + (long long)batch * heads * n;
+    s.dqkv = s.delta + (long long)batch * heads * n;
+    s.dhid = s.dqkv + 3 * m * inner;
+    s.da = s.dhid + m * d;
+    s.part_qkv = s.da + m * d;
+    s.part_o = s.part_qkv + sp * 3 * inner * d;
+    s.part_g2 = s.part_o + sp * d * inner;
+    s.part_g1 = s.part_g2 + (long long)simt_f32::ln_blocks((int)m) * d;
+    s.floats = s.part_g1 + (long long)simt_f32::ln_blocks((int)m) * d;
+  }
+  return s;
+}
+
+// a = LN_g1(x), h = LN_g2(a), then q = h Wq^T and kv = h Wkv^T into the slab
+cudaError_t block_f32_project(const float* x, const float* g1, const float* g2, const float* wq, const float* wkv,
+                              float* a, float* h, float* qkv, int m, int d, int inner, cudaStream_t s) {
+  using namespace simt_f32;
+  cudaError_t err = ln_fwd(x, g1, a, m, d, s);
+  if (err == cudaSuccess) err = ln_fwd(a, g2, h, m, d, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{h, d, 1}, Mat{wq, 1, d}, qkv, 3LL * inner, m, inner, d, nullptr, nullptr, 0, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{h, d, 1}, Mat{wkv, 1, d}, qkv + inner, 3LL * inner, m, 2 * inner, d, nullptr, nullptr,
+                        0, s);
+  return err;
+}
+
+zorro::Operands32 slab32(const float* qkv, int n, int inner) {
+  return zorro::Operands32{qkv, qkv + inner, qkv + 2 * inner, 3LL * n * inner, 3LL * inner};
+}
+
+}  // namespace
+
+// Floats of the f32 instance's workspace (backward 0: the forward's, 1:
+// the backward's) at these shapes
+extern "C" long long fused_block_attn_f32_scratch_floats(int backward, int batch, int n, int d, int inner,
+                                                         int heads) {
+  return block_f32_scratch(backward, batch, n, d, inner, heads).floats;
+}
+
+// Forward in f32: the operands of fused_block_attn_fwd_bf16 in f32 (types
+// int32), the workspace of fused_block_attn_f32_scratch_floats(0, ...)
+// floats. Six launches; returns the first cudaError_t.
+extern "C" int fused_block_attn_fwd_f32(const void* x, const void* types, const void* g1, const void* g2,
+                                        const void* wq, const void* wkv, const void* wo, void* y, void* ws, int batch,
+                                        int n, int d, int heads, int dh, float scale, int fusion_type, void* stream) {
+  if (!shape_ok(batch, n, d, heads, dh)) return (int)cudaErrorInvalidValue;
+  using namespace simt_f32;
+  const int inner = heads * dh, m = batch * n;
+  const BlockF32Scratch sc = block_f32_scratch(0, batch, n, d, inner, heads);
+  float* p = static_cast<float*>(ws);
+  const float* xp = static_cast<const float*>(x);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = block_f32_project(xp, static_cast<const float*>(g1), static_cast<const float*>(g2),
+                                      static_cast<const float*>(wq), static_cast<const float*>(wkv), p + sc.a,
+                                      p + sc.h, p + sc.qkv, m, d, inner, s);
+  if (err == cudaSuccess)
+    err = zorro::dispatch_f32<zorro::MODE_ZORRO>(dh, slab32(p + sc.qkv, n, inner), static_cast<const int32_t*>(types),
+                                                 nullptr, 0, p + sc.out, nullptr, batch, n, heads,
+                                                 (long long)n * inner, inner, n, scale, fusion_type, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{p + sc.out, inner, 1}, Mat{static_cast<const float*>(wo), 1, inner},
+                        static_cast<float*>(y), d, m, d, inner, nullptr, xp, d, s);
+  return (int)err;
+}
+
+// Backward in f32: the forward's operands and dy [B, N, D] (f32, types
+// int32); outputs dx [B, N, D], dg1, dg2 [D], dw_qkv [3I, D] (dWq then
+// dWkv), dwo [D, I]; the workspace of fused_block_attn_f32_scratch_floats(1,
+// ...) floats. Fifteen launches; returns the first cudaError_t.
+extern "C" int fused_block_attn_bwd_f32(const void* x, const void* types, const void* g1, const void* g2,
+                                        const void* wq, const void* wkv, const void* wo, const void* dy, void* dx,
+                                        void* dg1, void* dg2, void* dw_qkv, void* dwo, void* ws, int batch, int n,
+                                        int d, int heads, int dh, float scale, int fusion_type, void* stream) {
+  if (!shape_ok(batch, n, d, heads, dh)) return (int)cudaErrorInvalidValue;
+  using namespace simt_f32;
+  const int inner = heads * dh, m = batch * n;
+  const BlockF32Scratch sc = block_f32_scratch(1, batch, n, d, inner, heads);
+  float* p = static_cast<float*>(ws);
+  const float* xp = static_cast<const float*>(x);
+  const float* dyp = static_cast<const float*>(dy);
+  const float *g1p = static_cast<const float*>(g1), *g2p = static_cast<const float*>(g2);
+  const float *wqp = static_cast<const float*>(wq), *wkvp = static_cast<const float*>(wkv);
+  const int32_t* tp = static_cast<const int32_t*>(types);
+  float *qkv = p + sc.qkv, *dqkv = p + sc.dqkv, *out = p + sc.out, *dout = p + sc.dout;
+  const long long i3 = 3LL * inner;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = block_f32_project(xp, g1p, g2p, wqp, wkvp, p + sc.a, p + sc.h, qkv, m, d, inner, s);
+  if (err == cudaSuccess)  // dout = dy Wo
+    err = product_store(Mat{dyp, d, 1}, Mat{static_cast<const float*>(wo), inner, 1}, dout, inner, m, inner, d,
+                        nullptr, nullptr, 0, s);
+  if (err == cudaSuccess)
+    err = zorro::dispatch_f32<zorro::MODE_ZORRO>(dh, slab32(qkv, n, inner), tp, nullptr, 0, out, p + sc.lse, batch,
+                                                 n, heads, (long long)n * inner, inner, n, scale, fusion_type, s);
+  if (err == cudaSuccess) {
+    const zorro::GradOperands32 grad{dqkv, dqkv + inner, dqkv + 2 * inner, (long long)n * i3, i3};
+    err = zorro::dispatch_bwd_f32<zorro::MODE_ZORRO>(dh, slab32(qkv, n, inner), tp, nullptr, 0, out, p + sc.lse,
+                                                     dout, grad, p + sc.delta, batch, n, heads, n, scale,
+                                                     fusion_type, s);
+  }
+  if (err == cudaSuccess)  // dhid = dq Wq + dkv Wkv
+    err = product_store(Mat{dqkv, i3, 1}, Mat{wqp, d, 1}, p + sc.dhid, d, m, d, inner, nullptr, nullptr, 0, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{dqkv + inner, i3, 1}, Mat{wkvp, d, 1}, p + sc.dhid, d, m, d, 2 * inner, nullptr,
+                        p + sc.dhid, d, s);
+  if (err == cudaSuccess) err = ln_bwd(p + sc.a, g2p, p + sc.dhid, nullptr, p + sc.da, p + sc.part_g2, m, d, s);
+  if (err == cudaSuccess)
+    err = ln_bwd(xp, g1p, p + sc.da, dyp, static_cast<float*>(dx), p + sc.part_g1, m, d, s);
+  if (err == cudaSuccess) err = weight_grad_partials(dqkv, i3, p + sc.h, d, m, 3 * inner, d, p + sc.part_qkv, s);
+  if (err == cudaSuccess) err = weight_grad_partials(dyp, d, out, inner, m, d, inner, p + sc.part_o, s);
+  if (err == cudaSuccess) {
+    const int sp = splits_for(m), lb = ln_blocks(m);
+    Segments segs{{{p + sc.part_qkv, sp, i3 * d, static_cast<float*>(dw_qkv)},
+                   {p + sc.part_o, sp, (long long)d * inner, static_cast<float*>(dwo)},
+                   {p + sc.part_g1, lb, d, static_cast<float*>(dg1)},
+                   {p + sc.part_g2, lb, d, static_cast<float*>(dg2)}},
+                  4};
+    err = reduce(segs, s);
+  }
+  return (int)err;
 }

@@ -62,6 +62,7 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "simt_f32.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -684,4 +685,59 @@ extern "C" int mlp_ffn_bf16(const void* x, const void* w1, const void* b1, const
                             static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
                             static_cast<const bf16*>(b2), static_cast<bf16*>(y), ws, m, d,
                             hidden, d_out, static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// The f32 instance (geglu_ffn_f32, mlp_ffn_f32): the same functions with
+// every product and sum in f32 (simt_f32.cuh: FFMA, no TF32), for the f32
+// paths the TPU kernels also take. GEGLU, four launches: the LayerNorm (xn),
+// u = xn W_in^T, a = val gelu(gate), y = a W_out^T; MLP, two: a = gelu(x
+// W1^T + b1), y = a W2^T + b2. The activations go through an f32
+// workspace (ffn_fwd_f32_workspace_floats). Any width: no padding of the
+// GEGLU inner width is needed.
+// ---------------------------------------------------------------------------
+
+// Floats of the f32 forward's workspace (mode 0 GEGLU: xn, u and a; 1 MLP:
+// a); -1 for a mode it does not know
+extern "C" long long ffn_fwd_f32_workspace_floats(int mode, int m, int d, int hid, int d_out) {
+  (void)d_out;
+  if (mode == 0) return (long long)m * (d + 3LL * hid);
+  return mode == 1 ? (long long)m * hid : -1;
+}
+
+// GEGLU in f32: x [M, d], gamma [d], w_in [2I, d], w_out [d, I] -> y [M, d]
+extern "C" int geglu_ffn_f32(const void* x, const void* gamma, const void* w_in, const void* w_out, void* y,
+                             void* ws, int m, int d, int inner, void* stream) {
+  using namespace simt_f32;
+  const float* xp = static_cast<const float*>(x);
+  const float* wi = static_cast<const float*>(w_in);
+  const float* wo = static_cast<const float*>(w_out);
+  float* xn = static_cast<float*>(ws);
+  float* u = xn + (long long)m * d;
+  float* a = u + 2LL * m * inner;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ln_fwd(xp, static_cast<const float*>(gamma), xn, m, d, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{xn, d, 1}, Mat{wi, 1, d}, u, 2LL * inner, m, 2 * inner, d, nullptr, nullptr, 0, s);
+  if (err == cudaSuccess) err = act(u, a, m, inner, true, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{a, inner, 1}, Mat{wo, 1, inner}, static_cast<float*>(y), d, m, d, inner, nullptr,
+                        nullptr, 0, s);
+  return (int)err;
+}
+
+// MLP in f32: x [M, d], w1 [H, d], b1 [H], w2 [O, H], b2 [O] -> y [M, O]
+extern "C" int mlp_ffn_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
+                           void* ws, int m, int d, int hidden, int d_out, void* stream) {
+  using namespace simt_f32;
+  float* a = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = product<EPI_GELU>(Mat{static_cast<const float*>(x), d, 1},
+                                      Mat{static_cast<const float*>(w1), 1, d},
+                                      Out{a, hidden, static_cast<const float*>(b1), nullptr, 0, nullptr, 0, 0}, m,
+                                      hidden, d, s);
+  if (err == cudaSuccess)
+    err = product_store(Mat{a, hidden, 1}, Mat{static_cast<const float*>(w2), 1, hidden}, static_cast<float*>(y),
+                        d_out, m, d_out, hidden, static_cast<const float*>(b2), nullptr, 0, s);
+  return (int)err;
 }

@@ -62,6 +62,7 @@
 #include <atomic>
 
 #include "hopper.cuh"
+#include "simt_f32.cuh"
 #include "wgrad.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -973,4 +974,133 @@ extern "C" int mlp_ffn_bwd_bf16(const void* x, const void* w1, const void* b1, c
       static_cast<bf16*>(ws_dh), static_cast<bf16*>(ws_a), nullptr, sc, p, m, d, hidden, d_out, g0,
       static_cast<bf16*>(dw1), g1, static_cast<bf16*>(dw2), hidden, static_cast<bf16*>(db1), d_out,
       static_cast<bf16*>(db2), static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// The f32 instance (geglu_ffn_bwd_f32, mlp_ffn_bwd_f32): the same gradients
+// with every product and sum in f32 (simt_f32.cuh: FFMA, no TF32), the
+// weight and vector gradients as partials over ranges of rows summed in a
+// fixed order (no atomics: bitwise the same run to run). Nine launches
+// each. GEGLU: xn = LN(x), u = xn W_in^T, a = val gelu(gate), du = [da
+// gelu(gate), da val gelu'(gate)] with da = dy W_out (the product's
+// epilogue), dW_out and dW_in partials, dxn = du W_in, the LayerNorm
+// backward (dx, dgamma partials), the reduction. MLP: h = x W1^T + b1, a =
+// gelu(h), dh = (dy W2) gelu'(h), dW2 and dW1 partials, db2 and db1
+// partials, dx = dh W1, the reduction.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct F32Scratch {  // float offsets into the f32 backward's scratch
+  long long xn, u, a, du, dxn, part_out, part_in, part_g, floats;
+};
+
+F32Scratch f32_scratch_of(int mode, int m, int d, int hid, int d_out) {
+  const long long sp = simt_f32::splits_for(m);
+  F32Scratch s{};
+  if (mode == 0) {
+    s.xn = 0;
+    s.u = s.xn + (long long)m * d;
+    s.a = s.u + 2LL * m * hid;
+    s.du = s.a + (long long)m * hid;
+    s.dxn = s.du + 2LL * m * hid;
+    s.part_out = s.dxn + (long long)m * d;                   // dW_out [d, I]
+    s.part_in = s.part_out + sp * d * hid;                    // dW_in [2I, d]
+    s.part_g = s.part_in + sp * 2LL * hid * d;                // dgamma, a partial a LayerNorm block
+    s.floats = s.part_g + (long long)simt_f32::ln_blocks(m) * d;
+  } else {
+    s.u = 0;                                                  // h
+    s.a = s.u + (long long)m * hid;
+    s.du = s.a + (long long)m * hid;                          // dh
+    s.part_out = s.du + (long long)m * hid;                   // dW2 [O, H]
+    s.part_in = s.part_out + sp * d_out * hid;                // dW1 [H, d]
+    s.part_g = s.part_in + sp * (long long)hid * d;           // db2 [O], then db1 [H]
+    s.floats = s.part_g + sp * (long long)(d_out + hid);
+  }
+  return s;
+}
+
+}  // namespace
+
+// Floats of the f32 backward's scratch (mode 0 GEGLU, 1 MLP); -1 for a mode
+// it does not know
+extern "C" long long ffn_bwd_f32_scratch_floats(int mode, int m, int d, int hid, int d_out) {
+  if (mode != 0 && mode != 1) return -1;
+  return f32_scratch_of(mode, m, d, hid, d_out).floats;
+}
+
+// GEGLU in f32: x, dy, dx [M, d]; gamma, dgamma [d]; w_in, dw_in [2I, d];
+// w_out, dw_out [d, I]; scratch: ffn_bwd_f32_scratch_floats(0, ...) floats
+extern "C" int geglu_ffn_bwd_f32(const void* x, const void* gamma, const void* w_in, const void* w_out,
+                                 const void* dy, void* dx, void* dgamma, void* dw_in, void* dw_out, void* scratch,
+                                 int m, int d, int inner, void* stream) {
+  using namespace simt_f32;
+  const F32Scratch sc = f32_scratch_of(0, m, d, inner, d);
+  float* p = static_cast<float*>(scratch);
+  const float* xp = static_cast<const float*>(x);
+  const float* g = static_cast<const float*>(gamma);
+  const float* wi = static_cast<const float*>(w_in);
+  const float* wo = static_cast<const float*>(w_out);
+  const float* dyp = static_cast<const float*>(dy);
+  float *xn = p + sc.xn, *u = p + sc.u, *a = p + sc.a, *du = p + sc.du, *dxn = p + sc.dxn;
+  const long long i2 = 2LL * inner;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = ln_fwd(xp, g, xn, m, d, s);
+  if (err == cudaSuccess) err = product_store(Mat{xn, d, 1}, Mat{wi, 1, d}, u, i2, m, 2 * inner, d, nullptr,
+                                              nullptr, 0, s);
+  if (err == cudaSuccess) err = act(u, a, m, inner, true, s);
+  if (err == cudaSuccess)  // da = dy W_out, then du from u in the epilogue
+    err = product<EPI_DGEGLU>(Mat{dyp, d, 1}, Mat{wo, inner, 1}, Out{du, i2, nullptr, nullptr, 0, u, i2, 0}, m,
+                              inner, d, s);
+  if (err == cudaSuccess) err = weight_grad_partials(dyp, d, a, inner, m, d, inner, p + sc.part_out, s);
+  if (err == cudaSuccess) err = weight_grad_partials(du, i2, xn, d, m, 2 * inner, d, p + sc.part_in, s);
+  if (err == cudaSuccess) err = product_store(Mat{du, i2, 1}, Mat{wi, d, 1}, dxn, d, m, d, 2 * inner, nullptr,
+                                              nullptr, 0, s);
+  if (err == cudaSuccess) err = ln_bwd(xp, g, dxn, nullptr, static_cast<float*>(dx), p + sc.part_g, m, d, s);
+  if (err == cudaSuccess) {
+    const int sp = splits_for(m);
+    Segments segs{{{p + sc.part_out, sp, (long long)d * inner, static_cast<float*>(dw_out)},
+                   {p + sc.part_in, sp, i2 * d, static_cast<float*>(dw_in)},
+                   {p + sc.part_g, ln_blocks(m), d, static_cast<float*>(dgamma)}},
+                  3};
+    err = reduce(segs, s);
+  }
+  return (int)err;
+}
+
+// MLP in f32: x, dx [M, d]; w1, dw1 [H, d]; b1, db1 [H]; w2, dw2 [O, H]; db2
+// [O]; dy [M, O]; scratch: ffn_bwd_f32_scratch_floats(1, ...) floats
+extern "C" int mlp_ffn_bwd_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* dy,
+                               void* dx, void* dw1, void* db1, void* dw2, void* db2, void* scratch, int m, int d,
+                               int hidden, int d_out, void* stream) {
+  using namespace simt_f32;
+  const F32Scratch sc = f32_scratch_of(1, m, d, hidden, d_out);
+  float* p = static_cast<float*>(scratch);
+  const float* xp = static_cast<const float*>(x);
+  const float* w1p = static_cast<const float*>(w1);
+  const float* dyp = static_cast<const float*>(dy);
+  float *h = p + sc.u, *a = p + sc.a, *dh = p + sc.du;
+  const int sp = splits_for(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = product_store(Mat{xp, d, 1}, Mat{w1p, 1, d}, h, hidden, m, hidden, d,
+                                  static_cast<const float*>(b1), nullptr, 0, s);
+  if (err == cudaSuccess) err = act(h, a, m, hidden, false, s);
+  if (err == cudaSuccess)
+    err = product<EPI_DGELU>(Mat{dyp, d_out, 1}, Mat{static_cast<const float*>(w2), hidden, 1},
+                             Out{dh, hidden, nullptr, nullptr, 0, h, hidden, 0}, m, hidden, d_out, s);
+  if (err == cudaSuccess) err = weight_grad_partials(dyp, d_out, a, hidden, m, d_out, hidden, p + sc.part_out, s);
+  if (err == cudaSuccess) err = weight_grad_partials(dh, hidden, xp, d, m, hidden, d, p + sc.part_in, s);
+  if (err == cudaSuccess) err = colsum_partials(dyp, d_out, m, d_out, p + sc.part_g, s);
+  if (err == cudaSuccess) err = colsum_partials(dh, hidden, m, hidden, p + sc.part_g + (long long)sp * d_out, s);
+  if (err == cudaSuccess) err = product_store(Mat{dh, hidden, 1}, Mat{w1p, d, 1}, static_cast<float*>(dx), d, m, d,
+                                              hidden, nullptr, nullptr, 0, s);
+  if (err == cudaSuccess) {
+    Segments segs{{{p + sc.part_out, sp, (long long)d_out * hidden, static_cast<float*>(dw2)},
+                   {p + sc.part_in, sp, (long long)hidden * d, static_cast<float*>(dw1)},
+                   {p + sc.part_g, sp, d_out, static_cast<float*>(db2)},
+                   {p + sc.part_g + (long long)sp * d_out, sp, hidden, static_cast<float*>(db1)}},
+                  4};
+    err = reduce(segs, s);
+  }
+  return (int)err;
 }

@@ -42,6 +42,12 @@
 // (position, head), 2-byte accesses and each slot's loads feeding two warp
 // reductions before the next slot's were needed kept few bytes in flight:
 // 41-43% of the HBM rate of an H100.)
+//
+// The f32 instance (fusion_row_attention_f32, fusion_row_attention_bwd_f32)
+// is the same kernels on float elements (Elem<float>: 4 channels a lane by
+// 16-byte accesses, DH / 4 lanes a (position, head)), for the f32 paths the
+// TPU kernel also takes; its rounding points are no-ops, so every product
+// and sum is f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,12 +110,64 @@ __device__ __forceinline__ void round8(float (&f)[8]) {
   unpack8(pack8(f), f);
 }
 
-// Thread i of the grid owns channels [8 i, 8 i + 8) of q and of out (or
-// dO and dq), which are channels 8 (i % LP) .. of head h of row
-// (b, pos), with (b * F + pos) * heads + h = i / LP, LP = DH / 8 lanes a
-// head. A thread past the end takes the last thread's channels and writes
-// nothing; the heads are whole, so its shuffles reach no live lane.
-template <int DH, int T>
+// The element type's channels a lane (CH, one 16-byte access where VEC),
+// their conversions to and from f32, and the rounding to the element type
+// at the cast points (none for float)
+template <typename E>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  static constexpr int CH = 8;
+  using Vec = uint4;
+  template <bool VEC>
+  static __device__ __forceinline__ Vec load(const bf16* p) { return load8<VEC>(p); }
+  template <bool VEC>
+  static __device__ __forceinline__ void store(bf16* p, Vec v) { store8<VEC>(p, v); }
+  static __device__ __forceinline__ void unpack(Vec v, float (&f)[CH]) { unpack8(v, f); }
+  static __device__ __forceinline__ Vec pack(const float (&f)[CH]) { return pack8(f); }
+  static __device__ __forceinline__ void round(float (&f)[CH]) { round8(f); }
+  static __device__ __forceinline__ float round1(float x) { return __bfloat162float(__float2bfloat16(x)); }
+};
+
+template <>
+struct Elem<float> {
+  static constexpr int CH = 4;
+  using Vec = float4;
+  template <bool VEC>
+  static __device__ __forceinline__ Vec load(const float* p) {
+    if constexpr (VEC) return *reinterpret_cast<const float4*>(p);
+    else return make_float4(p[0], p[1], p[2], p[3]);
+  }
+  template <bool VEC>
+  static __device__ __forceinline__ void store(float* p, Vec v) {
+    if constexpr (VEC) {
+      *reinterpret_cast<float4*>(p) = v;
+    } else {
+      p[0] = v.x;
+      p[1] = v.y;
+      p[2] = v.z;
+      p[3] = v.w;
+    }
+  }
+  static __device__ __forceinline__ void unpack(Vec v, float (&f)[CH]) {
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  }
+  static __device__ __forceinline__ Vec pack(const float (&f)[CH]) { return make_float4(f[0], f[1], f[2], f[3]); }
+  static __device__ __forceinline__ void round(float (&)[CH]) {}
+  static __device__ __forceinline__ float round1(float x) { return x; }
+};
+
+// Thread i of the grid owns channels [CH i, CH i + CH) of q and of out (or
+// dO and dq), which are channels CH (i % LP) .. of head h of row
+// (b, pos), with (b * F + pos) * heads + h = i / LP, LP = DH / CH lanes a
+// head (CH = 8 for bf16, 4 for f32). A thread past the end takes the last
+// thread's channels and writes nothing; the heads are whole, so its
+// shuffles reach no live lane.
+template <int DH, int T, int CH>
 struct Lane {
   bool live;
   long long ti;  // the thread whose channels these are
@@ -119,48 +177,49 @@ struct Lane {
     const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
     live = i < threads;
     ti = live ? i : threads - 1;
-    const long long unit = ti / (DH / 8), row = unit / heads;  // row = b * F + pos
+    const long long unit = ti / (DH / CH), row = unit / heads;  // row = b * F + pos
     const int inner = heads * DH;
     const long long b = row / f, pos = row % f;
-    const int c = (int)(unit % heads) * DH + (int)(ti % (DH / 8)) * 8;  // the first channel in a row of I
+    const int c = (int)(unit % heads) * DH + (int)(ti % (DH / CH)) * CH;  // the first channel in a row of I
 #pragma unroll
     for (int t = 0; t < T; ++t) kv[t] = (b * T * f + (long long)t * f + pos) * 2 * inner + c;
     kv[T] = row * 2 * inner + c;
   }
 };
 
-template <int DH, int T, bool VEC>
-__device__ __forceinline__ void fusion_row_fwd(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
-                                               const bf16* __restrict__ kv_f, bf16* __restrict__ out,
-                                               long long threads, int f, int heads, float scale) {
-  constexpr int LP = DH / 8;
-  const Lane<DH, T> lane(threads, f, heads);
+template <typename E, int DH, int T, bool VEC>
+__device__ __forceinline__ void fusion_row_fwd(const E* __restrict__ q, const E* __restrict__ kv_grid,
+                                               const E* __restrict__ kv_f, E* __restrict__ out, long long threads,
+                                               int f, int heads, float scale) {
+  using X = Elem<E>;
+  constexpr int CH = X::CH, LP = DH / CH;
+  const Lane<DH, T, CH> lane(threads, f, heads);
   const int inner = heads * DH;
 
   // every load first: q, and each slot's k and v (slot T: the fusion token's own)
-  const uint4 q8 = load8<VEC>(q + lane.ti * 8);
-  uint4 k8[T + 1], v8[T + 1];
+  const typename X::Vec q8 = X::template load<VEC>(q + lane.ti * CH);
+  typename X::Vec k8[T + 1], v8[T + 1];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    const bf16* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
-    k8[t] = load8<VEC>(src);
-    v8[t] = load8<VEC>(src + inner);
+    const E* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
+    k8[t] = X::template load<VEC>(src);
+    v8[t] = X::template load<VEC>(src + inner);
   }
 
-  // q * scale rounded to bf16, read as f32; keys in f32
-  float qs[8];
-  unpack8(q8, qs);
+  // q * scale rounded to the element type, read as f32; keys in f32
+  float qs[CH];
+  X::unpack(q8, qs);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) qs[j] *= scale;
-  round8(qs);
+  for (int j = 0; j < CH; ++j) qs[j] *= scale;
+  X::round(qs);
   float attn[T + 1];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    float kf[8];
-    unpack8(k8[t], kf);
+    float kf[CH];
+    X::unpack(k8[t], kf);
     float s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s += qs[j] * kf[j];
+    for (int j = 0; j < CH; ++j) s += qs[j] * kf[j];
     attn[t] = s;
   }
   // the sums over the head's LP lanes
@@ -178,53 +237,53 @@ __device__ __forceinline__ void fusion_row_fwd(const bf16* __restrict__ q, const
     denom += attn[t];
   }
 
-  // the mix in bf16: each weight, each product a * v and the running sum
-  // (from slot 0 on) rounded to bf16
-  float acc[8];
+  // the mix in the element type: each weight, each product a * v and the
+  // running sum (from slot 0 on) rounded to it
+  float acc[CH];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    const float a = __bfloat162float(__float2bfloat16(attn[t] / denom));
-    float prod[8];
-    unpack8(v8[t], prod);
+    const float a = X::round1(attn[t] / denom);
+    float prod[CH];
+    X::unpack(v8[t], prod);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) prod[j] *= a;
-    round8(prod);
+    for (int j = 0; j < CH; ++j) prod[j] *= a;
+    X::round(prod);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = t == 0 ? prod[j] : acc[j] + prod[j];
-    if (t > 0) round8(acc);
+    for (int j = 0; j < CH; ++j) acc[j] = t == 0 ? prod[j] : acc[j] + prod[j];
+    if (t > 0) X::round(acc);
   }
-  if (lane.live) store8<VEC>(out + lane.ti * 8, pack8(acc));
+  if (lane.live) X::template store<VEC>(out + lane.ti * CH, X::pack(acc));
 }
 
-template <int DH, int T>
+template <typename E, int DH, int T>
 __global__ void __launch_bounds__(THREADS)
-fusion_row_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid, const bf16* __restrict__ kv_f,
-                  bf16* __restrict__ out, long long threads, int f, int heads, float scale, bool vec) {
+fusion_row_kernel(const E* __restrict__ q, const E* __restrict__ kv_grid, const E* __restrict__ kv_f,
+                  E* __restrict__ out, long long threads, int f, int heads, float scale, bool vec) {
   if (vec)
-    fusion_row_fwd<DH, T, true>(q, kv_grid, kv_f, out, threads, f, heads, scale);
+    fusion_row_fwd<E, DH, T, true>(q, kv_grid, kv_f, out, threads, f, heads, scale);
   else
-    fusion_row_fwd<DH, T, false>(q, kv_grid, kv_f, out, threads, f, heads, scale);
+    fusion_row_fwd<E, DH, T, false>(q, kv_grid, kv_f, out, threads, f, heads, scale);
 }
 
-template <int DH, int T>
-cudaError_t launch_slots(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* out, int batch, int f,
-                         int heads, float scale, cudaStream_t stream) {
-  const long long threads = (long long)batch * f * heads * (DH / 8);
+template <typename E, int DH, int T>
+cudaError_t launch_slots(const E* q, const E* kv_grid, const E* kv_f, E* out, int batch, int f, int heads,
+                         float scale, cudaStream_t stream) {
+  const long long threads = (long long)batch * f * heads * (DH / Elem<E>::CH);
   // 16-byte accesses where every operand starts on 16 bytes (rows of I and
-  // 2I bf16 keep that alignment: I is a multiple of 32)
+  // 2I elements keep that alignment: I is a multiple of 32)
   const bool vec = ((uintptr_t)q | (uintptr_t)kv_grid | (uintptr_t)kv_f | (uintptr_t)out) % 16 == 0;
-  fusion_row_kernel<DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+  fusion_row_kernel<E, DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       q, kv_grid, kv_f, out, threads, f, heads, scale, vec);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* out, int batch, int f, int t_mod,
-                   int heads, float scale, cudaStream_t stream) {
+template <typename E, int DH>
+cudaError_t launch(const E* q, const E* kv_grid, const E* kv_f, E* out, int batch, int f, int t_mod, int heads,
+                   float scale, cudaStream_t stream) {
   switch (t_mod) {
 #define SLOTS(T) \
   case T:        \
-    return launch_slots<DH, T>(q, kv_grid, kv_f, out, batch, f, heads, scale, stream);
+    return launch_slots<E, DH, T>(q, kv_grid, kv_f, out, batch, f, heads, scale, stream);
     SLOTS(1) SLOTS(2) SLOTS(3) SLOTS(4) SLOTS(5) SLOTS(6) SLOTS(7) SLOTS(8)
 #undef SLOTS
     default:
@@ -232,40 +291,41 @@ cudaError_t launch(const bf16* q, const bf16* kv_grid, const bf16* kv_f, bf16* o
   }
 }
 
-template <int DH, int T, bool VEC>
-__device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid,
-                                               const bf16* __restrict__ kv_f, const bf16* __restrict__ dout,
-                                               bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
-                                               bf16* __restrict__ dkv_f, long long threads, int f, int heads,
-                                               float scale) {
-  constexpr int LP = DH / 8;
-  const Lane<DH, T> lane(threads, f, heads);
+template <typename E, int DH, int T, bool VEC>
+__device__ __forceinline__ void fusion_row_bwd(const E* __restrict__ q, const E* __restrict__ kv_grid,
+                                               const E* __restrict__ kv_f, const E* __restrict__ dout,
+                                               E* __restrict__ dq, E* __restrict__ dkv_grid, E* __restrict__ dkv_f,
+                                               long long threads, int f, int heads, float scale) {
+  using X = Elem<E>;
+  constexpr int CH = X::CH, LP = DH / CH;
+  const Lane<DH, T, CH> lane(threads, f, heads);
   const int inner = heads * DH;
 
   // every load first: q, dO, and each slot's k and v (slot T: the fusion token's own)
-  const uint4 q8 = load8<VEC>(q + lane.ti * 8), do8 = load8<VEC>(dout + lane.ti * 8);
-  uint4 k8[T + 1], v8[T + 1];
+  const typename X::Vec q8 = X::template load<VEC>(q + lane.ti * CH),
+                        do8 = X::template load<VEC>(dout + lane.ti * CH);
+  typename X::Vec k8[T + 1], v8[T + 1];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    const bf16* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
-    k8[t] = load8<VEC>(src);
-    v8[t] = load8<VEC>(src + inner);
+    const E* src = (t < T ? kv_grid : kv_f) + lane.kv[t];
+    k8[t] = X::template load<VEC>(src);
+    v8[t] = X::template load<VEC>(src + inner);
   }
 
-  float qs[8], dos[8];
-  unpack8(q8, qs);
-  unpack8(do8, dos);
+  float qs[CH], dos[CH];
+  X::unpack(q8, qs);
+  X::unpack(do8, dos);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) qs[j] = __bfloat162float(__float2bfloat16(qs[j] * scale));
+  for (int j = 0; j < CH; ++j) qs[j] = X::round1(qs[j] * scale);
   float attn[T + 1], dattn[T + 1];
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
-    float kf[8], vf[8];
-    unpack8(k8[t], kf);
-    unpack8(v8[t], vf);
+    float kf[CH], vf[CH];
+    X::unpack(k8[t], kf);
+    X::unpack(v8[t], vf);
     float s = 0.0f, da = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < CH; ++j) {
       s += qs[j] * kf[j];
       da += dos[j] * vf[j];
     }
@@ -296,69 +356,113 @@ __device__ __forceinline__ void fusion_row_bwd(const bf16* __restrict__ q, const
     mix += attn[t] * dattn[t];
   }
 
-  float dqs[8];
+  float dqs[CH];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dqs[j] = 0.0f;
+  for (int j = 0; j < CH; ++j) dqs[j] = 0.0f;
 #pragma unroll
   for (int t = 0; t <= T; ++t) {
     const float ds = attn[t] * (dattn[t] - mix);
-    const float ab = __bfloat162float(__float2bfloat16(attn[t]));
-    float kf[8], dk[8], dv[8];
-    unpack8(k8[t], kf);
+    const float ab = X::round1(attn[t]);
+    float kf[CH], dk[CH], dv[CH];
+    X::unpack(k8[t], kf);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < CH; ++j) {
       dqs[j] += ds * kf[j];
       dk[j] = ds * qs[j];
       dv[j] = ab * dos[j];
     }
     if (lane.live) {
-      bf16* dst = (t < T ? dkv_grid : dkv_f) + lane.kv[t];
-      store8<VEC>(dst, pack8(dk));
-      store8<VEC>(dst + inner, pack8(dv));
+      E* dst = (t < T ? dkv_grid : dkv_f) + lane.kv[t];
+      X::template store<VEC>(dst, X::pack(dk));
+      X::template store<VEC>(dst + inner, X::pack(dv));
     }
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) dqs[j] *= scale;
-  if (lane.live) store8<VEC>(dq + lane.ti * 8, pack8(dqs));
+  for (int j = 0; j < CH; ++j) dqs[j] *= scale;
+  if (lane.live) X::template store<VEC>(dq + lane.ti * CH, X::pack(dqs));
 }
 
-template <int DH, int T>
+template <typename E, int DH, int T>
 __global__ void __launch_bounds__(THREADS)
-fusion_row_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kv_grid, const bf16* __restrict__ kv_f,
-                      const bf16* __restrict__ dout, bf16* __restrict__ dq, bf16* __restrict__ dkv_grid,
-                      bf16* __restrict__ dkv_f, long long threads, int f, int heads, float scale, bool vec) {
+fusion_row_bwd_kernel(const E* __restrict__ q, const E* __restrict__ kv_grid, const E* __restrict__ kv_f,
+                      const E* __restrict__ dout, E* __restrict__ dq, E* __restrict__ dkv_grid,
+                      E* __restrict__ dkv_f, long long threads, int f, int heads, float scale, bool vec) {
   if (vec)
-    fusion_row_bwd<DH, T, true>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
+    fusion_row_bwd<E, DH, T, true>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
   else
-    fusion_row_bwd<DH, T, false>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
+    fusion_row_bwd<E, DH, T, false>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale);
 }
 
-template <int DH, int T>
-cudaError_t launch_bwd_slots(const bf16* q, const bf16* kv_grid, const bf16* kv_f, const bf16* dout, bf16* dq,
-                             bf16* dkv_grid, bf16* dkv_f, int batch, int f, int heads, float scale,
-                             cudaStream_t stream) {
-  const long long threads = (long long)batch * f * heads * (DH / 8);
+template <typename E, int DH, int T>
+cudaError_t launch_bwd_slots(const E* q, const E* kv_grid, const E* kv_f, const E* dout, E* dq, E* dkv_grid,
+                             E* dkv_f, int batch, int f, int heads, float scale, cudaStream_t stream) {
+  const long long threads = (long long)batch * f * heads * (DH / Elem<E>::CH);
   // 16-byte accesses where every operand starts on 16 bytes (rows of I and
-  // 2I bf16 keep that alignment: I is a multiple of 32)
+  // 2I elements keep that alignment: I is a multiple of 32)
   const bool vec = ((uintptr_t)q | (uintptr_t)kv_grid | (uintptr_t)kv_f | (uintptr_t)dout | (uintptr_t)dq |
                     (uintptr_t)dkv_grid | (uintptr_t)dkv_f) % 16 == 0;
-  fusion_row_bwd_kernel<DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+  fusion_row_bwd_kernel<E, DH, T><<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, threads, f, heads, scale, vec);
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_bwd(const bf16* q, const bf16* kv_grid, const bf16* kv_f, const bf16* dout, bf16* dq,
-                       bf16* dkv_grid, bf16* dkv_f, int batch, int f, int t_mod, int heads, float scale,
-                       cudaStream_t stream) {
+template <typename E, int DH>
+cudaError_t launch_bwd(const E* q, const E* kv_grid, const E* kv_f, const E* dout, E* dq, E* dkv_grid, E* dkv_f,
+                       int batch, int f, int t_mod, int heads, float scale, cudaStream_t stream) {
   switch (t_mod) {
 #define SLOTS(T) \
   case T:        \
-    return launch_bwd_slots<DH, T>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, batch, f, heads, scale, stream);
+    return launch_bwd_slots<E, DH, T>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, batch, f, heads, scale, stream);
     SLOTS(1) SLOTS(2) SLOTS(3) SLOTS(4) SLOTS(5) SLOTS(6) SLOTS(7) SLOTS(8)
 #undef SLOTS
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// The entries of one element type: dh dispatch
+template <typename E>
+int forward(const void* q, const void* kv_grid, const void* kv_f, void* out, int batch, int f, int t_mod, int heads,
+            int dh, float scale, void* stream) {
+  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
+  const E* qp = static_cast<const E*>(q);
+  const E* gp = static_cast<const E*>(kv_grid);
+  const E* fp = static_cast<const E*>(kv_f);
+  E* op = static_cast<E*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32:
+      return (int)launch<E, 32>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
+    case 64:
+      return (int)launch<E, 64>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
+    case 128:
+      return (int)launch<E, 128>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int backward(const void* q, const void* kv_grid, const void* kv_f, const void* dout, void* dq, void* dkv_grid,
+             void* dkv_f, int batch, int f, int t_mod, int heads, int dh, float scale, void* stream) {
+  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
+  const E* qp = static_cast<const E*>(q);
+  const E* gp = static_cast<const E*>(kv_grid);
+  const E* fp = static_cast<const E*>(kv_f);
+  const E* dp = static_cast<const E*>(dout);
+  E* dqp = static_cast<E*>(dq);
+  E* dgp = static_cast<E*>(dkv_grid);
+  E* dfp = static_cast<E*>(dkv_f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32:
+      return (int)launch_bwd<E, 32>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
+    case 64:
+      return (int)launch_bwd<E, 64>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
+    case 128:
+      return (int)launch_bwd<E, 128>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -369,22 +473,7 @@ cudaError_t launch_bwd(const bf16* q, const bf16* kv_grid, const bf16* kv_f, con
 extern "C" int fusion_row_attention_bf16(const void* q, const void* kv_grid, const void* kv_f, void* out,
                                          int batch, int f, int t_mod, int heads, int dh, float scale,
                                          void* stream) {
-  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* gp = static_cast<const bf16*>(kv_grid);
-  const bf16* fp = static_cast<const bf16*>(kv_f);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32:
-      return (int)launch<32>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
-    case 64:
-      return (int)launch<64>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
-    case 128:
-      return (int)launch<128>(qp, gp, fp, op, batch, f, t_mod, heads, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return forward<bf16>(q, kv_grid, kv_f, out, batch, f, t_mod, heads, dh, scale, stream);
 }
 
 // Backward: dout [B, F, I] -> dq [B, F, I], dkv_grid [B, T*F, 2I],
@@ -393,23 +482,17 @@ extern "C" int fusion_row_attention_bwd_bf16(const void* q, const void* kv_grid,
                                              const void* dout, void* dq, void* dkv_grid, void* dkv_f,
                                              int batch, int f, int t_mod, int heads, int dh, float scale,
                                              void* stream) {
-  if (t_mod < 1 || t_mod + 1 > MAX_SLOTS || heads < 1) return (int)cudaErrorInvalidValue;
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* gp = static_cast<const bf16*>(kv_grid);
-  const bf16* fp = static_cast<const bf16*>(kv_f);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  bf16* dqp = static_cast<bf16*>(dq);
-  bf16* dgp = static_cast<bf16*>(dkv_grid);
-  bf16* dfp = static_cast<bf16*>(dkv_f);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 32:
-      return (int)launch_bwd<32>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
-    case 64:
-      return (int)launch_bwd<64>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
-    case 128:
-      return (int)launch_bwd<128>(qp, gp, fp, dp, dqp, dgp, dfp, batch, f, t_mod, heads, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return backward<bf16>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, batch, f, t_mod, heads, dh, scale, stream);
+}
+
+// The f32 instances: the same operands, all contiguous f32.
+extern "C" int fusion_row_attention_f32(const void* q, const void* kv_grid, const void* kv_f, void* out, int batch,
+                                        int f, int t_mod, int heads, int dh, float scale, void* stream) {
+  return forward<float>(q, kv_grid, kv_f, out, batch, f, t_mod, heads, dh, scale, stream);
+}
+
+extern "C" int fusion_row_attention_bwd_f32(const void* q, const void* kv_grid, const void* kv_f, const void* dout,
+                                            void* dq, void* dkv_grid, void* dkv_f, int batch, int f, int t_mod,
+                                            int heads, int dh, float scale, void* stream) {
+  return backward<float>(q, kv_grid, kv_f, dout, dq, dkv_grid, dkv_f, batch, f, t_mod, heads, dh, scale, stream);
 }

@@ -124,7 +124,12 @@
 //
 // cudaFuncSetAttribute runs once per kernel instantiation and device
 // (allow_smem), not per launch.
+//
+// f32: zorro_attention_f32 and zorro_attention_bwd_f32 take the same views
+// in f32 (zorro_attention_f32.cuh: the same mask, quirks and two-kernel
+// backward, every product and sum in f32 on the CUDA cores).
 #include "zorro_attention.cuh"
+#include "zorro_attention_f32.cuh"
 
 using zorro::bf16;
 
@@ -180,6 +185,51 @@ extern "C" int zorro_attention_bwd_bf16(const void* q, const void* k, const void
                                                        types_bstride, scale, fusion_type, s);
   return (int)zorro::dispatch_bwd<zorro::MODE_NONE>(dh, in, t, a, nt, op, l, d, grad, dl, 0, batch, n, heads,
                                                     types_bstride, scale, fusion_type, s);
+}
+
+// The f32 instances: the same arguments as zorro_attention_bf16 and
+// zorro_attention_bwd_bf16, every tensor but types and the table f32.
+extern "C" int zorro_attention_f32(const void* q, const void* k, const void* v, long long bstride,
+                                   long long rstride, const void* types, const void* active, int nt, void* out,
+                                   void* lse, int batch, int n, int heads, int dh, long long out_bstride,
+                                   long long out_rstride, long long types_bstride, float scale, int fusion_type,
+                                   int masked, void* stream) {
+  const zorro::Operands32 in{static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), bstride, rstride};
+  const int32_t* t = static_cast<const int32_t*>(types);
+  const int32_t* a = static_cast<const int32_t*>(active);
+  float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (masked)
+    return (int)zorro::dispatch_f32<zorro::MODE_ZORRO>(dh, in, t, a, nt, o, l, batch, n, heads, out_bstride,
+                                                       out_rstride, types_bstride, scale, fusion_type, s);
+  return (int)zorro::dispatch_f32<zorro::MODE_NONE>(dh, in, t, a, nt, o, l, batch, n, heads, out_bstride,
+                                                    out_rstride, types_bstride, scale, fusion_type, s);
+}
+
+extern "C" int zorro_attention_bwd_f32(const void* q, const void* k, const void* v, long long bstride,
+                                       long long rstride, const void* types, const void* active, int nt,
+                                       const void* o, const void* lse, const void* dout, void* dq, void* dk,
+                                       void* dv, long long g_bstride, long long g_rstride, void* delta, int batch,
+                                       int n, int heads, int dh, long long types_bstride, float scale,
+                                       int fusion_type, int masked, void* stream) {
+  const zorro::Operands32 in{static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), bstride, rstride};
+  const zorro::GradOperands32 grad{static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                                   g_bstride, g_rstride};
+  const int32_t* t = static_cast<const int32_t*>(types);
+  const int32_t* a = static_cast<const int32_t*>(active);
+  const float* op = static_cast<const float*>(o);
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(dout);
+  float* dl = static_cast<float*>(delta);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (masked)
+    return (int)zorro::dispatch_bwd_f32<zorro::MODE_ZORRO>(dh, in, t, a, nt, op, l, d, grad, dl, batch, n, heads,
+                                                           types_bstride, scale, fusion_type, s);
+  return (int)zorro::dispatch_bwd_f32<zorro::MODE_NONE>(dh, in, t, a, nt, op, l, d, grad, dl, batch, n, heads,
+                                                        types_bstride, scale, fusion_type, s);
 }
 
 // Dynamic shared memory of one block, in bytes: kernel 0 the forward, 1 the

@@ -6,10 +6,16 @@ matcher_ins.py:70-175).
     masks [B, G, H, W], valid [B, G]); padded target columns get the
     constant ``PAD_COST``, so their assignment is interchangeable and the
     real columns' assignment stays optimal.
-  * Matching is exact: scipy's ``linear_sum_assignment`` on the host, as the
-    reference does (matcher_ins.py:147). The costs of every prediction level
-    are computed first and copied to the host once (``set_criterion_costs``),
-    one scipy pass assigns them all.
+  * Matching (``match_mode``): 'exact' is scipy's ``linear_sum_assignment``
+    on the host, as the reference does (matcher_ins.py:147): the costs of
+    every prediction level are computed first and copied to the host once
+    (``set_criterion_costs``), one scipy pass assigns them all. 'greedy'
+    and 'auction' (the JAX package's on-device assignments) run on the
+    cost's device over every level and image at once.
+  * ``dense_masks`` (the semantic criterion, criterion_seg.py:169-204): the
+    mask losses over the whole masks, the targets resized to the
+    predictions' size by nearest neighbour at half-pixel centres, no
+    PointRend points.
   * PointRend uncertainty point sampling (12544 points, oversample 3.0,
     importance 0.75) with exact ``torch.topk``; point sampling runs kernels
     K5 / K5b through ``ops.cuda_points.PointSampleFunction`` (``impl``
@@ -23,8 +29,6 @@ int that plays a JAX key's part: both derive the same per-level generators
 from it (level li: its matcher points from ``(key, li, 0)``, its PointRend
 points from ``(key, li, 1)``), so host assignments made from
 ``set_criterion_costs(key)`` are what ``set_criterion(key)`` would make.
-Not ported yet: the 'greedy' and 'auction' matchers and ``dense_masks``
-(the semantic criterion); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -131,12 +135,103 @@ def scipy_assign_host(cost: np.ndarray) -> np.ndarray:
     return out.reshape(lead + out.shape[1:])
 
 
+def greedy_assign(cost: torch.Tensor) -> torch.Tensor:
+    """On-device greedy assignment (JAX ``_greedy_assign``,
+    set_criterion.py:141): G times, the globally cheapest (q, g) pair of
+    each [Q, G] matrix is taken (the first in row-major order among equal
+    costs, as ``jnp.argmin``; padded columns too) and its row and column
+    are closed. cost [..., Q, G] -> [..., G] int64; no host sync."""
+    lead, (q, g) = cost.shape[:-2], cost.shape[-2:]
+    c = cost.detach().reshape(-1, q, g).clone()
+    n = c.shape[0]
+    rows = torch.arange(n, device=c.device)
+    out = torch.zeros((n, g), dtype=torch.int64, device=c.device)
+    for _ in range(g):
+        flat = c.reshape(n, q * g).argmin(dim=1)
+        qi, gi = flat // g, flat % g
+        out[rows, gi] = qi
+        c[rows, qi, :] = float("inf")
+        c[rows, :, gi] = float("inf")
+    return out.reshape(*lead, g)
+
+
+AUCTION_CHECK_EVERY = 25  # auction rounds between two looks at the host's "all assigned?"
+
+
+def auction_assign(cost: torch.Tensor, eps_scale: float = 1e-3, max_iters: int = 500) -> torch.Tensor:
+    """On-device Bertsekas auction with Jacobi bidding (JAX
+    ``_auction_assign``, set_criterion.py:165): the targets bid for
+    queries with eps = eps_scale * the value spread, at most ``max_iters``
+    rounds, then a greedy fill of any target left unassigned; within G eps
+    of the optimum. cost [..., Q, G] -> [..., G] int64.
+
+    How the loop ends: a round in which no target is unassigned changes
+    nothing (no bidder, so no bid, price or owner moves), so a finished
+    image may run on and still give JAX's result exactly, as JAX's vmapped
+    while loop freezes it. Every ``AUCTION_CHECK_EVERY`` rounds the host
+    reads whether any target of any image is still unassigned (one sync
+    each time) and stops if none is; else the rounds stop at ``max_iters``.
+    Ties go to the lowest index, as ``jnp.argmax`` and ``lax.top_k`` give
+    them: the top two bids are argmax, mask, max (``torch.topk`` promises
+    no order among ties)."""
+    lead, (q, g) = cost.shape[:-2], cost.shape[-2:]
+    c = cost.detach().float().reshape(-1, q, g)
+    n, dev = c.shape[0], c.device
+    value = -c.transpose(1, 2)  # [N, G, Q], maximized
+    spread = torch.clamp(value.amax(dim=(1, 2)) - value.amin(dim=(1, 2)), min=1e-6)
+    eps = (eps_scale * spread)[:, None]
+    ar_q, ar_g = torch.arange(q, device=dev), torch.arange(g, device=dev)
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    prices = torch.zeros((n, q), device=dev)
+    owner = torch.full((n, q), -1, dtype=torch.int64, device=dev)
+    assigned = torch.full((n, g), -1, dtype=torch.int64, device=dev)
+    for it in range(max_iters):
+        if it % AUCTION_CHECK_EVERY == 0 and not bool((assigned < 0).any()):
+            break
+        net = value - prices[:, None, :]  # [N, G, Q]
+        best_q = net.argmax(dim=2)  # [N, G]
+        best_v = net.gather(2, best_q[..., None])[..., 0]
+        second_v = net.scatter(2, best_q[..., None], float("-inf")).amax(dim=2)
+        bid = prices.gather(1, best_q) + best_v - second_v + eps  # [N, G]
+        bidding = assigned < 0
+        bid_mat = torch.where(bidding[..., None] & (best_q[..., None] == ar_q), bid[..., None], neg_inf)
+        got_bid = torch.isfinite(bid_mat).any(dim=1)  # [N, Q]
+        winner_g = bid_mat.argmax(dim=1)
+        winner_bid = bid_mat.amax(dim=1)
+        # the previous owners of the queries that got a bid lose them
+        lost = torch.where(got_bid, owner, torch.full_like(owner, -2))
+        assigned = torch.where((ar_g[None, :, None] == lost[:, None, :]).any(dim=2), -1, assigned)
+        owner = torch.where(got_bid, winner_g, owner)
+        prices = torch.where(got_bid, winner_bid, prices)
+        upd_g = torch.where(got_bid, winner_g, torch.full_like(winner_g, g))  # column g: dropped
+        assigned = torch.cat([assigned, assigned.new_full((n, 1), -1)], dim=1).scatter(
+            1, upd_g, ar_q.expand(n, q))[:, :g]
+    # the fill: any target left unassigned takes the cheapest free query
+    for _ in range(g):
+        unas = assigned < 0
+        gi = unas.to(torch.int32).argmax(dim=1)  # the first unassigned, else 0
+        free = ~(ar_q[None, :, None] == assigned[:, None, :]).any(dim=2)  # [N, Q]
+        column = c.gather(2, gi[:, None, None].expand(n, q, 1))[..., 0]
+        pick = torch.where(free, column, torch.full_like(column, float("inf"))).argmin(dim=1)
+        take = unas.gather(1, gi[:, None]) & (ar_g[None, :] == gi[:, None])
+        assigned = torch.where(take, pick[:, None], assigned)
+    return assigned.reshape(*lead, g)
+
+
+MATCH_MODES = ("exact", "greedy", "auction")
+
+
 def hungarian_match(cost: torch.Tensor, exact: bool = True, mode: Optional[str] = None) -> torch.Tensor:
     """cost [..., B, Q, G] -> matched query per target column [..., B, G]
-    on the cost's device. Mode 'exact' only (scipy on the host)."""
+    on the cost's device (JAX set_criterion.py:227): 'exact' (scipy on the
+    host, one copy), 'greedy' or 'auction' (on the device)."""
     mode = mode or ("exact" if exact else "greedy")
+    if mode == "greedy":
+        return greedy_assign(cost)
+    if mode == "auction":
+        return auction_assign(cost)
     if mode != "exact":
-        raise NotImplementedError(f"match_mode={mode!r} is not ported yet (only 'exact')")
+        raise ValueError(f"match_mode must be one of {MATCH_MODES}, got {mode!r}")
     host = cost.detach().float().cpu().numpy()
     return torch.from_numpy(scipy_assign_host(host)).to(cost.device)
 
@@ -205,9 +300,11 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
     """loss_labels + loss_masks of one prediction level
     (criterion_ins.py:153-221). Returns the losses and the PointRend coords
     [B*G, P, 2] they were taken at (``point_coords_override`` when given,
-    else drawn from ``generator``)."""
-    if dense_masks:
-        raise NotImplementedError("dense_masks=True (the semantic criterion) is not ported yet")
+    else drawn from ``generator``). With ``dense_masks`` (criterion_seg.py:
+    169-204) the mask losses are taken over the whole masks, the targets
+    resized to the predictions' size by ``jax.image.resize(method=
+    'nearest')``'s rule (half-pixel centres: 'nearest-exact'), and the
+    coords returned are None."""
     b, q, _ = pred_logits.shape
     g = targets.labels.shape[1]
     dev = pred_logits.device
@@ -230,9 +327,15 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
     # masks: the matched prediction of each target column
     h, wd = pred_masks.shape[2:]
     src = torch.gather(pred_masks.float(), 1, matched_q[:, :, None, None].expand(b, g, h, wd))
+    weights = targets.valid.float().reshape(-1)
+    if dense_masks:
+        with torch.no_grad():
+            tgt = F.interpolate(targets.masks.float(), size=(h, wd), mode="nearest-exact")
+        pl_, tl_ = src.reshape(b * g, h * wd), tgt.reshape(b * g, h * wd)
+        return {"loss_ce": loss_ce, "loss_mask": sigmoid_ce_loss(pl_, tl_, weights, num_masks),
+                "loss_dice": dice_loss(pl_, tl_, weights, num_masks)}, None
     src_f = src.reshape(b * g, h, wd)
     tgt_f = targets.masks.float().reshape(b * g, *targets.masks.shape[2:])
-    weights = targets.valid.float().reshape(-1)
     if point_coords_override is not None:
         coords = point_coords_override.to(dev, torch.float32)
     else:
@@ -285,20 +388,19 @@ def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int
     """The full criterion with the aux levels (criterion_ins.py:224-278).
 
     Without ``matched_override`` [L, B, G] the costs of all levels are
-    computed first and assigned in one host pass. ``point_coords_override``
-    [L, B*G, P, 2] evaluates the mask losses at given PointRend coords. With
+    computed first and assigned at once by ``match_mode`` (``exact_match``
+    False: 'greedy'): 'exact' in one host pass, 'greedy' and 'auction' on
+    the device. ``dense_masks`` takes the mask losses over the whole masks
+    (``criterion_losses``). ``point_coords_override`` [L, B*G, P, 2]
+    evaluates the mask losses at given PointRend coords. With
     ``return_aux`` also returns {'matched': [L, B, G], 'point_coords':
-    [L, B*G, P, 2]}, what this call used."""
-    if dense_masks:
-        raise NotImplementedError("dense_masks=True (the semantic criterion) is not ported yet")
+    [L, B*G, P, 2], or None with ``dense_masks``}, what this call used."""
     levels = _levels(outputs)
     if matched_override is None:
         mode = match_mode or ("exact" if exact_match else "greedy")
-        if mode != "exact":
-            raise NotImplementedError(f"match_mode={mode!r} is not ported yet (only 'exact')")
         costs = set_criterion_costs(outputs, targets, key, num_points, cost_class, cost_mask,
                                     cost_dice, impl=impl)
-        matched_override = hungarian_match(costs)
+        matched_override = hungarian_match(costs, mode=mode)
     num_masks = targets.valid.float().sum().clamp(min=1.0)
     losses, used = {}, []
     for li, out in enumerate(levels):
@@ -307,12 +409,12 @@ def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int
         level_losses, coords = criterion_losses(
             out["pred_logits"], out["pred_masks"], targets, matched_override[li].to(dev),
             level_generator(key, li, 1, dev), num_classes, num_masks, eos_coef, num_points,
-            oversample_ratio, importance_sample_ratio, point_coords_override=override, impl=impl)
+            oversample_ratio, importance_sample_ratio, dense_masks, point_coords_override=override, impl=impl)
         suffix = "" if li == 0 else f"_{li - 1}"
         losses.update({k + suffix: v for k, v in level_losses.items()})
         used.append(coords)
     if return_aux:
-        return losses, {"matched": matched_override, "point_coords": torch.stack(used)}
+        return losses, {"matched": matched_override, "point_coords": None if dense_masks else torch.stack(used)}
     return losses
 
 

@@ -16,7 +16,8 @@ versions alike. The forward can also return the f32 row log-sum-exp
 ``lse`` [B, H, N]; the backward recomputes the probabilities from it.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(bf16 only) or raises. ``ZorroAttentionQKV`` and ``ZorroAttentionPacked`` are
+(its bf16 instance or its f32 one, ``*_f32`` in the library, the TPU
+kernels' f32 path) or raises on any other dtype. ``ZorroAttentionQKV`` and ``ZorroAttentionPacked`` are
 the autograd Functions: on CPU tensors they run the plain forward and
 backward, on CUDA tensors the two kernels. ``launch_attention`` and
 ``launch_attention_backward`` drive the kernel on any operand view, with an
@@ -38,10 +39,20 @@ PAD_TYPE = 255
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 SUPPORTED_DH = (32, 64, 128)
 
-# launches of the kernels, per mode; only the wrappers' launches add to them
-LAUNCHES = {"zorro": 0, "none": 0, "zorro_backward": 0, "none_backward": 0}
+# launches of the kernels, per mode and instance (``_f32``: the f32
+# instance); only the wrappers' launches add to them
+LAUNCHES = {"zorro": 0, "none": 0, "zorro_backward": 0, "none_backward": 0,
+            "zorro_f32": 0, "none_f32": 0, "zorro_f32_backward": 0, "none_f32_backward": 0}
 # the separate-q/k/v mode (zorro_attention_packed)
-PACKED_LAUNCHES = {"zorro": 0, "zorro_backward": 0}
+PACKED_LAUNCHES = {"zorro": 0, "zorro_backward": 0, "zorro_f32": 0, "zorro_f32_backward": 0}
+# the dtypes the kernels take, and the suffix of each instance's C entries
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def launch_key(mode: str, dtype: torch.dtype, backward: bool = False) -> str:
+    """The launch counter of ``mode`` for the instance of ``dtype``:
+    "zorro", "zorro_f32", "zorro_backward", "zorro_f32_backward"."""
+    return mode + ("_f32" if dtype == torch.float32 else "") + ("_backward" if backward else "")
 
 
 def heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -156,11 +167,13 @@ def _check_tensor(name, what, t, shape, dtype, device):
                          f"{tuple(shape)} on {device}")
 
 
-def _check_bf16_cuda(name, t):
+def check_kernel_dtype(name, t):
+    """Raises unless ``t`` is a CUDA tensor of a dtype the kernels take
+    (bfloat16 or float32)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+    if t.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes bfloat16 or float32, got {t.dtype}")
 
 
 def _check_heads(name, inner, heads):
@@ -179,7 +192,7 @@ def _check_types(name, types, b, n, fusion_type, device):
 
 
 def check_qkv(name, qkv, heads, types, fusion_type):
-    _check_bf16_cuda(name, qkv)
+    check_kernel_dtype(name, qkv)
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"{name}: bad qkv shape {tuple(qkv.shape)}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -190,11 +203,11 @@ def check_qkv(name, qkv, heads, types, fusion_type):
 
 
 def _check_separate(name, q, k, v, heads, types, fusion_type):
-    _check_bf16_cuda(name, q)
+    check_kernel_dtype(name, q)
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be [B, N, H*dh], got {tuple(q.shape)}")
     for what, t in (("q", q), ("k", k), ("v", v)):
-        _check_tensor(name, what, t, q.shape, torch.bfloat16, q.device)
+        _check_tensor(name, what, t, q.shape, q.dtype, q.device)
     b, n, inner = q.shape
     _check_heads(name, inner, heads)
     if types is None:
@@ -211,18 +224,19 @@ def slab_view(qkv):
 
 
 @functools.cache
-def _forward_entry():
-    """K1's C entry point, bound once."""
+def _forward_entry(dtype: torch.dtype):
+    """K1's C entry point for ``dtype`` (``zorro_attention_bf16`` or
+    ``zorro_attention_f32``), bound once."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return cuda_build.bind("zorro_attention.cu", "zorro_attention_bf16",
+    return cuda_build.bind("zorro_attention.cu", f"zorro_attention_{KERNEL_DTYPES[dtype]}",
                            [p, p, p, ll, ll, p, p, i, p, p, i, i, i, i, ll, ll, ll, ctypes.c_float, i, i, p])
 
 
 @functools.cache
-def _backward_entry():
-    """K1b's C entry point, bound once."""
+def _backward_entry(dtype: torch.dtype):
+    """K1b's C entry point for ``dtype``, bound once."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    return cuda_build.bind("zorro_attention.cu", "zorro_attention_bwd_bf16",
+    return cuda_build.bind("zorro_attention.cu", f"zorro_attention_bwd_{KERNEL_DTYPES[dtype]}",
                            [p, p, p, ll, ll, p, p, i, p, p, p, p, p, p, ll, ll, p, i, i, i, i, ll,
                             ctypes.c_float, i, i, p])
 
@@ -238,17 +252,18 @@ def _on_device(device, launch):
 
 def launch_attention(view: Sequence[int], b: int, n: int, inner: int, heads: int, device,
                      types: Optional[torch.Tensor], fusion_type: Optional[int], scale: float,
-                     return_lse: bool, active: Optional[torch.Tensor] = None):
-    """Launches K1 on the operand view (q, k, v base pointers and their
-    token stride; batch rows lie n * stride apart) with checked int32
-    ``types`` [B, N] (or None) and an optional int32 activity table
-    ``active`` [B, 1, nt * nt] of 128-token tiles. Returns out [B, N, I] and the
-    lse [B, H, N] or None. Counts nothing: the callers count."""
-    out = torch.empty((b, n, inner), dtype=torch.bfloat16, device=device)
+                     return_lse: bool, active: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
+    """Launches K1's instance for ``dtype`` on the operand view (q, k, v
+    base pointers and their token stride; batch rows lie n * stride apart)
+    with checked int32 ``types`` [B, N] (or None) and an optional int32
+    activity table ``active`` [B, 1, nt * nt] of 128-token tiles. Returns
+    out [B, N, I] and the lse [B, H, N] or None. Counts nothing: the callers
+    count."""
+    out = torch.empty((b, n, inner), dtype=dtype, device=device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=device) if return_lse else None
     nt = 0 if active is None else math.isqrt(active.shape[-1])
     q_ptr, k_ptr, v_ptr, rstride = view
-    err = _on_device(device, lambda stream: _forward_entry()(
+    err = _on_device(device, lambda stream: _forward_entry(dtype)(
         q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
         0 if active is None else active.data_ptr(), nt, out.data_ptr(), 0 if lse is None else lse.data_ptr(),
         b, n, heads, inner // heads, n * inner, inner, 0 if types is None else n, float(scale),
@@ -260,19 +275,21 @@ def launch_attention(view: Sequence[int], b: int, n: int, inner: int, heads: int
 def launch_attention_backward(view: Sequence[int], grad_view: Sequence[int], b: int, n: int, inner: int,
                               heads: int, device, types: Optional[torch.Tensor],
                               fusion_type: Optional[int], o: torch.Tensor, lse: torch.Tensor,
-                              do: torch.Tensor, scale: float, active: Optional[torch.Tensor] = None) -> None:
-    """Launches K1b: the forward's operand view, its output ``o``, ``lse``
-    and the output gradient ``do`` (checked here) into the gradient view
-    (dq, dk, dv base pointers and their token stride)."""
-    for what, t, shape, dtype in (("o", o, (b, n, inner), torch.bfloat16),
-                                  ("do", do, (b, n, inner), torch.bfloat16),
-                                  ("lse", lse, (b, heads, n), torch.float32)):
-        _check_tensor("zorro_attention_backward", what, t, shape, dtype, device)
+                              do: torch.Tensor, scale: float, active: Optional[torch.Tensor] = None,
+                              dtype=torch.bfloat16) -> None:
+    """Launches K1b's instance for ``dtype``: the forward's operand view,
+    its output ``o``, ``lse`` and the output gradient ``do`` (checked here)
+    into the gradient view (dq, dk, dv base pointers and their token
+    stride)."""
+    for what, t, shape, t_dtype in (("o", o, (b, n, inner), dtype),
+                                    ("do", do, (b, n, inner), dtype),
+                                    ("lse", lse, (b, heads, n), torch.float32)):
+        _check_tensor("zorro_attention_backward", what, t, shape, t_dtype, device)
     delta = torch.empty((b, heads, n), dtype=torch.float32, device=device)  # rowsum(dO * O)
     nt = 0 if active is None else math.isqrt(active.shape[-1])
     q_ptr, k_ptr, v_ptr, rstride = view
     dq_ptr, dk_ptr, dv_ptr, g_rstride = grad_view
-    err = _on_device(device, lambda stream: _backward_entry()(
+    err = _on_device(device, lambda stream: _backward_entry(dtype)(
         q_ptr, k_ptr, v_ptr, n * rstride, rstride, 0 if types is None else types.data_ptr(),
         0 if active is None else active.data_ptr(), nt, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq_ptr,
         dk_ptr, dv_ptr, n * g_rstride, g_rstride, delta.data_ptr(), b, n, heads, inner // heads,
@@ -293,8 +310,8 @@ def zorro_attention_qkv(qkv: torch.Tensor, heads: int, types: Optional[torch.Ten
     b, n, three_i = qkv.shape
     inner = three_i // 3
     out, lse = launch_attention(slab_view(qkv), b, n, inner, heads, qkv.device, types, fusion_type,
-                                default_scale(inner, heads, scale), return_lse)
-    LAUNCHES["none" if types is None else "zorro"] += 1
+                                default_scale(inner, heads, scale), return_lse, dtype=qkv.dtype)
+    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -312,8 +329,8 @@ def zorro_attention_qkv_backward(qkv: torch.Tensor, types: Optional[torch.Tensor
     inner = three_i // 3
     dqkv = torch.empty_like(qkv)
     launch_attention_backward(slab_view(qkv), slab_view(dqkv), b, n, inner, heads, qkv.device, types,
-                              fusion_type, o, lse, do, default_scale(inner, heads, scale))
-    LAUNCHES["none_backward" if types is None else "zorro_backward"] += 1
+                              fusion_type, o, lse, do, default_scale(inner, heads, scale), dtype=qkv.dtype)
+    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype, backward=True)] += 1
     return dqkv
 
 
@@ -330,8 +347,8 @@ def zorro_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ty
     b, n, inner = q.shape
     view = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inner)
     out, lse = launch_attention(view, b, n, inner, heads, q.device, types, fusion_type,
-                                default_scale(inner, heads, scale), return_lse)
-    PACKED_LAUNCHES["zorro"] += 1
+                                default_scale(inner, heads, scale), return_lse, dtype=q.dtype)
+    PACKED_LAUNCHES[launch_key("zorro", q.dtype)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -346,8 +363,9 @@ def zorro_attention_packed_backward(q, k, v, types, o, lse, do, heads: int, fusi
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     launch_attention_backward((q.data_ptr(), k.data_ptr(), v.data_ptr(), inner),
                               (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), inner), b, n, inner, heads,
-                              q.device, types, fusion_type, o, lse, do, default_scale(inner, heads, scale))
-    PACKED_LAUNCHES["zorro_backward"] += 1
+                              q.device, types, fusion_type, o, lse, do, default_scale(inner, heads, scale),
+                              dtype=q.dtype)
+    PACKED_LAUNCHES[launch_key("zorro", q.dtype, backward=True)] += 1
     return dq, dk, dv
 
 

@@ -13,11 +13,13 @@ before the residual add; the backward's are listed at
 Weights are in nn.Linear layout: wq [I, D], wkv [2I, D], wo [D, I], gains
 g1, g2 [D] (the JAX function takes the transposes and [1, D] gains); the
 backward returns the gradients in the same layout. A CPU tensor goes to the
-plain version; a CUDA tensor launches the kernels (bf16 only, D % 16 == 0,
-D and I up to ``MAX_D``, dh in 32, 64, 128) or raises: the forward three
-(the projection pass, K1's forward, the out projection), the backward eight
-(the projection pass, dout, K1's forward with its D epilogue, K1b's two, the
-row pass, the weight-gradient product and its reduction).
+plain version; a CUDA tensor launches the kernels (D % 16 == 0, D and I up
+to ``MAX_D``, dh in 32, 64, 128) or raises. The bf16 instance: the forward
+three (the projection pass, K1's forward, the out projection), the backward
+eight (the projection pass, dout, K1's forward with its D epilogue, K1b's
+two, the row pass, the weight-gradient product and its reduction). The f32
+instance (``*_f32`` in the library, the TPU kernel's f32 path): the forward
+six, the backward fifteen, every product and sum in f32.
 ``FusedBlockAttn`` is the autograd Function ``EncoderBlock(fused_block=True)``
 calls.
 """
@@ -33,8 +35,9 @@ from .attention import upcast
 from .cuda_ffn import bias_free_norm
 
 # launches of the kernels; only the wrappers' launches add to them
-# ("attention_with_delta": K6b's attention pass alone, which no path calls)
-LAUNCHES = {"forward": 0, "backward": 0, "attention_with_delta": 0}
+# ("attention_with_delta": K6b's attention pass alone, which no path calls;
+# "f32_*": the f32 instance)
+LAUNCHES = {"forward": 0, "backward": 0, "attention_with_delta": 0, "f32_forward": 0, "f32_backward": 0}
 # the widest D (and I) the kernels take: the row products keep a 64-row
 # bf16 tile of that width in shared memory beside two 64 x 64 weight windows
 # (every width the earlier design took: D = I up to 832, I up to 1,248, D
@@ -136,12 +139,14 @@ def _check(name, x, types, g1, g2, wq, wkv, wo, heads, dy=None):
         raise ValueError(f"{name}: x must be [B, N, D], got {tuple(x.shape)}")
     b, n, d = x.shape
     inner = wq.shape[0]
+    if x.dtype not in cuda_attn.KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes bfloat16 or float32, got {x.dtype}")
     for what, t, shape in (("x", x, (b, n, d)), ("g1", g1, (d,)), ("g2", g2, (d,)), ("wq", wq, (inner, d)),
                            ("wkv", wkv, (2 * inner, d)), ("wo", wo, (d, inner)), ("dy", dy, (b, n, d))):
         if t is None:
             continue
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype} for {what}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: every operand must be {x.dtype} as x is, got {t.dtype} for {what}")
         if tuple(t.shape) != shape or t.device != x.device or not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name}: {what} must be a contiguous, 32-byte aligned tensor of shape {shape} "
                              f"on {x.device}, got {tuple(t.shape)}")
@@ -171,6 +176,37 @@ def _bwd_fn():
 
 
 @functools.cache
+def _fwd_f32_fn():
+    """The f32 instance's forward entry, bound once."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_block_attn.cu", "fused_block_attn_fwd_f32",
+                           [p] * 9 + [i, i, i, i, i, ctypes.c_float, i, p])
+
+
+@functools.cache
+def _bwd_f32_fn():
+    """The f32 instance's backward entry, bound once."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_block_attn.cu", "fused_block_attn_bwd_f32",
+                           [p] * 14 + [i, i, i, i, i, ctypes.c_float, i, p])
+
+
+@functools.cache
+def _f32_scratch_fn():
+    """floats(backward, B, N, D, I, H) of the f32 instance's workspace."""
+    fn = cuda_build.load("fused_block_attn.cu").fused_block_attn_f32_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _f32_scratch(x, backward: bool, inner: int, heads: int):
+    b, n, d = x.shape
+    floats = _f32_scratch_fn()(int(backward), b, n, d, inner, heads)
+    return torch.empty((floats,), dtype=torch.float32, device=x.device)
+
+
+@functools.cache
 def _bwd_sizes_fn():
     """(splits(m, d, inner), row_block(), dh_floats(m, d)): the backward's
     workspace sizes, from its library (the weight gradients' row ranges,
@@ -192,6 +228,16 @@ def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int
     b, n, d = x.shape
     inner = wq.shape[0]
     y = torch.empty_like(x)
+    if x.dtype == torch.float32:
+        ws = _f32_scratch(x, False, inner, heads)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = _fwd_f32_fn()(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(),
+                                wkv.data_ptr(), wo.data_ptr(), y.data_ptr(), ws.data_ptr(), b, n, d, heads,
+                                inner // heads, float((inner // heads) ** -0.5), int(fusion_type), stream)
+        cuda_build.check_launch(err, "fused_block_attn")
+        LAUNCHES["f32_forward"] += 1
+        return y
     qkv = torch.empty((b, n, 3 * inner), dtype=x.dtype, device=x.device)  # workspaces
     out = torch.empty((b, n, inner), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -212,6 +258,8 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
     types = _check("fused_block_attn_backward", x, types, g1, g2, wq, wkv, wo, heads, dy)
     b, n, d = x.shape
     inner = wq.shape[0]
+    if x.dtype == torch.float32:
+        return _backward_f32(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type)
     m = b * n
     dev, bf = x.device, x.dtype
     splits_fn, row_block_fn, dh_floats_fn = _bwd_sizes_fn()
@@ -238,6 +286,24 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
                         int(fusion_type), splits, stream)
     cuda_build.check_launch(err, "fused_block_attn_backward")
     LAUNCHES["backward"] += 1
+    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
+
+
+def _backward_f32(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type):
+    """The f32 instance's backward on checked operands."""
+    b, n, d = x.shape
+    inner = wq.shape[0]
+    dx, dg1, dg2, dwo = torch.empty_like(x), torch.empty_like(g1), torch.empty_like(g2), torch.empty_like(wo)
+    dw_qkv = torch.empty((3 * inner, d), dtype=x.dtype, device=x.device)  # dWq, then dWkv
+    ws = _f32_scratch(x, True, inner, heads)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _bwd_f32_fn()(x.data_ptr(), types.data_ptr(), g1.data_ptr(), g2.data_ptr(), wq.data_ptr(),
+                            wkv.data_ptr(), wo.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg1.data_ptr(),
+                            dg2.data_ptr(), dw_qkv.data_ptr(), dwo.data_ptr(), ws.data_ptr(), b, n, d, heads,
+                            inner // heads, float((inner // heads) ** -0.5), int(fusion_type), stream)
+    cuda_build.check_launch(err, "fused_block_attn_backward")
+    LAUNCHES["f32_backward"] += 1
     return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
 
 
@@ -270,6 +336,8 @@ def attention_with_delta(qkv, types, dout, heads: int, fusion_type: int):
     N])."""
     if qkv.device.type == "cpu":
         return attention_with_delta_reference(qkv, types, dout, heads, fusion_type)
+    if qkv.dtype != torch.bfloat16:  # the f32 instance's backward reads D from the stored, unrounded o
+        raise TypeError(f"attention_with_delta: K6b's attention pass is the bf16 instance's, got {qkv.dtype}")
     types = cuda_attn.check_qkv("attention_with_delta", qkv, heads, types, fusion_type)
     b, n, three_i = qkv.shape
     inner = three_i // 3

@@ -11,15 +11,19 @@ Two modes:
 Weights are in nn.Linear layout ([out, in]); the JAX functions take the
 transposes, and the backward returns weight gradients in the port's layout.
 GELU is the exact (erf) form. A CPU tensor goes to the plain version; a CUDA
-tensor launches the kernel (bf16 only) or raises. ``GegluFFN`` and
-``MlpFFN`` are the autograd Functions the model calls.
+tensor launches the kernel or raises: bf16 tensors the kernels above, f32
+ones their f32 instance (``*_f32`` in the libraries, the TPU kernels' f32
+path: every product and sum in f32, the activations through an f32
+workspace; forward GEGLU 4 launches, MLP 2; backward 9 each).
+``GegluFFN`` and ``MlpFFN`` are the autograd Functions the model calls.
 
-The kernels take hidden widths that are multiples of 16. A GEGLU inner
+The bf16 kernels take hidden widths that are multiples of 16. A GEGLU inner
 width that is not (the `large` config's int(1024 * 8 / 3) = 2730) is
 zero-padded in the weights before the launch (``pad_geglu_hidden``): a
 padded val and gate row gives a = val gelu(gate) = 0, which adds nothing to
 y, dx or the real rows and columns of the weight gradients, so the padding
-is exact; the backward drops the padded gradient rows and columns.
+is exact; the backward drops the padded gradient rows and columns. The f32
+instance takes any width and is launched unpadded.
 """
 from __future__ import annotations
 
@@ -30,13 +34,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import cuda_build
+from . import cuda_attn, cuda_build
 from .attention import upcast
 
 LN_EPS = 1e-5
 
-# launches of the kernels, per mode; only the wrappers' launches add to them
-LAUNCHES = {"geglu": 0, "mlp": 0, "geglu_backward": 0, "mlp_backward": 0}
+# launches of the kernels, per mode and instance (``_f32``: the f32
+# instance); only the wrappers' launches add to them
+LAUNCHES = {"geglu": 0, "mlp": 0, "geglu_backward": 0, "mlp_backward": 0,
+            "geglu_f32": 0, "mlp_f32": 0, "geglu_f32_backward": 0, "mlp_f32_backward": 0}
 
 
 def _gelu_parts(g: torch.Tensor):
@@ -127,11 +133,13 @@ def mlp_ffn_backward_reference(x, w1, b1, w2, b2, dy):
 def _check(name, x, *tensors):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if x.dtype not in cuda_attn.KERNEL_DTYPES:
+        raise TypeError(f"{name}: the kernel takes bfloat16 or float32, got {x.dtype}")
     for t in (x, *tensors):
         if t.device != x.device:
             raise ValueError(f"{name}: all operands must be on {x.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: every operand must be {x.dtype} as x is, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 32:
             raise ValueError(f"{name}: operands must be contiguous and 32-byte aligned")
     if x.dim() != 2 or any(s % 16 for s in x.shape[1:]):
@@ -243,6 +251,36 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+@functools.cache
+def _f32_fn(name: str, pointers: int, ints: int):
+    """An entry of the f32 instance (pointers, then ints, then the stream),
+    bound once."""
+    source = "fused_ffn_bwd.cu" if "bwd" in name else "fused_ffn.cu"
+    return cuda_build.bind(source, name, [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p])
+
+
+@functools.cache
+def _f32_floats_fn(name: str):
+    """floats(mode, m, d, hid, d_out) of an f32 workspace."""
+    fn = getattr(cuda_build.load("fused_ffn_bwd.cu" if "bwd" in name else "fused_ffn.cu"), name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _f32_workspace(x, name, mode, m, d, hid, d_out):
+    floats = _f32_floats_fn(name)(mode, m, d, hid, d_out)
+    return torch.empty((floats,), dtype=torch.float32, device=x.device)
+
+
+def _launch_f32(x, name, pointers, ints, what):
+    """Calls the f32 entry ``name`` on x's device and stream."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _f32_fn(name, len(pointers), len(ints))(*pointers, *ints, stream)
+    cuda_build.check_launch(err, what)
+
+
 def geglu_ffn(x, gamma, w_in, w_out):
     """Fused LayerNorm + GEGLU FF. x [M, D], gamma [D], w_in [2I, D],
     w_out [D, I] -> [M, D]."""
@@ -250,6 +288,15 @@ def geglu_ffn(x, gamma, w_in, w_out):
         return geglu_ffn_reference(x, gamma, w_in, w_out)
     _check("geglu_ffn", x, gamma, w_in, w_out)
     _check_geglu("geglu_ffn", x, gamma, w_in, w_out)
+    if x.dtype == torch.float32:
+        m, d = x.shape
+        inner = w_out.shape[1]
+        y = torch.empty_like(x)
+        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 0, m, d, inner, d)
+        _launch_f32(x, "geglu_ffn_f32", [t.data_ptr() for t in (x, gamma, w_in, w_out, y, ws)], [m, d, inner],
+                    "geglu_ffn")
+        LAUNCHES["geglu_f32"] += 1
+        return y
     w_in, w_out = pad_geglu_hidden(w_in, w_out)
     inner = w_out.shape[1]
     m, d = x.shape
@@ -273,6 +320,12 @@ def mlp_ffn(x, w1, b1, w2, b2):
     hidden, out = _check_mlp("mlp_ffn", x, w1, b1, w2, b2)
     m, d = x.shape
     y = torch.empty((m, out), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 1, m, d, hidden, out)
+        _launch_f32(x, "mlp_ffn_f32", [t.data_ptr() for t in (x, w1, b1, w2, b2, y, ws)], [m, d, hidden, out],
+                    "mlp_ffn")
+        LAUNCHES["mlp_f32"] += 1
+        return y
     with torch.cuda.device(x.device):
         ws = _fwd_workspace("mlp_ffn", x, 1, m, d, hidden, out)
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -323,6 +376,16 @@ def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
     real_inner = _check_geglu("geglu_ffn_backward", x, gamma, w_in, w_out)
     if dy.shape != x.shape:
         raise ValueError(f"geglu_ffn_backward: dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    if x.dtype == torch.float32:
+        m, d = x.shape
+        dx, dgamma = torch.empty_like(x), torch.empty_like(gamma)
+        dw_in, dw_out = torch.empty_like(w_in), torch.empty_like(w_out)
+        scratch = _f32_workspace(x, "ffn_bwd_f32_scratch_floats", 0, m, d, real_inner, d)
+        _launch_f32(x, "geglu_ffn_bwd_f32", [t.data_ptr() for t in (x, gamma, w_in, w_out, dy, dx, dgamma, dw_in,
+                                                                     dw_out, scratch)],
+                    [m, d, real_inner], "geglu_ffn_backward")
+        LAUNCHES["geglu_f32_backward"] += 1
+        return dx, dgamma, dw_in, dw_out
     w_in, w_out = pad_geglu_hidden(w_in, w_out)
     inner = w_out.shape[1]
     m, d = x.shape
@@ -351,10 +414,17 @@ def mlp_ffn_backward(x, w1, b1, w2, b2, dy):
     m, d = x.shape
     if dy.shape != (m, out):
         raise ValueError(f"mlp_ffn_backward: dy {tuple(dy.shape)} must be {(m, out)}")
-    dh, a = (torch.empty((m, hidden), dtype=x.dtype, device=x.device) for _ in range(2))
-    scratch = _bwd_scratch("mlp_ffn_backward", x, 1, m, d, hidden, out)
     dx, dw1, db1 = torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1)
     dw2, db2 = torch.empty_like(w2), torch.empty_like(b2)
+    if x.dtype == torch.float32:
+        scratch = _f32_workspace(x, "ffn_bwd_f32_scratch_floats", 1, m, d, hidden, out)
+        _launch_f32(x, "mlp_ffn_bwd_f32", [t.data_ptr() for t in (x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2,
+                                                                   scratch)],
+                    [m, d, hidden, out], "mlp_ffn_backward")
+        LAUNCHES["mlp_f32_backward"] += 1
+        return dx, dw1, db1, dw2, db2
+    dh, a = (torch.empty((m, hidden), dtype=x.dtype, device=x.device) for _ in range(2))
+    scratch = _bwd_scratch("mlp_ffn_backward", x, 1, m, d, hidden, out)
     fn = _mlp_bwd_fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -5,8 +5,9 @@ ops/pallas_fusion_attn.py.
 Each fusion position attends, per head, over its T modality slots of the
 t-major KV grid and its own fusion-token key/value (the last slot), with an
 f32 softmax over the T + 1 slots. A CPU tensor goes to the plain version; a
-CUDA tensor launches the kernel (bf16 only) or raises. ``FusionRowAttention``
-is the autograd Function the model calls.
+CUDA tensor launches the kernel (its bf16 instance, or for f32 tensors its
+f32 one, ``*_f32`` in the library, the TPU kernel's f32 path) or raises.
+``FusionRowAttention`` is the autograd Function the model calls.
 """
 from __future__ import annotations
 
@@ -15,14 +16,15 @@ import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_attn, cuda_build
 from .attention import upcast
 
 SUPPORTED_DH = (32, 64, 128)
 MAX_MODALITIES = 8
 
-# launches of the kernels; only the wrappers' launches add to them
-LAUNCHES = {"fusion_row": 0, "fusion_row_backward": 0}
+# launches of the kernels, per instance (``_f32``: the f32 instance); only
+# the wrappers' launches add to them
+LAUNCHES = {"fusion_row": 0, "fusion_row_backward": 0, "fusion_row_f32": 0, "fusion_row_f32_backward": 0}
 
 
 def _slots(q, kv_grid, kv_f, heads, dh):
@@ -84,9 +86,11 @@ def _check(name, q, kv_grid, kv_f, heads, dh, *more):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     b, f, inner = q.shape
+    if q.dtype not in cuda_attn.KERNEL_DTYPES:
+        raise ValueError(f"{name}: the kernel takes bfloat16 or float32, got {q.dtype}")
     for t in (q, kv_grid, kv_f, *more):
-        if t.device != q.device or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous bfloat16 tensors on {q.device}")
+        if t.device != q.device or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous {q.dtype} tensors on {q.device}")
     t_mod = kv_grid.shape[1] // f
     if (inner != heads * dh or dh not in SUPPORTED_DH or not 1 <= t_mod <= MAX_MODALITIES
             or kv_grid.shape != (b, t_mod * f, 2 * inner)
@@ -97,16 +101,20 @@ def _check(name, q, kv_grid, kv_f, heads, dh, *more):
 
 
 @functools.cache
-def _fwd_fn():
+def _fwd_fn(dtype: torch.dtype):
+    """The forward entry of ``dtype``'s instance, bound once."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bf16",
+    return cuda_build.bind("fusion_row_attention.cu",
+                           f"fusion_row_attention_{cuda_attn.KERNEL_DTYPES[dtype]}",
                            [p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
 
 
 @functools.cache
-def _bwd_fn():
+def _bwd_fn(dtype: torch.dtype):
+    """The backward entry of ``dtype``'s instance, bound once."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return cuda_build.bind("fusion_row_attention.cu", "fusion_row_attention_bwd_bf16",
+    return cuda_build.bind("fusion_row_attention.cu",
+                           f"fusion_row_attention_bwd_{cuda_attn.KERNEL_DTYPES[dtype]}",
                            [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
 
 
@@ -120,10 +128,10 @@ def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fwd_fn()(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), out.data_ptr(),
-                        b, f, t_mod, heads, dh, float(dh ** -0.5), stream)
+        err = _fwd_fn(q.dtype)(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), out.data_ptr(),
+                               b, f, t_mod, heads, dh, float(dh ** -0.5), stream)
     cuda_build.check_launch(err, "fusion_row_attention")
-    LAUNCHES["fusion_row"] += 1
+    LAUNCHES[cuda_attn.launch_key("fusion_row", q.dtype)] += 1
     return out
 
 
@@ -136,11 +144,11 @@ def fusion_row_attention_backward(q, kv_grid, kv_f, do, heads: int, dh: int):
     dq, dkv_grid, dkv_f = torch.empty_like(q), torch.empty_like(kv_grid), torch.empty_like(kv_f)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _bwd_fn()(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                        dkv_grid.data_ptr(), dkv_f.data_ptr(), b, f, t_mod, heads, dh,
-                        float(dh ** -0.5), stream)
+        err = _bwd_fn(q.dtype)(q.data_ptr(), kv_grid.data_ptr(), kv_f.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                               dkv_grid.data_ptr(), dkv_f.data_ptr(), b, f, t_mod, heads, dh,
+                               float(dh ** -0.5), stream)
     cuda_build.check_launch(err, "fusion_row_attention_backward")
-    LAUNCHES["fusion_row_backward"] += 1
+    LAUNCHES[cuda_attn.launch_key("fusion_row", q.dtype, backward=True)] += 1
     return dq, dkv_grid, dkv_f
 
 

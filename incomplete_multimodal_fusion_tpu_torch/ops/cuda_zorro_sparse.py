@@ -16,7 +16,7 @@ therefore the masked softmax under ``allowed & active``, which matches the
 TPU kernel on every row, PAD rows included.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(bf16 only, N a multiple of 128) or raises. ``ZorroSparseAttentionQKV`` is
+(its bf16 or f32 instance, N a multiple of 128) or raises. ``ZorroSparseAttentionQKV`` is
 the autograd Function.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ PAD_TYPE = cuda_attn.PAD_TYPE
 TILE = 128
 
 # launches of the kernel in its tile-skip mode; only the wrappers' launches add
-LAUNCHES = {"forward": 0, "backward": 0}
+LAUNCHES = {"forward": 0, "backward": 0, "f32_forward": 0, "f32_backward": 0}
 
 
 def tile_active(types: torch.Tensor, fusion_type: int, nt: int) -> torch.Tensor:
@@ -93,6 +93,11 @@ def zorro_sparse_attention_qkv_backward_reference(qkv, types, o, lse, do, heads:
     return torch.cat(grads, dim=-1)
 
 
+def _key(direction: str, dtype: torch.dtype) -> str:
+    """The launch counter of the instance for ``dtype``."""
+    return ("f32_" if dtype == torch.float32 else "") + direction
+
+
 def _check(name, qkv, heads, types, fusion_type):
     if types is None:
         raise ValueError(f"{name}: the block-sparse form is zorro-masked and needs types")
@@ -114,8 +119,9 @@ def zorro_sparse_attention_qkv(qkv: torch.Tensor, types: torch.Tensor, heads: in
     types, active = _check("zorro_sparse_attention_qkv", qkv, heads, types, fusion_type)
     b, n, three_i = qkv.shape
     out, lse = cuda_attn.launch_attention(cuda_attn.slab_view(qkv), b, n, three_i // 3, heads, qkv.device,
-                                          types, fusion_type, _scale(qkv, heads, scale), return_lse, active)
-    LAUNCHES["forward"] += 1
+                                          types, fusion_type, _scale(qkv, heads, scale), return_lse, active,
+                                          dtype=qkv.dtype)
+    LAUNCHES[_key("forward", qkv.dtype)] += 1
     return (out, lse) if return_lse else out
 
 
@@ -129,8 +135,8 @@ def zorro_sparse_attention_qkv_backward(qkv, types, o, lse, do, heads: int, fusi
     dqkv = torch.empty_like(qkv)
     cuda_attn.launch_attention_backward(cuda_attn.slab_view(qkv), cuda_attn.slab_view(dqkv), b, n,
                                         three_i // 3, heads, qkv.device, types, fusion_type, o, lse, do,
-                                        _scale(qkv, heads, scale), active)
-    LAUNCHES["backward"] += 1
+                                        _scale(qkv, heads, scale), active, dtype=qkv.dtype)
+    LAUNCHES[_key("backward", qkv.dtype)] += 1
     return dqkv
 
 

@@ -3,7 +3,9 @@ reference downstream/instance_segmentation/maskformer_train_ins_vit.py).
 
 One step: a random modality subset and keep-ratio masks -> the MaskFormer
 forward in the compute dtype over f32 master weights (dropout on) -> the set
-criterion with deep supervision, exact Hungarian matching on the host ->
+criterion with deep supervision (point-sampled mask losses, or with
+``dense_masks`` the semantic flows' whole-mask ones), Hungarian matching
+(exact on the host by default; 'greedy' or 'auction' on the device) ->
 ``0.3 * ce + 0.3 * dice + 0.4 * mask`` of the weighted terms (:228) ->
 the backward through the kernels' autograd Functions -> the global-norm clip
 over every gradient, frozen ones included, then AdamW on the trainable
@@ -30,7 +32,7 @@ from torch.func import functional_call
 
 from ..eval.metrics import binary_mask_from_labels, dice_score, semantic_inference
 from ..infer import as_input, resolve_module
-from ..losses.set_criterion import SegTargets, set_criterion, set_criterion_costs
+from ..losses.set_criterion import MATCH_MODES, SegTargets, set_criterion, set_criterion_costs
 from ..models.maskformer import MaskFormerConfig, MaskFormerModel
 from ..ops import masking
 from ..ops.resize import resize_bilinear
@@ -221,11 +223,13 @@ def make_downstream_train_step(
 
     ``train_step.cost_step(state, batch, targets)`` gives the per-level
     matching costs [L, B, Q, G] of the step the state would take next;
-    ``train_step.loss_fn`` is the loss of given parameters, masks and key."""
-    if dense_masks:
-        raise NotImplementedError("dense_masks=True (the semantic criterion) is not ported yet")
-    if (match_mode or "exact") != "exact":
-        raise NotImplementedError(f"match_mode={match_mode!r} is not ported yet (only 'exact')")
+    ``train_step.loss_fn`` is the loss of given parameters, masks and key.
+
+    ``dense_masks`` (the semantic flows) takes the mask losses over the
+    whole masks; ``match_mode`` 'exact' (the default: scipy on the host),
+    'greedy' or 'auction' (on the device), as downstream.py:164-209."""
+    if (match_mode or "exact") not in MATCH_MODES:
+        raise ValueError(f"match_mode must be one of {MATCH_MODES}, got {match_mode!r}")
     w_ce, w_dice, w_mask = loss_weights
     dtype = getattr(torch, compute_dtype)
     in_domains = tuple(cfg.in_domains)
@@ -263,8 +267,9 @@ def make_downstream_train_step(
         out = forward(params, batch, mask_info, present, dropout_seed)
         losses = set_criterion(
             out, targets, key, num_classes=cfg.num_classes, eos_coef=eos_coef,
-            num_points=num_points, **costs, matched_override=matched_override,
-            point_coords_override=point_coords_override, impl=impl(), return_aux=return_aux)
+            num_points=num_points, **costs, dense_masks=dense_masks, match_mode=match_mode,
+            matched_override=matched_override, point_coords_override=point_coords_override, impl=impl(),
+            return_aux=return_aux)
         if return_aux:
             losses, aux = losses
         # partition by exact key prefix; substring tests would double-count

@@ -1,7 +1,9 @@
 """The card smoke's own bookkeeping, checked on the CPU: every kernel entry
-of its kernels line has the device kernels that phase 3 times apart from the
-wrapper's host work, and each of their names is a kernel of the entry's
-CUDA source; without a card the script fails and prints no result."""
+of its kernels line (the f32 instances' too) has the device kernels that
+phase 3 times apart from the wrapper's host work, and each of their names
+is a kernel of the entry's CUDA source; every f32 C entry a wrapper binds
+is defined in csrc/; without a card the script fails and prints no
+result."""
 import importlib.util
 import os
 import re
@@ -81,7 +83,9 @@ def test_every_forward_kernel_of_k2_is_profiled(smoke):
     small M, or its wide path's kernels; phase 3 profiles them all by one
     name."""
     names, _ = smoke.entry_kernels("fused_ffn/geglu")
-    kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn.cu")
+    # the bf16 instance's kernels (the f32 instance's simt_f32 kernels have
+    # their own entry)
+    kernels_of_source = {k for k in _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn.cu") if "f32" not in k}
     assert {"ffn_fwd_rows_kernel", "ffn_fwd_split_reduce_kernel", "ffn_fwd_wide_norm_kernel",
             "ffn_fwd_wide_hidden_kernel", "ffn_fwd_wide_out_kernel"} == kernels_of_source
     assert all(any(n in k for n in names) for k in kernels_of_source)
@@ -178,7 +182,8 @@ def test_kernels_per_call_on_the_wide_path(smoke, entry, kernels):
     """Past the row pass's widths K2b launches its wide path's kernels."""
     names, per_call = smoke.entry_kernels(entry, f"M=8192 d=768 {smoke.WIDE}")
     assert per_call == kernels
-    kernels_of_source = _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn_bwd.cu")
+    # the bf16 instance's kernels (the f32 instance's have their own entry)
+    kernels_of_source = {k for k in _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn_bwd.cu") if "f32" not in k}
     assert {"ffn_bwd_wide_norm_kernel", "ffn_bwd_wide_rows_kernel", "ffn_bwd_wide_dx_kernel",
             "ffn_bwd_wide_ln_kernel"} <= kernels_of_source
     assert all(any(n in k for n in names) for k in kernels_of_source)
@@ -241,3 +246,102 @@ def test_without_a_card_the_smoke_fails_and_prints_no_result():
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+F32_PER_CALL = {"zorro_attention_qkv/zorro_f32": 1, "zorro_attention_qkv/zorro_f32_backward": 2,
+                "zorro_attention_qkv/none_f32": 1, "zorro_attention_qkv/none_f32_backward": 2,
+                "zorro_attention_packed/zorro_f32": 1, "zorro_attention_packed/zorro_f32_backward": 2,
+                "zorro_sparse/f32_forward": 1, "zorro_sparse/f32_backward": 2,
+                "fused_ffn/geglu_f32": 4, "fused_ffn/geglu_f32_backward": 9, "fused_ffn/mlp_f32": 2,
+                "fused_ffn/mlp_f32_backward": 9, "fusion_row_attention/fusion_row_f32": 1,
+                "fusion_row_attention/fusion_row_f32_backward": 1, "fused_block_attn/f32_forward": 6,
+                "fused_block_attn/f32_backward": 15}
+F32_KERNELS = {"zorro": {"zorro_attention_f32_fwd_kernel", "zorro_attention_f32_dq_kernel",
+                         "zorro_attention_f32_dkdv_kernel"},
+               "simt": {"simt_f32_product_kernel", "simt_f32_colsum_kernel", "simt_f32_reduce_kernel",
+                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel", "simt_f32_act_kernel"}}
+
+
+@pytest.mark.parametrize("entry", sorted(F32_PER_CALL))
+def test_f32_entries_are_profiled_by_their_own_kernels(smoke, entry):
+    """Each f32 instance's kernels-line entry: its source and TPU kernel are
+    its bf16 instance's, its kernels a call as its library launches them,
+    and the names phase 3 profiles it by pick out only f32 kernels of its
+    source (K3's instance is the same kernel template on float)."""
+    assert smoke.is_f32(entry) and entry in smoke.REPLACES
+    bf16 = [k for k in smoke.REPLACES if not smoke.is_f32(k) and smoke.f32_key(k) == entry]
+    assert len(bf16) == 1 and smoke.REPLACES[bf16[0]] == smoke.REPLACES[entry]
+    names, per_call = smoke.entry_kernels(entry)
+    assert per_call == F32_PER_CALL[entry]
+    kernels = _kernels_of(ROOT / smoke.PKG / smoke.REPLACES[entry][0])
+    picked = {k for k in kernels if any(n in k for n in names)}
+    if entry.startswith("fusion_row_attention/"):
+        assert picked == ({"fusion_row_bwd_kernel"} if entry.endswith("backward") else {"fusion_row_kernel"})
+    else:
+        assert picked and all("f32" in k for k in picked)
+        assert picked <= F32_KERNELS["zorro"] | F32_KERNELS["simt"]
+
+
+def test_the_f32_keys_of_the_bf16_entries(smoke):
+    assert smoke.f32_key("zorro_attention_qkv/zorro") == "zorro_attention_qkv/zorro_f32"
+    assert smoke.f32_key("zorro_attention_qkv/none_backward") == "zorro_attention_qkv/none_f32_backward"
+    assert smoke.f32_key("fused_block_attn/backward") == "fused_block_attn/f32_backward"
+    assert {smoke.f32_key(k) for k in smoke.REPLACES if not smoke.is_f32(k)
+            and not k.startswith(("ms_deform_attn/", "point_sample/"))} == set(F32_PER_CALL)
+    from incomplete_multimodal_fusion_tpu_torch import ops
+    assert set(F32_PER_CALL) <= set(ops.kernel_launches())
+
+
+def _extern_c(source: Path):
+    """The names of a CUDA source's extern "C" functions."""
+    return set(re.findall(r'extern "C" [\w\s*]*?\b(\w+)\(', source.read_text()))
+
+
+def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
+    """The wrappers' f32 C entries (bound by name at first use, which no CPU
+    run reaches): each binder runs against a stand-in for the library, and
+    every name it asks for is an extern "C" function of the source it names."""
+    import torch
+    from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_build, cuda_ffn,
+                                                            cuda_fusion_attn)
+
+    asked = []
+
+    class Entry:
+        argtypes = restype = None
+
+    class Library:
+        def __init__(self, source):
+            self.source = source
+
+        def __getattr__(self, name):
+            asked.append((self.source, name))
+            return Entry()
+
+    monkeypatch.setattr(cuda_build, "bind", lambda source, name, argtypes: asked.append((source, name)) or Entry())
+    monkeypatch.setattr(cuda_build, "load", Library)
+    binders = (cuda_attn._forward_entry, cuda_attn._backward_entry, cuda_fusion_attn._fwd_fn,
+               cuda_fusion_attn._bwd_fn, cuda_block_attn._fwd_f32_fn, cuda_block_attn._bwd_f32_fn,
+               cuda_block_attn._f32_scratch_fn, cuda_ffn._f32_fn, cuda_ffn._f32_floats_fn)
+    for binder in binders:
+        binder.cache_clear()
+    for binder in binders[:4]:
+        binder(torch.float32)
+    for binder in binders[4:7]:
+        binder()
+    ffn_source = (ROOT / "incomplete_multimodal_fusion_tpu_torch" / "ops" / "cuda_ffn.py").read_text()
+    for name in re.findall(r'_launch_f32\(x, "(\w+)"', ffn_source):
+        cuda_ffn._f32_fn(name, 1, 1)
+    for name in re.findall(r'_f32_workspace\(x, "(\w+)"', ffn_source):
+        cuda_ffn._f32_floats_fn(name)
+    for binder in binders:
+        binder.cache_clear()
+    f32 = {(source, name) for source, name in asked if "f32" in name}
+    assert {name for _, name in f32} == {
+        "zorro_attention_f32", "zorro_attention_bwd_f32", "fusion_row_attention_f32", "fusion_row_attention_bwd_f32",
+        "fused_block_attn_fwd_f32", "fused_block_attn_bwd_f32", "fused_block_attn_f32_scratch_floats",
+        "geglu_ffn_f32", "mlp_ffn_f32", "geglu_ffn_bwd_f32", "mlp_ffn_bwd_f32", "ffn_fwd_f32_workspace_floats",
+        "ffn_bwd_f32_scratch_floats"}
+    csrc = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
+    for source, name in sorted(f32):
+        assert name in _extern_c(csrc / source), (source, name)

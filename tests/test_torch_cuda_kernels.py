@@ -457,7 +457,7 @@ def test_each_launch_is_counted_once(dev):
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     qkv = torch.randn(1, 16, 3 * 64, device=dev)
     with pytest.raises(TypeError, match="bfloat16"):
-        cuda_attn.zorro_attention_qkv(qkv, 1)
+        cuda_attn.zorro_attention_qkv(qkv.to(torch.float16), 1)
     with pytest.raises(ValueError, match="head dim"):
         cuda_attn.zorro_attention_qkv(qkv.to(torch.bfloat16), 4)  # dh 16
     with pytest.raises(ValueError, match="contiguous"):
@@ -1150,14 +1150,14 @@ def test_new_functions_launch_their_kernels(dev):
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x, types, w, _ = _block_case(dev, 1, 64, 64, 1, 64)
     with pytest.raises(TypeError, match="bfloat16"):
-        cuda_block_attn.fused_block_attn(x.float(), types, *w, 1, 3)
+        cuda_block_attn.fused_block_attn(x.to(torch.float16), types, *(t.to(torch.float16) for t in w), 1, 3)
     with pytest.raises(ValueError):  # a weight left on the CPU
         cuda_block_attn.fused_block_attn(x, types, w[0].cpu(), *w[1:], 1, 3)
     with pytest.raises(ValueError, match="head dim"):
         cuda_block_attn.fused_block_attn(x, types, *w, 4, 3)  # dh 16
     q = _randn(dev, 1, 64, 64)
     with pytest.raises(TypeError, match="bfloat16"):
-        cuda_attn.zorro_attention_packed(q.float(), q.float(), q.float(), types, 1, 3)
+        cuda_attn.zorro_attention_packed(q.double(), q.double(), q.double(), types, 1, 3)
     with pytest.raises(ValueError):  # k on the CPU
         cuda_attn.zorro_attention_packed(q, q.cpu(), q, types, 1, 3)
     qkv = _randn(dev, 1, 64 * 3, 3 * 64)
@@ -1165,7 +1165,7 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 128"):
         cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, sparse_types, 1, 3)
     with pytest.raises(TypeError, match="bfloat16"):
-        cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].float(), sparse_types[:, :128], 1, 3)
+        cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].to(torch.float16), sparse_types[:, :128], 1, 3)
     with pytest.raises(ValueError):  # types on the CPU
         cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv[:, :128].contiguous(), sparse_types[:, :128].cpu(), 1, 3)
 
@@ -1260,13 +1260,12 @@ F32_SMALL = dict(in_domains=("s1", "s2", "dem"), out_domains=("s1", "s2", "dem")
                  decoder_depth=2, decoder_num_heads=2)
 
 
-def test_f32_on_the_card_is_refused_not_routed_plain(dev):
-    """f32 on the card under attn_impl='auto' reaches the kernel wrappers,
-    which refuse it (TypeError or ValueError naming bfloat16, nothing
-    launched): the bf16 kernels have no
-    f32 instance yet, and a CUDA tensor never falls back to the plain
-    versions. 'xla' runs the f32 model; the same model in bf16 reaches its
-    kernels (widths the kernels take: dh 32, D 64)."""
+def test_f32_on_the_card_launches_the_f32_kernels(dev):
+    """An f32 model on the card under attn_impl='auto' runs the kernels' f32
+    instances (only ``*_f32`` launch keys; no bf16 kernel, no plain
+    fallback) and matches attn_impl='xla' within 1e-5 (f32 on both paths;
+    TF32 off, as the fixture sets). Widths the kernels take: dh 32, D 64,
+    every encoder block on the fused route."""
     import numpy as np
 
     from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
@@ -1281,17 +1280,286 @@ def test_f32_on_the_card_is_refused_not_routed_plain(dev):
     x = {d: torch.from_numpy(v).to(dev) for d, v in synthetic_batch(np.random.default_rng(0), doms, 2, 64).items()}
     mi = masking.generate_random_masks(torch.Generator().manual_seed(0), doms, (16,) * 3, 24, 2, device=dev)
     ops.reset_kernel_launches()
-    with torch.no_grad(), pytest.raises((TypeError, ValueError), match="bfloat16"):
-        model(x, mi, 24)
-    assert not any(ops.kernel_launches().values())
-    model.attn_impl = "xla"
     with torch.no_grad():
         out = model(x, mi, 24)
-    assert all(torch.isfinite(out["preds"][d]).all() and out["preds"][d].dtype == torch.float32 for d in doms)
-    assert not any(ops.kernel_launches().values())
-    model.to(torch.bfloat16).attn_impl = "auto"
+    f32 = {k: n for k, n in ops.kernel_launches().items() if n}
+    assert f32 == {"fused_block_attn/f32_forward": 2, "fusion_row_attention/fusion_row_f32": 2,
+                   "fused_ffn/geglu_f32": 4, "zorro_attention_qkv/none_f32": 6, "fused_ffn/mlp_f32": 6}, f32
+    model.attn_impl = "xla"
+    ops.reset_kernel_launches()
     with torch.no_grad():
-        model({d: v.to(torch.bfloat16) for d, v in x.items()}, mi, 24)
-    bf16 = {k: n for k, n in ops.kernel_launches().items() if n}
-    assert bf16 == {"fused_block_attn/forward": 2, "fusion_row_attention/fusion_row": 2, "fused_ffn/geglu": 4,
-                    "zorro_attention_qkv/none": 6, "fused_ffn/mlp": 6}, bf16
+        ref = model(x, mi, 24)
+    assert not any(ops.kernel_launches().values())
+    for d in doms:
+        assert out["preds"][d].dtype == torch.float32 and torch.isfinite(out["preds"][d]).all()
+        assert _rel(out["preds"][d], ref["preds"][d]) <= 1e-5, d
+
+
+F32_REL_L2 = 1e-5  # f32 instance vs f32 plain version: f32 operands, products and sums; only the order differs
+
+
+def _randf(dev, *shape, scale=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, device=dev, generator=g) * scale
+
+
+def _zorro_f32_case(dev, qkv, heads, types):
+    out, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+    ref, ref_lse = cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3, return_lse=True)
+    do = _randf(dev, *out.shape, seed=21)
+    dqkv = cuda_attn.zorro_attention_qkv_backward(qkv, types, out, lse, do, heads, 3)
+    ref_dqkv = cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, ref, ref_lse, do, heads, 3)
+    torch.cuda.synchronize()
+    assert out.dtype == dqkv.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(dqkv).all()
+    assert _rel(out, ref) <= F32_REL_L2
+    assert _rel(lse, ref_lse) <= F32_REL_L2
+    # each of dq, dk, dv against its own norm; at N = 1 (one key: dP = D, so
+    # dq and dk are zero in exact arithmetic, and the kernel's are exactly
+    # zero) the plain version's f32 rounding noise there is measured against
+    # the whole gradient's norm
+    whole = float(ref_dqkv.norm())
+    for o, r in zip(dqkv.chunk(3, dim=-1), ref_dqkv.chunk(3, dim=-1)):
+        assert float((o - r).norm()) <= F32_REL_L2 * (whole if qkv.shape[1] == 1 else float(r.norm()))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("counts,pad,fusion", [((70, 0, 50), 9, 30), ((0, 3, 200), 60, 17), ((1, 1, 1), 0, 1),
+                                               ((150, 50), 0, 0)])
+def test_zorro_f32_kernel_matches_plain(dev, dh, counts, pad, fusion):
+    """K1 / K1b's f32 instance on the zorro mask: PAD rows, fusion rows, a
+    row of each type, and rows 150-199 whose first key tiles are all
+    masked (the finite NEG_INF after the scale)."""
+    types = _types(dev, counts, pad, fusion).expand(2, -1).contiguous()
+    _zorro_f32_case(dev, _randf(dev, 2, types.shape[1], 3 * 2 * dh, seed=dh), 2, types)
+
+
+@pytest.mark.parametrize("n,heads,dh", [(1, 1, 32), (63, 8, 32), (65, 2, 64), (300, 1, 128), (256, 8, 32),
+                                        (640, 3, 64)])
+def test_unmasked_f32_kernel_matches_plain(dev, n, heads, dh):
+    _zorro_f32_case(dev, _randf(dev, 3, n, 3 * heads * dh, seed=1), heads, None)
+
+
+@pytest.mark.parametrize("n,dh", [(65, 32), (190, 32), (100, 64), (255, 64), (640, 64), (1024, 64)])
+def test_f32_ragged_n_and_the_model_lengths(dev, n, dh):
+    counts = (n // 3, n // 4, 0)
+    fusion = n // 5
+    types = _types(dev, counts, n - sum(counts) - fusion, fusion).expand(3, -1).contiguous()
+    _zorro_f32_case(dev, _randf(dev, 3, n, 3 * 3 * dh, seed=3), 3, types)
+
+
+def test_f32_attention_is_bitwise_the_same_from_run_to_run(dev):
+    types = _types(dev, (300, 200, 184), 40, 256).expand(4, -1).contiguous()
+    qkv = _randf(dev, 4, types.shape[1], 3 * 192, seed=4)
+    do = _randf(dev, 4, types.shape[1], 192, seed=5)
+    runs = []
+    for _ in range(2):
+        out, lse = cuda_attn.zorro_attention_qkv(qkv, 3, types, 3, return_lse=True)
+        runs.append((out, lse, cuda_attn.zorro_attention_qkv_backward(qkv, types, out, lse, do, 3, 3)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_f32_packed_mode_matches_plain_and_the_slab_kernel(dev, dh):
+    types = _types(dev, (70, 0, 50), 9, 30).expand(2, -1).contiguous()
+    qkv = _randf(dev, 2, types.shape[1], 3 * 2 * dh, seed=51)
+    q, k, v = (t.contiguous() for t in qkv.chunk(3, dim=-1))
+    out, lse = cuda_attn.zorro_attention_packed(q, k, v, types, 2, 3, return_lse=True)
+    ref, ref_lse = cuda_attn.zorro_attention_packed_reference(q, k, v, types, 2, 3, return_lse=True)
+    do = _randf(dev, *out.shape, seed=52)
+    grads = cuda_attn.zorro_attention_packed_backward(q, k, v, types, out, lse, do, 2, 3)
+    ref_grads = cuda_attn.zorro_attention_packed_backward_reference(q, k, v, types, ref, ref_lse, do, 2, 3)
+    slab_out, slab_lse = cuda_attn.zorro_attention_qkv(qkv, 2, types, 3, return_lse=True)
+    slab_grads = cuda_attn.zorro_attention_qkv_backward(qkv, types, slab_out, slab_lse, do, 2, 3)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel_all(grads, ref_grads) <= F32_REL_L2
+    assert torch.equal(out, slab_out) and torch.equal(lse, slab_lse)
+    assert all(torch.equal(g, s_) for g, s_ in zip(grads, slab_grads.chunk(3, dim=-1)))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("layout", sorted(SPARSE_ROWS))
+def test_f32_sparse_mode_matches_plain_on_every_row(dev, dh, layout):
+    """The tile-skip mode's f32 instance against its plain version (allowed
+    & active) on every row, PAD rows included, forward and backward."""
+    types = _sparse_types(dev, layout, 2)
+    qkv = _randf(dev, 2, types.shape[1], 3 * 2 * dh, seed=53)
+    out, lse = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, types, 2, 3, return_lse=True)
+    ref, ref_lse = cuda_zorro_sparse.zorro_sparse_attention_qkv_reference(qkv, types, 2, 3, return_lse=True)
+    do = _randf(dev, *out.shape, seed=54)
+    dqkv = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv, types, out, lse, do, 2, 3)
+    ref_dqkv = cuda_zorro_sparse.zorro_sparse_attention_qkv_backward_reference(qkv, types, ref, ref_lse, do, 2, 3)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel(lse, ref_lse) <= F32_REL_L2
+    assert _rel_all(dqkv.chunk(3, dim=-1), ref_dqkv.chunk(3, dim=-1)) <= F32_REL_L2
+
+
+def _f32_weights(dev, mode, widths, seed=30):
+    if mode == "geglu":
+        d, inner = widths
+        gamma = 1 + 0.1 * _randf(dev, d, seed=seed)
+        return (gamma, _randf(dev, 2 * inner, d, scale=d ** -0.5, seed=seed + 1),
+                _randf(dev, d, inner, scale=inner ** -0.5, seed=seed + 2)), d, d
+    d, hidden, out = widths
+    return (_randf(dev, hidden, d, scale=d ** -0.5, seed=seed), _randf(dev, hidden, scale=0.1, seed=seed + 1),
+            _randf(dev, out, hidden, scale=hidden ** -0.5, seed=seed + 2),
+            _randf(dev, out, scale=0.1, seed=seed + 3)), d, out
+
+
+@pytest.mark.parametrize("mode,widths", [("geglu", (192, 512)), ("mlp", (256, 1024, 256)), ("geglu", (64, 96)),
+                                         ("mlp", (32, 128, 48)), ("geglu", (768, 2048)), ("mlp", (768, 3072, 768)),
+                                         ("geglu", (1024, 2730))])
+@pytest.mark.parametrize("m", [1, 65, 4100])
+def test_ffn_f32_matches_plain(dev, mode, widths, m):
+    """K2 / K2b's f32 instance at the model's widths, small ones, `base`'s
+    and `large`'s (inner width 2730, launched unpadded), forward and every
+    gradient; M = 4100 spreads the weight gradients over several ranges."""
+    w, d, d_out = _f32_weights(dev, mode, widths)
+    x, dy = _randf(dev, m, d, seed=40), _randf(dev, m, d_out, seed=41)
+    fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
+    out, ref = fwd[0](x, *w), fwd[1](x, *w)
+    grads, ref_grads = bwd[0](x, *w, dy), bwd[1](x, *w, dy)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and _rel(out, ref) <= F32_REL_L2
+    assert [g.shape for g in grads] == [r.shape for r in ref_grads]
+    assert _rel_all(grads, ref_grads) <= F32_REL_L2
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+def test_ffn_f32_at_the_training_rows_and_bitwise_run_to_run(dev, mode):
+    """The pretraining step's M = 38,400 (GEGLU) and 15,360 (MLP): within
+    F32_REL_L2, and two backward runs bitwise equal (partials summed in a
+    fixed order, no atomics)."""
+    widths = (192, 512) if mode == "geglu" else (256, 1024, 256)
+    m = 38400 if mode == "geglu" else 15360
+    w, d, d_out = _f32_weights(dev, mode, widths)
+    x, dy = _randf(dev, m, d, seed=42), _randf(dev, m, d_out, seed=43)
+    fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
+    first, second, ref_grads = bwd[0](x, *w, dy), bwd[0](x, *w, dy), bwd[1](x, *w, dy)
+    out, ref = fwd[0](x, *w), fwd[1](x, *w)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel_all(first, ref_grads) <= F32_REL_L2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("t_mod", [1, 3, 8])
+@pytest.mark.parametrize("heads,dh", [(3, 64), (1, 32), (2, 128), (40, 32)])
+def test_fusion_row_f32_matches_plain(dev, t_mod, heads, dh):
+    b, f, inner = 2, 20, heads * dh
+    q, kvg, kvf = _randf(dev, b, f, inner, seed=11), _randf(dev, b, t_mod * f, 2 * inner, seed=12), \
+        _randf(dev, b, f, 2 * inner, seed=13)
+    do = _randf(dev, b, f, inner, seed=14)
+    out = cuda_fusion_attn.fusion_row_attention(q, kvg, kvf, heads, dh)
+    ref = cuda_fusion_attn.fusion_row_attention_reference(q, kvg, kvf, heads, dh)
+    grads = cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, heads, dh)
+    ref_grads = cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, heads, dh)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and _rel(out, ref) <= F32_REL_L2
+    assert _rel_all(grads, ref_grads) <= F32_REL_L2
+
+
+@pytest.mark.parametrize("operand", ["q", "kv_grid", "kv_f", "do"])
+def test_fusion_row_f32_on_an_operand_that_starts_off_16_bytes(dev, operand):
+    """An operand 4 bytes past a 16-byte boundary takes the kernels' 4-byte
+    path: the same values as the 16-byte one within F32_REL_L2."""
+    b, f, heads, dh, t_mod = 2, 20, 3, 64, 3
+    inner = heads * dh
+    shapes = {"q": (b, f, inner), "kv_grid": (b, t_mod * f, 2 * inner), "kv_f": (b, f, 2 * inner),
+              "do": (b, f, inner)}
+    ops_ = {k: _randf(dev, *s, seed=60 + i) for i, (k, s) in enumerate(shapes.items())}
+    t = ops_[operand]
+    off = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+    off.copy_(t)
+    shifted = dict(ops_, **{operand: off})
+    args = [shifted[k] for k in ("q", "kv_grid", "kv_f")]
+    out = cuda_fusion_attn.fusion_row_attention(*args, heads, dh)
+    grads = cuda_fusion_attn.fusion_row_attention_backward(*args, shifted["do"], heads, dh)
+    ref = cuda_fusion_attn.fusion_row_attention_reference(*args, heads, dh)
+    ref_grads = cuda_fusion_attn.fusion_row_attention_backward_reference(*args, shifted["do"], heads, dh)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel_all(grads, ref_grads) <= F32_REL_L2
+
+
+def _block_case_f32(dev, b, n, d, heads, dh):
+    x, types, w, dy = _block_case(dev, b, n, d, heads, dh)
+    return x.float(), types, tuple(t.float() for t in w), dy.float()
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", [(2, 70, 64, 1, 64), (3, 100, 96, 3, 32), (2, 64, 128, 1, 128),
+                                            (1, 33, 48, 2, 32), (60, 640, 192, 3, 64), (2, 100, 1664, 13, 128),
+                                            (2, 100, 64, 20, 64)])
+def test_fused_block_f32_matches_plain(dev, b, n, d, heads, dh):
+    """K6 / K6b's f32 instance within F32_REL_L2 of the f32 plain versions,
+    at the pretraining shape and out to D = I = 1664."""
+    x, types, w, dy = _block_case_f32(dev, b, n, d, heads, dh)
+    y = cuda_block_attn.fused_block_attn(x, types, *w, heads, 3)
+    ref = cuda_block_attn.fused_block_attn_reference(x, types, *w, heads, 3)
+    grads = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+    ref_grads = cuda_block_attn.fused_block_attn_backward_reference(x, types, *w, dy, heads, 3)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and _rel(y, ref) <= F32_REL_L2
+    assert [g.shape for g in grads] == [r.shape for r in ref_grads]
+    for name, g, r in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), grads, ref_grads):
+        assert _rel_all([g], [r]) <= F32_REL_L2, name
+
+
+def test_fused_block_f32_backward_is_bitwise_the_same_run_to_run(dev):
+    x, types, w, dy = _block_case_f32(dev, 60, 640, 192, 3, 64)
+    first = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, 3, 3)
+    second = cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, 3, 3)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), first, second):
+        assert torch.equal(a, b_), name
+
+
+def test_f32_functions_launch_their_f32_instances(dev):
+    """Every autograd Function on f32 tensors launches its f32 instance once
+    forward and once backward, and nothing else."""
+    ops.reset_kernel_launches()
+    qkv = _randf(dev, 2, 70, 3 * 64).requires_grad_()
+    cuda_attn.ZorroAttentionQKV.apply(qkv, 1).sum().backward()
+    x = _randf(dev, 40, 64).requires_grad_()
+    w = [_randf(dev, *s_, seed=i).requires_grad_() for i, s_ in enumerate([(64,), (192, 64), (64, 96)])]
+    cuda_ffn.GegluFFN.apply(x, *w).sum().backward()
+    wm = [_randf(dev, *s_, seed=i).requires_grad_() for i, s_ in enumerate([(128, 64), (128,), (32, 128), (32,)])]
+    cuda_ffn.MlpFFN.apply(x, *wm).sum().backward()
+    q, kvg, kvf = (_randf(dev, *s_, seed=i).requires_grad_() for i, s_ in enumerate([(1, 8, 64), (1, 24, 128),
+                                                                                      (1, 8, 128)]))
+    cuda_fusion_attn.FusionRowAttention.apply(q, kvg, kvf, 1, 64).sum().backward()
+    xb, types, wb, _ = _block_case_f32(dev, 1, 64, 64, 1, 64)
+    xb.requires_grad_()
+    wb = [t.requires_grad_() for t in wb]
+    cuda_block_attn.FusedBlockAttn.apply(xb, types, *wb, 1, 3).sum().backward()
+    qp, kp, vp = (_randf(dev, 1, 64, 64, seed=s_).requires_grad_() for s_ in (70, 71, 72))
+    cuda_attn.ZorroAttentionPacked.apply(qp, kp, vp, types, 1, 3).sum().backward()
+    sparse_types = _sparse_types(dev, "single-type tiles", 1)
+    qs = _randf(dev, 1, 512, 3 * 64, seed=73).requires_grad_()
+    cuda_zorro_sparse.ZorroSparseAttentionQKV.apply(qs, sparse_types, 1, 3).sum().backward()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    assert counts == {"zorro_attention_qkv/none_f32": 1, "zorro_attention_qkv/none_f32_backward": 1,
+                      "fused_ffn/geglu_f32": 1, "fused_ffn/geglu_f32_backward": 1, "fused_ffn/mlp_f32": 1,
+                      "fused_ffn/mlp_f32_backward": 1, "fusion_row_attention/fusion_row_f32": 1,
+                      "fusion_row_attention/fusion_row_f32_backward": 1, "fused_block_attn/f32_forward": 1,
+                      "fused_block_attn/f32_backward": 1, "zorro_attention_packed/zorro_f32": 1,
+                      "zorro_attention_packed/zorro_f32_backward": 1, "zorro_sparse/f32_forward": 1,
+                      "zorro_sparse/f32_backward": 1}, counts
+    for t in (qkv, x, *w, *wm, q, kvg, kvf, xb, *wb, qp, kp, vp, qs):
+        assert t.grad is not None and t.grad.dtype == torch.float32 and torch.isfinite(t.grad).all()
+
+
+def test_f32_wrappers_refuse_mixed_dtypes_and_operands_off_16_bytes(dev):
+    """The f32 instances take f32 operands only: a bf16 weight beside f32 x,
+    or a K1 slab that starts off 16 bytes, raises."""
+    x, types, w, _ = _block_case_f32(dev, 1, 64, 64, 1, 64)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_block_attn.fused_block_attn(x, types, w[0].to(torch.bfloat16), *w[1:], 1, 3)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_ffn.geglu_ffn(x[0], w[0], _randf(dev, 128, 64).to(torch.bfloat16), _randf(dev, 64, 64))
+    qkv = _randf(dev, 1, 16, 3 * 64)
+    off = torch.empty(qkv.numel() + 1, device=dev)[1:].view(qkv.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_attn.zorro_attention_qkv(off, 1)
+    with pytest.raises(ValueError):
+        cuda_fusion_attn.fusion_row_attention(_randf(dev, 1, 4, 64), _randf(dev, 1, 12, 128).to(torch.bfloat16),
+                                              _randf(dev, 1, 4, 128), 1, 64)

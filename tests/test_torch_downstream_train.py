@@ -15,6 +15,11 @@ points injected on both sides:
     stages);
   * at ``compute_dtype='bfloat16'`` the loss within 2e-2 relative of JAX's
     bf16 loss (bf16 rounds at other places in the two frameworks);
+  * the semantic step (``dense_masks=True``) with 'exact', 'greedy' and
+    'auction' matching: each level assigned as JAX's ``hungarian_match``
+    assigns the same costs, then the loss and every gradient against JAX's
+    dense criterion with those matches, and three dense steps against the
+    optax chain;
   * the freeze mask, the optimizer alone over random gradients (to 1e-6),
     ReduceLROnPlateau, label maps, the pretrained-backbone copy, the
     masking invariants, dice, ConfMatrix and the eval steps.
@@ -79,15 +84,15 @@ def _step_inputs(seed):
     return present, flat, matched, coords
 
 
-def _jax_loss(jm, e, dtype):
+def _jax_loss(jm, e, dtype, dense_masks=False):
     def loss(params, batch, targets, mi, present, matched, coords):
         cast = (lambda t: jax.tree.map(lambda x: x.astype(dtype), t))
         out = jm.apply({"params": cast(params)}, cast(batch), mask_info=mi, num_encoded_tokens=e,
                        present=present, deterministic=True)
         out = jax.tree.map(lambda x: x.astype(jnp.float32), out)
         losses = jsc.set_criterion(out, targets, jax.random.PRNGKey(0), CFG["num_classes"], num_points=P,
-                                   cost_class=2.0, cost_mask=5.0, cost_dice=5.0, matched_override=matched,
-                                   point_coords_override=coords)
+                                   cost_class=2.0, cost_mask=5.0, cost_dice=5.0, dense_masks=dense_masks,
+                                   matched_override=matched, point_coords_override=coords)
         parts = {name: w * sum(v for k, v in losses.items() if k.startswith(name))
                  for name, w in (("loss_ce", 2.0), ("loss_dice", 5.0), ("loss_mask", 5.0))}
         return 0.3 * parts["loss_ce"] + 0.3 * parts["loss_dice"] + 0.4 * parts["loss_mask"]
@@ -106,12 +111,13 @@ def setup():
     return jm, params, value_and_grad, x, _targets(3)
 
 
-def _port(params, compute_dtype="float32", lr=1e-3):
+def _port(params, compute_dtype="float32", lr=1e-3, **step_options):
     cfg = tmf.MaskFormerConfig(**CFG)
     model = tmf.build_maskformer(cfg, device="cpu")
     model.load_state_dict(params_from_jax(params), strict=True)
     opt = tds.create_downstream_optimizer(model, lr=lr, clip_grad=0.01, frozen_stages=FROZEN)
-    step = tds.make_downstream_train_step(model, cfg, opt, num_points=P, compute_dtype=compute_dtype)
+    step = tds.make_downstream_train_step(model, cfg, opt, num_points=P, compute_dtype=compute_dtype,
+                                          **step_options)
     return model, opt, step, tds.DownstreamState(model, opt, torch.Generator().manual_seed(0))
 
 
@@ -130,15 +136,7 @@ def _port_step_args(x, t, seed):
             torch.from_numpy(present), torch.from_numpy(matched), torch.from_numpy(coords))
 
 
-def test_loss_and_every_gradient_match_jax(setup):
-    jm, params, value_and_grad, x, t = setup
-    jloss, jgrads = value_and_grad(params, *_jax_step_args(x, t, 4))
-    model, _, step, _ = _port(params)
-    batch, targets, mi, present, matched, coords = _port_step_args(x, t, 4)
-    loss, metrics = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, 0,
-                                 matched_override=matched, point_coords_override=coords)
-    loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+def _assert_every_gradient(model, jgrads):
     want = params_from_jax(jgrads)
     grads = {n: p.grad for n, p in model.named_parameters()}
     assert set(want) == set(grads)
@@ -152,6 +150,19 @@ def test_loss_and_every_gradient_match_jax(setup):
         # softmax), whose f32 rounding follows the global scale
         err = float((got - g).norm())
         assert err <= 1e-4 * float(g.norm()) + 5e-8 * total, (name, err, float(g.norm()), total)
+    return grads
+
+
+def test_loss_and_every_gradient_match_jax(setup):
+    jm, params, value_and_grad, x, t = setup
+    jloss, jgrads = value_and_grad(params, *_jax_step_args(x, t, 4))
+    model, _, step, _ = _port(params)
+    batch, targets, mi, present, matched, coords = _port_step_args(x, t, 4)
+    loss, metrics = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, 0,
+                                 matched_override=matched, point_coords_override=coords)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    grads = _assert_every_gradient(model, jgrads)
     # the frozen stages' gradients are computed (the clip's norm needs them)
     frozen = [n for n, tr in tds.freeze_mask(model, FROZEN).items() if not tr]
     assert frozen and all(grads[n] is not None for n in frozen)
@@ -383,13 +394,77 @@ def test_eval_steps_match_jax(setup):
     assert (to_np(pred) == np.asarray(jpred)).mean() > 0.99
 
 
-def test_unported_step_options_raise():
+def test_hostmatch_step_is_the_exact_step_and_unknown_modes_raise():
     cfg = tmf.MaskFormerConfig(**CFG)
     model = tmf.build_maskformer(cfg, device="cpu")
     opt = tds.create_downstream_optimizer(model)
-    with pytest.raises(NotImplementedError, match="dense_masks"):
-        tds.make_downstream_train_step(model, cfg, opt, dense_masks=True)
-    with pytest.raises(NotImplementedError, match="greedy"):
-        tds.make_downstream_train_step(model, cfg, opt, match_mode="greedy")
-    step = tds.make_downstream_hostmatch_step(model, cfg, opt, num_points=P)
+    with pytest.raises(ValueError, match="match_mode"):
+        tds.make_downstream_train_step(model, cfg, opt, match_mode="sinkhorn")
+    step = tds.make_downstream_hostmatch_step(model, cfg, opt, num_points=P, match_mode="greedy")
     assert hasattr(step, "cost_step")
+
+
+@pytest.fixture(scope="module")
+def dense_value_and_grad(setup):
+    jm = setup[0]
+    e = jmf.MaskFormerConfig(**CFG).max_encoded_tokens
+    return jax.jit(jax.value_and_grad(_jax_loss(jm, e, jnp.float32, dense_masks=True)))
+
+
+@pytest.mark.parametrize("mode", ["exact", "greedy", "auction"])
+def test_dense_step_loss_and_every_gradient_match_jax(setup, dense_value_and_grad, mode):
+    """The semantic step (dense_masks=True) matching by ``mode`` on its own:
+    every level assigned as JAX's hungarian_match(mode) assigns the port's
+    costs of the same forward and key, then the loss (1e-5) and every
+    gradient against jax.value_and_grad of JAX's dense criterion with those
+    matches."""
+    _, params, _, x, t = setup
+    model, _, step, _ = _port(params, dense_masks=True, match_mode=mode)
+    batch, targets, mi, present, _, _ = _port_step_args(x, t, 5)
+    loss, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, 3, return_aux=True)
+    loss.backward()
+    assert aux["point_coords"] is None
+    with torch.no_grad():
+        out = torch.func.functional_call(model, dict(model.named_parameters()), (batch,),
+                                         dict(mask_info=mi, num_encoded_tokens=3 * NP_, present=present))
+        costs = tsc.set_criterion_costs(out, targets, 3, num_points=P, cost_class=2.0, cost_mask=5.0,
+                                        cost_dice=5.0)
+    want = np.stack([np.asarray(jsc.hungarian_match(jnp.asarray(to_np(c)), mode=mode)) for c in costs])
+    np.testing.assert_array_equal(to_np(aux["matched"]), want)
+    jx, jt, jmi, jpresent, _, jcoords = _jax_step_args(x, t, 5)
+    jloss, jgrads = dense_value_and_grad(params, jx, jt, jmi, jpresent, jnp.asarray(want), jcoords)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    _assert_every_gradient(model, jgrads)
+
+
+def test_three_dense_train_steps_match_optax(setup, dense_value_and_grad):
+    """Three semantic steps (dense masks, matches injected) against JAX's
+    dense loss and the optax chain: losses to 1e-5, the gradient norm to
+    1e-4, every weight whose gradient is not zero in exact arithmetic to
+    1e-4. A weight whose gradient is zero in exact arithmetic (a bias ahead
+    of a GroupNorm: its JAX gradient under 1e-6 of the global norm in every
+    step) moves by Adam's normalised rounding noise, at most lr a step, so
+    it is held to 3 lr."""
+    _, params, _, x, t = setup
+    lr = 1e-3
+    tx = jds.create_downstream_optimizer(params, lr=lr, clip_grad=0.01, frozen_stages=FROZEN)
+    opt_state, jp = tx.init(params), params
+    model, _, step, state = _port(params, lr=lr, dense_masks=True)
+    jlosses, tlosses, noise_only = [], [], None
+    for k in range(3):
+        jloss, g = dense_value_and_grad(jp, *_jax_step_args(x, t, 30 + k))
+        total = float(optax.global_norm(g))
+        tiny = {n for n, v in params_from_jax(g).items() if float(v.norm()) <= 1e-6 * total}
+        noise_only = tiny if noise_only is None else noise_only & tiny
+        upd, opt_state = tx.update(g, opt_state, jp)
+        jp = optax.apply_updates(jp, upd)
+        jlosses.append(float(jloss))
+        batch, targets, mi, present, matched, _ = _port_step_args(x, t, 30 + k)
+        state, metrics = step(state, batch, targets, matched, mask_info=mi, present=present, deterministic=True)
+        tlosses.append(float(metrics["loss"]))
+        np.testing.assert_allclose(float(metrics["grad_norm"]), total, rtol=1e-4)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-5)
+    want = params_from_jax(jp)
+    for name, p in model.named_parameters():
+        atol = 3 * lr if name in noise_only else 1e-4
+        np.testing.assert_allclose(to_np(p), want[name].numpy(), atol=atol, rtol=0, err_msg=name)

@@ -1,6 +1,7 @@
 """f32 under attn_impl='auto' on the CPU, where the kernels' autograd
 Functions run their plain forward and backward (a CUDA tensor would reach
-the kernel wrappers, which take bf16 only and refuse f32):
+the kernel wrappers, which launch their f32 instances there; the card tests
+hold those against the plain versions):
 
   * the SMALL MultiMAE forward (every encoder block on the fused K6 route)
     and one pretraining step in f32 under 'auto' call every kernel's

@@ -1,9 +1,13 @@
 """The ported Mask2Former set criterion (losses/set_criterion.py) against the
 JAX package's on the same numpy inputs: the two matching costs, the whole
-cost matrix at the points JAX draws, the scipy assignment, PointRend's
+cost matrix at the points JAX draws, the scipy assignment, the on-device
+greedy and auction assignments (equal to JAX's on costs with ties and
+padded columns; the auction within G eps of the optimum), PointRend's
 uncertain points with JAX's uniform draws injected, the per-level losses
-and the full criterion with the matches and points injected, and the
-semantic targets. Loss tolerance 1e-5 relative."""
+(point-sampled, and with dense masks at target sizes above and below the
+predictions') and the full criterion with the matches and points injected
+or, with dense masks, matched by each mode, and the semantic targets. Loss
+tolerance 1e-5 relative."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,10 +99,55 @@ def test_scipy_assignment_matches_jax():
     np.testing.assert_array_equal(tsc.scipy_assign_host(cost), ref)
     out = tsc.hungarian_match(torch.from_numpy(cost))
     np.testing.assert_array_equal(to_np(out), ref)
-    with pytest.raises(NotImplementedError, match="greedy"):
-        tsc.hungarian_match(torch.from_numpy(cost), mode="greedy")
-    with pytest.raises(NotImplementedError, match="auction"):
-        tsc.hungarian_match(torch.from_numpy(cost), mode="auction")
+
+
+def _costs(case, seed, levels=3, b=4, q=12, g=5):
+    """[L, B, Q, G] costs: 'ties' small integers (many equal costs),
+    'padded' the same with the last columns of some images at PAD_COST,
+    'continuous' uniform."""
+    rng = np.random.default_rng(seed)
+    if case == "continuous":
+        return rng.random((levels, b, q, g)).astype(np.float32)
+    cost = rng.integers(0, 6, (levels, b, q, g)).astype(np.float32)
+    if case == "padded":
+        pad = rng.random((levels, b, 1, 2)) < 0.5
+        cost[..., 3:] = np.where(pad, tsc.PAD_COST, cost[..., 3:])
+    return cost
+
+
+@pytest.mark.parametrize("mode", ["greedy", "auction"])
+@pytest.mark.parametrize("case", ["ties", "padded", "continuous"])
+def test_on_device_assignments_match_jax(mode, case):
+    """greedy_assign and auction_assign over every level and image at once
+    give JAX's assignment of each [B, Q, G] level bit for bit: the lowest
+    index among equal costs and bids (argmax, mask, max for the top two),
+    padded columns included."""
+    cost = _costs(case, {"ties": 20, "padded": 21, "continuous": 22}[case])
+    ref = np.stack([np.asarray(jax.jit(lambda c: jsc.hungarian_match(c, mode=mode))(jnp.asarray(c)))
+                    for c in cost])
+    out = tsc.hungarian_match(torch.from_numpy(cost), mode=mode)
+    assert out.shape == cost.shape[:-2] + cost.shape[-1:]
+    np.testing.assert_array_equal(to_np(out), ref)
+    assert all(len(set(row)) == len(row) for row in to_np(out).reshape(-1, cost.shape[-1]))
+
+
+@pytest.mark.parametrize("seed", [23, 24])
+def test_auction_is_within_g_eps_of_the_optimum(seed):
+    """The auction's assignment costs at most G eps (eps = 1e-3 x the cost
+    spread) more than scipy's optimum, image by image."""
+    cost = _costs("continuous", seed, levels=1, b=6, q=20, g=8)[0]
+    got = to_np(tsc.auction_assign(torch.from_numpy(cost)))
+    best = tsc.scipy_assign_host(cost)
+    for c, a, o in zip(cost, got, best):
+        eps = 1e-3 * (c.max() - c.min())
+        total, optimum = c[a, np.arange(c.shape[1])].sum(), c[o, np.arange(c.shape[1])].sum()
+        assert optimum - 1e-5 <= total <= optimum + c.shape[1] * eps + 1e-5
+
+
+def test_unknown_match_mode_raises():
+    cost = torch.from_numpy(_costs("continuous", 25))
+    with pytest.raises(ValueError, match="match_mode"):
+        tsc.hungarian_match(cost, mode="sinkhorn")
 
 
 def test_match_outputs_to_targets_is_the_assignment_of_the_costs():
@@ -190,12 +239,58 @@ def test_set_criterion_key_contract():
     assert aux["point_coords"].shape == (3, B * G, P, 2)
 
 
-def test_unported_criterion_options_raise():
-    out, t = _tout(_outputs(15)), _tt(_targets(16))
-    with pytest.raises(NotImplementedError, match="dense_masks"):
-        tsc.set_criterion(out, t, 0, K, num_points=P, dense_masks=True)
-    with pytest.raises(NotImplementedError, match="auction"):
-        tsc.set_criterion(out, t, 0, K, num_points=P, match_mode="auction")
+def _targets_of_size(seed, size):
+    labels, masks, valid = _targets(seed)
+    rng = np.random.default_rng(seed + 100)
+    masks = (rng.random((B, G, size, size)) < 0.3).astype(np.float32)
+    masks[~valid] = 0.0
+    return labels, masks, valid
+
+
+@pytest.mark.parametrize("size", [16, 12, 6])
+def test_dense_criterion_losses_match_jax(size):
+    """dense_masks=True: the targets resized to the predictions' 8 x 8 by
+    jax.image.resize(method='nearest') on JAX's side and
+    F.interpolate(mode='nearest-exact') on the port's (targets of 16, 12
+    and 6 pixels: larger and smaller), the losses over the whole masks, no
+    PointRend points (None)."""
+    out, t = _outputs(30, levels=1), _targets_of_size(31, size)
+    matched, _ = _overrides(32, levels=1)
+    num_masks = float(max(t[2].sum(), 1))
+    ref = jax.jit(lambda o, tg, m: jsc.criterion_losses(
+        o["pred_logits"], o["pred_masks"], tg, m, jax.random.PRNGKey(0), K, jnp.float32(num_masks), 0.1, P,
+        dense_masks=True))(_jout(out), _jt(t), jnp.asarray(matched[0]))
+    masks = torch.from_numpy(out["pred_masks"]).requires_grad_()
+    got, coords = tsc.criterion_losses(torch.from_numpy(out["pred_logits"]), masks, _tt(t),
+                                       torch.from_numpy(matched[0]), None, K, torch.tensor(num_masks), 0.1, P,
+                                       dense_masks=True)
+    assert coords is None and set(got) == set(ref)
+    for k in got:
+        np.testing.assert_allclose(float(got[k].detach()), float(ref[k]), rtol=1e-5, err_msg=k)
+    sum(got.values()).backward()
+    assert float(masks.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("mode", ["exact", "greedy", "auction"])
+def test_dense_set_criterion_with_each_match_mode_matches_jax(mode):
+    """set_criterion(dense_masks=True, match_mode=mode) assigns every level
+    as JAX's hungarian_match(mode) does on the same costs (the port's
+    set_criterion_costs under the same key) and gives JAX's losses with
+    those matches."""
+    out, t = _outputs(33), _targets_of_size(34, 16)
+    tout = _tout(out)
+    costs = tsc.set_criterion_costs(tout, _tt(t), 77, num_points=P, cost_class=2.0, cost_mask=5.0, cost_dice=5.0)
+    want = np.stack([np.asarray(jsc.hungarian_match(jnp.asarray(to_np(c)), mode=mode)) for c in costs])
+    losses, aux = tsc.set_criterion(tout, _tt(t), 77, K, num_points=P, cost_class=2.0, cost_mask=5.0,
+                                    cost_dice=5.0, dense_masks=True, match_mode=mode, return_aux=True)
+    np.testing.assert_array_equal(to_np(aux["matched"]), want)
+    assert aux["point_coords"] is None
+    ref = jax.jit(lambda o, tg, m: jsc.set_criterion(o, tg, jax.random.PRNGKey(0), K, num_points=P,
+                                                     dense_masks=True, matched_override=m))(
+        _jout(out), _jt(t), jnp.asarray(want))
+    assert set(losses) == set(ref) and len(losses) == 9
+    for k in losses:
+        np.testing.assert_allclose(float(losses[k]), float(ref[k]), rtol=1e-5, err_msg=k)
 
 
 def test_targets_from_semantic_labels_match_jax():
