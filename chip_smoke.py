@@ -9,8 +9,10 @@ MaskFormer (MaskFormerConfig defaults, seeded random weights, bf16 backbone
 and f32 head) through the segmentation entry points and through the
 downstream instance-segmentation training step (B = 30, exact Hungarian
 matching, PointRend criterion, bf16 compute over f32 master weights), then
-the f32 paths through the kernels' f32 instances and the semantic
-downstream training step, and checks what comes out.
+the f32 paths through the kernels' f32 instances, the semantic
+downstream training step and the pretraining state (balancer, EMA, the
+K-step CUDA graph, checkpoints through the CLI, the reference converter),
+and checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -108,6 +110,24 @@ Phases (any failure raises; the exit code is then non-zero):
                  memory, profiled device time; then one step each with
                  'greedy' and 'auction' matching, whose assignments on the
                  card must equal the CPU's from the same costs.
+ 11. pretrain-state -- PretrainConfig() (B = 60, bf16 over f32 masters) with
+                 task_balancer='uncertainty' and use_ema=True: (a)
+                 train.pretrain.make_multi_step (K = 4: the step captured in
+                 one CUDA graph and replayed) against 4 eager steps from the
+                 same state, twice eager: masters, moments, counts, balancer,
+                 EMA, generator and metrics bitwise equal where two eager
+                 runs are, else within twice the eager runs' spread; exact
+                 launch counts; (b) per step, eager and graph: wall p50,
+                 profiled device ms, busy share, kernels and copies, peak
+                 memory, and the graph's trace holding the eager step's
+                 hand-written kernels; (c) the pretraining CLI in
+                 subprocesses, 2 epochs of 4 steps (K = 4) straight through,
+                 and from its first checkpoint in a fresh process with
+                 --auto_resume: the last checkpoints equal under (a)'s rule;
+                 (d) tests/golden/fullmodel_golden.npz's weights through
+                 utils.torch_convert and one bf16 serving request at the
+                 golden's config (the plain path: its head dim 16 is not one
+                 of K1's) within SERVING_REL_L2 of full::*.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -118,6 +138,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,7 +153,7 @@ from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
 from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, build_maskformer
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
-from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
+from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE, build_multimae
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
 from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion
 from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
@@ -142,6 +163,7 @@ from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
 from incomplete_multimodal_fusion_tpu_torch.train import downstream, pretrain
+from incomplete_multimodal_fusion_tpu_torch.utils import torch_convert
 
 KERNEL_REL_L2 = 2e-2  # bf16 kernel vs bf16 plain version, same inputs
 SERVING_REL_L2 = 5e-2  # whole bf16 forward, kernels vs plain path
@@ -1265,15 +1287,15 @@ def phase_train(dev):
         raise RuntimeError(f"[train] launches per step {launches}, expected {PER_STEP}")
 
     before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-    count = optimizer.count
+    count = int(optimizer.count)
     torch.cuda.reset_peak_memory_stats(dev)
     times, losses = step_times(lambda: step(state, batch)[1], steps=10, warmup=3)
     peak = torch.cuda.max_memory_allocated(dev)
     after = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
     moved = float((after - before).abs().max())
-    if not all(math.isfinite(x) for x in losses) or moved == 0.0 or optimizer.count != count + 13:
+    if not all(math.isfinite(x) for x in losses) or moved == 0.0 or int(optimizer.count) != count + 13:
         raise RuntimeError(f"[train] losses {losses}, max weight change {moved}, "
-                           f"optimizer count {optimizer.count} (was {count})")
+                           f"optimizer count {int(optimizer.count)} (was {count})")
     model.attn_impl = "xla"
     times_p, _ = step_times(lambda: step(state, batch)[1], steps=5, warmup=2)
     model.attn_impl = "auto"
@@ -1293,7 +1315,7 @@ def phase_train(dev):
         torch.cuda.synchronize()
         mask_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"[train] B={b} N={e + cfg.model.num_fusion_tokens}: losses {[round(x, 4) for x in losses]}, "
-        f"max weight change {moved:.3g}, optimizer count {optimizer.count}; step p50 "
+        f"max weight change {moved:.3g}, optimizer count {int(optimizer.count)}; step p50 "
         f"{statistics.median(times):.6g} ms (plain path p50 {statistics.median(times_p):.6g} ms); "
         f"mask sampling p50 {statistics.median(mask_ms):.6g} ms on the host; "
         f"peak device memory {peak / 2 ** 30:.4g} GiB")
@@ -2126,6 +2148,236 @@ def phase_semantic_train(dev):
     return launches
 
 
+STATE_K = 4  # steps a CUDA graph group replays (make_multi_step's K)
+STATE_GROUPS = 5  # timed groups of K steps, after one warm-up group
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")  # git-ignored
+GOLDEN = os.path.join(ROOT, "tests", "golden", "fullmodel_golden.npz")
+# the golden's model (tests/test_fullmodel_parity.py:36-52)
+GOLDEN_MODEL = dict(in_domains=("s1", "s2", "dem"), out_domains=("s1", "s2", "dem"), image_size=64, patch_size=16,
+                    dim_tokens=64, depth=2, dim_head=16, heads=2, ff_mult=4, num_fusion_tokens=16,
+                    decoder_dim=32, decoder_depth=2, decoder_num_heads=2)
+GOLDEN_CHANNELS = {"s1": 1, "s2": 3, "dem": 1}
+
+
+def state_cfg():
+    """PretrainConfig() with the uncertainty balancer and the EMA."""
+    cfg = PretrainConfig()
+    return dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, task_balancer="uncertainty"),
+                               train=dataclasses.replace(cfg.train, use_ema=True))
+
+
+def state_parts(state):
+    """The pretraining state's tensors by part."""
+    bal = state.balancer_optimizer
+    return {"masters": list(state.model.parameters()), "moments": [state.optimizer.mu, state.optimizer.nu],
+            "counts": [state.optimizer.count, bal.count],
+            "balancer": [*state.balancer_params.values(), bal.mu, bal.nu], "ema": list(state.ema.values())}
+
+
+def state_snapshot(state):
+    return ({k: [t.detach().clone() for t in ts] for k, ts in state_parts(state).items()},
+            state.generator.get_state(), state.step)
+
+
+def state_restore(state, snap):
+    parts, gen, step = snap
+    with torch.no_grad():
+        for k, ts in state_parts(state).items():
+            for t, s in zip(ts, parts[k]):
+                t.copy_(s)
+    state.generator.set_state(gen)
+    state.step = step
+
+
+def state_compare(a, b):
+    """(bitwise equal, {part: relative L2 of a's flat part against b's})
+    of two snapshots."""
+    same = torch.equal(a[1], b[1]) and a[2] == b[2]
+    rel = {}
+    for k in a[0]:
+        same = same and all(torch.equal(x, y) for x, y in zip(a[0][k], b[0][k]))
+        fa = torch.cat([x.reshape(-1).double() for x in a[0][k]])
+        fb = torch.cat([y.reshape(-1).double() for y in b[0][k]])
+        rel[k] = float((fa - fb).norm() / fb.norm().clamp(min=1e-30))
+    return same, rel
+
+
+def payload_compare(a, b, path=""):
+    """The parts where two checkpoint payloads differ, each with its
+    relative L2 (empty when they are bitwise equal)."""
+    if isinstance(a, dict):
+        out = {}
+        for k in a:
+            out.update(payload_compare(a[k], b[k], f"{path}.{k}" if path else k))
+        return out
+    if isinstance(a, torch.Tensor):
+        if torch.equal(a, b):
+            return {}
+        return {path: float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))}
+    return {} if a == b else {path: float("inf")}
+
+
+def run_cli(out_dir, *extra):
+    """The pretraining CLI in a subprocess on the card (full width, B = 60)."""
+    cmd = [sys.executable, "-m", f"{PKG}.cli.pretrain", "--steps_per_epoch", str(STATE_K), "--epochs", "2",
+           "--save_ckpt_freq", "1", "--steps_per_call", str(STATE_K), "--use_ema", "--task_balancer", "uncertainty",
+           "--seed", str(SEED), "--output_dir", out_dir, *extra]
+    t0 = time.time()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        raise RuntimeError(f"[pretrain-state] {' '.join(cmd)} exited {r.returncode}: {r.stdout[-2000:]} "
+                           f"{r.stderr[-3000:]}")
+    return r.stdout, time.time() - t0
+
+
+def phase_pretrain_state(dev):
+    """The pretraining state at PretrainConfig() width (B = 60, bf16 over f32
+    masters) with the uncertainty balancer and the EMA: (a) make_multi_step
+    (K = 4, one CUDA graph over K1-K3) against 4 eager steps from the same
+    state; (b) per-step wall p50, device ms, busy share, launches and peak
+    memory of both; (c) the CLI on the card straight through against split,
+    saved and resumed; (d) one serving request with the golden's weights
+    through the port-native converter."""
+    cfg = state_cfg()
+    doms, b = tuple(cfg.data.in_domains), cfg.data.batch_size
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    multi = pretrain.make_multi_step(step, STATE_K)
+    rng = np.random.default_rng(SEED + 1)
+    host = [synthetic_batch(rng, doms, b, cfg.data.input_size) for _ in range(STATE_K)]
+    stack = {d: torch.from_numpy(np.stack([h[d] for h in host])).to(dev) for d in doms}
+
+    def run_eager():
+        out = [step(state, {d: stack[d][i] for d in doms})[1] for i in range(STATE_K)]
+        return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+    def run_graph():
+        return multi(state, stack)[1]
+
+    # (a) the main path's run, counts from 0: two eager runs of K steps and
+    # the graph's K steps, each from the same state
+    start = state_snapshot(state)
+    ops.reset_kernel_launches()
+    m_e1 = run_eager()
+    eager1 = state_snapshot(state)
+    state_restore(state, start)
+    m_e2 = run_eager()
+    eager2 = state_snapshot(state)
+    state_restore(state, start)
+    torch.cuda.reset_peak_memory_stats(dev)
+    m_g = run_graph()
+    torch.cuda.synchronize()
+    capture_peak = torch.cuda.max_memory_allocated(dev)  # the warm-up step and the capture
+    graphed = state_snapshot(state)
+    launches = ops.kernel_launches()
+    # the eager steps launch through the wrappers; the graph's wrappers run
+    # twice (the warm-up step and the capture), its replays launch on the card
+    want = {k: (2 * STATE_K + 2) * n for k, n in PER_STEP.items()}
+    log(f"[pretrain-state] launches counted in the main-path run: {launches}")
+    if {k: n for k, n in launches.items() if n} != want:
+        raise RuntimeError(f"[pretrain-state] launches {launches}, expected {want}")
+    eager_same, eager_rel = state_compare(eager2, eager1)
+    graph_same, graph_rel = state_compare(graphed, eager1)
+    metrics_same = all(torch.equal(m_g[k], m_e1[k]) for k in m_e1)
+    log(f"[pretrain-state] (a) K = {STATE_K}: eager run 2 vs eager run 1 bitwise {eager_same} (rel L2 by part "
+        f"{eager_rel}); graph vs eager run 1 bitwise {graph_same}, metrics bitwise {metrics_same} (rel L2 by part "
+        f"{graph_rel}); losses eager {m_e1['loss'].tolist()}, graph {m_g['loss'].tolist()}")
+    if not all(math.isfinite(x) for x in m_g["loss"].tolist()):
+        raise RuntimeError(f"[pretrain-state] non-finite graph losses {m_g['loss'].tolist()}")
+    if eager_same:
+        if not (graph_same and metrics_same):
+            raise RuntimeError(f"[pretrain-state] the graph's K steps differ from K eager steps: {graph_rel}")
+        rule = "bitwise"
+    else:
+        # the run-to-run spread of the eager step bounds the graph; the step's
+        # sums in a run-dependent order are the atomics of torch.gather's
+        # backward (pack_tokens, the fusion blocks' KV grid)
+        worse = {k: (graph_rel[k], eager_rel[k]) for k in graph_rel if graph_rel[k] > 2 * eager_rel[k]}
+        if worse or not torch.equal(graphed[1], eager1[1]) or graphed[2] != eager1[2]:
+            raise RuntimeError(f"[pretrain-state] graph vs eager beyond twice the eager spread: {worse}")
+        rule = f"within twice the eager spread {eager_rel}"
+    log(f"[pretrain-state] (a) graph against eager: {rule}; generator state and step equal")
+
+    # (b) timing: groups of K steps, one sync a group
+    results = {}
+    for name, run in (("eager", run_eager), ("graph", run_graph)):
+        run()
+        times = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(STATE_GROUPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / STATE_K)
+        # a replay allocates nothing: the graph's memory is what its capture took
+        peak = max(torch.cuda.max_memory_allocated(dev), capture_peak if name == "graph" else 0)
+        dev_ms, n_events, by_kind, per_name = device_breakdown(run, reps=2, top_n=None)
+        p50 = statistics.median(times)
+        results[name] = dict(p50=p50, device=dev_ms / STATE_K, events=n_events / STATE_K, peak=peak,
+                             kinds=sorted(set(kernel_name(n) for n, _ in per_name
+                                              if any(k in n.lower() for k in HAND_WRITTEN))))
+        log(f"[pretrain-state] (b) {name}: wall p50 {p50:.6g} ms a step (groups of {STATE_K}: "
+            f"{[round(t, 3) for t in times]}), device {dev_ms / STATE_K:.6g} ms a step in "
+            f"{n_events / STATE_K:.0f} kernels/copies, busy {dev_ms / STATE_K / p50:.3f}, by kind "
+            + ", ".join(f"{k} {v / STATE_K:.6g} ms" for k, v in sorted(by_kind.items()))
+            + f"; peak device memory {peak / 2 ** 30:.4g} GiB; hand-written kernels in the trace: "
+            + ", ".join(results[name]["kinds"]))
+    if results["graph"]["kinds"] != results["eager"]["kinds"] or not results["graph"]["kinds"]:
+        raise RuntimeError(f"[pretrain-state] the graph's hand-written kernels {results['graph']['kinds']} are "
+                           f"not the eager step's {results['eager']['kinds']}")
+
+    # (c) the CLI on the card: straight through, then split at the first
+    # epoch's checkpoint and resumed in a fresh process
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    straight, split = os.path.join(CLI_DIR, "straight"), os.path.join(CLI_DIR, "split")
+    out1, s1 = run_cli(straight)
+    os.makedirs(split)
+    shutil.copy(os.path.join(straight, f"checkpoint-{STATE_K}"), split)
+    out2, s2 = run_cli(split)
+    if f"Resumed from step {STATE_K}" not in out2:
+        raise RuntimeError(f"[pretrain-state] (c) the second run did not resume: {out2[-2000:]}")
+    last = f"checkpoint-{2 * STATE_K}"
+    a = torch.load(os.path.join(split, last), weights_only=True)
+    b_ = torch.load(os.path.join(straight, last), weights_only=True)
+    diff = payload_compare(a, b_)
+    if eager_same and diff:
+        raise RuntimeError(f"[pretrain-state] (c) resumed run differs from the straight one: {diff}")
+    if diff and not max(diff.values()) <= 2 * max(eager_rel.values()):
+        raise RuntimeError(f"[pretrain-state] (c) resumed run beyond the eager spread: {diff}")
+    log(f"[pretrain-state] (c) CLI {2 * STATE_K} steps (K = {STATE_K}, B = {b}) straight {s1:.1f} s, resumed "
+        f"from checkpoint-{STATE_K} {s2:.1f} s: {'bitwise equal' if not diff else f'rel L2 by tensor {diff}'}")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+    # (d) the golden's weights through the port-native converter, one
+    # serving request at the golden's config (bf16; its head dim 16 is not one
+    # of K1's, so the plain path serves it)
+    g = np.load(GOLDEN)
+    weights = {k[len("w::"):]: g[k] for k in g.files if k.startswith("w::")}
+    golden = MultiMAE(attn_impl="xla", **GOLDEN_MODEL)
+    golden.load_state_dict(torch_convert.convert_multimae_state(weights, golden.in_domains, golden.out_domains,
+                                                                GOLDEN_CHANNELS, patch_size=16, depth=2,
+                                                                decoder_depth=2), strict=True)
+    golden = golden.to(dev).to(torch.bfloat16).eval()
+    closure = serving.infer_closure(golden, None, golden.in_domains)
+    x = [g[f"x_{d}"].transpose(0, 2, 3, 1).copy() for d in golden.in_domains]
+    masks = [g[f"full::mask_{d}"] for d in golden.in_domains]
+    out = closure(*x, *masks)
+    rels = {d: rel_l2(out["preds"][d].cpu(), torch.from_numpy(g[f"full::pred_{d}"].transpose(0, 2, 3, 1).copy()))
+            for d in golden.in_domains}
+    # the pooled rows tests/test_fullmodel_parity.py:91-98 compares: present
+    # modalities and the fusion row
+    rows = [i for i, d in enumerate(golden.in_domains) if (g[f"full::mask_{d}"][0] == 0).any()]
+    rows.append(len(golden.in_domains))
+    rels["pooled"] = rel_l2(out["pooled"][:, rows].cpu(), torch.from_numpy(g["full::return_tokens"][:, rows]))
+    log(f"[pretrain-state] (d) golden weights via the port-native converter, bf16 serving request on the card: "
+        f"rel L2 against full::* {rels}")
+    if not max(rels.values()) <= SERVING_REL_L2:
+        raise RuntimeError(f"[pretrain-state] (d) rel L2 {rels} > {SERVING_REL_L2}")
+    return launches
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -2191,9 +2443,11 @@ def main(argv) -> int:
     in_f32 = phase_f32(dev, seg_context)
     del seg_context
     sem_trained = phase_semantic_train(dev)
+    state_trained = phase_pretrain_state(dev)
     entries = []
     for name in REPLACES:
-        launches = sum(run[name] for run in (served, trained, segmented, seg_trained, variants, in_f32, sem_trained))
+        launches = sum(run[name] for run in (served, trained, segmented, seg_trained, variants, in_f32, sem_trained,
+                                             state_trained))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

@@ -11,6 +11,8 @@ where the JAX code casts them.
 """
 from __future__ import annotations
 
+import itertools
+
 from typing import Optional, Sequence
 
 import torch
@@ -92,9 +94,13 @@ def packed_token_types(
 ) -> torch.Tensor:
     """Token-type id for each packed slot, plus the trailing fusion block.
     [B, E + F] int64."""
-    bounds = torch.cumsum(torch.tensor(num_tokens_per_task, device=order.device), 0)
-    full_types = torch.searchsorted(bounds, order[:, :num_encoded_tokens].contiguous(),
-                                    right=True)
+    # a token's type is the count of task boundaries at or below its index,
+    # compared on the device against host ints (no host-to-device copy, so a
+    # CUDA graph can capture it)
+    index = order[:, :num_encoded_tokens]
+    full_types = torch.zeros_like(index)
+    for bound in itertools.accumulate(num_tokens_per_task[:-1]):
+        full_types += index >= bound
     fus = torch.full((order.shape[0], num_fusion_tokens), fusion_type,
                      dtype=full_types.dtype, device=order.device)
     return torch.cat([full_types, fus], dim=1)

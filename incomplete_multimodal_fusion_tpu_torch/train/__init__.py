@@ -1,3 +1,3 @@
-from . import downstream, optim, pretrain, schedules
+from . import downstream, ema, optim, pretrain, schedules
 
-__all__ = ["downstream", "optim", "pretrain", "schedules"]
+__all__ = ["downstream", "ema", "optim", "pretrain", "schedules"]

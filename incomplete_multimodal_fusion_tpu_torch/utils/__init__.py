@@ -1,3 +1,3 @@
-from . import jax_params
+from . import checkpoint, jax_params, logging, torch_convert
 
-__all__ = ["jax_params"]
+__all__ = ["checkpoint", "jax_params", "logging", "torch_convert"]

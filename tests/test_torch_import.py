@@ -29,6 +29,9 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion\n"
         "from incomplete_multimodal_fusion_tpu_torch.train import downstream\n"
         "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_block_attn, cuda_zorro_sparse\n"
+        "from incomplete_multimodal_fusion_tpu_torch.train import ema\n"
+        "from incomplete_multimodal_fusion_tpu_torch.utils import checkpoint, logging, torch_convert\n"
+        "from incomplete_multimodal_fusion_tpu_torch.cli import pretrain as cli_pretrain\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
         "assert not bad, bad\n"

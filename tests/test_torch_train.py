@@ -10,10 +10,11 @@ masks on both sides:
     ``flat_adamw`` (per-step losses rtol 1e-4);
   * the kernels' autograd Functions (plain forward and backward on CPU
     tensors) against autograd of the plain forwards (atol 1e-5);
-  * one bf16 step, the entry points' refusal to fall back to the CPU, and
-    their refusal of EMA, which the port does not keep.
+  * one bf16 step and the entry points' refusal to fall back to the CPU.
+
+The balancer, the EMA, the skip, checkpoints and ``make_multi_step`` are
+held against JAX in tests/test_torch_pretrain_state.py.
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -201,21 +202,3 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpretrain.create_train_state(cfg, 0, total_steps=STEPS)
     assert next(build_multimae(cfg, device="cpu").parameters()).device.type == "cpu"
-
-
-def test_ema_is_refused_not_dropped():
-    cfg = _cfg(tconfig)
-    ema_cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_ema=True))
-    with pytest.raises(NotImplementedError, match="use_ema"):
-        tpretrain.create_train_state(ema_cfg, 0, total_steps=STEPS, device="cpu")
-    model, _, optimizer = tpretrain.create_train_state(cfg, 0, total_steps=STEPS, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_ema"):
-        tpretrain.make_train_step(model, ema_cfg, optimizer)
-    tpretrain.make_train_step(model, cfg, optimizer)  # without EMA the step builds
-
-
-def test_uncertainty_balancer_is_not_ported():
-    cfg = _cfg(tconfig, task_balancer="uncertainty")
-    model = build_multimae(_cfg(tconfig), device="cpu")
-    with pytest.raises(NotImplementedError, match="uncertainty"):
-        tpretrain.make_loss_fn(model, cfg)
