@@ -10,9 +10,10 @@ and f32 head) through the segmentation entry points and through the
 downstream instance-segmentation training step (B = 30, exact Hungarian
 matching, PointRend criterion, bf16 compute over f32 master weights), then
 the f32 paths through the kernels' f32 instances, the semantic
-downstream training step and the pretraining state (balancer, EMA, the
-K-step CUDA graph, checkpoints through the CLI, the reference converter),
-and checks what comes out.
+downstream training step, the pretraining state (balancer, EMA, the
+K-step CUDA graph, checkpoints through the CLI, the reference converter)
+and the command line (convert, infer, fine-tune, a learning run), and
+checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -128,21 +129,52 @@ Phases (any failure raises; the exit code is then non-zero):
                  utils.torch_convert and one bf16 serving request at the
                  golden's config (the plain path: its head dim 16 is not one
                  of K1's) within SERVING_REL_L2 of full::*.
+ 12. cli      -- the port's command line, in a temporary directory under
+                 build/, removed after: (a) cli.convert_checkpoint on the
+                 golden's reference weights as a .pth, in a fresh process,
+                 restored bit for bit as (d)'s convert_multimae_state output;
+                 (b) cli.infer in this process on a PretrainConfig()
+                 checkpoint (create_train_state, save_checkpoint), seeded
+                 masks (e = 256, seed 1) and --drop dem: finite PSNR for each
+                 masked modality, "fully visible" for the kept ones, a PNG
+                 grid of at least 3 x 256 by 3 x 256, one f32 serving
+                 forward's launches a call (the CLI computes in f32); (c) cli.train_downstream in this process at
+                 its defaults (tiny, 256^2, B = 30, 12544 points, exact,
+                 frozen 11, bf16) with --pretrained (b)'s checkpoint, 2 epochs
+                 of 3 steps, eval and a checkpoint each epoch: the backbone
+                 tensors copied equal those the pretraining model shares at
+                 equal shape, finite losses, a finite dice >= 0 (the
+                 reference's dice passes 1 where the queries' summed
+                 probabilities do), checkpoint-2
+                 restored bitwise into a fresh model and optimizer, phase 7's
+                 launches a step x 6 plus two f32 eval forwards', the CLI's
+                 wall p50 a step; then --task semantic (10 classes, greedy, 1
+                 epoch of 2 steps): AA and mIoU in [0, 1]; (d)
+                 tools/train_downstream_synthetic_torch.py for LEARN_STEPS
+                 steps in a subprocess (B = 8, frozen 11, auction): the mean
+                 loss of the last 25 steps at most half the first step's,
+                 mAP / AP50 / AP75 / foreground IoU beside DOWNSTREAM_E2E.json.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
+import struct
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -150,8 +182,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from incomplete_multimodal_fusion_tpu_torch import infer, infer_segmentation, ops, serving
 from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
-from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
-from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, build_maskformer
+from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch, synthetic_instances
+from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, MaskFormerModel, build_maskformer
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE, build_multimae
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
@@ -162,7 +194,10 @@ from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_at
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
+from incomplete_multimodal_fusion_tpu_torch.cli import infer as cli_infer
+from incomplete_multimodal_fusion_tpu_torch.cli import train_downstream as cli_downstream
 from incomplete_multimodal_fusion_tpu_torch.train import downstream, pretrain
+from incomplete_multimodal_fusion_tpu_torch.utils import checkpoint as ckpt_lib
 from incomplete_multimodal_fusion_tpu_torch.utils import torch_convert
 
 KERNEL_REL_L2 = 2e-2  # bf16 kernel vs bf16 plain version, same inputs
@@ -1466,31 +1501,6 @@ SEG_TRAIN_BATCH = 30
 MASK_EMB_GRAD_REL_L2 = 0.25
 
 
-def synthetic_instances(rng, b, s, num_classes, g=8):
-    """Random rasters and rectangular instance targets, 1 to 3 per image
-    among ``g`` padded columns, painted into the rasters (a copy of
-    scripts/train_downstream.py:70-93)."""
-    x = {
-        "s1": rng.standard_normal((b, s, s, 1)).astype(np.float32),
-        "s2": rng.standard_normal((b, s, s, 3)).astype(np.float32),
-        "dem": rng.standard_normal((b, s, s, 1)).astype(np.float32),
-    }
-    labels = np.full((b, g), -1, np.int32)
-    masks = np.zeros((b, g, s, s), np.float32)
-    valid = np.zeros((b, g), bool)
-    for i in range(b):
-        n = rng.integers(1, 4)
-        for j in range(n):
-            h0, w0 = rng.integers(0, s // 2, 2)
-            hh, ww = rng.integers(s // 8, s // 2, 2)
-            masks[i, j, h0: h0 + hh, w0: w0 + ww] = 1.0
-            labels[i, j] = rng.integers(0, num_classes)
-            valid[i, j] = True
-            for k in x:
-                x[k][i, h0: h0 + hh, w0: w0 + ww] += 2.0 + labels[i, j]
-    return x, SegTargets(labels, masks, valid)
-
-
 def head_masks(model, run):
     """``run()``'s result and the Mask2Former head's attention masks over
     that call (the ``allowed`` bits each cross-attention layer reads, one
@@ -2159,6 +2169,20 @@ GOLDEN_MODEL = dict(in_domains=("s1", "s2", "dem"), out_domains=("s1", "s2", "de
 GOLDEN_CHANNELS = {"s1": 1, "s2": 3, "dem": 1}
 
 
+def golden_weights():
+    """The reference MultiMAE's weights of the golden, {name: array}."""
+    g = np.load(GOLDEN)
+    return {k[len("w::"):]: g[k] for k in g.files if k.startswith("w::")}
+
+
+def golden_converted():
+    """The golden's weights through the port-native converter: the port's
+    state dict at the golden's config."""
+    return torch_convert.convert_multimae_state(golden_weights(), GOLDEN_MODEL["in_domains"],
+                                                GOLDEN_MODEL["out_domains"], GOLDEN_CHANNELS, patch_size=16,
+                                                depth=2, decoder_depth=2)
+
+
 def state_cfg():
     """PretrainConfig() with the uncertainty balancer and the EMA."""
     cfg = PretrainConfig()
@@ -2354,11 +2378,8 @@ def phase_pretrain_state(dev):
     # serving request at the golden's config (bf16; its head dim 16 is not one
     # of K1's, so the plain path serves it)
     g = np.load(GOLDEN)
-    weights = {k[len("w::"):]: g[k] for k in g.files if k.startswith("w::")}
     golden = MultiMAE(attn_impl="xla", **GOLDEN_MODEL)
-    golden.load_state_dict(torch_convert.convert_multimae_state(weights, golden.in_domains, golden.out_domains,
-                                                                GOLDEN_CHANNELS, patch_size=16, depth=2,
-                                                                decoder_depth=2), strict=True)
+    golden.load_state_dict(golden_converted(), strict=True)
     golden = golden.to(dev).to(torch.bfloat16).eval()
     closure = serving.infer_closure(golden, None, golden.in_domains)
     x = [g[f"x_{d}"].transpose(0, 2, 3, 1).copy() for d in golden.in_domains]
@@ -2375,6 +2396,208 @@ def phase_pretrain_state(dev):
         f"rel L2 against full::* {rels}")
     if not max(rels.values()) <= SERVING_REL_L2:
         raise RuntimeError(f"[pretrain-state] (d) rel L2 {rels} > {SERVING_REL_L2}")
+    return launches
+
+
+# phase 12: the eval forwards of the fine-tuning CLI run the f32 masters, so
+# the f32 instances of K1 / K2 (K4 takes f32 only)
+SEG_EVAL_F32_PER_FORWARD = {(k if k.startswith("ms_deform_attn/") else f32_key(k)): n
+                            for k, n in SEG_PER_FORWARD.items()}
+LEARN_STEPS = 150
+DOWNSTREAM_E2E = os.path.join(ROOT, "DOWNSTREAM_E2E.json")
+
+
+def write_golden_pth(path: str, prefix: str = "") -> dict:
+    """The golden's reference weights as a reference ``.pth`` ({'model':
+    state dict}, each name behind ``prefix``, e.g. DDP's 'module.'); returns
+    the state dict written."""
+    state = {f"{prefix}{k}": torch.from_numpy(np.ascontiguousarray(v)) for k, v in golden_weights().items()}
+    torch.save({"model": state}, path)
+    return state
+
+
+def png_size(path: str):
+    """(width, height) of an 8-bit RGB PNG, its pixel data decoded with
+    zlib and its length checked against them."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path} is not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        chunks[kind] = chunks.get(kind, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, colour) != (8, 2) or len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise RuntimeError(f"{path}: not an 8-bit RGB image of {w} x {h}")
+    return w, h
+
+
+def run_in_process(main_fn, argv):
+    """``main_fn(argv)`` in this process (its launches count), its standard
+    output captured; returns (exit code, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def parsed(pattern: str, text: str, what: str):
+    """Every float the regex's group finds in ``text``; raises when none."""
+    found = [float(v) for v in re.findall(pattern, text)]
+    if not found:
+        raise RuntimeError(f"[cli] {what}: nothing matches {pattern!r} in {text[-2000:]}")
+    return found
+
+
+def phase_cli(dev):
+    """The port's command line on the card, in a temporary directory inside
+    the checkout: (a) cli.convert_checkpoint on the golden's reference
+    weights in a fresh process, restored bit for bit; (b) cli.infer on a
+    PretrainConfig() checkpoint, seeded masks and --drop dem (PSNR, grid,
+    one f32 serving forward's launches a call: the CLI computes in f32 as
+    the JAX script does); (c) cli.train_downstream at its
+    defaults from that checkpoint, 2 epochs of 3 steps with eval and
+    checkpoints (backbone tensors copied, launches, bitwise restore, wall
+    p50 a step), then the semantic task; (d) the learning tool,
+    LEARN_STEPS steps in a subprocess: the loss must halve."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    launches = collections.Counter()
+    try:
+        # (a) convert, in a fresh process
+        pth, conv_dir = os.path.join(work, "golden.pth"), os.path.join(work, "converted")
+        write_golden_pth(pth)
+        cmd = [sys.executable, "-m", f"{PKG}.cli.convert_checkpoint", pth, conv_dir, "--in_domains", "s1-s2-dem",
+               "--depth", "2", "--decoder_depth", "2"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+        if r.returncode != 0:
+            raise RuntimeError(f"[cli] (a) {' '.join(cmd)} exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+        want = golden_converted()
+        restored = ckpt_lib.restore_params(conv_dir, MultiMAE(attn_impl="xla", **GOLDEN_MODEL)).state_dict()
+        diff = payload_compare(ckpt_lib.load_model_state(conv_dir), want)
+        diff.update(payload_compare(restored, want))
+        if diff or set(restored) != set(want):
+            raise RuntimeError(f"[cli] (a) the converted checkpoint differs from convert_multimae_state: {diff}")
+        log(f"[cli] (a) {r.stdout.strip()}; restored bit for bit as convert_multimae_state's {len(want)} tensors")
+
+        # (b) infer on a full-width PretrainConfig() checkpoint
+        pre_dir = os.path.join(work, "pretrained")
+        pre_model, pre_state, _ = pretrain.create_train_state(PretrainConfig(), SEED, total_steps=1, device=dev)
+        ckpt_lib.save_checkpoint(pre_dir, 0, pre_state)
+        pre_shapes = {k: tuple(v.shape) for k, v in pre_model.state_dict().items()}
+        del pre_model, pre_state
+        for name, extra, check in (("seeded masks", ["--num_encoded_tokens", "256", "--seed", "1"], "masked"),
+                                   ("--drop dem", ["--drop", "dem"], "drop")):
+            png = os.path.join(work, f"grid_{check}.png")
+            ops.reset_kernel_launches()
+            rc, out = run_in_process(cli_infer.main, ["--ckpt_dir", pre_dir, "--output", png, *extra])
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in ops.kernel_launches().items() if n}
+            launches.update(counts)
+            lines = {d: next((ln for ln in out.splitlines() if ln.startswith(f"{d}: ")), "") for d in
+                     ("s1", "s2", "dem")}
+            psnr = {d: parsed(r"PSNR (-?[0-9.]+|nan|inf) dB", ln, f"(b) {name} {d}")[0]
+                    for d, ln in lines.items() if "fully visible" not in ln}
+            w, h = png_size(png)
+            visible = [d for d, ln in lines.items() if "fully visible" in ln]
+            ok = (rc == 0 and counts == F32_PER_FORWARD and all(math.isfinite(v) for v in psnr.values())
+                  and w >= 3 * 256 and h >= 3 * 256 and "restored params" in out)
+            if check == "drop":
+                ok = ok and visible == ["s1", "s2"] and "(256/256 patches masked)" in lines["dem"]
+            else:
+                ok = ok and not visible
+            log(f"[cli] (b) infer, {name}: " + "; ".join(lines.values()) + f"; grid {w} x {h}; launches {counts}")
+            if not ok:
+                raise RuntimeError(f"[cli] (b) infer {name}: rc {rc}, launches {counts} (expected {F32_PER_FORWARD}), "
+                                   f"PSNR {psnr}, fully visible {visible}, grid {w} x {h}: {out[-2000:]}")
+
+        # (c) fine-tune at the script's defaults from (b)'s checkpoint
+        ft_dir = os.path.join(work, "finetune")
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        rc, out = run_in_process(cli_downstream.main, ["--pretrained", pre_dir, "--epochs", "2", "--steps_per_epoch",
+                                                       "3", "--eval_freq", "1", "--save_freq", "1",
+                                                       "--output_dir", ft_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in ops.kernel_launches().items() if n}
+        launches.update(counts)
+        cfg = cli_downstream.build_config(cli_downstream.get_args([]))
+        backbone = {k: tuple(v.shape) for k, v in MaskFormerModel(cfg).backbone.state_dict().items()}
+        shared = sorted(k for k, shape in backbone.items() if pre_shapes.get(k) == shape)
+        copied = parsed(r"restored (\d+) backbone tensors", out, "(c) --pretrained")[0]
+        losses = parsed(r"epoch \d+: loss=(\S+)", out, "(c) losses")
+        dice = parsed(r"eval dice=(\S+)", out, "(c) dice")
+        p50 = parsed(r"step wall p50 (\S+) ms", out, "(c) wall p50")[0]
+        want = collections.Counter({k: 6 * n for k, n in SEG_TRAIN_PER_STEP.items()})
+        want.update({k: 2 * n for k, n in SEG_EVAL_F32_PER_FORWARD.items()})
+        fresh = build_maskformer(cfg, device=dev)
+        fresh_opt = downstream.create_downstream_optimizer(fresh, lr=1e-4, clip_grad=0.01,
+                                                           frozen_stages=cfg.frozen_stages)
+        fresh_state = ckpt_lib.restore_checkpoint(ft_dir, downstream.DownstreamState(fresh, fresh_opt,
+                                                                                     torch.Generator()), step=2)
+        saved = torch.load(os.path.join(ft_dir, "checkpoint-2"), weights_only=True)
+        restore_diff = payload_compare(ckpt_lib.state_payload(fresh_state), saved)
+        names = sorted(n for n in os.listdir(ft_dir) if n.startswith("checkpoint-"))
+        log(f"[cli] (c) fine-tune (tiny, 256^2, B = 30, 12544 points, exact, frozen 11, bf16), 2 epochs x 3 "
+            f"steps: {int(copied)} backbone tensors copied of {len(shared)} shared at equal shape (positional "
+            f"and fusion: {[k for k in shared if not k.startswith(('blocks.', 'fus_blocks.'))]}); epoch losses "
+            f"{losses}, dice {dice}; {names}, checkpoint-2 into a fresh model and optimizer: "
+            f"{'bitwise' if not restore_diff else restore_diff}; launches {counts}; step wall p50 {p50:.6g} ms, "
+            f"the CLI {wall:.1f} s")
+        # the reference's dice is not bounded by 1: its prediction sums the
+        # queries' probabilities, which can pass 1 at a pixel (JAX's too)
+        if not (rc == 0 and int(copied) == len(shared) and all(math.isfinite(v) for v in losses)
+                and all(math.isfinite(v) and v >= 0.0 for v in dice) and names == ["checkpoint-1", "checkpoint-2"]
+                and not restore_diff and counts == dict(want) and fresh_state.step == saved["step"]):
+            raise RuntimeError(f"[cli] (c) fine-tune: rc {rc}, copied {copied} of {len(shared)}, losses {losses}, "
+                               f"dice {dice}, {names}, restore {restore_diff}, launches {counts} (expected "
+                               f"{dict(want)}): {out[-2000:]}")
+        del fresh, fresh_opt, fresh_state, saved
+        sem_dir = os.path.join(work, "semantic")
+        ops.reset_kernel_launches()
+        rc, out = run_in_process(cli_downstream.main, ["--task", "semantic", "--num_classes", "10", "--match_mode",
+                                                       "greedy", "--epochs", "1", "--steps_per_epoch", "2",
+                                                       "--eval_freq", "1", "--output_dir", sem_dir])
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.kernel_launches().items() if n}
+        launches.update(counts)
+        aa = parsed(r"eval AA=(\S+) mIoU", out, "(c) semantic AA")
+        miou = parsed(r"mIoU=(\S+)", out, "(c) semantic mIoU")
+        want = collections.Counter({k: 2 * n for k, n in SEG_TRAIN_PER_STEP.items()})
+        want.update({k: 2 * n for k, n in SEG_EVAL_F32_PER_FORWARD.items()})  # dice and the label map
+        log(f"[cli] (c) semantic (10 classes, greedy), 1 epoch x 2 steps: AA {aa}, mIoU {miou}; launches {counts}")
+        if not (rc == 0 and all(0.0 <= v <= 1.0 for v in aa + miou) and counts == dict(want)):
+            raise RuntimeError(f"[cli] (c) semantic: rc {rc}, AA {aa}, mIoU {miou}, launches {counts} (expected "
+                               f"{dict(want)}): {out[-2000:]}")
+
+        # (d) the learning check, in a subprocess (its launches are its own)
+        out_json = os.path.join(work, "learn.json")
+        cmd = [sys.executable, os.path.join(ROOT, "tools", "train_downstream_synthetic_torch.py"), "--steps",
+               str(LEARN_STEPS), "--frozen_stages", "11", "--out", out_json]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        if r.returncode != 0:
+            raise RuntimeError(f"[cli] (d) {' '.join(cmd)} exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+        tail = parsed(r"mean loss (\S+);", r.stdout, "(d) tail loss")[0]
+        first = parsed(r"first step's loss (\S+);", r.stdout, "(d) first loss")[0]
+        with open(out_json) as f:
+            res = json.load(f)
+        with open(DOWNSTREAM_E2E) as f:
+            jax_res = json.load(f)
+        keys = ("mAP", "AP50", "AP75", "binary_foreground_iou")
+        log(f"[cli] (d) learning run, {LEARN_STEPS} steps at B = {res['batch']}, frozen 11, auction: first loss "
+            f"{first:.6g}, mean of the last 25 {tail:.6g} ({first / tail:.3g}x); "
+            + ", ".join(f"{k} {res[k]:.6g}" for k in keys) + f" on {res['backend']} in {time.perf_counter() - t0:.1f} "
+            f"s (the JAX run, {jax_res['steps']} steps on {jax_res['backend']}: "
+            + ", ".join(f"{k} {jax_res[k]:.6g}" for k in keys) + ")")
+        if not (math.isfinite(tail) and tail <= first / 2):
+            raise RuntimeError(f"[cli] (d) the loss did not halve: first {first}, last 25 steps' mean {tail}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return launches
 
 
@@ -2444,10 +2667,11 @@ def main(argv) -> int:
     del seg_context
     sem_trained = phase_semantic_train(dev)
     state_trained = phase_pretrain_state(dev)
+    by_cli = phase_cli(dev)
     entries = []
     for name in REPLACES:
-        launches = sum(run[name] for run in (served, trained, segmented, seg_trained, variants, in_f32, sem_trained,
-                                             state_trained))
+        launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
+                                                    sem_trained, state_trained, by_cli))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

@@ -1,3 +1,3 @@
-from . import metrics
+from . import coco_eval, metrics, structures
 
-__all__ = ["metrics"]
+__all__ = ["coco_eval", "metrics", "structures"]

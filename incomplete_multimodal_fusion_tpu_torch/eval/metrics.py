@@ -5,11 +5,12 @@ package eval/metrics.py):
     (reference maskformer_train_ins_vit.py:325-369);
   * ``dice_score`` and ``binary_mask_from_labels`` (:308-323);
   * ``ConfMatrix`` AA / SA / IoU / mIoU (semantic utils/metrics.py:7-100),
-    numpy, with the ignore-class-0 filter in ``add``.
+    numpy, with the ignore-class-0 filter in ``add``;
+  * ``psnr_metrics`` (:148), the reconstruction PSNR as a float.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -78,8 +79,8 @@ class ConfMatrix:
         return np.bincount(idx, minlength=k * k).reshape(k, k).astype(np.float64)
 
     def add(self, gt, pred) -> None:
-        gt = _numpy(gt).flatten()
-        pred = _numpy(pred).flatten()
+        gt = to_numpy(gt).flatten()
+        pred = to_numpy(pred).flatten()
         if self.ignore_zero:
             pred = pred[gt != 0]
             gt = gt[gt != 0]
@@ -87,7 +88,7 @@ class ConfMatrix:
             self.state += self._cm(gt, pred)
 
     def add_batch(self, gt, pred) -> None:
-        for g, p in zip(_numpy(gt), _numpy(pred)):
+        for g, p in zip(to_numpy(gt), to_numpy(pred)):
             self.add(g, p)
 
     def get_existing_classes(self) -> int:
@@ -123,5 +124,17 @@ class ConfMatrix:
         return float(iou[present].mean())
 
 
-def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def to_numpy(x) -> np.ndarray:
+    """An array (or a tensor on any device, brought to the host once) as a
+    numpy array; bf16 widens to f32, which numpy lacks."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    return np.asarray(x)
+
+
+def psnr_metrics(pred, target, data_range: Optional[float] = None) -> float:
+    """PSNR of ``pred`` against ``target`` (arrays or tensors) as a float."""
+    from ..infer import psnr
+
+    return float(psnr(torch.as_tensor(to_numpy(pred)), torch.as_tensor(to_numpy(target)), data_range))

@@ -39,10 +39,11 @@ def sem_seg_postprocess(result: torch.Tensor, img_size: Tuple[int, int],
 
 
 def segmentation_outputs(model, params, inputs: Mapping, drop_modalities: Sequence[str] = ()):
-    """The model's output dict for one request, computed without autograd.
-    With ``drop_modalities`` the dropped modalities' tokens are all masked
-    and their planes left out of the fusion stack, so their pixels reach
-    nothing (:48-65)."""
+    """The model's output dict for one request, computed without autograd
+    and with dropout off (the module's mode is restored after), as the JAX
+    package's ``apply`` without a dropout key. With ``drop_modalities`` the
+    dropped modalities' tokens are all masked and their planes left out of
+    the fusion stack, so their pixels reach nothing (:48-65)."""
     module = resolve_module(model, params)
     cfg = module.cfg
     device = next(module.parameters()).device
@@ -57,8 +58,13 @@ def segmentation_outputs(model, params, inputs: Mapping, drop_modalities: Sequen
                       num_encoded_tokens=e,
                       present=torch.tensor([d not in drop_modalities for d in cfg.in_domains],
                                            device=device))
-    with torch.no_grad():
-        return module(x, **kwargs)
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad():
+            return module(x, **kwargs)
+    finally:
+        module.train(was_training)
 
 
 def semantic_probabilities(out: Mapping, size: Tuple[int, int]) -> torch.Tensor:

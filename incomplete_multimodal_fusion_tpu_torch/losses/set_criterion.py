@@ -32,22 +32,17 @@ points from ``(key, li, 1)``), so host assignments made from
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.targets import SegTargets
 from ..ops import cuda_points
 from ..ops.points import point_sample as point_sample_plain
 
 PAD_COST = 1e8
-
-
-class SegTargets(NamedTuple):
-    labels: torch.Tensor  # [B, G] int, -1 padding
-    masks: torch.Tensor  # [B, G, H, W] float 0/1
-    valid: torch.Tensor  # [B, G] bool
 
 
 def point_sample(masks: torch.Tensor, coords: torch.Tensor, group: int = 1,

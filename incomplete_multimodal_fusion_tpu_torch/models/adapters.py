@@ -17,7 +17,8 @@ from .layers import ViTBlock
 class PatchedInputAdapter(nn.Module):
     """Patchify + fixed 2D sin-cos posemb (input_adapters.py:27-119).
 
-    Input [B, H, W, C] -> tokens [B, N_H*N_W, dim], in the dtype of the
+    Input [B, H, W, C], or patch-major [B, N, p*p*C] (``data.patchify_batch``,
+    a square grid), -> tokens [B, N_H*N_W, dim], in the dtype of the
     adapter's weights.
     """
 
@@ -39,12 +40,22 @@ class PatchedInputAdapter(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.p
         x = x.to(self.proj.weight.dtype)
-        _, h, w, c = x.shape
-        if c != self.num_channels:
-            raise ValueError(f"adapter expects {self.num_channels} channels, got {c} "
-                             f"(input {tuple(x.shape)})")
-        n_h, n_w = h // p, w // p
-        tokens = conv_patch_embed(x, self.proj.weight.t(), self.proj.bias, p)
+        if x.dim() == 3:  # patch-major: the embedding is one product (adapters.py:51-60)
+            _, n, pc = x.shape
+            if pc != p * p * self.num_channels:
+                raise ValueError(f"adapter expects patch dim {p * p * self.num_channels}, got {pc} "
+                                 f"(input {tuple(x.shape)})")
+            n_h = n_w = int(round(n ** 0.5))
+            if n_h * n_w != n:
+                raise ValueError(f"patch-major input needs a square grid, got N={n}")
+            tokens = x @ self.proj.weight.t() + self.proj.bias
+        else:
+            _, h, w, c = x.shape
+            if c != self.num_channels:
+                raise ValueError(f"adapter expects {self.num_channels} channels, got {c} "
+                                 f"(input {tuple(x.shape)})")
+            n_h, n_w = h // p, w // p
+            tokens = conv_patch_embed(x, self.proj.weight.t(), self.proj.bias, p)
         hp = self.image_size // (self.stride_level * p)
         pos = build_2d_sincos_posemb(hp, hp, self.dim_tokens, device=x.device)
         pos = resize_posemb(pos, (hp, hp), (n_h, n_w)).to(tokens.dtype)

@@ -246,3 +246,27 @@ def full_visible_mask_info(
     }
     return mask_info_from_task_masks(masks, task_names, total)
 
+
+
+def make_mask(
+    n_h: int,
+    n_w: int,
+    xy_idxs: Dict[str, Sequence[Tuple[int, int]]],
+    full_tasks: Sequence[str] = (),
+    indicate_visible: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Per-task [1, n_h * n_w] int64 masks (on the CPU) from (x, y) lists of visible
+    patches (reference make_mask, multimae_crossattn.py:280-308): 1 = masked,
+    0 = visible; every patch of a task in ``full_tasks`` visible; with
+    ``indicate_visible=False`` the bits are flipped (1 = visible)."""
+    task_masks = {}
+    for k, coords in xy_idxs.items():
+        m = torch.ones((n_h, n_w), dtype=torch.long)
+        for (x, y) in coords:
+            m[y, x] = 0
+        task_masks[k] = m
+    for task in full_tasks:
+        task_masks[task][:] = 0
+    if not indicate_visible:
+        task_masks = {k: 1 - v for k, v in task_masks.items()}
+    return {k: v.reshape(1, -1) for k, v in task_masks.items()}

@@ -31,11 +31,13 @@ import torch
 from torch.func import functional_call
 
 from ..eval.metrics import binary_mask_from_labels, dice_score, semantic_inference
-from ..infer import as_input, resolve_module
+from ..infer import as_input
+from ..infer_segmentation import segmentation_outputs
 from ..losses.set_criterion import MATCH_MODES, SegTargets, set_criterion, set_criterion_costs
 from ..models.maskformer import MaskFormerConfig, MaskFormerModel
 from ..ops import masking
 from ..ops.resize import resize_bilinear
+from ..utils import checkpoint as ckpt_lib
 
 # _freeze_stages (multimae_big_imcomplete.py:682-730): the input adapters,
 # the fusion tokens and the fusion blocks; encoder blocks 1..frozen_stages
@@ -88,6 +90,14 @@ class DownstreamOptimizer:
     @property
     def lr(self) -> float:
         return self.inner.param_groups[0]["lr"]
+
+    def state_dict(self) -> Dict:
+        """AdamW's moments and step counts (or SGD's momenta) and the current
+        lr, which ReduceLROnPlateau may have cut."""
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.inner.load_state_dict(state)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -177,6 +187,15 @@ class DownstreamState:
     optimizer: DownstreamOptimizer
     generator: torch.Generator  # host generator of the per-step draws
     step: int = 0
+
+    def checkpoint_payload(self) -> Dict:
+        """This state's checkpoint content (utils/checkpoint.py): the core
+        alone."""
+        return ckpt_lib.core_payload(self, "downstream")
+
+    def restore_payload(self, saved: Dict) -> None:
+        """Puts ``checkpoint_payload``'s content back in place."""
+        ckpt_lib.restore_core(self, saved, "downstream")
 
 
 def as_targets(targets: SegTargets, device) -> SegTargets:
@@ -352,18 +371,6 @@ def label_map_from_targets(targets: SegTargets) -> torch.Tensor:
     return per_inst.amax(dim=1).to(torch.int32)
 
 
-def _eval_outputs(model, params, batch):
-    module = resolve_module(model, params)
-    device = next(module.parameters()).device
-    x = {d: as_input(batch[d], device) for d in module.cfg.in_domains}
-    was_training = module.training
-    module.eval()
-    with torch.no_grad():
-        out = module(x)
-    module.train(was_training)
-    return out
-
-
 def make_semantic_pred_step(model: MaskFormerModel, cfg: MaskFormerConfig, out_size: int = 0):
     """``pred_step(params, batch)`` -> [B, S, S] per-pixel labels for the
     ConfMatrix evaluation: argmax + 1 of the class probabilities
@@ -371,7 +378,7 @@ def make_semantic_pred_step(model: MaskFormerModel, cfg: MaskFormerConfig, out_s
     weights), a module or a state dict."""
 
     def pred_step(params, batch):
-        out = _eval_outputs(model, params, batch)
+        out = segmentation_outputs(model, params, batch)
         s = out_size or cfg.image_size
         sem = semantic_inference(out["pred_logits"], resize_bilinear(out["pred_masks"], (s, s)))
         return sem.argmax(dim=1) + 1
@@ -384,7 +391,7 @@ def make_eval_step(model: MaskFormerModel, cfg: MaskFormerConfig):
     full-modality forward over the batch (maskformer_train_ins_vit.py:269-306)."""
 
     def eval_step(params, batch, gt_label_map):
-        out = _eval_outputs(model, params, batch)
+        out = segmentation_outputs(model, params, batch)
         gt = as_input(gt_label_map, out["pred_masks"].device)
         sem = semantic_inference(out["pred_logits"],
                                  resize_bilinear(out["pred_masks"], tuple(gt.shape[-2:])))

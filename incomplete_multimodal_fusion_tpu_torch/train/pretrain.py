@@ -34,6 +34,7 @@ from ..losses import LOSS_FNS, PATCH_LOSS_FNS, dino_loss, init_uncertainty_param
 from ..losses import uncertainty_weighting
 from ..models.multimae import MultiMAE, build_multimae
 from ..ops import masking
+from ..utils import checkpoint as ckpt_lib
 from . import optim as optim_lib
 from . import schedules
 from .ema import init_ema, update_ema
@@ -67,6 +68,27 @@ class TrainState:
         self.optimizer.zero_grad(set_to_none=True)
         if self.balancer_optimizer is not None:
             self.balancer_optimizer.zero_grad(set_to_none=True)
+
+    def checkpoint_payload(self) -> Dict:
+        """This state's checkpoint content (utils/checkpoint.py): the core,
+        the balancer and its optimizer, the EMA."""
+        return dict(ckpt_lib.core_payload(self, "pretraining"), balancer_params=dict(self.balancer_params),
+                    balancer_optimizer=(None if self.balancer_optimizer is None
+                                        else self.balancer_optimizer.state_dict()),
+                    ema=self.ema)
+
+    def restore_payload(self, saved: Dict) -> None:
+        """Puts ``checkpoint_payload``'s content back in place."""
+        ckpt_lib.restore_core(self, saved, "pretraining")
+        ckpt_lib.copy_into(self.balancer_params, saved["balancer_params"], "the balancer")
+        if (self.balancer_optimizer is None) != (saved["balancer_optimizer"] is None):
+            raise ValueError("restore_checkpoint: the checkpoint and the state disagree on the balancer")
+        if self.balancer_optimizer is not None:
+            self.balancer_optimizer.load_state_dict(saved["balancer_optimizer"])
+        if (self.ema is None) != (saved["ema"] is None):
+            raise ValueError("restore_checkpoint: the checkpoint and the state disagree on the EMA")
+        if self.ema is not None:
+            ckpt_lib.copy_into(self.ema, saved["ema"], "the EMA")
 
 
 def _balancer(cfg):

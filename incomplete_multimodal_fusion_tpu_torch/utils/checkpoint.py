@@ -1,13 +1,23 @@
-"""Checkpoints of the pretraining state (JAX package utils/checkpoint.py:15-97;
+"""Checkpoints of the training states (JAX package utils/checkpoint.py:15-97;
 reference pretraining/utils/checkpoint.py: ``torch.save`` of model,
 optimizer and epoch, auto-resume from the latest ``checkpoint-*``).
 
 The format is the port's own: one ``torch.save`` file,
-``directory/checkpoint-{step}``, holding the f32 masters, FlatAdamW's count
-and moments, the balancer's log-variances and its optimizer's, the EMA, the
-step and the mask generator's state, each on the CPU. A restore copies every
-tensor into the state in place, so a step captured in a CUDA graph keeps
-running on the restored values.
+``directory/checkpoint-{step}``, each tensor on the CPU, holding
+  * for the pretraining ``TrainState``: the f32 masters, FlatAdamW's count
+    and moments, the balancer's log-variances and its optimizer's, the EMA,
+    the step and the mask generator's state;
+  * for the downstream ``DownstreamState``: the f32 masters, the optimizer
+    (its moments, step counts and current lr), the step and the generator's
+    state;
+  * for converted weights (``save_params``): the step label and the model's
+    state dict alone.
+Each names its kind under ``kind`` ('pretraining', 'downstream', 'params'),
+and a state restores only from its own. Every kind keeps the model's state
+dict under ``model``, so ``restore_params``
+and ``load_model_state`` read all three. A restore copies every tensor into
+the state in place, so a step captured in a CUDA graph keeps running on the
+restored values.
 """
 from __future__ import annotations
 
@@ -27,30 +37,57 @@ def _host(tree):
     return tree
 
 
-def state_payload(state) -> Dict:
-    """The checkpoint's content for a train/pretrain.py ``TrainState``."""
-    return _host({
+def core_payload(state, kind: str) -> Dict:
+    """What every training state's checkpoint holds: its kind, the step, the
+    model's state dict, the optimizer's state and the generator's. Each
+    state type adds its own parts (``checkpoint_payload``)."""
+    return {
+        "kind": kind,
         "step": int(state.step),
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
-        "balancer_params": dict(state.balancer_params),
-        "balancer_optimizer": (None if state.balancer_optimizer is None
-                               else state.balancer_optimizer.state_dict()),
-        "ema": state.ema,
         "generator": state.generator.get_state(),
-    })
+    }
+
+
+def restore_core(state, saved: Dict, kind: str) -> None:
+    """Puts ``core_payload``'s parts of ``saved`` back into ``state`` in
+    place; raises when the checkpoint is of another kind."""
+    saved_kind = saved.get("kind", "pretraining")  # checkpoints without a kind are all pretraining ones
+    if saved_kind != kind:
+        raise ValueError(f"restore_checkpoint: a {saved_kind} checkpoint does not restore a {kind} state")
+    copy_into(state.model.state_dict(), saved["model"], "the model")
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.generator.set_state(saved["generator"])
+    state.step = saved["step"]
+
+
+def state_payload(state) -> Dict:
+    """The checkpoint's content for a training state (train/pretrain.py's
+    ``TrainState``, train/downstream.py's ``DownstreamState``), on the CPU."""
+    return _host(state.checkpoint_payload())
+
+
+def _write(directory: str, step: int, payload: Dict) -> str:
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{PREFIX}{step}")
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
 
 
 def save_checkpoint(directory: str, step: int, state) -> str:
     """Writes ``directory/checkpoint-{step}`` (through a temporary file, so a
     reader never sees half a checkpoint) and returns its path."""
-    directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, f"{PREFIX}{step}")
-    tmp = f"{path}.tmp{os.getpid()}"
-    torch.save(state_payload(state), tmp)
-    os.replace(tmp, path)
-    return path
+    return _write(directory, step, state_payload(state))
+
+
+def save_params(directory: str, step: int, state_dict: Dict[str, torch.Tensor]) -> str:
+    """Writes a weights-only checkpoint (converted reference weights) as
+    ``directory/checkpoint-{step}``, the same way; returns its path."""
+    return _write(directory, step, _host({"kind": "params", "step": int(step), "model": dict(state_dict)}))
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -75,7 +112,7 @@ def _load(directory: str, step: Optional[int]):
     return torch.load(os.path.join(directory, f"{PREFIX}{step}"), map_location="cpu", weights_only=True)
 
 
-def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str) -> None:
+def copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str) -> None:
     if set(dst) != set(src):
         raise KeyError(f"restore_checkpoint: {what} holds {sorted(set(src) ^ set(dst))} on one side only")
     with torch.no_grad():
@@ -85,36 +122,31 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what:
 
 def restore_checkpoint(directory: str, state, step: Optional[int] = None):
     """Restores the checkpoint of ``step`` (the latest when None) into
-    ``state`` in place and returns it; returns ``state`` unchanged when the
-    directory holds none (the auto-resume of reference checkpoint.py:103-134)."""
+    ``state`` (a pretraining or downstream state, through its
+    ``restore_payload``) in place and returns it; returns ``state`` unchanged
+    when the directory holds none (the auto-resume of reference
+    checkpoint.py:103-134)."""
     saved = _load(directory, step)
-    if saved is None:
-        return state
-    _copy_into(state.model.state_dict(), saved["model"], "the model")
-    state.optimizer.load_state_dict(saved["optimizer"])
-    _copy_into(state.balancer_params, saved["balancer_params"], "the balancer")
-    if (state.balancer_optimizer is None) != (saved["balancer_optimizer"] is None):
-        raise ValueError("restore_checkpoint: the checkpoint and the state disagree on the balancer")
-    if state.balancer_optimizer is not None:
-        state.balancer_optimizer.load_state_dict(saved["balancer_optimizer"])
-    if (state.ema is None) != (saved["ema"] is None):
-        raise ValueError("restore_checkpoint: the checkpoint and the state disagree on the EMA")
-    if state.ema is not None:
-        _copy_into(state.ema, saved["ema"], "the EMA")
-    state.generator.set_state(saved["generator"])
-    state.step = saved["step"]
+    if saved is not None:
+        state.restore_payload(saved)
     return state
+
+
+def load_model_state(directory: str, step: Optional[int] = None) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's state dict (on the CPU) of the checkpoint of ``step`` (the
+    latest when None), whatever its kind; None when there is none."""
+    saved = _load(directory, step)
+    return None if saved is None else saved["model"]
 
 
 def restore_params(directory: str, model: torch.nn.Module, step: Optional[int] = None) -> torch.nn.Module:
     """Loads the saved parameters alone into ``model`` where name and shape
-    match, whatever the rest of the state (the lenient load of reference
+    match, whatever the checkpoint's kind (the lenient load of reference
     checkpoint.py:26-72); reports the parameters left at their values.
     Returns ``model`` (unchanged when there is no checkpoint)."""
-    saved = _load(directory, step)
-    if saved is None:
+    source = load_model_state(directory, step)
+    if source is None:
         return model
-    source = saved["model"]
     unmatched = []
     with torch.no_grad():
         for name, t in model.state_dict().items():

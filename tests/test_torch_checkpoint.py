@@ -8,8 +8,8 @@
     bitwise equal (the masks come from the generator, so a generator that
     resumed wrong would change the run);
   * ``latest_step``, ``restore_checkpoint`` on a directory without one, a
-    state that disagrees with the checkpoint, and ``restore_params``'
-    lenient load.
+    state that disagrees with the checkpoint or a checkpoint of another
+    kind, and ``restore_params``' lenient load.
 """
 import dataclasses
 import os
@@ -124,6 +124,16 @@ def test_restore_refuses_a_state_of_another_shape(tmp_path):
         ckpt.restore_checkpoint(str(tmp_path), plain)
 
 
+def test_restore_refuses_a_checkpoint_of_another_kind(tmp_path):
+    """A pretraining state restores only a pretraining checkpoint: converted
+    weights (``save_params``) carry no optimizer or generator to resume."""
+    _, state, _ = tpretrain.create_train_state(_small_cfg(), 0, total_steps=4, device="cpu")
+    ckpt.save_params(str(tmp_path), 1, state.model.state_dict())
+    with pytest.raises(ValueError, match="a params checkpoint does not restore a pretraining state"):
+        ckpt.restore_checkpoint(str(tmp_path), state)
+    assert ckpt.restore_params(str(tmp_path), state.model) is state.model
+
+
 def test_restore_is_in_place(tmp_path):
     """A restore copies into the state's own tensors: a CUDA graph captured
     over them goes on reading the restored values."""
@@ -156,3 +166,14 @@ def test_restore_params_is_lenient(tmp_path, capsys):
             assert torch.equal(p, saved[name]), name
     assert torch.equal(other.blocks[1].attn.to_q.weight, extra)
     assert "not found in the checkpoint" in capsys.readouterr().out
+
+
+def test_a_checkpoint_without_a_kind_restores_a_pretraining_state(tmp_path):
+    """Pretraining checkpoints written before the payload named its kind
+    still resume."""
+    _, state, _ = tpretrain.create_train_state(_small_cfg(), 0, total_steps=4, device="cpu")
+    payload = ckpt.state_payload(state)
+    del payload["kind"]
+    torch.save(payload, str(tmp_path / "checkpoint-3"))
+    state.step = 7
+    assert ckpt.restore_checkpoint(str(tmp_path), state).step == 0

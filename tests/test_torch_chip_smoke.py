@@ -345,3 +345,91 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
     csrc = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
     for source, name in sorted(f32):
         assert name in _extern_c(csrc / source), (source, name)
+
+
+MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
+               "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli")
+
+
+@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving"])
+def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
+    """``main`` sums every main path's launches, phase 12's (cli) among
+    them: with the launches of one phase alone, each kernel's entry counts
+    them, and the last line is the contract's."""
+    import json
+
+    r = {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.1, "bound_by": "bytes", "library_ms": None,
+         "shape": "M=1", "device_ms": 0.5, "device_how": "profiler", "library_device_ms": None,
+         "library_device_how": None}
+    monkeypatch.setattr(smoke, "phase_device", lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
+    monkeypatch.setattr(smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(smoke, "phase_kernels", lambda dev: {name: r for name in smoke.REPLACES})
+    counts = {name: 3 for name in smoke.REPLACES}
+    for phase in MAIN_PHASES:
+        got = counts if phase == launching else {}
+        two = phase in ("phase_train", "phase_segment_train")  # these also return a context
+        monkeypatch.setattr(smoke, phase, lambda *a, got=got, two=two: (got, {}) if two else got)
+    monkeypatch.setattr(smoke.torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(smoke.torch.cuda, "device_count", lambda: 1)
+    assert smoke.main(["chip_smoke.py"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    kernels = json.loads(lines[-3])["kernels"]
+    assert [k["name"] for k in kernels] == list(smoke.REPLACES) and all(k["launches"] == 3 for k in kernels)
+    assert lines[-2] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert json.loads(lines[-1]) == {"ok": True, "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                                                            "count": 1}}
+
+
+def test_main_fails_when_no_phase_launches_a_kernel(smoke, monkeypatch):
+    r = dict.fromkeys(("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                       "device_ms", "device_how", "library_device_ms", "library_device_how"))
+    monkeypatch.setattr(smoke, "phase_device", lambda: "smi")
+    monkeypatch.setattr(smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(smoke, "phase_kernels", lambda dev: {name: r for name in smoke.REPLACES})
+    for phase in MAIN_PHASES:
+        two = phase in ("phase_train", "phase_segment_train")
+        monkeypatch.setattr(smoke, phase, lambda *a, two=two: ({}, {}) if two else {})
+    with pytest.raises(RuntimeError, match="was not launched by the main paths"):
+        smoke.main(["chip_smoke.py"])
+
+
+def test_the_cli_phases_pth_converts_to_the_golden_converter_output(smoke, tmp_path):
+    """Phase 12 (a)'s .pth writer takes the golden's reference weights (also
+    behind DDP's prefix); cli.convert_checkpoint on it restores bit for bit
+    to the converter output phase 11 (d) serves."""
+    import torch
+    from incomplete_multimodal_fusion_tpu_torch.cli import convert_checkpoint
+    from incomplete_multimodal_fusion_tpu_torch.utils import checkpoint as ckpt_lib
+
+    pth = str(tmp_path / "golden.pth")
+    state = smoke.write_golden_pth(pth, prefix="module.")
+    assert set(state) == {f"module.{k}" for k in smoke.golden_weights()}
+    assert convert_checkpoint.main([pth, str(tmp_path / "out"), "--depth", "2", "--decoder_depth", "2"]) == 0
+    got, want = ckpt_lib.load_model_state(str(tmp_path / "out")), smoke.golden_converted()
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+    assert smoke.payload_compare(got, want) == {}
+
+
+def test_the_cli_phases_png_check_reads_a_grid(smoke, tmp_path):
+    import numpy as np
+    from incomplete_multimodal_fusion_tpu_torch import infer
+
+    grid = np.random.default_rng(0).integers(0, 256, (3 * 40, 3 * 24, 3)).astype(np.uint8)
+    path = str(tmp_path / "grid.png")
+    infer.write_png(path, grid)
+    assert smoke.png_size(path) == (72, 120)
+    data = open(path, "rb").read()
+    with open(path, "wb") as f:  # a header that claims more rows than the pixel data holds
+        f.write(data[:20] + (121).to_bytes(4, "big") + data[24:])
+    with pytest.raises(RuntimeError, match="not an 8-bit RGB image of 72 x 121"):
+        smoke.png_size(path)
+    with open(path, "wb") as f:
+        f.write(b"GIF89a" + data[6:])
+    with pytest.raises(RuntimeError, match="not a PNG"):
+        smoke.png_size(path)
+
+
+def test_the_cli_phases_parser_refuses_missing_lines(smoke):
+    assert smoke.parsed(r"dice=(\S+)", "  eval dice=0.5 lr\n  eval dice=1.25 lr", "dice") == [0.5, 1.25]
+    with pytest.raises(RuntimeError, match="nothing matches"):
+        smoke.parsed(r"dice=(\S+)", "no eval line", "dice")

@@ -32,6 +32,13 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.train import ema\n"
         "from incomplete_multimodal_fusion_tpu_torch.utils import checkpoint, logging, torch_convert\n"
         "from incomplete_multimodal_fusion_tpu_torch.cli import pretrain as cli_pretrain\n"
+        "from incomplete_multimodal_fusion_tpu_torch.cli import convert_checkpoint, infer, train_downstream\n"
+        "from incomplete_multimodal_fusion_tpu_torch.eval import coco_eval, structures\n"
+        "from incomplete_multimodal_fusion_tpu_torch.data import patchify_batch\n"
+        "from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_instances\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('learn', 'tools/train_downstream_synthetic_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'incomplete_multimodal_fusion_tpu')]\n"
         "assert not bad, bad\n"
