@@ -13,7 +13,9 @@ the f32 paths through the kernels' f32 instances, the semantic
 downstream training step, the pretraining state (balancer, EMA, the
 K-step CUDA graph, checkpoints through the CLI, the reference converter)
 and the command line (convert, infer, fine-tune, a learning run), and
-checks what comes out.
+checks what comes out; last, the serving forward as an exported program
+reloaded without model code, the batched decoder trunk and the
+segmentation extras.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -154,6 +156,26 @@ Phases (any failure raises; the exit code is then non-zero):
                  steps in a subprocess (B = 8, frozen 11, auction): the mean
                  loss of the last 25 steps at most half the first step's,
                  mAP / AP50 / AP75 / foreground IoU beside DOWNSTREAM_E2E.json.
+ 13. export   -- (a) the full-width ``tiny`` serving model (bf16, seeded
+                 weights) through serving.export_infer at B = 1 and B = 8,
+                 each artifact reloaded by serving.load_exported in a fresh
+                 python3 process that imports the loader alone (no module of
+                 models/, train/ or losses/ loaded) and answers two requests
+                 (all visible, s2 dropped): launches per forward exactly
+                 PER_FORWARD, outputs bitwise the live closure's (else within
+                 rel-L2 1e-3), wall p50 of the reloaded program and of the
+                 live closure, the artifact's MB; (b) the same weights with
+                 decoder_batch_tasks=True: launches BATCHED_PER_FORWARD (K1
+                 unmasked and K2's task-axis MLP twice, not six times), preds
+                 within SERVING_REL_L2 of the per-task decoder's, device ms of
+                 both; the same request in f32 against its plain path
+                 (F32_FORWARD_REL_L2); one B = 60 pretraining step's loss and
+                 gradients, batched against per-task decoder (TRAIN_LOSS_REL,
+                 TRAIN_GRAD_REL_L2); (c) at MaskFormerConfig(num_classes=10),
+                 B = 1: semantic_inference_with_tta (twice the forward's
+                 launches, within SEG_REL_L2 of the mean of the two forwards
+                 by hand), panoptic_inference on the card's outputs equal to
+                 the host's, save_segmentation_png read back.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -703,6 +725,7 @@ def phase_kernels(dev):
     cases = []
     fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
     chains = {}  # the unfused cuBLAS chain beside the K2 rows, for reference only
+    separate = {}  # single-task K2 launches beside the task-axis rows, for reference only
     per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
 
     def zorro_cases(entry_mode, label, qkv, heads, types, main):
@@ -1023,6 +1046,28 @@ def phase_kernels(dev):
     f32_ffn_cases(f"M=4096 d={ld} I={l_inner} (large, unpadded)", True, tuple(t.float() for t in large_w), 4096,
                   False, ld, ld, d=ld, inner_ff=l_inner)
 
+    # K2's MLP with a task axis (the batched decoder trunk: 3 tasks, each
+    # with its own weights) at M = 256 B for B = 1 and 8, bf16 and f32;
+    # beside each row, for reference, three separate K2 MLP launches on the
+    # same work
+    for dtype in (torch.bfloat16, torch.float32):
+        rand, suffix = (randn, "") if dtype == torch.bfloat16 else (randf, "_f32")
+        tw = (rand(3, hid, dd, scale=dd ** -0.5), rand(3, hid, scale=0.1), rand(3, dd, hid, scale=hid ** -0.5),
+              rand(3, dd, scale=0.1))
+        for bt in (1, 8):
+            m = 256 * bt
+            x_t = rand(3, m, dd)
+            entry, label = "fused_ffn/mlp_tasks" + suffix, f"T=3 M=256x{bt} d=256 H=1024"
+            flops, n_bytes, peak = ffn_work(m, False, False, elem=dtype.itemsize,
+                                            peak=PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+            cases.append((entry, label, lambda x_t=x_t, tw=tw: cuda_ffn.mlp_ffn_tasks(x_t, *tw),
+                          lambda x_t=x_t, tw=tw: cuda_ffn.mlp_ffn_tasks_reference(x_t, *tw),
+                          (3 * flops, 3 * n_bytes, peak), None, bt == 1))
+            separate[entry, label] = lambda x_t=x_t, tw=tw: [cuda_ffn.mlp_ffn(x_t[i], *(v[i] for v in tw))
+                                                             for i in range(3)]
+            if dtype == torch.bfloat16:
+                per_call[entry, label] = cuda_ffn.tasks_forward_kernels(3, m, dd, hid, dd)
+
     q3, kvg3, kvf3, do3 = randf(60, f, 192), randf(60, 3 * f, 384), randf(60, f, 384), randf(60, f, 192)
     cases.append(("fusion_row_attention/fusion_row_f32", "F=256 T=3 3x64 B=60",
                   lambda: cuda_fusion_attn.fusion_row_attention(q3, kvg3, kvf3, 3, 64),
@@ -1066,6 +1111,10 @@ def phase_kernels(dev):
             chain = chains[entry, label]
             fb += (f"; unfused cuBLAS chain {cuda_ms(chain):.6g} ms, device only "
                    f"{fmt_ms(library_device_ms(chain)[0])}")
+        if (entry, label) in separate:  # for reference only: the same work as single-task K2 launches
+            three = separate[entry, label]
+            fb += (f"; three separate fused_ffn/mlp launches {cuda_ms(three):.6g} ms, device only "
+                   f"{fmt_ms(library_device_ms(three)[0])}")
         device = {"library_device_ms": None, "library_device_how": None}
         names, kernels = entry_kernels(entry, label)
         device["device_ms"], device["device_how"] = device_only_ms(kernel, names,
@@ -2601,6 +2650,228 @@ def phase_cli(dev):
     return launches
 
 
+EXPORT_DIR = os.path.join(ROOT, "build", "chip_smoke_export")  # git-ignored
+# the batched decoder: K1's unmasked mode and K2's MLP with its task axis
+# once a decoder layer for all three tasks, in place of once a layer and task
+BATCHED_PER_FORWARD = {**{k: n for k, n in PER_FORWARD.items() if k != "fused_ffn/mlp"},
+                       "zorro_attention_qkv/none": 2, "fused_ffn/mlp_tasks": 2}
+# the reloading process: imports the loader alone, answers each request once
+# with the launch counters from 0, times the first request of each artifact,
+# writes the outputs and prints what it loaded, counted and timed
+EXPORT_RELOAD = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from incomplete_multimodal_fusion_tpu_torch import ops, serving
+report = {"counts": {}, "p50_ms": {}, "nodes": {}}
+for spec in json.loads(sys.argv[1]):
+    serve = serving.load_exported(open(spec["blob"], "rb").read())
+    for i, (kind, path) in enumerate(spec["requests"]):
+        data = np.load(path)
+        n = len(data.files) // 2
+        args = [data[f"x{j}"] for j in range(n)] + [data[f"m{j}"] for j in range(n)]
+        ops.reset_kernel_launches()
+        out = serve(*args)
+        torch.cuda.synchronize()
+        report["counts"][kind] = {k: c for k, c in ops.kernel_launches().items() if c}
+        np.savez(path[:-4] + "_out.npz", pooled=out["pooled"].float().cpu().numpy(),
+                 **{f"p_{d}": v.float().cpu().numpy() for d, v in out["preds"].items()})
+        if i == 0:
+            times = []
+            for r in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(*args)
+                torch.cuda.synchronize()
+                if r >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            report["p50_ms"][kind] = statistics.median(times)
+    nodes = [n for n in serve.program.graph.nodes if n.op == "call_function"]
+    report["nodes"][spec["blob"]] = [len(nodes), sum("assert" in str(n.target) for n in nodes)]
+report["modules"] = sorted(m for m in sys.modules if m.startswith("incomplete_multimodal_fusion_tpu"))
+print(json.dumps(report))
+"""
+
+
+def phase_export(dev):
+    """Phase 13: (a) the serving forward exported and reloaded in a fresh
+    process with no model code, (b) the batched decoder trunk, (c) the
+    segmentation extras. Returns the launches of its main-path runs, the
+    reloading process's among them."""
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    try:
+        return _phase_export(dev)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+
+
+def _phase_export(dev):
+    model = serving_model(dev)
+    doms = model.in_domains
+    closure = serving.infer_closure(model, None, doms)
+    rng = np.random.default_rng(SEED + 13)
+    launches = collections.Counter()
+
+    # (a) export at B = 1 and 8, two requests each: all visible, s2 dropped
+    specs, live, live_p50 = [], {}, {}
+    for b in (1, 8):
+        t0 = time.perf_counter()
+        blob = serving.export_infer(model, None, batch=b, image_size=model.image_size)
+        export_s = time.perf_counter() - t0
+        path = os.path.join(EXPORT_DIR, f"tiny_b{b}.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        log(f"[export] B={b}: artifact {len(blob) / 1e6:.2f} MB, exported in {export_s:.1f} s")
+        x = synthetic_batch(rng, doms, b, model.image_size)
+        requests = []
+        for dropped in ((), ("s2",)):
+            kind = f"B={b} " + ("s2 dropped" if dropped else "all visible")
+            args = [x[d] for d in doms] + [np.full((b, model.num_patches), int(d in dropped), np.int32)
+                                           for d in doms]
+            req = os.path.join(EXPORT_DIR, f"req_b{b}_{len(dropped)}.npz")
+            np.savez(req, **{f"x{i}": a for i, a in enumerate(args[:len(doms)])},
+                     **{f"m{i}": a for i, a in enumerate(args[len(doms):])})
+            out = closure(*args)
+            live[kind] = {**{f"p_{d}": v.float().cpu().numpy() for d, v in out["preds"].items()},
+                          "pooled": out["pooled"].float().cpu().numpy()}
+            if not dropped:
+                live_p50[kind] = statistics.median(wall_ms(lambda args=args: closure(*args), reps=10, warmup=3))
+            requests.append((kind, req))
+        specs.append({"blob": path, "requests": requests})
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", EXPORT_RELOAD, json.dumps(specs)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[export] the reloading process failed:\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    loaded = [m for m in report["modules"] if m.split(".")[1:2] in (["models"], ["train"], ["losses"])]
+    if loaded:
+        raise RuntimeError(f"[export] the reloading process imported model code: {loaded}")
+    for spec in specs:
+        for kind, req in spec["requests"]:
+            counts = report["counts"][kind]
+            launches.update(counts)
+            if counts != PER_FORWARD:
+                raise RuntimeError(f"[export] {kind}: reloaded launches {counts}, expected {PER_FORWARD}")
+            got = np.load(req[:-4] + "_out.npz")
+            bitwise = all(np.array_equal(got[k], v) for k, v in live[kind].items())
+            rel = max(rel_l2(torch.from_numpy(got[k]), torch.from_numpy(v)) for k, v in live[kind].items())
+            finite = all(np.isfinite(got[k]).all() for k in live[kind])
+            log(f"[export] {kind}: reloaded vs live closure bitwise {bitwise}, rel_l2 {rel:.3g}; launches {counts}")
+            if not (finite and (bitwise or rel <= 1e-3)):
+                raise RuntimeError(f"[export] {kind}: reloaded outputs differ from the live closure (rel L2 {rel})")
+    for b, spec in zip((1, 8), specs):
+        kind = f"B={b} all visible"
+        calls, asserts = report["nodes"][spec["blob"]]
+        log(f"[export] wall p50 {kind}: reloaded program {report['p50_ms'][kind]:.6g} ms, live closure "
+            f"{live_p50[kind]:.6g} ms (host clock, input copies included); the program's graph "
+            f"{calls} calls, {asserts} of them assertions")
+    log(f"[export] the reloading process loaded {len(report['modules'])} modules of the port, none of "
+        f"models/, train/, losses/")
+
+    # (b) the batched decoder trunk on the same weights, B = 1 all visible
+    run, _ = serve_request(model, closure, rng, 1, ())
+    per_task = {}
+    for batched in (False, True):
+        model.decoder_batch_tasks = batched
+        ops.reset_kernel_launches()
+        preds, pooled = run()
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.kernel_launches().items() if n}
+        dev_ms = profiled_ms(run, reps=10)[0]
+        log(f"[export] decoder_batch_tasks={batched}: device {dev_ms:.6g} ms a forward, launches {counts}")
+        if batched:
+            launches.update(counts)
+            if counts != BATCHED_PER_FORWARD:
+                raise RuntimeError(f"[export] batched decoder: launches {counts}, expected {BATCHED_PER_FORWARD}")
+            rel = max(rel_l2(preds[d], per_task[d]) for d in preds)
+            log(f"[export] batched decoder vs per-task decoder: preds rel_l2 {rel:.3g}")
+            if not (all(torch.isfinite(p).all() for p in preds.values()) and rel <= SERVING_REL_L2):
+                raise RuntimeError(f"[export] batched decoder: preds rel L2 {rel} > {SERVING_REL_L2}")
+        per_task = preds
+    model.decoder_batch_tasks = False
+    # the same request in f32 (TF32 off) through the f32 instances, against its plain path
+    model32 = serving_model(dev).float()
+    model32.decoder_batch_tasks = True
+    closure32 = serving.infer_closure(model32, None, doms)
+    run32, _ = serve_request(model32, closure32, np.random.default_rng(SEED + 13), 1, ())
+    ops.reset_kernel_launches()
+    preds32, _ = run32()
+    torch.cuda.synchronize()
+    counts32 = {k: n for k, n in ops.kernel_launches().items() if n}
+    launches.update(counts32)
+    model32.attn_impl = "xla"
+    preds32_p, _ = run32()
+    rel32 = max(rel_l2(preds32[d], preds32_p[d]) for d in preds32)
+    log(f"[export] batched decoder in f32: launches {counts32}, preds rel_l2 vs plain path {rel32:.3g}")
+    if counts32 != {f32_key(k): n for k, n in BATCHED_PER_FORWARD.items()} or not rel32 <= F32_FORWARD_REL_L2:
+        raise RuntimeError(f"[export] f32 batched decoder: launches {counts32}, rel L2 {rel32}")
+    del model32, closure32
+
+    # one pretraining step with the batched decoder against the per-task step
+    cfg = PretrainConfig()
+    tmodel, _, _ = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    tdoms, b = tuple(cfg.data.in_domains), cfg.data.batch_size
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), tdoms, b, cfg.data.input_size).items()}
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), tdoms, (cfg.data.num_patches,) * 3,
+                                       cfg.mask.num_encoded_tokens, b, device=dev)
+    loss_fn = pretrain.make_loss_fn(tmodel, cfg)
+
+    def run_loss():
+        return loss_fn(dict(tmodel.named_parameters()), batch, mi)[0]
+
+    loss_s, g_s = loss_and_grads(tmodel, run_loss)
+    tmodel.decoder_batch_tasks = True
+    ops.reset_kernel_launches()
+    loss_b, g_b = loss_and_grads(tmodel, run_loss)
+    step_counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    launches.update(step_counts)
+    loss_rel = abs(loss_b - loss_s) / abs(loss_s)
+    grad_rel, worst = compare_grads(g_b, g_s)
+    log(f"[export] pretraining step B={b}, batched decoder vs per-task: loss {loss_b:.6g} vs {loss_s:.6g} "
+        f"(rel {loss_rel:.3g}), flat gradient rel_l2 {grad_rel:.3g}; launches {step_counts}")
+    if not (math.isfinite(loss_b) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise RuntimeError(f"[export] batched decoder step: loss rel {loss_rel}, gradient rel L2 {grad_rel}")
+    if step_counts.get("fused_ffn/mlp_tasks") != 2 or step_counts.get("fused_ffn/mlp_backward") != 6:
+        raise RuntimeError(f"[export] batched decoder step: launches {step_counts}")
+    del tmodel, g_s, g_b, batch
+
+    # (c) segmentation extras: TTA, panoptic on the card and on the host, the PNG
+    sem = segment_model(dev, SEG_CLASSES)
+    x = synthetic_batch(rng, sem.cfg.in_domains, 1, sem.cfg.image_size)
+    ops.reset_kernel_launches()
+    tta = infer_segmentation.semantic_inference_with_tta(sem, None, x)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    launches.update(counts)
+    xt = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    size = tuple(xt[sem.cfg.in_domains[0]].shape[1:3])
+    plain = infer_segmentation.semantic_probabilities(infer_segmentation.segmentation_outputs(sem, None, xt), size)
+    flipped = infer_segmentation.semantic_probabilities(infer_segmentation.segmentation_outputs(
+        sem, None, {d: torch.flip(v, dims=[2]) for d, v in xt.items()}), size)
+    rel = rel_l2(tta, (plain + torch.flip(flipped, dims=[-1])) / 2)
+    log(f"[export] TTA B=1: launches {counts}, rel_l2 vs the mean of the two forwards {rel:.3g}")
+    if counts != {k: 2 * n for k, n in SEG_PER_FORWARD.items()} or not rel <= SEG_REL_L2:
+        raise RuntimeError(f"[export] TTA: launches {counts}, rel L2 {rel}")
+    out = infer_segmentation.segmentation_outputs(sem, None, xt)
+    cls, masks = out["pred_logits"][0].float(), out["pred_masks"][0].float()
+    kw = dict(object_mask_threshold=0.1, overlap_threshold=0.1, thing_ids=list(range(1, 6)))
+    pan_d, segs_d = infer_segmentation.panoptic_inference(cls, masks, **kw)
+    pan_h, segs_h = infer_segmentation.panoptic_inference(cls.cpu(), masks.cpu(), **kw)
+    log(f"[export] panoptic on the card's outputs: {len(segs_d)} segments; equal to the host's: "
+        f"{torch.equal(pan_d, pan_h) and segs_d == segs_h}")
+    if not (torch.equal(pan_d, pan_h) and segs_d == segs_h):
+        raise RuntimeError("[export] panoptic_inference differs between the card and the host")
+    labels = infer_segmentation.forward_segmentation(sem, None, x, SEG_CLASSES)
+    png = infer_segmentation.save_segmentation_png(labels[0], os.path.join(EXPORT_DIR, "seg.png"))
+    if png_size(png) != (size[1], size[0]):
+        raise RuntimeError(f"[export] {png}: {png_size(png)}, expected {size[1]} x {size[0]}")
+    log(f"[export] save_segmentation_png: {png_size(png)[0]} x {png_size(png)[1]} PNG read back")
+    return dict(launches)
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -2608,6 +2879,8 @@ REPLACES = {
                                  "incomplete_multimodal_fusion_tpu/ops/pallas_small_attn.py:136"),
     "fused_ffn/geglu": ("csrc/fused_ffn.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:200"),
     "fused_ffn/mlp": ("csrc/fused_ffn.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:374"),
+    # the same TPU kernel under jax.vmap over the decoder's tasks (multimae.py:285-289)
+    "fused_ffn/mlp_tasks": ("csrc/fused_ffn.cu", "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:374"),
     "fusion_row_attention/fusion_row": ("csrc/fusion_row_attention.cu",
                                         "incomplete_multimodal_fusion_tpu/ops/pallas_fusion_attn.py:171"),
     "zorro_attention_qkv/zorro_backward": ("csrc/zorro_attention.cu",
@@ -2668,10 +2941,11 @@ def main(argv) -> int:
     sem_trained = phase_semantic_train(dev)
     state_trained = phase_pretrain_state(dev)
     by_cli = phase_cli(dev)
+    exported = phase_export(dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
-                                                    sem_trained, state_trained, by_cli))
+                                                    sem_trained, state_trained, by_cli, exported))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

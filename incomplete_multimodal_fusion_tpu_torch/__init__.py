@@ -4,7 +4,8 @@
 The JAX package beside it is the reference this package is tested against.
 This package imports ``torch`` and ``numpy``, never ``jax`` or ``flax``.
 Ported so far: the MultiMAE ``crossattn`` serving forward (``infer.infer``,
-``serving.infer_closure``), its pretraining step and state (``train.pretrain``
+``serving.infer_closure``, the exported program of ``serving.export_infer`` /
+``load_exported`` and ``cli.export_serving``), the batched decoder trunk, its pretraining step and state (``train.pretrain``
 with the balancer, the EMA and ``make_multi_step``; ``utils.checkpoint``;
 ``cli.pretrain``), the converter of reference checkpoints
 (``utils.torch_convert``, ``cli.convert_checkpoint``), the downstream
@@ -19,7 +20,16 @@ attention) in place of the JAX package's Pallas kernels.
 
 __version__ = "0.1.0"
 
-from . import config, data, eval, infer, infer_segmentation, modalities, models, ops, serving, utils
+import importlib
 
 __all__ = ["config", "data", "eval", "infer", "infer_segmentation", "modalities", "models", "ops",
            "serving", "utils", "__version__"]
+
+
+def __getattr__(name):
+    """The subpackages load on first use, so a process that only reloads an
+    exported serving program (``serving.load_exported``) imports the
+    kernels' operators and no model code."""
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,6 +13,11 @@
 //     LayerNorm+GEGLU FF of every EncoderBlock and FusionBlockFast;
 //   * ops/pallas_ffn.py _mlp_fwd_kernel (pallas_call in _mlp_fwd_impl): the
 //     decoder ViT blocks' MLP.
+// The MLP also runs over a task axis (mlp_ffn_tasks_*: T MLPs with their own
+// weights, x [T, M, d] -> y [T, M, O], the decoder trunks of T tasks): the
+// task is one more grid coordinate of the row path, each block offsetting
+// x, the weights, y and its partials by its task, which is what jax.vmap
+// makes of the MLP kernel under multimae.py:285-289.
 // Cast points are those of the Pallas bodies: LN output (pallas_ffn.py:106),
 // the GEGLU product (:112), the MLP's gelu output (:298).
 //
@@ -150,14 +155,27 @@ __device__ __forceinline__ void activate(const float (&u)[nu_of(MODE) / 2], cons
 
 // The row path. NBO: d_out rounded up to 64, in 64-column blocks (1 .. 4),
 // the y accumulators. Block = BM rows; warpgroup wg owns rows
-// [64 wg, 64 wg + 64).
-template <int MODE, int NBO>
+// [64 wg, 64 wg + 64). TASKS (the MLP's task axis): blockIdx.z is a task,
+// whose rows x [m, d], weights, output y [m, d_out] and partials lie one
+// task's extent apart.
+template <int MODE, int NBO, bool TASKS = false>
 __global__ void __launch_bounds__(THREADS, 1)
 ffn_fwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma, const bf16* __restrict__ w_in,
                     const bf16* __restrict__ b_in, const bf16* __restrict__ w_out, const bf16* __restrict__ b_out,
                     bf16* __restrict__ y, float* __restrict__ part, int m, int d, int hid, int d_out, int cps) {
   constexpr int NU = nu_of(MODE);
   constexpr int DOP = NBO * 64;
+  static_assert(!TASKS || MODE == MODE_MLP, "the task axis is the MLP's");
+  if constexpr (TASKS) {
+    const long long t = blockIdx.z;
+    x += t * m * d;
+    w_in += t * hid * d;
+    b_in += t * hid;
+    w_out += t * d_out * hid;
+    b_out += t * d_out;
+    y += t * m * d_out;
+    if (part != nullptr) part += t * gridDim.y * m * d_out;
+  }
   const RowSmem L = row_smem(MODE, d, d_out);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
@@ -323,12 +341,19 @@ ffn_fwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma, 
 }
 
 // The row path's splits at small M: y = the splits' partials [splits, m,
-// d_out] summed in order, + b_out (MLP), cast once; 4 columns a thread
-template <int MODE>
+// d_out] summed in order, + b_out (MLP), cast once; 4 columns a thread.
+// TASKS: blockIdx.y is a task (its partials, b_out and y).
+template <int MODE, bool TASKS = false>
 __global__ void __launch_bounds__(THREADS)
 ffn_fwd_split_reduce_kernel(const float* __restrict__ part, const bf16* __restrict__ b_out, bf16* __restrict__ y,
                             int m, int d_out, int splits) {
   const long long quads = (long long)m * d_out / 4;
+  if constexpr (TASKS) {
+    const long long t = blockIdx.y;
+    part += t * splits * quads * 4;
+    b_out += t * d_out;
+    y += t * m * d_out;
+  }
   for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < quads; i += (long long)gridDim.x * THREADS) {
     float4 acc = reinterpret_cast<const float4*>(part)[i];
     for (int k = 1; k < splits; ++k) {
@@ -558,8 +583,8 @@ struct Split {
   int cps, splits;
 };
 
-__host__ inline Split row_split(int m, int hid) {
-  const int tiles = (m + BM - 1) / BM, chunks = (hid + HC - 1) / HC, sms = sm_count();
+__host__ inline Split row_split(int m, int hid, int tasks = 1) {
+  const int tiles = (m + BM - 1) / BM * tasks, chunks = (hid + HC - 1) / HC, sms = sm_count();
   if (2 * tiles >= sms) return {chunks, 1};
   int want = sms / tiles;
   want = want < chunks ? want : chunks;
@@ -576,25 +601,26 @@ __host__ inline long long workspace_bytes(int mode, int m, int d, int hid, int d
   return sp.splits > 1 ? 4LL * sp.splits * m * d_out : 0;
 }
 
-// The row path for d_out in NBO 64-column blocks; the kernel's
-// shared-memory limit is set once per device to the card's maximum (a static
-// of this static function: one flag per instantiation and library).
-template <int MODE, int NBO>
+// The row path for d_out in NBO 64-column blocks (TASKS: `tasks` MLPs, a
+// grid coordinate each); the kernel's shared-memory limit is set once per
+// device to the card's maximum (a static of this static function: one flag
+// per instantiation and library).
+template <int MODE, int NBO, bool TASKS = false>
 static cudaError_t launch_rows(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* b_in,
                                const bf16* w_out, const bf16* b_out, bf16* y, float* part, int m, int d, int hid,
-                               int d_out, cudaStream_t stream) {
+                               int d_out, cudaStream_t stream, int tasks = 1) {
   static std::atomic<unsigned> ready{0};
-  auto kernel = ffn_fwd_rows_kernel<MODE, NBO>;
+  auto kernel = ffn_fwd_rows_kernel<MODE, NBO, TASKS>;
   cudaError_t err = allow_smem((const void*)kernel, MAX_SMEM, ready);
   if (err != cudaSuccess) return err;
-  const Split sp = row_split(m, hid);
+  const Split sp = row_split(m, hid, tasks);
   if (sp.splits > 1 && part == nullptr) return cudaErrorInvalidValue;
-  kernel<<<dim3((m + BM - 1) / BM, sp.splits), THREADS, row_smem(MODE, d, d_out).bytes, stream>>>(
+  kernel<<<dim3((m + BM - 1) / BM, sp.splits, tasks), THREADS, row_smem(MODE, d, d_out).bytes, stream>>>(
       x, gamma, w_in, b_in, w_out, b_out, y, part, m, d, hid, d_out, sp.cps);
   if ((err = cudaGetLastError()) != cudaSuccess || sp.splits == 1) return err;
   const long long blocks = ((long long)m * d_out / 4 + THREADS - 1) / THREADS;
-  ffn_fwd_split_reduce_kernel<MODE><<<(unsigned)(blocks < 1024 ? blocks : 1024), THREADS, 0, stream>>>(
-      part, b_out, y, m, d_out, sp.splits);
+  ffn_fwd_split_reduce_kernel<MODE, TASKS><<<dim3((unsigned)(blocks < 1024 ? blocks : 1024), tasks), THREADS, 0,
+                                            stream>>>(part, b_out, y, m, d_out, sp.splits);
   return cudaGetLastError();
 }
 
@@ -643,6 +669,32 @@ cudaError_t run(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* 
   }
 }
 
+// The MLP over `tasks` tasks (x [tasks, m, d], weights stacked over the
+// tasks): the row path in one launch, its task a grid coordinate; past the
+// row path's widths the wide path task by task, one workspace reused.
+cudaError_t run_mlp_tasks(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2, bf16* y,
+                          void* ws, int tasks, int m, int d, int hid, int d_out, cudaStream_t stream) {
+  if (tasks < 1 || bad_shape(m, d, hid, d_out)) return cudaErrorInvalidValue;
+  if (!rows_fit(MODE_MLP, d, d_out)) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    for (long long t = 0; t < tasks; ++t) {
+      const cudaError_t err =
+          launch_wide<MODE_MLP>(x + t * m * d, nullptr, w1 + t * hid * d, b1 + t * hid, w2 + t * d_out * hid,
+                                b2 + t * d_out, y + t * m * d_out, static_cast<bf16*>(ws), m, d, hid, d_out, stream);
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  }
+  float* part = static_cast<float*>(ws);
+  switch ((d_out + 63) / 64) {
+    case 1: return launch_rows<MODE_MLP, 1, true>(x, nullptr, w1, b1, w2, b2, y, part, m, d, hid, d_out, stream, tasks);
+    case 2: return launch_rows<MODE_MLP, 2, true>(x, nullptr, w1, b1, w2, b2, y, part, m, d, hid, d_out, stream, tasks);
+    case 3: return launch_rows<MODE_MLP, 3, true>(x, nullptr, w1, b1, w2, b2, y, part, m, d, hid, d_out, stream, tasks);
+    default:
+      return launch_rows<MODE_MLP, 4, true>(x, nullptr, w1, b1, w2, b2, y, part, m, d, hid, d_out, stream, tasks);
+  }
+}
+
 }  // namespace
 
 // Bytes of the workspace one forward needs (mode 0: GEGLU, 1: MLP; inner or
@@ -685,6 +737,36 @@ extern "C" int mlp_ffn_bf16(const void* x, const void* w1, const void* b1, const
                             static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
                             static_cast<const bf16*>(b2), static_cast<bf16*>(y), ws, m, d,
                             hidden, d_out, static_cast<cudaStream_t>(stream));
+}
+
+// The MLP's task axis: bytes of the workspace of one mlp_ffn_tasks_bf16 call
+// (`tasks` MLPs of these shapes): the row path's partial y of every task
+// where it splits the hidden width, one task's wide-path workspace past the
+// row path's widths, else 0; -1 for shapes the kernels do not take.
+extern "C" long long ffn_fwd_tasks_workspace_bytes(int tasks, int m, int d, int hid, int d_out) {
+  if (tasks < 1 || bad_shape(m, d, hid, d_out)) return -1;
+  if (!rows_fit(MODE_MLP, d, d_out)) return workspace_bytes(MODE_MLP, m, d, hid, d_out);
+  const Split sp = row_split(m, hid, tasks);
+  return sp.splits > 1 ? 4LL * sp.splits * m * d_out * tasks : 0;
+}
+
+// The kernels one mlp_ffn_tasks_bf16 call launches: the row kernel (and its
+// split's reduction), or the wide path's two a task; -1 for shapes the
+// kernels do not take.
+extern "C" long long ffn_fwd_tasks_kernels(int tasks, int m, int d, int hid, int d_out) {
+  if (tasks < 1 || bad_shape(m, d, hid, d_out)) return -1;
+  if (!rows_fit(MODE_MLP, d, d_out)) return 2LL * tasks;
+  return row_split(m, hid, tasks).splits > 1 ? 2 : 1;
+}
+
+// MLP with a task axis: x [T, M, d], w1 [T, H, d], b1 [T, H], w2 [T, O, H],
+// b2 [T, O] -> y [T, M, O], one launch for all T (the row path); ws:
+// ffn_fwd_tasks_workspace_bytes(T, M, d, H, O) bytes (null when 0).
+extern "C" int mlp_ffn_tasks_bf16(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                                  void* y, void* ws, int tasks, int m, int d, int hidden, int d_out, void* stream) {
+  return (int)run_mlp_tasks(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+                            static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), static_cast<bf16*>(y), ws,
+                            tasks, m, d, hidden, d_out, static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -739,5 +821,28 @@ extern "C" int mlp_ffn_f32(const void* x, const void* w1, const void* b1, const 
   if (err == cudaSuccess)
     err = product_store(Mat{a, hidden, 1}, Mat{static_cast<const float*>(w2), 1, hidden}, static_cast<float*>(y),
                         d_out, m, d_out, hidden, static_cast<const float*>(b2), nullptr, 0, s);
+  return (int)err;
+}
+
+// MLP with a task axis in f32: x [T, M, d], w1 [T, H, d], b1 [T, H],
+// w2 [T, O, H], b2 [T, O] -> y [T, M, O]; the two products of mlp_ffn_f32,
+// each one launch for all T (the task a grid coordinate); ws:
+// ffn_fwd_f32_workspace_floats(1, T M, d, H, O) floats.
+extern "C" int mlp_ffn_tasks_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                                 void* y, void* ws, int tasks, int m, int d, int hidden, int d_out, void* stream) {
+  using namespace simt_f32;
+  if (tasks < 1) return (int)cudaErrorInvalidValue;
+  float* a = static_cast<float*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long mm = m;
+  cudaError_t err = product_tasks<EPI_GELU>(
+      Mat{static_cast<const float*>(x), d, 1}, Mat{static_cast<const float*>(w1), 1, d},
+      Out{a, hidden, static_cast<const float*>(b1), nullptr, 0, nullptr, 0, 0}, m, hidden, d,
+      Strides{mm * d, (long long)hidden * d, mm * hidden, hidden}, tasks, s);
+  if (err == cudaSuccess)
+    err = product_tasks<EPI_STORE>(
+        Mat{a, hidden, 1}, Mat{static_cast<const float*>(w2), 1, hidden},
+        Out{static_cast<float*>(y), d_out, static_cast<const float*>(b2), nullptr, 0, nullptr, 0, 0}, m, d_out,
+        hidden, Strides{mm * hidden, (long long)d_out * hidden, mm * d_out, d_out}, tasks, s);
   return (int)err;
 }

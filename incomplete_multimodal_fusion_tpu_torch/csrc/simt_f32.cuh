@@ -61,14 +61,15 @@ struct Out {
 __device__ __forceinline__ float gelu_cdf(float g) { return 0.5f * (1.0f + erff(g * 0.70710678118654752f)); }
 __device__ __forceinline__ float gelu_pdf(float g) { return expf(-0.5f * g * g) * 0.39894228040143268f; }
 
+// One block's 64 x 64 tile of C over the reduction range [kb, ke);
+// EPI_PARTIAL stores it as range z's partial
 template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-simt_f32_product_kernel(Mat a, Mat b, Out o, int m, int n, int k, int k_range) {
+__device__ __forceinline__ void product_tile(const Mat& a, const Mat& b, const Out& o, int m, int n, int kb, int ke,
+                                             int z) {
   __shared__ __align__(16) float as[BK][BM + 4];
   __shared__ __align__(16) float bs[BK][BN + 4];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * k_range, ke = min(k, kb + k_range);
   const bool a_along_k = a.cs == 1, b_along_n = b.cs == 1;
   float acc[4][4];
 #pragma unroll
@@ -130,10 +131,36 @@ simt_f32_product_kernel(Mat a, Mat b, Out o, int m, int n, int k, int k_range) {
         const float h = o.aux[i * o.ld_aux + j];
         o.c[i * o.ldc + j] = v * (gelu_cdf(h) + h * gelu_pdf(h));
       } else {
-        o.c[blockIdx.z * o.split_stride + i * o.ldc + j] = v;
+        o.c[z * o.split_stride + i * o.ldc + j] = v;
       }
     }
   }
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(THREADS)
+simt_f32_product_kernel(Mat a, Mat b, Out o, int m, int n, int k, int k_range) {
+  const int kb = blockIdx.z * k_range;
+  product_tile<EPI>(a, b, o, m, n, kb, min(k, kb + k_range), blockIdx.z);
+}
+
+// Element offsets of one task's operands from the previous task's: A, B,
+// C and the bias
+struct Strides {
+  long long a, b, c, bias;
+};
+
+// The product over a task axis (K2's MLP with its tasks): blockIdx.z is a
+// task, whose operands lie `st` apart; the whole reduction a block
+template <int EPI>
+__global__ void __launch_bounds__(THREADS)
+simt_f32_product_tasks_kernel(Mat a, Mat b, Out o, int m, int n, int k, Strides st) {
+  const long long t = blockIdx.z;
+  a.p += t * st.a;
+  b.p += t * st.b;
+  o.c += t * st.c;
+  if (o.bias != nullptr) o.bias += t * st.bias;
+  product_tile<EPI>(a, b, o, m, n, 0, k, 0);
 }
 
 // The reduction ranges of a weight gradient over m rows
@@ -148,6 +175,14 @@ static cudaError_t product(Mat a, Mat b, Out o, int m, int n, int k, cudaStream_
   const int k_range = (k + splits - 1) / splits;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
   simt_f32_product_kernel<EPI><<<grid, THREADS, 0, stream>>>(a, b, o, m, n, k, k_range);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+static cudaError_t product_tasks(Mat a, Mat b, Out o, int m, int n, int k, Strides st, int tasks,
+                                 cudaStream_t stream) {
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, tasks);
+  simt_f32_product_tasks_kernel<EPI><<<grid, THREADS, 0, stream>>>(a, b, o, m, n, k, st);
   return cudaGetLastError();
 }
 

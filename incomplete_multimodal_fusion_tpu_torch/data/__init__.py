@@ -1,8 +1,8 @@
 import numpy as np
 
-from . import synthetic, targets
+from . import ade_metadata, synthetic, targets
 
-__all__ = ["synthetic", "targets", "patchify_batch"]
+__all__ = ["ade_metadata", "synthetic", "targets", "patchify_batch"]
 
 
 def patchify_batch(batch, patch_size: int):

@@ -89,7 +89,7 @@ def infer(
             generator, domains, (n,) * len(domains), num_encoded_tokens, b,
             alphas=alphas, sample_tasks_uniformly=sample_tasks_uniformly, device=device,
         )
-    with torch.no_grad():
+    with torch.inference_mode():
         out = module(x, mi, num_encoded_tokens)
     return InferenceResult(out["preds"], out["task_masks"], out["pooled"])
 

@@ -17,10 +17,10 @@ is a LayerNorm ``weight``), so ``utils.jax_params.params_from_jax`` maps a
 flax checkpoint by renaming alone.
 
 ``use_kernel`` routes the four hot computations through the hand-written
-kernels' autograd Functions (ops/cuda_*.py), which launch the forward and
-backward kernels for CUDA tensors and run the plain forward and backward for
-CPU tensors; without it the plain forwards run and autograd differentiates
-them.
+kernels' operators (ops/library.py, defined in ops/cuda_*.py), which launch
+the forward and backward kernels for CUDA tensors and run the plain forward
+and backward for CPU tensors; without it the plain forwards run and
+autograd differentiates them.
 """
 from __future__ import annotations
 
@@ -99,8 +99,7 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         if use_kernel:
-            y = cuda_ffn.MlpFFN.apply(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight,
-                                      self.fc2.bias)
+            y = cuda_ffn.mlp_ffn(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
             return y.reshape(*x.shape[:-1], y.shape[-1])
         return self.fc2(F.gelu(self.fc1(x)))
 
@@ -119,7 +118,7 @@ class GEGLUFeedForward(nn.Module):
         self.proj_out = nn.Linear(inner, dim, bias=False)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-        fn = cuda_ffn.GegluFFN.apply if use_kernel else cuda_ffn.geglu_ffn_reference
+        fn = cuda_ffn.geglu_ffn if use_kernel else cuda_ffn.geglu_ffn_reference
         y = fn(_rows(x), self.norm.weight, self.proj_in.weight, self.proj_out.weight)
         return y.reshape(x.shape)
 
@@ -149,8 +148,7 @@ class ZorroAttention(nn.Module):
         x = self.norm(x)
         if packed_types is not None and context is None:
             qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight], dim=0))
-            fn = (cuda_attn.ZorroAttentionQKV.apply if use_kernel
-                  else cuda_attn.zorro_attention_qkv_reference)
+            fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
             return self.to_out(fn(qkv, self.heads, packed_types, fusion_type))
         kv_x = context if context is not None else x
         b, n = x.shape[:2]
@@ -231,7 +229,7 @@ class EncoderBlock(nn.Module):
         if (self.fused_block and use_kernel and packed_types is not None
                 and (self.dp1.rate == 0.0 or not self.training)
                 and cuda_block_attn.block_attn_supported(n, d, attn.heads * attn.dim_head)):
-            x = cuda_block_attn.FusedBlockAttn.apply(
+            x = cuda_block_attn.fused_block_attn(
                 x, packed_types, self.norm1.weight, attn.norm.weight, attn.to_q.weight, attn.to_kv.weight,
                 attn.to_out.weight, attn.heads, fusion_type)
         else:
@@ -290,8 +288,7 @@ class FusionBlockFast(nn.Module):
         kv_grid = torch.where(use[..., None], torch.gather(kv_p, 1, idx), kv_m.repeat(1, t, 1))
 
         if use_kernel and plane_valid is None:
-            out = cuda_fusion_attn.FusionRowAttention.apply(q, kv_grid.contiguous(), kv_f,
-                                                            self.heads, self.dim_head)
+            out = cuda_fusion_attn.fusion_row_attention(q, kv_grid.contiguous(), kv_f, self.heads, self.dim_head)
         else:
             out = cuda_fusion_attn.fusion_row_attention_reference(
                 q, kv_grid, kv_f, self.heads, self.dim_head, plane_valid=plane_valid)
@@ -311,7 +308,7 @@ class ViTSelfAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-        fn = cuda_attn.ZorroAttentionQKV.apply if use_kernel else cuda_attn.zorro_attention_qkv_reference
+        fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
         return self.proj(fn(self.qkv(x), self.num_heads))
 
 

@@ -33,7 +33,7 @@ from ..ops.cuda_attn import PAD_TYPE
 from ..ops.masking import MaskInfo
 from ..ops.patches import unpatchify
 from ..ops.posemb import build_2d_sincos_posemb
-from .adapters import PatchedInputAdapter, SpatialOutputAdapter
+from .adapters import PatchedInputAdapter, SpatialOutputAdapter, batched_trunks
 from .layers import (BiaslessLayerNorm, EncoderBlock, FusionBlockFast, LayerNorm, Mlp,
                      ZorroAttention, trunc_normal_, xavier_uniform_)
 
@@ -93,8 +93,8 @@ class MultiMAE(nn.Module):
         super().__init__()
         if fusion_mode != "crossattn":
             raise NotImplementedError(f"fusion_mode={fusion_mode!r} is not ported yet")
-        if decoder_style != "simple" or decoder_batch_tasks:
-            raise NotImplementedError("only the per-task 'simple' decoder is ported yet")
+        if decoder_style != "simple":
+            raise NotImplementedError("only the 'simple' decoder is ported yet")
         if attn_impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {attn_impl!r}")
         self.in_domains = tuple(in_domains)
@@ -104,6 +104,7 @@ class MultiMAE(nn.Module):
         self.dim_tokens = dim_tokens
         self.num_fusion_tokens = num_fusion_tokens
         self.attn_impl = attn_impl
+        self.decoder_batch_tasks = decoder_batch_tasks
         if num_fusion_tokens != self.num_patches:  # reference multimae_crossattn.py:87
             raise ValueError("num_fusion_tokens must equal the number of patches")
 
@@ -174,6 +175,22 @@ class MultiMAE(nn.Module):
         nn.init.zeros_(self.mask_embedding)
         return self
 
+    def _decode_simple(self, grid: torch.Tensor, use_kernel: bool) -> Dict[str, torch.Tensor]:
+        """Per-task reconstructions {d: [B, F, p*p*C]} from the fusion-token
+        grid (JAX multimae.py:237-296). With ``decoder_batch_tasks`` and at
+        least two tasks whose trunks agree in shape, the trunks run as one
+        chain over a task axis (``adapters.batched_trunks``: K1 over the
+        T * B rows and K2's MLP with its task axis, one launch each a
+        layer), and each task's out_proj is applied on its own; else one
+        adapter call a task. The parameters are the same either way."""
+        doms = self.out_domains
+        ads = [self.output_adapters[d] for d in doms]
+        if (not self.decoder_batch_tasks or len(doms) < 2
+                or any(a.trunk_signature != ads[0].trunk_signature for a in ads)):
+            return {d: a(grid, use_kernel=use_kernel, patch_output=True) for d, a in zip(doms, ads)}
+        feats = batched_trunks(ads, grid, use_kernel)
+        return {d: a.out_proj(feats[i]) for i, (d, a) in enumerate(zip(doms, ads))}
+
     def _unpatchify_preds(self, preds_patch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = {}
         for d, x in preds_patch.items():
@@ -223,9 +240,7 @@ class MultiMAE(nn.Module):
         ret = ret + self.mlp(self.norm(ret))
 
         encoder_fusion_tokens = tokens[:, e:]
-        preds_patch = {d: self.output_adapters[d](encoder_fusion_tokens, use_kernel=use_kernel,
-                                                  patch_output=True)
-                       for d in self.out_domains}
+        preds_patch = self._decode_simple(encoder_fusion_tokens, use_kernel)
 
         # contrastive pools over the fusion tokens at each modality's visible
         # positions (multimae_crossattn.py:529-543)

@@ -15,13 +15,16 @@ the finite ``NEG_INF`` of pallas_attn.py:37, in the kernels and the plain
 versions alike. The forward can also return the f32 row log-sum-exp
 ``lse`` [B, H, N]; the backward recomputes the probabilities from it.
 
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(its bf16 instance or its f32 one, ``*_f32`` in the library, the TPU
-kernels' f32 path) or raises on any other dtype. ``ZorroAttentionQKV`` and ``ZorroAttentionPacked`` are
-the autograd Functions: on CPU tensors they run the plain forward and
-backward, on CUDA tensors the two kernels. ``launch_attention`` and
-``launch_attention_backward`` drive the kernel on any operand view, with an
-optional tile-skip table (ops/cuda_zorro_sparse.py).
+Each direction of each form is an operator of ops/library.py
+(``zorro_attention_qkv``, ``zorro_attention_packed`` and their
+``*_backward``): on a CPU tensor the plain version, on a CUDA tensor the
+kernel (its bf16 instance or its f32 one, ``*_f32`` in the library, the
+TPU kernels' f32 path), or an error on any other dtype. The public
+functions below call the operators and are differentiable through them;
+``ZorroAttentionQKV.apply`` and ``ZorroAttentionPacked.apply`` are the
+same calls in an autograd Function's calling form. ``launch_attention``
+and ``launch_attention_backward`` drive the kernel on any operand view,
+with an optional tile-skip table (ops/cuda_zorro_sparse.py).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, library
 from .attention import upcast, zorro_mask_from_padded_types
 
 PAD_TYPE = 255
@@ -298,20 +301,170 @@ def launch_attention_backward(view: Sequence[int], grad_view: Sequence[int], b: 
     cuda_build.check_launch(err, "zorro_attention_backward")
 
 
+
+
+# ---------------------------------------------------------------------------
+# The operators (ops/library.py): CUDA implementation the launcher, CPU
+# implementation the plain version, fake implementation shapes only. The
+# forward returns the f32 lse its backward needs, or an empty tensor where
+# it keeps none (a forward without a gradient to compute: serving).
+# ---------------------------------------------------------------------------
+
+def _no_lse(t: torch.Tensor) -> torch.Tensor:
+    """The lse of a forward that keeps none."""
+    return t.new_empty((0,), dtype=torch.float32)
+
+
+def _need_lse(name: str, lse: torch.Tensor) -> None:
+    if lse.numel() == 0:
+        raise RuntimeError(f"{name}: the forward kept no lse (it ran without a gradient to compute)")
+
+
+def _qkv_cpu(qkv, types, heads, fusion_type, scale, return_lse):
+    out, lse = zorro_attention_qkv_reference(qkv, heads, types, fusion_type, scale, return_lse=True)
+    return out, (lse if return_lse else _no_lse(qkv))
+
+
+def _qkv_cuda(qkv, types, heads, fusion_type, scale, return_lse):
+    types = check_qkv("zorro_attention_qkv", qkv, heads, types, fusion_type)
+    b, n, three_i = qkv.shape
+    out, lse = launch_attention(slab_view(qkv), b, n, three_i // 3, heads, qkv.device, types, fusion_type, scale,
+                                return_lse, dtype=qkv.dtype)
+    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype)] += 1
+    return out, (lse if return_lse else _no_lse(qkv))
+
+
+def _qkv_fake(qkv, types, heads, fusion_type, scale, return_lse):
+    b, n, three_i = qkv.shape
+    lse = qkv.new_empty((b, heads, n) if return_lse else (0,), dtype=torch.float32)
+    return qkv.new_empty((b, n, three_i // 3)), lse
+
+
+def _qkv_backward_cpu(qkv, types, o, lse, do, heads, fusion_type, scale):
+    return zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, fusion_type, scale)
+
+
+def _qkv_backward_cuda(qkv, types, o, lse, do, heads, fusion_type, scale):
+    _need_lse("zorro_attention_qkv_backward", lse)
+    types = check_qkv("zorro_attention_qkv_backward", qkv, heads, types, fusion_type)
+    b, n, three_i = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    launch_attention_backward(slab_view(qkv), slab_view(dqkv), b, n, three_i // 3, heads, qkv.device, types,
+                              fusion_type, o, lse, do, scale, dtype=qkv.dtype)
+    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype, backward=True)] += 1
+    return dqkv
+
+
+def _qkv_backward_fake(qkv, types, o, lse, do, heads, fusion_type, scale):
+    return torch.empty_like(qkv)
+
+
+def _qkv_setup(ctx, inputs, output):
+    qkv, types, heads, fusion_type, scale, _ = inputs
+    ctx.save_for_backward(qkv, types, *output)
+    ctx.args = (heads, fusion_type, scale)
+    ctx.set_materialize_grads(False)  # no zero-filled gradient for the unused lse
+
+
+def _qkv_grad(ctx, dout, _dlse):
+    if dout is None:  # no gradient reaches the output (the lse is not differentiated)
+        return (None,) * 6
+    qkv, types, out, lse = ctx.saved_tensors
+    _need_lse("zorro_attention_qkv", lse)
+    return (zorro_attention_qkv_backward(qkv, types, out, lse, dout.contiguous(), *ctx.args),) + (None,) * 5
+
+
+_QKV_BACKWARD = library.define(
+    "zorro_attention_qkv_backward",
+    "(Tensor qkv, Tensor? types, Tensor o, Tensor lse, Tensor do, int heads, int? fusion_type, float scale)"
+    " -> Tensor", _qkv_backward_cpu, _qkv_backward_cuda, _qkv_backward_fake)
+_QKV = library.define(
+    "zorro_attention_qkv",
+    "(Tensor qkv, Tensor? types, int heads, int? fusion_type, float scale, bool return_lse) -> (Tensor, Tensor)",
+    _qkv_cpu, _qkv_cuda, _qkv_fake, _qkv_grad, _qkv_setup)
+
+
+def _separate_cpu(q, k, v, types, heads, fusion_type, scale, return_lse):
+    out, lse = zorro_attention_packed_reference(q, k, v, types, heads, fusion_type, scale, return_lse=True)
+    return out, (lse if return_lse else _no_lse(q))
+
+
+def _separate_cuda(q, k, v, types, heads, fusion_type, scale, return_lse):
+    types = _check_separate("zorro_attention_packed", q, k, v, heads, types, fusion_type)
+    b, n, inner = q.shape
+    view = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inner)
+    out, lse = launch_attention(view, b, n, inner, heads, q.device, types, fusion_type, scale, return_lse,
+                                dtype=q.dtype)
+    PACKED_LAUNCHES[launch_key("zorro", q.dtype)] += 1
+    return out, (lse if return_lse else _no_lse(q))
+
+
+def _separate_fake(q, k, v, types, heads, fusion_type, scale, return_lse):
+    b, n, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, heads, n) if return_lse else (0,), dtype=torch.float32)
+
+
+def _separate_backward_cpu(q, k, v, types, o, lse, do, heads, fusion_type, scale):
+    return zorro_attention_packed_backward_reference(q, k, v, types, o, lse, do, heads, fusion_type, scale)
+
+
+def _separate_backward_cuda(q, k, v, types, o, lse, do, heads, fusion_type, scale):
+    _need_lse("zorro_attention_packed_backward", lse)
+    types = _check_separate("zorro_attention_packed_backward", q, k, v, heads, types, fusion_type)
+    b, n, inner = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    launch_attention_backward((q.data_ptr(), k.data_ptr(), v.data_ptr(), inner),
+                              (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), inner), b, n, inner, heads,
+                              q.device, types, fusion_type, o, lse, do, scale, dtype=q.dtype)
+    PACKED_LAUNCHES[launch_key("zorro", q.dtype, backward=True)] += 1
+    return dq, dk, dv
+
+
+def _separate_backward_fake(q, k, v, types, o, lse, do, heads, fusion_type, scale):
+    return torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+
+
+def _separate_setup(ctx, inputs, output):
+    q, k, v, types, heads, fusion_type, scale, _ = inputs
+    ctx.save_for_backward(q, k, v, types, *output)
+    ctx.args = (heads, fusion_type, scale)
+    ctx.set_materialize_grads(False)
+
+
+def _separate_grad(ctx, dout, _dlse):
+    if dout is None:
+        return (None,) * 8
+    q, k, v, types, out, lse = ctx.saved_tensors
+    _need_lse("zorro_attention_packed", lse)
+    return zorro_attention_packed_backward(q, k, v, types, out, lse, dout.contiguous(), *ctx.args) + (None,) * 5
+
+
+_SEPARATE_BACKWARD = library.define(
+    "zorro_attention_packed_backward",
+    "(Tensor q, Tensor k, Tensor v, Tensor types, Tensor o, Tensor lse, Tensor do, int heads, int fusion_type,"
+    " float scale) -> (Tensor, Tensor, Tensor)",
+    _separate_backward_cpu, _separate_backward_cuda, _separate_backward_fake)
+_SEPARATE = library.define(
+    "zorro_attention_packed",
+    "(Tensor q, Tensor k, Tensor v, Tensor types, int heads, int fusion_type, float scale, bool return_lse)"
+    " -> (Tensor, Tensor)", _separate_cpu, _separate_cuda, _separate_fake, _separate_grad, _separate_setup)
+
+
+def keeps_lse(t: torch.Tensor, return_lse: bool) -> bool:
+    """Whether a forward keeps its lse: when asked, or when autograd will
+    call its backward."""
+    return return_lse or (t.requires_grad and torch.is_grad_enabled())
+
+
 def zorro_attention_qkv(qkv: torch.Tensor, heads: int, types: Optional[torch.Tensor] = None,
                         fusion_type: Optional[int] = None,
                         scale: Optional[float] = None, return_lse: bool = False):
     """qkv [B, N, 3I] laid out [q | k | v], heads packed inside each;
     types [B, N] int (PAD_TYPE = padding) or None. Returns [B, N, I], and
-    with ``return_lse`` also the f32 row log-sum-exp [B, H, N]."""
-    if qkv.device.type == "cpu":
-        return zorro_attention_qkv_reference(qkv, heads, types, fusion_type, scale, return_lse)
-    types = check_qkv("zorro_attention_qkv", qkv, heads, types, fusion_type)
-    b, n, three_i = qkv.shape
-    inner = three_i // 3
-    out, lse = launch_attention(slab_view(qkv), b, n, inner, heads, qkv.device, types, fusion_type,
-                                default_scale(inner, heads, scale), return_lse, dtype=qkv.dtype)
-    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype)] += 1
+    with ``return_lse`` also the f32 row log-sum-exp [B, H, N].
+    Differentiable: the operator's backward is K1b."""
+    out, lse = _QKV(qkv, types, heads, fusion_type, default_scale(qkv.shape[-1] // 3, heads, scale),
+                    keeps_lse(qkv, return_lse))
     return (out, lse) if return_lse else out
 
 
@@ -321,17 +474,8 @@ def zorro_attention_qkv_backward(qkv: torch.Tensor, types: Optional[torch.Tensor
                                  scale: Optional[float] = None) -> torch.Tensor:
     """dqkv [B, N, 3I] of ``zorro_attention_qkv`` from its input, its output
     ``o``, its ``lse`` and the output gradient ``do``."""
-    if qkv.device.type == "cpu":
-        return zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads,
-                                                      fusion_type, scale)
-    types = check_qkv("zorro_attention_qkv_backward", qkv, heads, types, fusion_type)
-    b, n, three_i = qkv.shape
-    inner = three_i // 3
-    dqkv = torch.empty_like(qkv)
-    launch_attention_backward(slab_view(qkv), slab_view(dqkv), b, n, inner, heads, qkv.device, types,
-                              fusion_type, o, lse, do, default_scale(inner, heads, scale), dtype=qkv.dtype)
-    LAUNCHES[launch_key("none" if types is None else "zorro", qkv.dtype, backward=True)] += 1
-    return dqkv
+    return _QKV_BACKWARD(qkv, types, o, lse, do, heads, fusion_type,
+                         default_scale(qkv.shape[-1] // 3, heads, scale))
 
 
 def zorro_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, types: torch.Tensor,
@@ -340,73 +484,33 @@ def zorro_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ty
     """Zorro attention on separate q, k, v [B, N, H*dh] (the JAX
     ``zorro_self_attention_packed``); types [B, N] int (PAD_TYPE = padding).
     Returns [B, N, H*dh], and with ``return_lse`` also the f32 lse
-    [B, H, N]."""
-    if q.device.type == "cpu":
-        return zorro_attention_packed_reference(q, k, v, types, heads, fusion_type, scale, return_lse)
-    types = _check_separate("zorro_attention_packed", q, k, v, heads, types, fusion_type)
-    b, n, inner = q.shape
-    view = (q.data_ptr(), k.data_ptr(), v.data_ptr(), inner)
-    out, lse = launch_attention(view, b, n, inner, heads, q.device, types, fusion_type,
-                                default_scale(inner, heads, scale), return_lse, dtype=q.dtype)
-    PACKED_LAUNCHES[launch_key("zorro", q.dtype)] += 1
+    [B, H, N]. Differentiable."""
+    need = return_lse or (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)))
+    out, lse = _SEPARATE(q, k, v, types, heads, fusion_type, default_scale(q.shape[-1], heads, scale), need)
     return (out, lse) if return_lse else out
 
 
 def zorro_attention_packed_backward(q, k, v, types, o, lse, do, heads: int, fusion_type: int,
                                     scale: Optional[float] = None):
     """(dq, dk, dv), each [B, N, H*dh], of ``zorro_attention_packed``."""
-    if q.device.type == "cpu":
-        return zorro_attention_packed_backward_reference(q, k, v, types, o, lse, do, heads, fusion_type,
-                                                         scale)
-    types = _check_separate("zorro_attention_packed_backward", q, k, v, heads, types, fusion_type)
-    b, n, inner = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    launch_attention_backward((q.data_ptr(), k.data_ptr(), v.data_ptr(), inner),
-                              (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), inner), b, n, inner, heads,
-                              q.device, types, fusion_type, o, lse, do, default_scale(inner, heads, scale),
-                              dtype=q.dtype)
-    PACKED_LAUNCHES[launch_key("zorro", q.dtype, backward=True)] += 1
-    return dq, dk, dv
+    return _SEPARATE_BACKWARD(q, k, v, types, o, lse, do, heads, fusion_type,
+                              default_scale(q.shape[-1], heads, scale))
 
 
-class ZorroAttentionQKV(torch.autograd.Function):
-    """``zorro_attention_qkv`` with its backward:
-    ``ZorroAttentionQKV.apply(qkv, heads, types, fusion_type, scale)``.
-    Saves qkv, the output (activation dtype) and the f32 lse; without a
-    gradient to compute (serving) the forward writes no lse."""
+class ZorroAttentionQKV:
+    """``zorro_attention_qkv`` with its gradient, called as an autograd
+    Function is: ``ZorroAttentionQKV.apply(qkv, heads, types, fusion_type,
+    scale)``."""
 
     @staticmethod
-    def forward(ctx, qkv, heads, types=None, fusion_type=None, scale=None):
-        if not ctx.needs_input_grad[0]:
-            return zorro_attention_qkv(qkv, heads, types, fusion_type, scale)
-        out, lse = zorro_attention_qkv(qkv, heads, types, fusion_type, scale, return_lse=True)
-        ctx.save_for_backward(qkv, types, out, lse)
-        ctx.heads, ctx.fusion_type, ctx.scale = heads, fusion_type, scale
-        return out
+    def apply(qkv, heads, types=None, fusion_type=None, scale=None):
+        return zorro_attention_qkv(qkv, heads, types, fusion_type, scale)
+
+
+class ZorroAttentionPacked:
+    """``zorro_attention_packed`` with its gradient:
+    ``ZorroAttentionPacked.apply(q, k, v, types, heads, fusion_type, scale)``."""
 
     @staticmethod
-    def backward(ctx, dout):
-        qkv, types, out, lse = ctx.saved_tensors
-        dqkv = zorro_attention_qkv_backward(qkv, types, out, lse, dout.contiguous(), ctx.heads,
-                                            ctx.fusion_type, ctx.scale)
-        return dqkv, None, None, None, None
-
-
-class ZorroAttentionPacked(torch.autograd.Function):
-    """``zorro_attention_packed`` with its backward:
-    ``ZorroAttentionPacked.apply(q, k, v, types, heads, fusion_type, scale)``.
-    Saves q, k, v, the output and the f32 lse."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, types, heads, fusion_type, scale=None):
-        out, lse = zorro_attention_packed(q, k, v, types, heads, fusion_type, scale, return_lse=True)
-        ctx.save_for_backward(q, k, v, types, out, lse)
-        ctx.heads, ctx.fusion_type, ctx.scale = heads, fusion_type, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, types, out, lse = ctx.saved_tensors
-        dq, dk, dv = zorro_attention_packed_backward(q, k, v, types, out, lse, dout.contiguous(), ctx.heads,
-                                                     ctx.fusion_type, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+    def apply(q, k, v, types, heads, fusion_type, scale=None):
+        return zorro_attention_packed(q, k, v, types, heads, fusion_type, scale)

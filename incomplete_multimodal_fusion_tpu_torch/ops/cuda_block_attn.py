@@ -12,16 +12,16 @@ before the residual add; the backward's are listed at
 
 Weights are in nn.Linear layout: wq [I, D], wkv [2I, D], wo [D, I], gains
 g1, g2 [D] (the JAX function takes the transposes and [1, D] gains); the
-backward returns the gradients in the same layout. A CPU tensor goes to the
-plain version; a CUDA tensor launches the kernels (D % 16 == 0, D and I up
+backward returns the gradients in the same layout. Both directions are
+operators of ops/library.py: on a CPU tensor the plain version, on a CUDA
+tensor the kernels (D % 16 == 0, D and I up
 to ``MAX_D``, dh in 32, 64, 128) or raises. The bf16 instance: the forward
 three (the projection pass, K1's forward, the out projection), the backward
 eight (the projection pass, dout, K1's forward with its D epilogue, K1b's
 two, the row pass, the weight-gradient product and its reduction). The f32
 instance (``*_f32`` in the library, the TPU kernel's f32 path): the forward
 six, the backward fifteen, every product and sum in f32.
-``FusedBlockAttn`` is the autograd Function ``EncoderBlock(fused_block=True)``
-calls.
+``fused_block_attn`` is what ``EncoderBlock(fused_block=True)`` calls.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from . import cuda_attn, cuda_build
+from . import cuda_attn, cuda_build, library
 from .attention import upcast
 from .cuda_ffn import bias_free_norm
 
@@ -220,10 +220,7 @@ def _bwd_sizes_fn():
     return lib.fused_block_attn_bwd_splits, lib.fused_block_attn_row_block, lib.fused_block_attn_bwd_dh_floats
 
 
-def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int):
-    """y [B, N, D] of the attention half-block; x [B, N, D], types [B, N]."""
-    if x.device.type == "cpu":
-        return fused_block_attn_reference(x, types, g1, g2, wq, wkv, wo, heads, fusion_type)
+def _forward_cuda(x, types, g1, g2, wq, wkv, wo, heads, fusion_type):
     types = _check("fused_block_attn", x, types, g1, g2, wq, wkv, wo, heads)
     b, n, d = x.shape
     inner = wq.shape[0]
@@ -250,11 +247,9 @@ def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int
     return y
 
 
-def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fusion_type: int):
-    """(dx, dg1, dg2, dwq, dwkv, dwo) of ``fused_block_attn``, weights in
-    nn.Linear layout."""
-    if x.device.type == "cpu":
-        return fused_block_attn_backward_reference(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type)
+def _backward_cuda(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type):
+    """The kernels write dWq and dWkv as one [3I, D] slab; an operator's
+    outputs start their own storage, so dWkv is copied out of it."""
     types = _check("fused_block_attn_backward", x, types, g1, g2, wq, wkv, wo, heads, dy)
     b, n, d = x.shape
     inner = wq.shape[0]
@@ -286,7 +281,7 @@ def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fus
                         int(fusion_type), splits, stream)
     cuda_build.check_launch(err, "fused_block_attn_backward")
     LAUNCHES["backward"] += 1
-    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
+    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:].clone(), dwo
 
 
 def _backward_f32(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type):
@@ -304,7 +299,7 @@ def _backward_f32(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type):
                             inner // heads, float((inner // heads) ** -0.5), int(fusion_type), stream)
     cuda_build.check_launch(err, "fused_block_attn_backward")
     LAUNCHES["f32_backward"] += 1
-    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:], dwo
+    return dx, dg1, dg2, dw_qkv[:inner], dw_qkv[inner:].clone(), dwo
 
 
 @functools.cache
@@ -354,21 +349,50 @@ def attention_with_delta(qkv, types, dout, heads: int, fusion_type: int):
     return out, lse, delta
 
 
-class FusedBlockAttn(torch.autograd.Function):
-    """``fused_block_attn`` with its backward:
-    ``FusedBlockAttn.apply(x, types, g1, g2, wq, wkv, wo, heads,
-    fusion_type)``. Saves the inputs; the backward recomputes the rest, as
-    the TPU kernel does."""
+def _setup(ctx, inputs, output):
+    *tensors, heads, fusion_type = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.args = (heads, fusion_type)
 
-    @staticmethod
-    def forward(ctx, x, types, g1, g2, wq, wkv, wo, heads, fusion_type):
-        ctx.save_for_backward(x, types, g1, g2, wq, wkv, wo)
-        ctx.heads, ctx.fusion_type = heads, fusion_type
-        return fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads, fusion_type)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, types, g1, g2, wq, wkv, wo = ctx.saved_tensors
-        dx, dg1, dg2, dwq, dwkv, dwo = fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy.contiguous(),
-                                                                 ctx.heads, ctx.fusion_type)
-        return dx, None, dg1, dg2, dwq, dwkv, dwo, None, None
+def _grad(ctx, dy):
+    x, types, g1, g2, wq, wkv, wo = ctx.saved_tensors
+    dx, dg1, dg2, dwq, dwkv, dwo = fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy.contiguous(),
+                                                             *ctx.args)
+    return dx, None, dg1, dg2, dwq, dwkv, dwo, None, None
+
+
+_BACKWARD = library.define(
+    "fused_block_attn_backward",
+    "(Tensor x, Tensor types, Tensor g1, Tensor g2, Tensor wq, Tensor wkv, Tensor wo, Tensor dy, int heads,"
+    " int fusion_type) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    fused_block_attn_backward_reference, _backward_cuda,
+    lambda x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type: tuple(
+        torch.empty_like(t) for t in (x, g1, g2, wq, wkv, wo)))
+_FORWARD = library.define(
+    "fused_block_attn",
+    "(Tensor x, Tensor types, Tensor g1, Tensor g2, Tensor wq, Tensor wkv, Tensor wo, int heads,"
+    " int fusion_type) -> Tensor",
+    fused_block_attn_reference, _forward_cuda,
+    lambda x, types, g1, g2, wq, wkv, wo, heads, fusion_type: torch.empty_like(x), _grad, _setup)
+
+
+def fused_block_attn(x, types, g1, g2, wq, wkv, wo, heads: int, fusion_type: int):
+    """y [B, N, D] of the attention half-block; x [B, N, D], types [B, N].
+    Differentiable: the operator's backward is K6b, which recomputes the
+    rest from the inputs, as the TPU kernel does."""
+    return _FORWARD(x, types, g1, g2, wq, wkv, wo, heads, fusion_type)
+
+
+def fused_block_attn_backward(x, types, g1, g2, wq, wkv, wo, dy, heads: int, fusion_type: int):
+    """(dx, dg1, dg2, dwq, dwkv, dwo) of ``fused_block_attn``, weights in
+    nn.Linear layout."""
+    return _BACKWARD(x, types, g1, g2, wq, wkv, wo, dy, heads, fusion_type)
+
+
+class FusedBlockAttn:
+    """``fused_block_attn`` with its gradient, called as an autograd
+    Function is: ``FusedBlockAttn.apply(x, types, g1, g2, wq, wkv, wo,
+    heads, fusion_type)``."""
+
+    apply = staticmethod(fused_block_attn)

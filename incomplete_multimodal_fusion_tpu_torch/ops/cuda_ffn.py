@@ -10,12 +10,15 @@ Two modes:
 
 Weights are in nn.Linear layout ([out, in]); the JAX functions take the
 transposes, and the backward returns weight gradients in the port's layout.
-GELU is the exact (erf) form. A CPU tensor goes to the plain version; a CUDA
-tensor launches the kernel or raises: bf16 tensors the kernels above, f32
+GELU is the exact (erf) form. Each direction of each mode is an operator of
+ops/library.py (``geglu_ffn``, ``mlp_ffn``, ``mlp_ffn_tasks`` and their
+backwards): on a CPU tensor the plain version, on a CUDA tensor the kernel,
+or an error on any other dtype: bf16 tensors the kernels above, f32
 ones their f32 instance (``*_f32`` in the libraries, the TPU kernels' f32
 path: every product and sum in f32, the activations through an f32
 workspace; forward GEGLU 4 launches, MLP 2; backward 9 each).
-``GegluFFN`` and ``MlpFFN`` are the autograd Functions the model calls.
+``mlp_ffn_tasks`` is the MLP with a task axis (T MLPs, each with its own
+weights, in one launch), the decoder trunks of T tasks batched.
 
 The bf16 kernels take hidden widths that are multiples of 16. A GEGLU inner
 width that is not (the `large` config's int(1024 * 8 / 3) = 2730) is
@@ -34,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import cuda_attn, cuda_build
+from . import cuda_attn, cuda_build, library
 from .attention import upcast
 
 LN_EPS = 1e-5
@@ -42,7 +45,8 @@ LN_EPS = 1e-5
 # launches of the kernels, per mode and instance (``_f32``: the f32
 # instance); only the wrappers' launches add to them
 LAUNCHES = {"geglu": 0, "mlp": 0, "geglu_backward": 0, "mlp_backward": 0,
-            "geglu_f32": 0, "mlp_f32": 0, "geglu_f32_backward": 0, "mlp_f32_backward": 0}
+            "geglu_f32": 0, "mlp_f32": 0, "geglu_f32_backward": 0, "mlp_f32_backward": 0,
+            "mlp_tasks": 0, "mlp_tasks_f32": 0}
 
 
 def _gelu_parts(g: torch.Tensor):
@@ -281,61 +285,6 @@ def _launch_f32(x, name, pointers, ints, what):
     cuda_build.check_launch(err, what)
 
 
-def geglu_ffn(x, gamma, w_in, w_out):
-    """Fused LayerNorm + GEGLU FF. x [M, D], gamma [D], w_in [2I, D],
-    w_out [D, I] -> [M, D]."""
-    if x.device.type == "cpu":
-        return geglu_ffn_reference(x, gamma, w_in, w_out)
-    _check("geglu_ffn", x, gamma, w_in, w_out)
-    _check_geglu("geglu_ffn", x, gamma, w_in, w_out)
-    if x.dtype == torch.float32:
-        m, d = x.shape
-        inner = w_out.shape[1]
-        y = torch.empty_like(x)
-        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 0, m, d, inner, d)
-        _launch_f32(x, "geglu_ffn_f32", [t.data_ptr() for t in (x, gamma, w_in, w_out, y, ws)], [m, d, inner],
-                    "geglu_ffn")
-        LAUNCHES["geglu_f32"] += 1
-        return y
-    w_in, w_out = pad_geglu_hidden(w_in, w_out)
-    inner = w_out.shape[1]
-    m, d = x.shape
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        ws = _fwd_workspace("geglu_ffn", x, 0, m, d, inner, d)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _geglu_fwd_fn()(x.data_ptr(), gamma.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), y.data_ptr(),
-                              _ptr(ws), m, d, inner, stream)
-    cuda_build.check_launch(err, "geglu_ffn")
-    LAUNCHES["geglu"] += 1
-    return y
-
-
-def mlp_ffn(x, w1, b1, w2, b2):
-    """Fused fc1 -> GELU -> fc2. x [M, D], w1 [H, D], b1 [H], w2 [O, H],
-    b2 [O] -> [M, O]."""
-    if x.device.type == "cpu":
-        return mlp_ffn_reference(x, w1, b1, w2, b2)
-    _check("mlp_ffn", x, w1, b1, w2, b2)
-    hidden, out = _check_mlp("mlp_ffn", x, w1, b1, w2, b2)
-    m, d = x.shape
-    y = torch.empty((m, out), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.float32:
-        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 1, m, d, hidden, out)
-        _launch_f32(x, "mlp_ffn_f32", [t.data_ptr() for t in (x, w1, b1, w2, b2, y, ws)], [m, d, hidden, out],
-                    "mlp_ffn")
-        LAUNCHES["mlp_f32"] += 1
-        return y
-    with torch.cuda.device(x.device):
-        ws = _fwd_workspace("mlp_ffn", x, 1, m, d, hidden, out)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _mlp_fwd_fn()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                            y.data_ptr(), _ptr(ws), m, d, hidden, out, stream)
-    cuda_build.check_launch(err, "mlp_ffn")
-    LAUNCHES["mlp"] += 1
-    return y
-
-
 @functools.cache
 def _geglu_bwd_fn():
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -367,11 +316,54 @@ def _bwd_scratch(name, x, mode, m, d, hid, d_out):
     return torch.empty((floats,), dtype=torch.float32, device=x.device)
 
 
-def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
-    """(dx, dgamma, dW_in, dW_out) of ``geglu_ffn``, weights in nn.Linear
-    layout."""
-    if x.device.type == "cpu":
-        return geglu_ffn_backward_reference(x, gamma, w_in, w_out, dy)
+def _geglu_cuda(x, gamma, w_in, w_out):
+    _check("geglu_ffn", x, gamma, w_in, w_out)
+    _check_geglu("geglu_ffn", x, gamma, w_in, w_out)
+    if x.dtype == torch.float32:
+        m, d = x.shape
+        inner = w_out.shape[1]
+        y = torch.empty_like(x)
+        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 0, m, d, inner, d)
+        _launch_f32(x, "geglu_ffn_f32", [t.data_ptr() for t in (x, gamma, w_in, w_out, y, ws)], [m, d, inner],
+                    "geglu_ffn")
+        LAUNCHES["geglu_f32"] += 1
+        return y
+    w_in, w_out = pad_geglu_hidden(w_in, w_out)
+    inner = w_out.shape[1]
+    m, d = x.shape
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        ws = _fwd_workspace("geglu_ffn", x, 0, m, d, inner, d)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _geglu_fwd_fn()(x.data_ptr(), gamma.data_ptr(), w_in.data_ptr(), w_out.data_ptr(), y.data_ptr(),
+                              _ptr(ws), m, d, inner, stream)
+    cuda_build.check_launch(err, "geglu_ffn")
+    LAUNCHES["geglu"] += 1
+    return y
+
+
+def _mlp_cuda(x, w1, b1, w2, b2):
+    _check("mlp_ffn", x, w1, b1, w2, b2)
+    hidden, out = _check_mlp("mlp_ffn", x, w1, b1, w2, b2)
+    m, d = x.shape
+    y = torch.empty((m, out), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 1, m, d, hidden, out)
+        _launch_f32(x, "mlp_ffn_f32", [t.data_ptr() for t in (x, w1, b1, w2, b2, y, ws)], [m, d, hidden, out],
+                    "mlp_ffn")
+        LAUNCHES["mlp_f32"] += 1
+        return y
+    with torch.cuda.device(x.device):
+        ws = _fwd_workspace("mlp_ffn", x, 1, m, d, hidden, out)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _mlp_fwd_fn()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                            y.data_ptr(), _ptr(ws), m, d, hidden, out, stream)
+    cuda_build.check_launch(err, "mlp_ffn")
+    LAUNCHES["mlp"] += 1
+    return y
+
+
+def _geglu_backward_cuda(x, gamma, w_in, w_out, dy):
     _check("geglu_ffn_backward", x, gamma, w_in, w_out, dy)
     real_inner = _check_geglu("geglu_ffn_backward", x, gamma, w_in, w_out)
     if dy.shape != x.shape:
@@ -404,11 +396,7 @@ def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
     return (dx, dgamma, *unpad_geglu_grads(dw_in, dw_out, real_inner))
 
 
-def mlp_ffn_backward(x, w1, b1, w2, b2, dy):
-    """(dx, dW1, db1, dW2, db2) of ``mlp_ffn``, weights in nn.Linear
-    layout."""
-    if x.device.type == "cpu":
-        return mlp_ffn_backward_reference(x, w1, b1, w2, b2, dy)
+def _mlp_backward_cuda(x, w1, b1, w2, b2, dy):
     _check("mlp_ffn_backward", x, w1, b1, w2, b2, dy)
     hidden, out = _check_mlp("mlp_ffn_backward", x, w1, b1, w2, b2)
     m, d = x.shape
@@ -436,28 +424,180 @@ def mlp_ffn_backward(x, w1, b1, w2, b2, dy):
     return dx, dw1, db1, dw2, db2
 
 
-class GegluFFN(torch.autograd.Function):
-    """``geglu_ffn`` with its backward: ``GegluFFN.apply(x, gamma, w_in,
-    w_out)``. Saves the inputs; the backward recomputes the activation."""
-
-    @staticmethod
-    def forward(ctx, x, gamma, w_in, w_out):
-        ctx.save_for_backward(x, gamma, w_in, w_out)
-        return geglu_ffn(x, gamma, w_in, w_out)
-
-    @staticmethod
-    def backward(ctx, dy):
-        return geglu_ffn_backward(*ctx.saved_tensors, dy.contiguous())
 
 
-class MlpFFN(torch.autograd.Function):
-    """``mlp_ffn`` with its backward: ``MlpFFN.apply(x, w1, b1, w2, b2)``."""
+# ---------------------------------------------------------------------------
+# K2's MLP with a task axis: T independent MLPs (the decoder trunks of T
+# tasks, each with its own weights) in one launch, the task one more grid
+# coordinate; what ``jax.vmap`` over pallas_ffn.py's MLP kernel makes of it
+# (multimae.py:285-289). Its backward runs K2b's MLP once per task.
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        return mlp_ffn(x, w1, b1, w2, b2)
+def mlp_ffn_tasks_reference(x, w1, b1, w2, b2):
+    """Plain version: ``mlp_ffn_reference`` once per task. x [T, M, D],
+    w1 [T, H, D], b1 [T, H], w2 [T, O, H], b2 [T, O] -> [T, M, O]."""
+    return torch.stack([mlp_ffn_reference(x[t], w1[t], b1[t], w2[t], b2[t]) for t in range(x.shape[0])])
 
-    @staticmethod
-    def backward(ctx, dy):
-        return mlp_ffn_backward(*ctx.saved_tensors, dy.contiguous())
+
+def _check_mlp_tasks(name, x, w1, b1, w2, b2):
+    if x.dim() != 3 or w1.dim() != 3 or b1.dim() != 2 or w2.dim() != 3 or b2.dim() != 2:
+        raise ValueError(f"{name}: x must be [T, M, D] and the weights stacked over T, got x {tuple(x.shape)}, "
+                         f"w1 {tuple(w1.shape)}")
+    t = x.shape[0]
+    if any(w.shape[0] != t for w in (w1, b1, w2, b2)):
+        raise ValueError(f"{name}: every operand must have the task axis of x, {t}")
+    _check(name, x[0], w1[0], b1[0], w2[0], b2[0])  # shapes, dtype, device, alignment of the first task
+    for v in (x, w1, b1, w2, b2):
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return _check_mlp(name, x[0], w1[0], b1[0], w2[0], b2[0])
+
+
+@functools.cache
+def _mlp_tasks_fn():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.bind("fused_ffn.cu", "mlp_ffn_tasks_bf16", [p] * 7 + [i] * 5 + [p])
+
+
+@functools.cache
+def _tasks_plan_fn(name: str):
+    """``ffn_fwd_tasks_workspace_bytes`` or ``ffn_fwd_tasks_kernels``:
+    (tasks, m, d, hid, d_out) -> bytes or kernels (-1 for shapes the
+    kernels do not take)."""
+    fn = getattr(cuda_build.load("fused_ffn.cu"), name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def tasks_forward_kernels(t: int, m: int, d: int, hid: int, d_out: int) -> int:
+    """How many kernels one ``mlp_ffn_tasks`` call launches on the card for
+    T tasks of these shapes: 1, or 2 where the row path splits the hidden
+    width; past the row path's widths 2 a task (the wide path, task by
+    task)."""
+    n = _tasks_plan_fn("ffn_fwd_tasks_kernels")(t, m, d, hid, d_out)
+    if n < 0:
+        raise ValueError(f"fused_ffn: no kernel for T = {t}, M = {m}, widths {d}, {hid}, {d_out}")
+    return n
+
+
+def _mlp_tasks_cuda(x, w1, b1, w2, b2):
+    hidden, out = _check_mlp_tasks("mlp_ffn_tasks", x, w1, b1, w2, b2)
+    t, m, d = x.shape
+    y = torch.empty((t, m, out), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 1, t * m, d, hidden, out)
+        _launch_f32(x, "mlp_ffn_tasks_f32", [v.data_ptr() for v in (x, w1, b1, w2, b2, y, ws)],
+                    [t, m, d, hidden, out], "mlp_ffn_tasks")
+        LAUNCHES["mlp_tasks_f32"] += 1
+        return y
+    with torch.cuda.device(x.device):
+        size = _tasks_plan_fn("ffn_fwd_tasks_workspace_bytes")(t, m, d, hidden, out)
+        if size < 0:
+            raise ValueError(f"mlp_ffn_tasks: no kernel for T = {t}, M = {m}, widths {d}, {hidden}, {out}")
+        ws = torch.empty((size,), dtype=torch.uint8, device=x.device) if size else None
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _mlp_tasks_fn()(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                              y.data_ptr(), _ptr(ws), t, m, d, hidden, out, stream)
+    cuda_build.check_launch(err, "mlp_ffn_tasks")
+    LAUNCHES["mlp_tasks"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# The operators (ops/library.py): CUDA implementation the launcher above,
+# CPU implementation the plain version, fake implementation shapes only.
+# ---------------------------------------------------------------------------
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _geglu_grad(ctx, dy):
+    return geglu_ffn_backward(*ctx.saved_tensors, dy.contiguous())
+
+
+def _mlp_grad(ctx, dy):
+    return mlp_ffn_backward(*ctx.saved_tensors, dy.contiguous())
+
+
+def _mlp_tasks_grad(ctx, dy):
+    """K2b's MLP once per task on that task's rows and weights, the
+    gradients stacked over the task axis."""
+    x, w1, b1, w2, b2 = ctx.saved_tensors
+    dy = dy.contiguous()
+    grads = [mlp_ffn_backward(x[t], w1[t], b1[t], w2[t], b2[t], dy[t]) for t in range(x.shape[0])]
+    return tuple(torch.stack(g) for g in zip(*grads))
+
+
+def _empty_like_all(*tensors):
+    return tuple(torch.empty_like(t) for t in tensors)
+
+
+_GEGLU_BACKWARD = library.define(
+    "geglu_ffn_backward",
+    "(Tensor x, Tensor gamma, Tensor w_in, Tensor w_out, Tensor dy) -> (Tensor, Tensor, Tensor, Tensor)",
+    geglu_ffn_backward_reference, _geglu_backward_cuda, lambda x, gamma, w_in, w_out, dy: _empty_like_all(
+        x, gamma, w_in, w_out))
+_GEGLU = library.define(
+    "geglu_ffn", "(Tensor x, Tensor gamma, Tensor w_in, Tensor w_out) -> Tensor",
+    geglu_ffn_reference, _geglu_cuda, lambda x, gamma, w_in, w_out: torch.empty_like(x),
+    _geglu_grad, _save_inputs)
+_MLP_BACKWARD = library.define(
+    "mlp_ffn_backward",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor dy) -> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+    mlp_ffn_backward_reference, _mlp_backward_cuda, lambda x, w1, b1, w2, b2, dy: _empty_like_all(
+        x, w1, b1, w2, b2))
+_MLP = library.define(
+    "mlp_ffn", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    mlp_ffn_reference, _mlp_cuda, lambda x, w1, b1, w2, b2: x.new_empty((x.shape[0], w2.shape[0])),
+    _mlp_grad, _save_inputs)
+_MLP_TASKS = library.define(
+    "mlp_ffn_tasks", "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+    mlp_ffn_tasks_reference, _mlp_tasks_cuda,
+    lambda x, w1, b1, w2, b2: x.new_empty((x.shape[0], x.shape[1], w2.shape[1])), _mlp_tasks_grad, _save_inputs)
+
+
+def geglu_ffn(x, gamma, w_in, w_out):
+    """Fused LayerNorm + GEGLU FF. x [M, D], gamma [D], w_in [2I, D],
+    w_out [D, I] -> [M, D]. Differentiable: the operator's backward is
+    K2b."""
+    return _GEGLU(x, gamma, w_in, w_out)
+
+
+def mlp_ffn(x, w1, b1, w2, b2):
+    """Fused fc1 -> GELU -> fc2. x [M, D], w1 [H, D], b1 [H], w2 [O, H],
+    b2 [O] -> [M, O]. Differentiable."""
+    return _MLP(x, w1, b1, w2, b2)
+
+
+def mlp_ffn_tasks(x, w1, b1, w2, b2):
+    """T fused MLPs in one launch: x [T, M, D], w1 [T, H, D], b1 [T, H],
+    w2 [T, O, H], b2 [T, O] -> [T, M, O]. Differentiable: the backward is
+    K2b's MLP, once per task."""
+    return _MLP_TASKS(x, w1, b1, w2, b2)
+
+
+def geglu_ffn_backward(x, gamma, w_in, w_out, dy):
+    """(dx, dgamma, dW_in, dW_out) of ``geglu_ffn``, weights in nn.Linear
+    layout."""
+    return _GEGLU_BACKWARD(x, gamma, w_in, w_out, dy)
+
+
+def mlp_ffn_backward(x, w1, b1, w2, b2, dy):
+    """(dx, dW1, db1, dW2, db2) of ``mlp_ffn``, weights in nn.Linear
+    layout."""
+    return _MLP_BACKWARD(x, w1, b1, w2, b2, dy)
+
+
+class GegluFFN:
+    """``geglu_ffn`` with its gradient, called as an autograd Function is:
+    ``GegluFFN.apply(x, gamma, w_in, w_out)``."""
+
+    apply = staticmethod(geglu_ffn)
+
+
+class MlpFFN:
+    """``mlp_ffn`` with its gradient: ``MlpFFN.apply(x, w1, b1, w2, b2)``."""
+
+    apply = staticmethod(mlp_ffn)

@@ -4,10 +4,10 @@ ops/pallas_fusion_attn.py.
 
 Each fusion position attends, per head, over its T modality slots of the
 t-major KV grid and its own fusion-token key/value (the last slot), with an
-f32 softmax over the T + 1 slots. A CPU tensor goes to the plain version; a
-CUDA tensor launches the kernel (its bf16 instance, or for f32 tensors its
-f32 one, ``*_f32`` in the library, the TPU kernel's f32 path) or raises.
-``FusionRowAttention`` is the autograd Function the model calls.
+f32 softmax over the T + 1 slots. Both directions are operators of
+ops/library.py: on a CPU tensor the plain version, on a CUDA tensor the
+kernel (its bf16 instance, or for f32 tensors its f32 one, ``*_f32`` in
+the library, the TPU kernel's f32 path), or an error.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from . import cuda_attn, cuda_build
+from . import cuda_attn, cuda_build, library
 from .attention import upcast
 
 SUPPORTED_DH = (32, 64, 128)
@@ -118,12 +118,7 @@ def _bwd_fn(dtype: torch.dtype):
                            [p, p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, p])
 
 
-def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
-    """q [B, F, I]; kv_grid [B, T*F, 2I] t-major; kv_f [B, F, 2I]. Returns
-    [B, F, I]: softmax over the T + 1 slots per fusion position, the fusion
-    token's own kv as the last slot."""
-    if q.device.type == "cpu":
-        return fusion_row_attention_reference(q, kv_grid, kv_f, heads, dh)
+def _fwd_cuda(q, kv_grid, kv_f, heads, dh):
     b, f, t_mod = _check("fusion_row_attention", q, kv_grid, kv_f, heads, dh)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
@@ -135,11 +130,7 @@ def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
     return out
 
 
-def fusion_row_attention_backward(q, kv_grid, kv_f, do, heads: int, dh: int):
-    """(dq, dkv_grid, dkv_f) of ``fusion_row_attention`` given the output
-    gradient ``do`` [B, F, I]."""
-    if q.device.type == "cpu":
-        return fusion_row_attention_backward_reference(q, kv_grid, kv_f, do, heads, dh)
+def _bwd_cuda(q, kv_grid, kv_f, do, heads, dh):
     b, f, t_mod = _check("fusion_row_attention_backward", q, kv_grid, kv_f, heads, dh, do)
     dq, dkv_grid, dkv_f = torch.empty_like(q), torch.empty_like(kv_grid), torch.empty_like(kv_f)
     with torch.cuda.device(q.device):
@@ -152,18 +143,48 @@ def fusion_row_attention_backward(q, kv_grid, kv_f, do, heads: int, dh: int):
     return dq, dkv_grid, dkv_f
 
 
-class FusionRowAttention(torch.autograd.Function):
-    """``fusion_row_attention`` with its backward:
+def _setup(ctx, inputs, output):
+    q, kv_grid, kv_f, heads, dh = inputs
+    ctx.save_for_backward(q, kv_grid, kv_f)
+    ctx.args = (heads, dh)
+
+
+def _grad(ctx, do):
+    return fusion_row_attention_backward(*ctx.saved_tensors, do.contiguous(), *ctx.args) + (None, None)
+
+
+_BACKWARD = library.define(
+    "fusion_row_attention_backward",
+    "(Tensor q, Tensor kv_grid, Tensor kv_f, Tensor do, int heads, int dh) -> (Tensor, Tensor, Tensor)",
+    lambda q, kv_grid, kv_f, do, heads, dh: fusion_row_attention_backward_reference(q, kv_grid, kv_f, do,
+                                                                                     heads, dh),
+    _bwd_cuda,
+    lambda q, kv_grid, kv_f, do, heads, dh: (torch.empty_like(q), torch.empty_like(kv_grid),
+                                             torch.empty_like(kv_f)))
+_FORWARD = library.define(
+    "fusion_row_attention", "(Tensor q, Tensor kv_grid, Tensor kv_f, int heads, int dh) -> Tensor",
+    lambda q, kv_grid, kv_f, heads, dh: fusion_row_attention_reference(q, kv_grid, kv_f, heads, dh),
+    _fwd_cuda, lambda q, kv_grid, kv_f, heads, dh: torch.empty_like(q), _grad, _setup)
+
+
+def fusion_row_attention(q, kv_grid, kv_f, heads: int, dh: int):
+    """q [B, F, I]; kv_grid [B, T*F, 2I] t-major; kv_f [B, F, 2I]. Returns
+    [B, F, I]: softmax over the T + 1 slots per fusion position, the fusion
+    token's own kv as the last slot. Differentiable: the operator's backward
+    is K3b."""
+    return _FORWARD(q, kv_grid, kv_f, heads, dh)
+
+
+def fusion_row_attention_backward(q, kv_grid, kv_f, do, heads: int, dh: int):
+    """(dq, dkv_grid, dkv_f) of ``fusion_row_attention`` given the output
+    gradient ``do`` [B, F, I]."""
+    return _BACKWARD(q, kv_grid, kv_f, do, heads, dh)
+
+
+class FusionRowAttention:
+    """``fusion_row_attention`` with its gradient:
     ``FusionRowAttention.apply(q, kv_grid, kv_f, heads, dh)``."""
 
     @staticmethod
-    def forward(ctx, q, kv_grid, kv_f, heads, dh):
-        ctx.save_for_backward(q, kv_grid, kv_f)
-        ctx.heads, ctx.dh = heads, dh
+    def apply(q, kv_grid, kv_f, heads, dh):
         return fusion_row_attention(q, kv_grid, kv_f, heads, dh)
-
-    @staticmethod
-    def backward(ctx, do):
-        dq, dkv_grid, dkv_f = fusion_row_attention_backward(*ctx.saved_tensors, do.contiguous(),
-                                                            ctx.heads, ctx.dh)
-        return dq, dkv_grid, dkv_f, None, None

@@ -15,9 +15,9 @@ PAD keys of its active tiles, as in the TPU kernel; the plain version is
 therefore the masked softmax under ``allowed & active``, which matches the
 TPU kernel on every row, PAD rows included.
 
-A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-(its bf16 or f32 instance, N a multiple of 128) or raises. ``ZorroSparseAttentionQKV`` is
-the autograd Function.
+Both directions are operators of ops/library.py: on a CPU tensor the plain
+version, on a CUDA tensor the kernel (its bf16 or f32 instance, N a
+multiple of 128), or an error.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from . import cuda_attn
+from . import cuda_attn, library
 
 PAD_TYPE = cuda_attn.PAD_TYPE
 TILE = 128
@@ -109,51 +109,81 @@ def _check(name, qkv, heads, types, fusion_type):
     return types, active
 
 
+def _cpu(qkv, types, heads, fusion_type, scale, return_lse):
+    out, lse = zorro_sparse_attention_qkv_reference(qkv, types, heads, fusion_type, scale, return_lse=True)
+    return out, (lse if return_lse else cuda_attn._no_lse(qkv))
+
+
+def _cuda(qkv, types, heads, fusion_type, scale, return_lse):
+    types, active = _check("zorro_sparse_attention_qkv", qkv, heads, types, fusion_type)
+    b, n, three_i = qkv.shape
+    out, lse = cuda_attn.launch_attention(cuda_attn.slab_view(qkv), b, n, three_i // 3, heads, qkv.device,
+                                          types, fusion_type, scale, return_lse, active, dtype=qkv.dtype)
+    LAUNCHES[_key("forward", qkv.dtype)] += 1
+    return out, (lse if return_lse else cuda_attn._no_lse(qkv))
+
+
+def _backward_cpu(qkv, types, o, lse, do, heads, fusion_type, scale):
+    return zorro_sparse_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, fusion_type, scale)
+
+
+def _backward_cuda(qkv, types, o, lse, do, heads, fusion_type, scale):
+    cuda_attn._need_lse("zorro_sparse_attention_qkv_backward", lse)
+    types, active = _check("zorro_sparse_attention_qkv_backward", qkv, heads, types, fusion_type)
+    b, n, three_i = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    cuda_attn.launch_attention_backward(cuda_attn.slab_view(qkv), cuda_attn.slab_view(dqkv), b, n,
+                                        three_i // 3, heads, qkv.device, types, fusion_type, o, lse, do, scale,
+                                        active, dtype=qkv.dtype)
+    LAUNCHES[_key("backward", qkv.dtype)] += 1
+    return dqkv
+
+
+def _setup(ctx, inputs, output):
+    qkv, types, heads, fusion_type, scale, _ = inputs
+    ctx.save_for_backward(qkv, types, *output)
+    ctx.args = (heads, fusion_type, scale)
+    ctx.set_materialize_grads(False)
+
+
+def _grad(ctx, dout, _dlse):
+    if dout is None:
+        return (None,) * 6
+    qkv, types, out, lse = ctx.saved_tensors
+    cuda_attn._need_lse("zorro_sparse_attention_qkv", lse)
+    return (zorro_sparse_attention_qkv_backward(qkv, types, out, lse, dout.contiguous(), *ctx.args),) + (None,) * 5
+
+
+_BACKWARD = library.define(
+    "zorro_sparse_attention_qkv_backward",
+    "(Tensor qkv, Tensor types, Tensor o, Tensor lse, Tensor do, int heads, int fusion_type, float scale)"
+    " -> Tensor", _backward_cpu, _backward_cuda, cuda_attn._qkv_backward_fake)
+_FORWARD = library.define(
+    "zorro_sparse_attention_qkv",
+    "(Tensor qkv, Tensor types, int heads, int fusion_type, float scale, bool return_lse) -> (Tensor, Tensor)",
+    _cpu, _cuda, cuda_attn._qkv_fake, _grad, _setup)
+
+
 def zorro_sparse_attention_qkv(qkv: torch.Tensor, types: torch.Tensor, heads: int, fusion_type: int,
                                scale: Optional[float] = None, return_lse: bool = False):
     """Block-sparse zorro attention. qkv [B, N, 3I] with N % 128 == 0;
     types [B, N] int (PAD_TYPE = padding). Returns [B, N, I], and with
-    ``return_lse`` the f32 lse [B, H, N]."""
-    if qkv.device.type == "cpu":
-        return zorro_sparse_attention_qkv_reference(qkv, types, heads, fusion_type, scale, return_lse)
-    types, active = _check("zorro_sparse_attention_qkv", qkv, heads, types, fusion_type)
-    b, n, three_i = qkv.shape
-    out, lse = cuda_attn.launch_attention(cuda_attn.slab_view(qkv), b, n, three_i // 3, heads, qkv.device,
-                                          types, fusion_type, _scale(qkv, heads, scale), return_lse, active,
-                                          dtype=qkv.dtype)
-    LAUNCHES[_key("forward", qkv.dtype)] += 1
+    ``return_lse`` the f32 lse [B, H, N]. Differentiable."""
+    out, lse = _FORWARD(qkv, types, heads, fusion_type, _scale(qkv, heads, scale),
+                        cuda_attn.keeps_lse(qkv, return_lse))
     return (out, lse) if return_lse else out
 
 
 def zorro_sparse_attention_qkv_backward(qkv, types, o, lse, do, heads: int, fusion_type: int,
                                         scale: Optional[float] = None) -> torch.Tensor:
     """dqkv [B, N, 3I] of ``zorro_sparse_attention_qkv``."""
-    if qkv.device.type == "cpu":
-        return zorro_sparse_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, fusion_type, scale)
-    types, active = _check("zorro_sparse_attention_qkv_backward", qkv, heads, types, fusion_type)
-    b, n, three_i = qkv.shape
-    dqkv = torch.empty_like(qkv)
-    cuda_attn.launch_attention_backward(cuda_attn.slab_view(qkv), cuda_attn.slab_view(dqkv), b, n,
-                                        three_i // 3, heads, qkv.device, types, fusion_type, o, lse, do,
-                                        _scale(qkv, heads, scale), active, dtype=qkv.dtype)
-    LAUNCHES[_key("backward", qkv.dtype)] += 1
-    return dqkv
+    return _BACKWARD(qkv, types, o, lse, do, heads, fusion_type, _scale(qkv, heads, scale))
 
 
-class ZorroSparseAttentionQKV(torch.autograd.Function):
-    """``zorro_sparse_attention_qkv`` with its backward:
+class ZorroSparseAttentionQKV:
+    """``zorro_sparse_attention_qkv`` with its gradient:
     ``ZorroSparseAttentionQKV.apply(qkv, types, heads, fusion_type, scale)``."""
 
     @staticmethod
-    def forward(ctx, qkv, types, heads, fusion_type, scale=None):
-        out, lse = zorro_sparse_attention_qkv(qkv, types, heads, fusion_type, scale, return_lse=True)
-        ctx.save_for_backward(qkv, types, out, lse)
-        ctx.heads, ctx.fusion_type, ctx.scale = heads, fusion_type, scale
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        qkv, types, out, lse = ctx.saved_tensors
-        dqkv = zorro_sparse_attention_qkv_backward(qkv, types, out, lse, dout.contiguous(), ctx.heads,
-                                                   ctx.fusion_type, ctx.scale)
-        return dqkv, None, None, None, None
+    def apply(qkv, types, heads, fusion_type, scale=None):
+        return zorro_sparse_attention_qkv(qkv, types, heads, fusion_type, scale)

@@ -255,11 +255,12 @@ F32_PER_CALL = {"zorro_attention_qkv/zorro_f32": 1, "zorro_attention_qkv/zorro_f
                 "fused_ffn/geglu_f32": 4, "fused_ffn/geglu_f32_backward": 9, "fused_ffn/mlp_f32": 2,
                 "fused_ffn/mlp_f32_backward": 9, "fusion_row_attention/fusion_row_f32": 1,
                 "fusion_row_attention/fusion_row_f32_backward": 1, "fused_block_attn/f32_forward": 6,
-                "fused_block_attn/f32_backward": 15}
+                "fused_block_attn/f32_backward": 15, "fused_ffn/mlp_tasks_f32": 2}
 F32_KERNELS = {"zorro": {"zorro_attention_f32_fwd_kernel", "zorro_attention_f32_dq_kernel",
                          "zorro_attention_f32_dkdv_kernel"},
                "simt": {"simt_f32_product_kernel", "simt_f32_colsum_kernel", "simt_f32_reduce_kernel",
-                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel", "simt_f32_act_kernel"}}
+                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel", "simt_f32_act_kernel",
+                        "simt_f32_product_tasks_kernel"}}
 
 
 @pytest.mark.parametrize("entry", sorted(F32_PER_CALL))
@@ -341,17 +342,17 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
         "zorro_attention_f32", "zorro_attention_bwd_f32", "fusion_row_attention_f32", "fusion_row_attention_bwd_f32",
         "fused_block_attn_fwd_f32", "fused_block_attn_bwd_f32", "fused_block_attn_f32_scratch_floats",
         "geglu_ffn_f32", "mlp_ffn_f32", "geglu_ffn_bwd_f32", "mlp_ffn_bwd_f32", "ffn_fwd_f32_workspace_floats",
-        "ffn_bwd_f32_scratch_floats"}
+        "ffn_bwd_f32_scratch_floats", "mlp_ffn_tasks_f32"}
     csrc = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
     for source, name in sorted(f32):
         assert name in _extern_c(csrc / source), (source, name)
 
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
-               "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli")
+               "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export")
 
 
-@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving"])
+@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts
@@ -433,3 +434,30 @@ def test_the_cli_phases_parser_refuses_missing_lines(smoke):
     assert smoke.parsed(r"dice=(\S+)", "  eval dice=0.5 lr\n  eval dice=1.25 lr", "dice") == [0.5, 1.25]
     with pytest.raises(RuntimeError, match="nothing matches"):
         smoke.parsed(r"dice=(\S+)", "no eval line", "dice")
+
+
+def test_the_task_axis_entry_is_k2s_mlp_kernels(smoke):
+    """fused_ffn/mlp_tasks (and its f32 key) is K2's forward in csrc/fused_ffn.cu:
+    the row kernel with its task axis, the f32 product with its task axis;
+    each C entry its wrapper binds is defined there."""
+    source = ROOT / smoke.PKG / "csrc" / "fused_ffn.cu"
+    kernels = _kernels_of(source)
+    assert smoke.REPLACES["fused_ffn/mlp_tasks"] == ("csrc/fused_ffn.cu",
+                                                     "incomplete_multimodal_fusion_tpu/ops/pallas_ffn.py:374")
+    assert smoke.REPLACES["fused_ffn/mlp_tasks_f32"] == smoke.REPLACES["fused_ffn/mlp_tasks"]
+    names, per_call = smoke.entry_kernels("fused_ffn/mlp_tasks")
+    assert per_call == 1 and all(any(n in k for k in kernels) for n in names)
+    names32, per_call32 = smoke.entry_kernels("fused_ffn/mlp_tasks_f32")
+    assert per_call32 == 2 and "simt_f32_product_tasks_kernel" in kernels
+    text = source.read_text()
+    for entry in ("mlp_ffn_tasks_bf16", "mlp_ffn_tasks_f32", "ffn_fwd_tasks_workspace_bytes", "ffn_fwd_tasks_kernels"):
+        assert entry in _extern_c(source), entry
+    assert "if constexpr (TASKS)" in text
+
+
+def test_phase_export_counts_the_batched_decoders_launches(smoke):
+    """Phase 13's batched forward launches K1's unmasked mode and the
+    task-axis MLP once a decoder layer, the rest as PER_FORWARD."""
+    assert smoke.BATCHED_PER_FORWARD == {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 2,
+                                         "fused_ffn/geglu": 24, "fused_ffn/mlp_tasks": 2,
+                                         "fusion_row_attention/fusion_row": 12}

@@ -1563,3 +1563,156 @@ def test_f32_wrappers_refuse_mixed_dtypes_and_operands_off_16_bytes(dev):
     with pytest.raises(ValueError):
         cuda_fusion_attn.fusion_row_attention(_randf(dev, 1, 4, 64), _randf(dev, 1, 12, 128).to(torch.bfloat16),
                                               _randf(dev, 1, 4, 128), 1, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,m,d,hidden,out_dim", [(3, 256, 256, 1024, 256), (3, 2048, 256, 1024, 256),
+                                                  (2, 45, 64, 256, 48), (1, 300, 32, 128, 32),
+                                                  (2, 130, 512, 256, 320)])
+def test_mlp_tasks_kernel_matches_plain(dev, dtype, t, m, d, hidden, out_dim):
+    """K2's MLP with a task axis, one launch for all T (two a task on the
+    wide path, d = 512 here), against T calls of the plain MLP; each task
+    with its own weights, so a wrong task offset shows."""
+    rand = _randn if dtype == torch.bfloat16 else _randf
+    x = rand(dev, t, m, d, seed=60)
+    w1, b1 = rand(dev, t, hidden, d, scale=d ** -0.5, seed=61), rand(dev, t, hidden, scale=0.1, seed=62)
+    w2, b2 = rand(dev, t, out_dim, hidden, scale=hidden ** -0.5, seed=63), rand(dev, t, out_dim, scale=0.1, seed=64)
+    ops.reset_kernel_launches()
+    out = cuda_ffn.mlp_ffn_tasks(x, w1, b1, w2, b2)
+    ref = cuda_ffn.mlp_ffn_tasks_reference(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    key = "fused_ffn/mlp_tasks" + ("_f32" if dtype == torch.float32 else "")
+    assert {k: n for k, n in ops.kernel_launches().items() if n} == {key: 1}
+    bound = REL_L2 if dtype == torch.bfloat16 else 1e-5
+    for i in range(t):
+        assert _rel(out[i], ref[i]) <= bound, i
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mlp_tasks_backward_is_k2b_once_per_task(dev, dtype):
+    rand = _randn if dtype == torch.bfloat16 else _randf
+    t, m, d, hidden = 3, 256, 256, 1024
+    x = rand(dev, t, m, d, seed=65).requires_grad_()
+    w = [rand(dev, t, hidden, d, scale=d ** -0.5, seed=66), rand(dev, t, hidden, scale=0.1, seed=67),
+         rand(dev, t, d, hidden, scale=hidden ** -0.5, seed=68), rand(dev, t, d, scale=0.1, seed=69)]
+    w = [v.requires_grad_() for v in w]
+    dy = rand(dev, t, m, d, seed=70)
+    ops.reset_kernel_launches()
+    cuda_ffn.mlp_ffn_tasks(x, *w).backward(dy)
+    suffix = "_f32" if dtype == torch.float32 else ""
+    assert {k: n for k, n in ops.kernel_launches().items() if n} == {
+        f"fused_ffn/mlp_tasks{suffix}": 1, f"fused_ffn/mlp{suffix}_backward": t}
+    for i in range(t):
+        ref = cuda_ffn.mlp_ffn_backward_reference(x[i].detach(), *(v[i].detach() for v in w), dy[i])
+        bound = REL_L2 if dtype == torch.bfloat16 else 1e-5
+        for got, want in zip((x.grad[i], *(v.grad[i] for v in w)), ref):
+            assert _rel(got, want) <= bound
+
+
+def _op_cases(dev, dtype):
+    """(operator name, arguments) at shapes the kernels take, forwards with
+    inputs that require a gradient (their backward is exercised too)."""
+    from incomplete_multimodal_fusion_tpu_torch.ops import library  # noqa: F401
+
+    rand = _randn if dtype == torch.bfloat16 else _randf
+
+    def r(*shape, seed, scale=1.0, grad=False):
+        return rand(dev, *shape, scale=scale, seed=seed).requires_grad_(grad)
+
+    b, n, heads, dh = 2, 70, 2, 32
+    inner = heads * dh
+    types = _types(dev, (20, 10, 20), 5, 15).expand(b, -1).contiguous()
+    qkv = r(b, n, 3 * inner, seed=80, grad=True)
+    o, lse = cuda_attn.zorro_attention_qkv(qkv.detach(), heads, types, 3, return_lse=True)
+    do = r(b, n, inner, seed=81)
+    q, k, v = (r(b, n, inner, seed=82 + i, grad=True) for i in range(3))
+    op_, lsep = cuda_attn.zorro_attention_packed(q.detach(), k.detach(), v.detach(), types, heads, 3,
+                                                 return_lse=True)
+    stypes = _sparse_types(dev, "single-type tiles", 1)
+    sq = r(1, stypes.shape[1], 3 * 64, seed=85, grad=True)
+    so, slse = cuda_zorro_sparse.zorro_sparse_attention_qkv(sq.detach(), stypes, 1, 3, return_lse=True)
+    x = r(70, 64, seed=86, grad=True)
+    gw = [r(64, seed=87, scale=0.1), r(256, 64, seed=88, scale=0.125), r(64, 128, seed=89, scale=0.09)]
+    gw[0] = (gw[0] + 1.0).detach().requires_grad_()
+    gw = [w.detach().requires_grad_() for w in gw]
+    mw = [r(128, 64, seed=90, scale=0.125, grad=True), r(128, seed=91, scale=0.1, grad=True),
+          r(48, 128, seed=92, scale=0.09, grad=True), r(48, seed=93, scale=0.1, grad=True)]
+    xt = r(3, 70, 64, seed=94, grad=True)
+    tw = [r(3, 128, 64, seed=95, scale=0.125, grad=True), r(3, 128, seed=96, scale=0.1, grad=True),
+          r(3, 48, 128, seed=97, scale=0.09, grad=True), r(3, 48, seed=98, scale=0.1, grad=True)]
+    fq, fg, ff = r(b, 20, inner, seed=99, grad=True), r(b, 60, 2 * inner, seed=100, grad=True), \
+        r(b, 20, 2 * inner, seed=101, grad=True)
+    bx = r(b, n, 64, seed=102, grad=True)
+    bw = [(r(64, seed=103, scale=0.1) + 1.0).detach().requires_grad_(),
+          (r(64, seed=104, scale=0.1) + 1.0).detach().requires_grad_(), r(inner, 64, seed=105, scale=0.125, grad=True),
+          r(2 * inner, 64, seed=106, scale=0.125, grad=True), r(64, inner, seed=107, scale=0.125, grad=True)]
+    d = [t.detach() for t in (x, *gw)]
+    scale = dh ** -0.5
+    return [
+        ("zorro_attention_qkv", (qkv, types, heads, 3, scale, True)),
+        ("zorro_attention_qkv", (qkv, None, heads, None, scale, True)),
+        ("zorro_attention_qkv_backward", (qkv.detach(), types, o, lse, do, heads, 3, scale)),
+        ("zorro_attention_packed", (q, k, v, types, heads, 3, scale, True)),
+        ("zorro_attention_packed_backward", (q.detach(), k.detach(), v.detach(), types, op_, lsep, do, heads, 3,
+                                             scale)),
+        ("zorro_sparse_attention_qkv", (sq, stypes, 1, 3, 64 ** -0.5, True)),
+        ("zorro_sparse_attention_qkv_backward", (sq.detach(), stypes, so, slse, r(*so.shape, seed=108), 1, 3,
+                                                 64 ** -0.5)),
+        ("geglu_ffn", (x, *gw)),
+        ("geglu_ffn_backward", (*d, r(70, 64, seed=109))),
+        ("mlp_ffn", (x, *mw)),
+        ("mlp_ffn_backward", (x.detach(), *(w.detach() for w in mw), r(70, 48, seed=110))),
+        ("mlp_ffn_tasks", (xt, *tw)),
+        ("fusion_row_attention", (fq, fg, ff, heads, dh)),
+        ("fusion_row_attention_backward", (fq.detach(), fg.detach(), ff.detach(), r(b, 20, inner, seed=111),
+                                           heads, dh)),
+        ("fused_block_attn", (bx, types, *bw, heads, 3)),
+        ("fused_block_attn_backward", (bx.detach(), types, *(w.detach() for w in bw), r(b, n, 64, seed=112),
+                                       heads, 3)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_opcheck_on_the_card(dev, dtype):
+    """torch.library.opcheck of every operator on CUDA tensors: the schema,
+    the fake implementation against the kernel's outputs, the autograd
+    registration and AOT dispatch (the kernels' outputs bitwise the same
+    eager and traced)."""
+    from incomplete_multimodal_fusion_tpu_torch.ops import library
+
+    for name, args in _op_cases(dev, dtype):
+        torch.library.opcheck(library.operators()[name], args)
+
+
+def test_export_round_trip_on_the_card(dev):
+    """A small MultiMAE at widths the kernels take (bf16), exported on the
+    card and reloaded: the reloaded program launches the kernels a forward
+    as the live model does, and answers bitwise as the live closure."""
+    import numpy as np
+
+    from incomplete_multimodal_fusion_tpu_torch import serving
+    from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE
+
+    doms = ("s1", "s2", "dem")
+    model = MultiMAE(in_domains=doms, out_domains=doms, image_size=64, patch_size=16, dim_tokens=64, depth=2,
+                     dim_head=32, heads=2, num_fusion_tokens=16, decoder_dim=64, decoder_depth=1,
+                     decoder_num_heads=2)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model = model.to(dev).to(torch.bfloat16).eval()
+    serve = serving.load_exported(serving.export_infer(model, None, batch=2, image_size=64))
+    rng = np.random.default_rng(0)
+    args = [rng.standard_normal((2, 64, 64, c)).astype(np.float32) for c in (1, 3, 1)]
+    args += [np.full((2, 16), int(d == "s2"), np.int32) for d in doms]
+    ops.reset_kernel_launches()
+    out = serve(*args)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    ops.reset_kernel_launches()
+    live = serving.infer_closure(model, None, doms)(*args)
+    torch.cuda.synchronize()
+    assert counts == {k: n for k, n in ops.kernel_launches().items() if n} == {
+        "zorro_attention_qkv/zorro": 2, "zorro_attention_qkv/none": 3, "fused_ffn/geglu": 4, "fused_ffn/mlp": 3,
+        "fusion_row_attention/fusion_row": 2}
+    for d in doms:
+        assert torch.equal(out["preds"][d], live["preds"][d]), d
+    assert torch.equal(out["pooled"], live["pooled"])
