@@ -247,10 +247,16 @@ F32_REL_L2 = 1e-5
 F32_LOSS_REL = 1e-4
 F32_GRAD_REL_L2 = 1e-3
 SEED = 0
-# an H100 SXM's published peaks (NVIDIA data sheet): dense bf16 tensor-core
-# and f32 CUDA-core operations per second, HBM3 bytes per second
+# an H100 SXM's published peaks (NVIDIA data sheet): dense bf16 and TF32
+# tensor-core and f32 CUDA-core operations per second, HBM3 bytes per
+# second. The f32 instances' products have two routes to f32 accuracy: the
+# CUDA cores (PEAK_F32) or the tensor cores in three TF32 parts (3xTF32,
+# PEAK_TF32 / 3); their rows' bound takes the faster, PEAK_F32_PRODUCTS
+# (K4 / K5's sampling is no product: PEAK_F32)
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
+PEAK_F32_PRODUCTS = max(PEAK_F32, PEAK_TF32 / 3)
 PEAK_HBM = 3.35e12
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "incomplete_multimodal_fusion_tpu_torch"
@@ -516,10 +522,32 @@ def sdpa_case(qkv, heads, mask, part: str):
                                        (q, k, v), do)
 
 
+def sdpa_outputs(qkv, heads, mask, do=None):
+    """``sdpa_case``'s library call as a function returning its result in the
+    plain version's layout: the output [B, N, I], or with ``do`` [B, N, I]
+    the gradient [B, N, 3I] of the output against it; to hold the yardstick
+    itself against the plain version."""
+    F = torch.nn.functional
+    b, n, _ = qkv.shape
+    mask = None if mask is None else mask[:, None]
+
+    def flat(t):
+        return t.transpose(1, 2).reshape(b, n, -1)
+
+    def run():
+        q, k, v = (t.requires_grad_(do is not None) for t in heads_layout(qkv, heads))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        if do is None:
+            return flat(out)
+        grads = torch.autograd.grad(out, (q, k, v), do.reshape(b, n, heads, -1).transpose(1, 2))
+        return torch.cat([flat(t) for t in grads], dim=-1)
+    return run
+
+
 def peak_of(t: torch.Tensor) -> float:
-    """The card's peak operation rate for t's dtype: bf16 on the tensor
-    cores, f32 on the CUDA cores (the f32 instances use FFMA)."""
-    return PEAK_F32 if t.dtype == torch.float32 else PEAK_BF16
+    """The card's peak rate of products in t's dtype: bf16 on the tensor
+    cores; f32 the faster of the CUDA cores and 3xTF32 (PEAK_F32_PRODUCTS)."""
+    return PEAK_F32_PRODUCTS if t.dtype == torch.float32 else PEAK_BF16
 
 
 def attention_work(qkv, heads, mask, backward: bool):
@@ -727,6 +755,7 @@ def phase_kernels(dev):
     chains = {}  # the unfused cuBLAS chain beside the K2 rows, for reference only
     separate = {}  # single-task K2 launches beside the task-axis rows, for reference only
     per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
+    yardstick = {}  # the f32 attention rows' SDPA call in the plain version's layout (sdpa_outputs)
 
     def zorro_cases(entry_mode, label, qkv, heads, types, main):
         cases.append((f"zorro_attention_qkv/{entry_mode}", label,
@@ -979,7 +1008,7 @@ def phase_kernels(dev):
     def randf(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=g) * scale
 
-    def f32_attention_cases(mode, label, qkv, heads, types, main):
+    def f32_attention_cases(mode, label, qkv, heads, types, main, backward=True):
         fwd, bwd = f"zorro_attention_qkv/{mode}_f32", f"zorro_attention_qkv/{mode}_f32_backward"
         o, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
         do = randf(*o.shape)
@@ -987,14 +1016,21 @@ def phase_kernels(dev):
         cases.append((fwd, label, lambda: cuda_attn.zorro_attention_qkv(qkv, heads, types, 3),
                       lambda: cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3),
                       attention_work(qkv, heads, mask, False), sdpa_case(qkv, heads, mask, "forward"), main))
-        cases.append((bwd, label, lambda: cuda_attn.zorro_attention_qkv_backward(qkv, types, o, lse, do, heads, 3),
-                      lambda: cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, 3),
-                      attention_work(qkv, heads, mask, True), sdpa_case(qkv, heads, mask, "backward"), main))
+        yardstick[fwd, label] = sdpa_outputs(qkv, heads, mask)
+        if backward:
+            cases.append((bwd, label,
+                          lambda: cuda_attn.zorro_attention_qkv_backward(qkv, types, o, lse, do, heads, 3),
+                          lambda: cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, o, lse, do, heads, 3),
+                          attention_work(qkv, heads, mask, True), sdpa_case(qkv, heads, mask, "backward"), main))
+            yardstick[bwd, label] = sdpa_outputs(qkv, heads, mask, do)
 
     qkv_train32 = randf(60, 640, 3 * 192)
     f32_attention_cases("zorro", train_label, qkv_train32, 3, train_types, True)
     f32_attention_cases("none", "n=256 8x32 B=60", randf(60, 256, 3 * 256), 8, None, True)
     f32_attention_cases("zorro", "N=1024 B=30 all modalities", randf(30, 1024, 3 * 192), 3, seg_types, False)
+    # the f32 serving forward's shape (cli.infer, cli.export_serving): 48 blocks for 132 SMs
+    f32_attention_cases("zorro", "N=1024 B=1 all modalities", randf(1, 1024, 3 * 192), 3, drop_types(1, ()), False,
+                        backward=False)
     q32, k32, v32 = (t.contiguous() for t in qkv_train32.chunk(3, dim=-1))
     o_p32, lse_p32 = cuda_attn.zorro_attention_packed(q32, k32, v32, train_types, 3, 3, return_lse=True)
     o_s32, lse_s32 = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv_train32, train_types, 3, 3, return_lse=True)
@@ -1033,9 +1069,9 @@ def phase_kernels(dev):
                 cuda_ffn.mlp_ffn_backward_reference))
         mode = "geglu" if geglu else "mlp"
         cases.append((f"fused_ffn/{mode}_f32", label, lambda: fwd[0](x, *w), lambda: fwd[1](x, *w),
-                      ffn_work(m, False, geglu, elem=4, peak=PEAK_F32, **widths), None, main))
+                      ffn_work(m, False, geglu, elem=4, peak=PEAK_F32_PRODUCTS, **widths), None, main))
         cases.append((f"fused_ffn/{mode}_f32_backward", label, lambda: fwd[2](x, *w, dy), lambda: fwd[3](x, *w, dy),
-                      ffn_work(m, True, geglu, elem=4, peak=PEAK_F32, **widths), None, main))
+                      ffn_work(m, True, geglu, elem=4, peak=PEAK_F32_PRODUCTS, **widths), None, main))
 
     geglu_w32, mlp_w32 = tuple(t.float() for t in geglu_w), tuple(t.float() for t in mlp_w)
     f32_ffn_cases("M=38400 d=192 I=512", True, geglu_w32, 38400, True, d, d)
@@ -1059,7 +1095,7 @@ def phase_kernels(dev):
             x_t = rand(3, m, dd)
             entry, label = "fused_ffn/mlp_tasks" + suffix, f"T=3 M=256x{bt} d=256 H=1024"
             flops, n_bytes, peak = ffn_work(m, False, False, elem=dtype.itemsize,
-                                            peak=PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+                                            peak=PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32_PRODUCTS)
             cases.append((entry, label, lambda x_t=x_t, tw=tw: cuda_ffn.mlp_ffn_tasks(x_t, *tw),
                           lambda x_t=x_t, tw=tw: cuda_ffn.mlp_ffn_tasks_reference(x_t, *tw),
                           (3 * flops, 3 * n_bytes, peak), None, bt == 1))
@@ -1072,12 +1108,12 @@ def phase_kernels(dev):
     cases.append(("fusion_row_attention/fusion_row_f32", "F=256 T=3 3x64 B=60",
                   lambda: cuda_fusion_attn.fusion_row_attention(q3, kvg3, kvf3, 3, 64),
                   lambda: cuda_fusion_attn.fusion_row_attention_reference(q3, kvg3, kvf3, 3, 64),
-                  (4.0 * 64 * 4 * 60 * f * 3, nbytes(q3, kvg3, kvf3, q3), PEAK_F32),
+                  (4.0 * 64 * 4 * 60 * f * 3, nbytes(q3, kvg3, kvf3, q3), PEAK_F32_PRODUCTS),
                   fusion_row_sdpa_case(q3, kvg3, kvf3, 3, "forward"), True))
     cases.append(("fusion_row_attention/fusion_row_f32_backward", "F=256 T=3 3x64 B=60",
                   lambda: cuda_fusion_attn.fusion_row_attention_backward(q3, kvg3, kvf3, do3, 3, 64),
                   lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(q3, kvg3, kvf3, do3, 3, 64),
-                  (8.0 * 64 * 4 * 60 * f * 3, 2 * nbytes(q3, kvg3, kvf3) + nbytes(do3), PEAK_F32),
+                  (8.0 * 64 * 4 * 60 * f * 3, 2 * nbytes(q3, kvg3, kvf3) + nbytes(do3), PEAK_F32_PRODUCTS),
                   fusion_row_sdpa_case(q3, kvg3, kvf3, 3, "backward"), True))
 
     x_blk32, dy_blk32 = x_blk.float(), dy_blk.float()
@@ -1115,6 +1151,14 @@ def phase_kernels(dev):
             three = separate[entry, label]
             fb += (f"; three separate fused_ffn/mlp launches {cuda_ms(three):.6g} ms, device only "
                    f"{fmt_ms(library_device_ms(three)[0])}")
+        if (entry, label) in yardstick:  # which library kernels ran, and how close to the plain version
+            lib = outputs(yardstick[entry, label]())
+            if entry.endswith("backward"):
+                lib = lib[0].chunk(3, dim=-1)
+            lib_rel = max(rel_l2(o, r) for o, r in zip(lib, refs))
+            lib_names = profiled_ms(library, reps=3)[2]
+            fb += (f"; library rel_l2 {lib_rel:.6g} against the plain version, its kernels "
+                   + ", ".join(f"{kernel_name(k)} {v:.6g} ms" for k, v in lib_names.most_common()))
         device = {"library_device_ms": None, "library_device_how": None}
         names, kernels = entry_kernels(entry, label)
         device["device_ms"], device["device_how"] = device_only_ms(kernel, names,
@@ -2801,6 +2845,10 @@ def _phase_export(dev):
     torch.cuda.synchronize()
     counts32 = {k: n for k, n in ops.kernel_launches().items() if n}
     launches.update(counts32)
+    dev32, _, names32 = profiled_ms(run32, reps=10)
+    k1_32 = sum(ms for name, ms in names32.items() if "zorro_attention_f32" in name)
+    log(f"[export] f32 serving forward, B = 1 all modalities: device {dev32:.6g} ms (K1 f32 {k1_32:.6g} ms of "
+        f"it), launches {counts32}")
     model32.attn_impl = "xla"
     preds32_p, _ = run32()
     rel32 = max(rel_l2(preds32[d], preds32_p[d]) for d in preds32)
@@ -2922,26 +2970,34 @@ REPLACES.update({f32_key(name): where for name, where in list(REPLACES.items())
                  if not name.startswith(("ms_deform_attn/", "point_sample/"))})
 
 
+def timed(name: str, phase, *args):
+    """``phase(*args)``, its wall seconds logged."""
+    t0 = time.time()
+    out = phase(*args)
+    log(f"[time] {name}: {time.time() - t0:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
-    kernel_results = phase_kernels(dev)
+    timed("build", phase_build)
+    kernel_results = timed("kernels", phase_kernels, dev)
     if argv[1:] == ["--kernels-only"]:  # phases 1-3 alone; no result line
         return 0
     # the main paths, each run with the counts set to 0 just before it
-    served = phase_serving(dev)
-    trained, train_context = phase_train(dev)
-    segmented = phase_segment(dev)
-    seg_trained, seg_context = phase_segment_train(dev)
-    variants = phase_encoder_variants(dev, train_context)
+    served = timed("serving", phase_serving, dev)
+    trained, train_context = timed("train", phase_train, dev)
+    segmented = timed("segment", phase_segment, dev)
+    seg_trained, seg_context = timed("segment-train", phase_segment_train, dev)
+    variants = timed("encoder variants", phase_encoder_variants, dev, train_context)
     del train_context
-    in_f32 = phase_f32(dev, seg_context)
+    in_f32 = timed("f32", phase_f32, dev, seg_context)
     del seg_context
-    sem_trained = phase_semantic_train(dev)
-    state_trained = phase_pretrain_state(dev)
-    by_cli = phase_cli(dev)
-    exported = phase_export(dev)
+    sem_trained = timed("semantic-train", phase_semantic_train, dev)
+    state_trained = timed("pretrain-state", phase_pretrain_state, dev)
+    by_cli = timed("cli", phase_cli, dev)
+    exported = timed("export", phase_export, dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,

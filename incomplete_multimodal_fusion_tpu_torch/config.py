@@ -68,7 +68,9 @@ class DecoderConfig:
     use_task_queries: bool = True
     use_xattn: bool = True
     style: str = "simple"  # 'simple' | 'full' (only 'simple' is ported)
-    # JAX-only: run the decoder trunk once for all tasks (not ported yet)
+    # run the decoder trunk once for all tasks: MultiMAE(decoder_batch_tasks=...)
+    # routes the output adapters through adapters.batched_trunks (K1 over the
+    # tasks' rows, K2's MLP with a task axis)
     batch_tasks: bool = False
 
 

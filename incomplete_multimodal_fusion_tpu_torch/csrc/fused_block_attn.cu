@@ -85,8 +85,9 @@
 //
 // The f32 instance (fused_block_attn_fwd_f32, fused_block_attn_bwd_f32),
 // for the f32 paths the TPU kernel also takes: the same function with no
-// cast points, every product and sum in f32 on the CUDA cores, from the
-// pieces of simt_f32.cuh and K1's f32 instance (zorro_attention_f32.cuh),
+// cast points, every product and sum to f32's accuracy, from the pieces of
+// simt_f32.cuh (on the CUDA cores) and K1's f32 instance
+// (zorro_attention_f32.cuh, on the tensor cores in three TF32 parts),
 // through an f32 workspace (fused_block_attn_f32_scratch_floats). Forward,
 // six launches: the two LayerNorms (a, then h), q = h Wq^T and kv = h
 // Wkv^T into the slab, K1's f32 forward, y = x + out Wo^T. Backward,

@@ -1,8 +1,9 @@
 // PTX helpers for Hopper (sm_90a) shared by the hand-written kernels:
-// asynchronous copies (cp.async), wgmma with its shared-memory descriptors,
-// the hardware's 128- and 64-byte swizzled tile layouts, the kernel
-// attributes set once per device, and the SM count. Used by
-// zorro_attention.cuh (K1 / K1b), fused_ffn.cu (K2), wgrad.cuh and
+// asynchronous copies (cp.async), wgmma with its shared-memory descriptors
+// (bf16, and TF32 with the 3xTF32 split of f32 operands), the hardware's
+// 128- and 64-byte swizzled tile layouts, the kernel attributes set once per
+// device, and the SM count. Used by zorro_attention.cuh (K1 / K1b),
+// zorro_attention_f32.cuh (their f32 instance), fused_ffn.cu (K2), wgrad.cuh and
 // fused_ffn_bwd.cu (K2b, and K6b through wgrad.cuh), ms_deform_attn.cu (K4b)
 // and point_sample.cu (K5).
 #pragma once
@@ -307,5 +308,204 @@ static int sm_count() {
   }
   return c;
 }
+
+
+// ---------------------------------------------------------------------------
+// f32 products on the tensor cores in three TF32 parts (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// An f32 operand x is split once into x = hi + lo, each a TF32 value (an
+// f32 bit pattern with its low 13 mantissa bits zero): hi = rna(x), lo =
+// rna(x - hi), both by cvt.rna (round to nearest, ties away; x - hi is exact
+// in f32). A product A B is then Ahi Bhi + Ahi Blo + Alo Bhi into one f32
+// accumulator: what it leaves out, Alo Blo and the rounding of lo, is about
+// 2^-22 of each term, close to f32's own rounding, where one TF32 product
+// keeps about three digits. wgmma reads TF32 operands only K-major from
+// shared memory (its transpose bits exist for 16-bit types only), so a B
+// operand whose contraction index is a tile's row index is staged
+// transposed.
+
+// x rounded to TF32 (cvt.rna), as f32 bits
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// D[64, N] += A[64, 8] . B[8, N] in TF32, A and B K-major in shared memory
+// (wgmma_tf32_ss<N>); A from registers (wgmma_tf32_rs<N>): a thread's four
+// values of A are rows (g, g + 8) x columns (t, t + 4) of its warp's 16
+// rows, g = lane / 4, t = lane % 4, in the order (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4).
+
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 16)
+    wgmma_tf32_ss_n16(d, da, db);
+  else if constexpr (N == 32)
+    wgmma_tf32_ss_n32(d, da, db);
+  else
+    wgmma_tf32_ss_n64(d, da, db);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_tf32_rs_n32(d, a, db);
+  else if constexpr (N == 64)
+    wgmma_tf32_rs_n64(d, a, db);
+  else
+    wgmma_tf32_rs_n128(d, a, db);
+}
+
+// One k-step of 8 of D += A B in 3xTF32, A and B from shared memory as the
+// descriptors of their hi and lo tiles: the two small products first
+template <int N>
+__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
+                                        uint64_t b_lo) {
+  wgmma_tf32_ss<N>(d, a_hi, b_lo);
+  wgmma_tf32_ss<N>(d, a_lo, b_hi);
+  wgmma_tf32_ss<N>(d, a_hi, b_hi);
+}
+
+// The same with A from registers (its hi and lo fragments)
+template <int N>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                        uint64_t b_hi, uint64_t b_lo) {
+  wgmma_tf32_rs<N>(d, a_hi, b_lo);
+  wgmma_tf32_rs<N>(d, a_lo, b_hi);
+  wgmma_tf32_rs<N>(d, a_hi, b_hi);
+}
+
+// An R x C f32 tile in shared memory as wgmma reads a TF32 K-major operand
+// (rows = M or N, columns = K): the 128-byte swizzle (Sw128's layout,
+// columns in blocks of 32), or for C = 16, where a row is 64 bytes, the
+// 64-byte one (Sw64's). A k-step of 8 TF32 values is 32 bytes, as one of 16
+// bf16, so the descriptors are the bf16 tiles'. Starts on a 1024-byte
+// boundary. (The formulas are written out here: calling Sw128 / Sw64 from
+// these kernels changed the PTX nvcc made of the bf16 kernels beside them.)
+template <int R, int C>
+struct Tf32Tile {
+  static constexpr uint32_t BYTES = R * C * 4;
+  // byte offset of chunk c (columns 4c .. 4c + 3) of row r
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    if constexpr (C == 16) return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+    else return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  }
+  // the K-major operand of k-step kk (columns 8 kk .. 8 kk + 7)
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t base, int kk) {
+    if constexpr (C == 16) return gmma_desc(base + kk * 32, 16, 512, 2);
+    else return gmma_desc(base + (kk >> 2) * (R * 128) + (kk & 3) * 32, 16, 1024, 1);
+  }
+  // where rows r .. of a B operand start (r a multiple of 8): kmajor(base +
+  // rows(r), kk) reads the N rows from row r
+  static __host__ __device__ constexpr uint32_t rows(int r) { return r * (C == 16 ? 64 : 128); }
+};
 
 }  // namespace hopper

@@ -127,7 +127,7 @@
 //
 // f32: zorro_attention_f32 and zorro_attention_bwd_f32 take the same views
 // in f32 (zorro_attention_f32.cuh: the same mask, quirks and two-kernel
-// backward, every product and sum in f32 on the CUDA cores).
+// backward, every product f32 on the tensor cores in three TF32 parts).
 #include "zorro_attention.cuh"
 #include "zorro_attention_f32.cuh"
 
@@ -233,18 +233,28 @@ extern "C" int zorro_attention_bwd_f32(const void* q, const void* k, const void*
 }
 
 // Dynamic shared memory of one block, in bytes: kernel 0 the forward, 1 the
-// dq kernel, 2 the dk/dv kernel; -1 for a dh it does not take.
+// dq kernel, 2 the dk/dv kernel; 3, 4, 5 their f32 instances; -1 for a dh
+// it does not take.
 extern "C" long long zorro_attention_smem_bytes(int kernel, int dh) {
-  switch (dh * 4 + kernel) {
-    case 32 * 4 + 0: return zorro::FwdSmem<32>::BYTES;
-    case 32 * 4 + 1: return zorro::DqSmem<32>::BYTES;
-    case 32 * 4 + 2: return zorro::DkdvSmem<32>::BYTES;
-    case 64 * 4 + 0: return zorro::FwdSmem<64>::BYTES;
-    case 64 * 4 + 1: return zorro::DqSmem<64>::BYTES;
-    case 64 * 4 + 2: return zorro::DkdvSmem<64>::BYTES;
-    case 128 * 4 + 0: return zorro::FwdSmem<128>::BYTES;
-    case 128 * 4 + 1: return zorro::DqSmem<128>::BYTES;
-    case 128 * 4 + 2: return zorro::DkdvSmem<128>::BYTES;
+  switch (dh * 8 + kernel) {
+    case 32 * 8 + 0: return zorro::FwdSmem<32>::BYTES;
+    case 32 * 8 + 1: return zorro::DqSmem<32>::BYTES;
+    case 32 * 8 + 2: return zorro::DkdvSmem<32>::BYTES;
+    case 32 * 8 + 3: return zorro::F32FwdSmem<32>::BYTES;
+    case 32 * 8 + 4: return zorro::F32DqSmem<32>::BYTES;
+    case 32 * 8 + 5: return zorro::F32DkdvSmem<32>::BYTES;
+    case 64 * 8 + 0: return zorro::FwdSmem<64>::BYTES;
+    case 64 * 8 + 1: return zorro::DqSmem<64>::BYTES;
+    case 64 * 8 + 2: return zorro::DkdvSmem<64>::BYTES;
+    case 64 * 8 + 3: return zorro::F32FwdSmem<64>::BYTES;
+    case 64 * 8 + 4: return zorro::F32DqSmem<64>::BYTES;
+    case 64 * 8 + 5: return zorro::F32DkdvSmem<64>::BYTES;
+    case 128 * 8 + 0: return zorro::FwdSmem<128>::BYTES;
+    case 128 * 8 + 1: return zorro::DqSmem<128>::BYTES;
+    case 128 * 8 + 2: return zorro::DkdvSmem<128>::BYTES;
+    case 128 * 8 + 3: return zorro::F32FwdSmem<128>::BYTES;
+    case 128 * 8 + 4: return zorro::F32DqSmem<128>::BYTES;
+    case 128 * 8 + 5: return zorro::F32DkdvSmem<128>::BYTES;
     default: return -1;
   }
 }

@@ -147,6 +147,35 @@ def test_fusion_row_library_call_computes_k3s_function(smoke, t_mod):
         assert got.shape == want.shape and rel(got, want) <= 1e-5
 
 
+@pytest.mark.parametrize("masked", [True, False], ids=["zorro", "none"])
+def test_sdpa_yardstick_computes_k1s_function_in_the_plain_layout(smoke, masked):
+    """Phase 3's check of the f32 library column (``sdpa_outputs``) returns
+    SDPA's output [B, N, I] and, given dO, its dqkv [B, N, 3I] in the plain
+    K1 / K1b's layout: on the CPU in f32 within 1e-5 of them (only the order
+    of the sums differs), a ragged N with PAD and fusion rows."""
+    import torch
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_attn
+
+    g = torch.Generator().manual_seed(5)
+    b, n, heads, dh = 2, 37, 3, 16
+    qkv = torch.randn(b, n, 3 * heads * dh, generator=g)
+    do = torch.randn(b, n, heads * dh, generator=g)
+    row = [0] * 10 + [1] * 9 + [2] * 8 + [255] * 4 + [3] * 6
+    types = torch.tensor([row, row[::-1]], dtype=torch.int32) if masked else None
+
+    def rel(a, r):
+        return float((a - r).norm() / r.norm())
+
+    out, lse = cuda_attn.zorro_attention_qkv_reference(qkv, heads, types, 3, return_lse=True)
+    dqkv = cuda_attn.zorro_attention_qkv_backward_reference(qkv, types, out, lse, do, heads, 3)
+    mask = smoke.zorro_mask(types)
+    assert rel(smoke.sdpa_outputs(qkv, heads, mask)(), out) <= 1e-5
+    got = smoke.sdpa_outputs(qkv, heads, mask, do)()
+    assert got.shape == dqkv.shape
+    for part, want in zip(got.chunk(3, dim=-1), dqkv.chunk(3, dim=-1)):
+        assert rel(part, want) <= 1e-5
+
+
 @pytest.mark.parametrize("geglu,hid,launched,planned", [(True, 2730, 2736, 3), (True, 512, 512, 2),
                                                          (False, 1024, 1024, 1)])
 def test_k2_forward_kernels_are_the_librarys_plan(monkeypatch, geglu, hid, launched, planned):

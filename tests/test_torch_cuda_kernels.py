@@ -1360,6 +1360,39 @@ def test_f32_attention_is_bitwise_the_same_from_run_to_run(dev):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+@pytest.mark.parametrize("mode", ["zorro", "none", "sparse"])
+def test_f32_backward_is_bitwise_the_same_run_to_run(dev, mode):
+    """K1b's f32 instance adds without atomics (dq in one kernel, dk and dv
+    in the other), so two runs give the same bits in every mode: the zorro
+    mask, none (the decoder's 8 x 32 heads) and the tile-skip table."""
+    if mode == "none":
+        types, heads, qkv = None, 8, _randf(dev, 3, 256, 3 * 256, seed=60)
+    else:
+        types = (_sparse_types(dev, "flagship", 3) if mode == "sparse" else
+                 _types(dev, (300, 200, 184), 40, 256).expand(3, -1).contiguous())
+        heads, qkv = 3, _randf(dev, 3, types.shape[1], 3 * 192, seed=60)
+    if mode == "sparse":
+        out, lse = cuda_zorro_sparse.zorro_sparse_attention_qkv(qkv, types, heads, 3, return_lse=True)
+        backward = lambda do: cuda_zorro_sparse.zorro_sparse_attention_qkv_backward(qkv, types, out, lse, do, heads, 3)
+    else:
+        out, lse = cuda_attn.zorro_attention_qkv(qkv, heads, types, 3, return_lse=True)
+        backward = lambda do: cuda_attn.zorro_attention_qkv_backward(qkv, types, out, lse, do, heads, 3)
+    do = _randf(dev, *out.shape, seed=61)
+    first, second = backward(do), backward(do)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all() and torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,counts,pad", [(1, (256, 256, 256), 0), (2, (300, 260, 280), 184)],
+                         ids=["serving N=1024 B=1", "quadruplet N=1280"])
+def test_f32_at_the_serving_shape_and_the_quadruplet_length(dev, b, counts, pad):
+    """K1 / K1b's f32 instance at dh 64 where the f32 serving program runs it
+    (N = 1024, B = 1: 48 blocks for 132 SMs) and at N = 1280 (four
+    modalities' length), with 256 fusion rows."""
+    types = _types(dev, counts, pad, 256).expand(b, -1).contiguous()
+    _zorro_f32_case(dev, _randf(dev, b, types.shape[1], 3 * 3 * 64, seed=62), 3, types)
+
+
 @pytest.mark.parametrize("dh", [32, 64, 128])
 def test_f32_packed_mode_matches_plain_and_the_slab_kernel(dev, dh):
     types = _types(dev, (70, 0, 50), 9, 30).expand(2, -1).contiguous()

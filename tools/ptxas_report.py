@@ -2,7 +2,7 @@
 CUDA source of the port, as ptxas reports them (``nvcc -Xptxas -v`` with the
 port's build flags), one line per kernel instantiation; for
 zorro_attention.cu also each kernel's dynamic shared memory per block
-(``zorro_attention_smem_bytes``).
+(``zorro_attention_smem_bytes``; the f32 instances' too).
 
     python3 tools/ptxas_report.py [source.cu ...]   # default: every source of csrc/
 
@@ -71,10 +71,12 @@ def main(argv) -> int:
             smem = fn
         for kernel, regs, static, st, ld, stack in report(source):
             extra = ""
-            m = re.search(r"(zorro_attention(?:_dq|_dkdv)?_kernel)<(\d+), (\d+)(, \d+)?>", kernel)
+            m = re.search(r"(zorro_attention(?:_f32_fwd|_f32_dq|_f32_dkdv|_dq|_dkdv)?_kernel)<(\d+), (\d+)(, \d+)?>",
+                          kernel)
             if smem is not None and m:
                 which = {"zorro_attention_kernel": 0, "zorro_attention_dq_kernel": 1,
-                         "zorro_attention_dkdv_kernel": 2}[m.group(1)]
+                         "zorro_attention_dkdv_kernel": 2, "zorro_attention_f32_fwd_kernel": 3,
+                         "zorro_attention_f32_dq_kernel": 4, "zorro_attention_f32_dkdv_kernel": 5}[m.group(1)]
                 extra = f", dynamic smem {smem(which, int(m.group(2)))} bytes"
             print(f"[ptxas] {source}: {kernel}: {regs} registers, static smem {static} bytes{extra}, "
                   f"spill stores {st} bytes, spill loads {ld} bytes, stack frame {stack} bytes", flush=True)
