@@ -352,11 +352,13 @@ def entry_kernels(entry: str, label: str = ""):
     ``cuda_msda.backward_kernels``), which split the work over more kernels
     at some shapes."""
     backward = entry.endswith("backward")
-    if is_f32(entry):  # the f32 instances (simt_f32.cuh, zorro_attention_f32.cuh, K3 on float)
+    if is_f32(entry):  # the f32 instances (ffn_tf32.cuh, simt_f32.cuh, zorro_attention_f32.cuh, K3 on float)
         if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
             return ("zorro_attention_f32",), 2 if backward else 1  # K1b: dq, dk/dv
-        if entry.startswith("fused_ffn/"):  # GEGLU: norm, u, a, y; MLP: a, y; backward 9 each
-            return ("simt_f32",), 9 if backward else (4 if entry.startswith("fused_ffn/geglu") else 2)
+        if entry.startswith("fused_ffn/"):  # ffn_tf32.cuh: the weights' split and the row kernel (forward;
+            # with the hidden split's reduction 3), + the weight gradients and simt_f32's reduction (backward);
+            # past d 256 the FFMA chain (cuda_ffn.forward_kernels_f32 / backward_kernels_f32 on a row)
+            return ("ffn_tf32", "simt_f32"), 4 if backward else 2
         if entry.startswith("fused_block_attn/"):  # forward 6, backward 15 (fused_block_attn.cu)
             return ("simt_f32", "zorro_attention_f32"), 15 if backward else 6
     if entry.startswith("fused_ffn/") and backward and label.endswith("wide path)"):  # K2b's wide path (WIDE,
@@ -431,7 +433,7 @@ def fmt_ms(ms) -> str:
 
 
 HAND_WRITTEN = ("zorro_attention", "ffn_fwd", "ffn_bwd", "wgrad", "fusion_row", "ms_deform_attn",
-                "point_sample", "block_attn", "simt_f32")
+                "point_sample", "block_attn", "simt_f32", "ffn_tf32")
 MATMUL_LIBRARY = ("gemm", "cutlass", "xmma", "cublas", "nvjet")
 
 
@@ -752,7 +754,7 @@ def phase_kernels(dev):
     #  library call or None, main shape of the entry?)
     cases = []
     fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
-    chains = {}  # the unfused cuBLAS chain beside the K2 rows, for reference only
+    chains = {}  # the unfused chain beside the K2 (f32: and K2b) rows, for reference only
     separate = {}  # single-task K2 launches beside the task-axis rows, for reference only
     per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
     yardstick = {}  # the f32 attention rows' SDPA call in the plain version's layout (sdpa_outputs)
@@ -1061,22 +1063,39 @@ def phase_kernels(dev):
                   attention_work(qkv_train32, 3, sparse_mask, True),
                   sdpa_case(qkv_train32, 3, sparse_mask, "backward"), True))
 
-    def f32_ffn_cases(label, geglu, w, m, main, d_in, d_out, **widths):
+    def f32_ffn_cases(label, geglu, w, m, main, d_in, d_out, backward=True, **widths):
+        """The f32 K2 (and K2b) rows; beside each, the f32 chain's device
+        time (the unfused chain forward, the plain version backward; TF32
+        off), device against device."""
         x, dy = randf(m, d_in), randf(m, d_out)
         fwd = ((cuda_ffn.geglu_ffn, cuda_ffn.geglu_ffn_reference, cuda_ffn.geglu_ffn_backward,
                 cuda_ffn.geglu_ffn_backward_reference) if geglu else
                (cuda_ffn.mlp_ffn, cuda_ffn.mlp_ffn_reference, cuda_ffn.mlp_ffn_backward,
                 cuda_ffn.mlp_ffn_backward_reference))
         mode = "geglu" if geglu else "mlp"
+        hidden = w[2].shape[1] if geglu else w[0].shape[0]
         cases.append((f"fused_ffn/{mode}_f32", label, lambda: fwd[0](x, *w), lambda: fwd[1](x, *w),
                       ffn_work(m, False, geglu, elem=4, peak=PEAK_F32_PRODUCTS, **widths), None, main))
+        chains[f"fused_ffn/{mode}_f32", label] = (unfused_geglu if geglu else unfused_mlp)(x, *w)
+        per_call[f"fused_ffn/{mode}_f32", label] = cuda_ffn.forward_kernels_f32(geglu, m, d_in, hidden, d_out)
+        if not backward:
+            return
         cases.append((f"fused_ffn/{mode}_f32_backward", label, lambda: fwd[2](x, *w, dy), lambda: fwd[3](x, *w, dy),
                       ffn_work(m, True, geglu, elem=4, peak=PEAK_F32_PRODUCTS, **widths), None, main))
+        chains[f"fused_ffn/{mode}_f32_backward", label] = lambda: fwd[3](x, *w, dy)
+        per_call[f"fused_ffn/{mode}_f32_backward", label] = cuda_ffn.backward_kernels_f32(geglu, m, d_in, hidden,
+                                                                                           d_out)
 
     geglu_w32, mlp_w32 = tuple(t.float() for t in geglu_w), tuple(t.float() for t in mlp_w)
     f32_ffn_cases("M=38400 d=192 I=512", True, geglu_w32, 38400, True, d, d)
     f32_ffn_cases("M=15360 d=192 I=512", True, geglu_w32, 15360, False, d, d)
     f32_ffn_cases("M=15360 d=256 H=1024", False, mlp_w32, 15360, True, dd, dd)
+    # the f32 serving forward's shapes (cli.infer, cli.export_serving): the
+    # encoder's and fusion rows' GEGLU, the decoder's MLP at B = 1 and 8
+    for m in (1024, 256):
+        f32_ffn_cases(f"M={m} d=192 I=512 (serving)", True, geglu_w32, m, False, d, d, backward=False)
+    for m in (2048, 256):
+        f32_ffn_cases(f"M={m} d=256 H=1024 (serving)", False, mlp_w32, m, False, dd, dd, backward=False)
     f32_ffn_cases(f"M=8192 d={bd} I={b_inner} (base)", True, tuple(t.float() for t in base_geglu_w), 8192, False,
                   bd, bd, d=bd, inner_ff=b_inner)
     f32_ffn_cases(f"M=4096 d={ld} I={l_inner} (large, unpadded)", True, tuple(t.float() for t in large_w), 4096,
@@ -1101,8 +1120,8 @@ def phase_kernels(dev):
                           (3 * flops, 3 * n_bytes, peak), None, bt == 1))
             separate[entry, label] = lambda x_t=x_t, tw=tw: [cuda_ffn.mlp_ffn(x_t[i], *(v[i] for v in tw))
                                                              for i in range(3)]
-            if dtype == torch.bfloat16:
-                per_call[entry, label] = cuda_ffn.tasks_forward_kernels(3, m, dd, hid, dd)
+            per_call[entry, label] = (cuda_ffn.tasks_forward_kernels(3, m, dd, hid, dd) if dtype == torch.bfloat16
+                                      else cuda_ffn.forward_kernels_f32(False, m, dd, hid, dd, tasks=3))
 
     q3, kvg3, kvf3, do3 = randf(60, f, 192), randf(60, 3 * f, 384), randf(60, f, 384), randf(60, f, 192)
     cases.append(("fusion_row_attention/fusion_row_f32", "F=256 T=3 3x64 B=60",
@@ -1145,7 +1164,8 @@ def phase_kernels(dev):
         fb = f" library fwd+bwd {cuda_ms(fwd_bwd[entry, label]):.6g} ms" if (entry, label) in fwd_bwd else ""
         if (entry, label) in chains:  # for reference only: not the library column
             chain = chains[entry, label]
-            fb += (f"; unfused cuBLAS chain {cuda_ms(chain):.6g} ms, device only "
+            fb += (f"; {'f32 chain (TF32 off)' if is_f32(entry) else 'unfused cuBLAS chain'} "
+                   f"{cuda_ms(chain):.6g} ms, device only "
                    f"{fmt_ms(library_device_ms(chain)[0])}")
         if (entry, label) in separate:  # for reference only: the same work as single-task K2 launches
             three = separate[entry, label]
@@ -2847,8 +2867,9 @@ def _phase_export(dev):
     launches.update(counts32)
     dev32, _, names32 = profiled_ms(run32, reps=10)
     k1_32 = sum(ms for name, ms in names32.items() if "zorro_attention_f32" in name)
-    log(f"[export] f32 serving forward, B = 1 all modalities: device {dev32:.6g} ms (K1 f32 {k1_32:.6g} ms of "
-        f"it), launches {counts32}")
+    k2_32 = sum(ms for name, ms in names32.items() if "ffn_tf32" in name or "simt_f32" in name)
+    log(f"[export] f32 serving forward, B = 1 all modalities: device {dev32:.6g} ms (K1 f32 {k1_32:.6g} ms, K2 f32 "
+        f"{k2_32:.6g} ms of it), launches {counts32}")
     model32.attn_impl = "xla"
     preds32_p, _ = run32()
     rel32 = max(rel_l2(preds32[d], preds32_p[d]) for d in preds32)

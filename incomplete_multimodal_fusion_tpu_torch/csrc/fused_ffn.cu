@@ -769,22 +769,38 @@ extern "C" int mlp_ffn_tasks_bf16(const void* x, const void* w1, const void* b1,
                             tasks, m, d, hidden, d_out, static_cast<cudaStream_t>(stream));
 }
 
+// (included here, after the bf16 kernels, so that their PTX is as it was:
+// the labels of a kernel's blocks are numbered by its place in the file)
+#include "ffn_tf32.cuh"
+
 // ---------------------------------------------------------------------------
-// The f32 instance (geglu_ffn_f32, mlp_ffn_f32): the same functions with
-// every product and sum in f32 (simt_f32.cuh: FFMA, no TF32), for the f32
-// paths the TPU kernels also take. GEGLU, four launches: the LayerNorm (xn),
-// u = xn W_in^T, a = val gelu(gate), y = a W_out^T; MLP, two: a = gelu(x
-// W1^T + b1), y = a W2^T + b2. The activations go through an f32
-// workspace (ffn_fwd_f32_workspace_floats). Any width: no padding of the
-// GEGLU inner width is needed.
+// The f32 instance (geglu_ffn_f32, mlp_ffn_f32, mlp_ffn_tasks_f32): the same
+// functions with every product and sum in f32, for the f32 paths the TPU
+// kernels also take. Where d and d_out are at most 256 (every model width of
+// the default paths), ffn_tf32.cuh's tensor-core instance: each product in
+// three TF32 parts (3xTF32 wgmma), u and a kept on chip; 2 launches (the
+// weights split into units, the row kernel), 3 where the hidden chunks split
+// over blocks at small M. Wider (`base`, `large`), by that shape rule alone,
+// the FFMA chain of simt_f32.cuh: GEGLU four launches (the LayerNorm (xn),
+// u = xn W_in^T, a = val gelu(gate), y = a W_out^T), MLP two (a = gelu(x
+// W1^T + b1), y = a W2^T + b2), the activations through the workspace. Any
+// hidden width: no padding of the GEGLU inner width is needed.
 // ---------------------------------------------------------------------------
 
-// Floats of the f32 forward's workspace (mode 0 GEGLU: xn, u and a; 1 MLP:
-// a); -1 for a mode it does not know
+// Floats of the f32 forward's workspace (mode 0 GEGLU, 1 MLP); -1 for a mode
+// it does not know
 extern "C" long long ffn_fwd_f32_workspace_floats(int mode, int m, int d, int hid, int d_out) {
-  (void)d_out;
+  if (mode != 0 && mode != 1) return -1;
+  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_workspace_floats(mode, 1, m, d, hid, d_out);
   if (mode == 0) return (long long)m * (d + 3LL * hid);
-  return mode == 1 ? (long long)m * hid : -1;
+  return (long long)m * hid;
+}
+
+// The kernels one f32 forward launches (mode and widths as above)
+extern "C" int ffn_fwd_f32_kernels(int mode, int m, int d, int hid, int d_out) {
+  if (mode != 0 && mode != 1) return -1;
+  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_kernels(m, hid, 1);
+  return mode == 0 ? 4 : 2;
 }
 
 // GEGLU in f32: x [M, d], gamma [d], w_in [2I, d], w_out [d, I] -> y [M, d]
@@ -794,10 +810,14 @@ extern "C" int geglu_ffn_f32(const void* x, const void* gamma, const void* w_in,
   const float* xp = static_cast<const float*>(x);
   const float* wi = static_cast<const float*>(w_in);
   const float* wo = static_cast<const float*>(w_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ffn_tf32::rows_fit(d, d))
+    return (int)ffn_tf32::forward<ffn_tf32::MODE_GEGLU>(xp, static_cast<const float*>(gamma), wi, nullptr, wo, nullptr,
+                                                         static_cast<float*>(y), static_cast<float*>(ws), 1, m, d,
+                                                         inner, d, s);
   float* xn = static_cast<float*>(ws);
   float* u = xn + (long long)m * d;
   float* a = u + 2LL * m * inner;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = ln_fwd(xp, static_cast<const float*>(gamma), xn, m, d, s);
   if (err == cudaSuccess)
     err = product_store(Mat{xn, d, 1}, Mat{wi, 1, d}, u, 2LL * inner, m, 2 * inner, d, nullptr, nullptr, 0, s);
@@ -812,8 +832,13 @@ extern "C" int geglu_ffn_f32(const void* x, const void* gamma, const void* w_in,
 extern "C" int mlp_ffn_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
                            void* ws, int m, int d, int hidden, int d_out, void* stream) {
   using namespace simt_f32;
-  float* a = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ffn_tf32::rows_fit(d, d_out))
+    return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(
+        static_cast<const float*>(x), nullptr, static_cast<const float*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), static_cast<float*>(ws),
+        1, m, d, hidden, d_out, s);
+  float* a = static_cast<float*>(ws);
   cudaError_t err = product<EPI_GELU>(Mat{static_cast<const float*>(x), d, 1},
                                       Mat{static_cast<const float*>(w1), 1, d},
                                       Out{a, hidden, static_cast<const float*>(b1), nullptr, 0, nullptr, 0, 0}, m,
@@ -824,16 +849,35 @@ extern "C" int mlp_ffn_f32(const void* x, const void* w1, const void* b1, const 
   return (int)err;
 }
 
+// The f32 task axis: floats of one mlp_ffn_tasks_f32 call's workspace and
+// the kernels it launches (T tasks of these shapes); -1 for no task
+extern "C" long long ffn_fwd_tasks_f32_workspace_floats(int tasks, int m, int d, int hid, int d_out) {
+  if (tasks < 1) return -1;
+  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_workspace_floats(1, tasks, m, d, hid, d_out);
+  return (long long)tasks * m * hid;
+}
+
+extern "C" int ffn_fwd_tasks_f32_kernels(int tasks, int m, int d, int hid, int d_out) {
+  if (tasks < 1) return -1;
+  return ffn_tf32::rows_fit(d, d_out) ? ffn_tf32::fwd_kernels(m, hid, tasks) : 2;
+}
+
 // MLP with a task axis in f32: x [T, M, d], w1 [T, H, d], b1 [T, H],
-// w2 [T, O, H], b2 [T, O] -> y [T, M, O]; the two products of mlp_ffn_f32,
-// each one launch for all T (the task a grid coordinate); ws:
-// ffn_fwd_f32_workspace_floats(1, T M, d, H, O) floats.
+// w2 [T, O, H], b2 [T, O] -> y [T, M, O], the task a grid coordinate of
+// each launch; ws: ffn_fwd_tasks_f32_workspace_floats(T, M, d, H, O) floats.
+// Past the tensor-core instance's widths, the two products of the FFMA
+// chain, each one launch for all T.
 extern "C" int mlp_ffn_tasks_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                                  void* y, void* ws, int tasks, int m, int d, int hidden, int d_out, void* stream) {
   using namespace simt_f32;
   if (tasks < 1) return (int)cudaErrorInvalidValue;
-  float* a = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ffn_tf32::rows_fit(d, d_out))
+    return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(
+        static_cast<const float*>(x), nullptr, static_cast<const float*>(w1), static_cast<const float*>(b1),
+        static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), static_cast<float*>(ws),
+        tasks, m, d, hidden, d_out, s);
+  float* a = static_cast<float*>(ws);
   const long long mm = m;
   cudaError_t err = product_tasks<EPI_GELU>(
       Mat{static_cast<const float*>(x), d, 1}, Mat{static_cast<const float*>(w1), 1, d},

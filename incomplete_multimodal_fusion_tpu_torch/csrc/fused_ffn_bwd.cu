@@ -976,13 +976,21 @@ extern "C" int mlp_ffn_bwd_bf16(const void* x, const void* w1, const void* b1, c
       static_cast<bf16*>(db2), static_cast<cudaStream_t>(stream));
 }
 
+// (included here, after the bf16 kernels, so that their PTX is as it was:
+// the labels of a kernel's blocks are numbered by its place in the file)
+#include "ffn_tf32.cuh"
+
 // ---------------------------------------------------------------------------
 // The f32 instance (geglu_ffn_bwd_f32, mlp_ffn_bwd_f32): the same gradients
-// with every product and sum in f32 (simt_f32.cuh: FFMA, no TF32), the
-// weight and vector gradients as partials over ranges of rows summed in a
-// fixed order (no atomics: bitwise the same run to run). Nine launches
-// each. GEGLU: xn = LN(x), u = xn W_in^T, a = val gelu(gate), du = [da
-// gelu(gate), da val gelu'(gate)] with da = dy W_out (the product's
+// with every product and sum in f32, the weight and vector gradients as
+// partials over ranges of rows summed in a fixed order (no atomics: bitwise
+// the same run to run). Where d and d_out are at most 256, ffn_tf32.cuh's
+// tensor-core instance (3xTF32 wgmma), four launches: the weights split into
+// units, the row pass (dx, dgamma / db1 / db2 partials, du / dh, a, xn / x
+// and dy transposed), the weight gradients, the reduction. Wider (`base`,
+// `large`), by that shape rule alone, the FFMA chain of simt_f32.cuh, nine
+// launches each. GEGLU: xn = LN(x), u = xn W_in^T, a = val gelu(gate), du =
+// [da gelu(gate), da val gelu'(gate)] with da = dy W_out (the product's
 // epilogue), dW_out and dW_in partials, dxn = du W_in, the LayerNorm
 // backward (dx, dgamma partials), the reduction. MLP: h = x W1^T + b1, a =
 // gelu(h), dh = (dy W2) gelu'(h), dW2 and dW1 partials, db2 and db1
@@ -1026,7 +1034,16 @@ F32Scratch f32_scratch_of(int mode, int m, int d, int hid, int d_out) {
 // it does not know
 extern "C" long long ffn_bwd_f32_scratch_floats(int mode, int m, int d, int hid, int d_out) {
   if (mode != 0 && mode != 1) return -1;
+  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::bwd_scratch(mode, m, d, hid, d_out).floats;
   return f32_scratch_of(mode, m, d, hid, d_out).floats;
+}
+
+// The kernels one f32 backward launches (mode and widths as above)
+extern "C" int ffn_bwd_f32_kernels(int mode, int m, int d, int hid, int d_out) {
+  (void)m;
+  (void)hid;
+  if (mode != 0 && mode != 1) return -1;
+  return ffn_tf32::rows_fit(d, d_out) ? 4 : 9;
 }
 
 // GEGLU in f32: x, dy, dx [M, d]; gamma, dgamma [d]; w_in, dw_in [2I, d];
@@ -1035,13 +1052,17 @@ extern "C" int geglu_ffn_bwd_f32(const void* x, const void* gamma, const void* w
                                  const void* dy, void* dx, void* dgamma, void* dw_in, void* dw_out, void* scratch,
                                  int m, int d, int inner, void* stream) {
   using namespace simt_f32;
-  const F32Scratch sc = f32_scratch_of(0, m, d, inner, d);
   float* p = static_cast<float*>(scratch);
   const float* xp = static_cast<const float*>(x);
   const float* g = static_cast<const float*>(gamma);
   const float* wi = static_cast<const float*>(w_in);
   const float* wo = static_cast<const float*>(w_out);
   const float* dyp = static_cast<const float*>(dy);
+  if (ffn_tf32::rows_fit(d, d))
+    return (int)ffn_tf32::backward<ffn_tf32::MODE_GEGLU>(
+        xp, g, wi, nullptr, wo, dyp, static_cast<float*>(dx), static_cast<float*>(dw_in), static_cast<float*>(dw_out),
+        static_cast<float*>(dgamma), nullptr, p, m, d, inner, d, static_cast<cudaStream_t>(stream));
+  const F32Scratch sc = f32_scratch_of(0, m, d, inner, d);
   float *xn = p + sc.xn, *u = p + sc.u, *a = p + sc.a, *du = p + sc.du, *dxn = p + sc.dxn;
   const long long i2 = 2LL * inner;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1074,11 +1095,16 @@ extern "C" int mlp_ffn_bwd_f32(const void* x, const void* w1, const void* b1, co
                                void* dx, void* dw1, void* db1, void* dw2, void* db2, void* scratch, int m, int d,
                                int hidden, int d_out, void* stream) {
   using namespace simt_f32;
-  const F32Scratch sc = f32_scratch_of(1, m, d, hidden, d_out);
   float* p = static_cast<float*>(scratch);
   const float* xp = static_cast<const float*>(x);
   const float* w1p = static_cast<const float*>(w1);
   const float* dyp = static_cast<const float*>(dy);
+  if (ffn_tf32::rows_fit(d, d_out))
+    return (int)ffn_tf32::backward<ffn_tf32::MODE_MLP>(
+        xp, nullptr, w1p, static_cast<const float*>(b1), static_cast<const float*>(w2), dyp, static_cast<float*>(dx),
+        static_cast<float*>(dw1), static_cast<float*>(dw2), static_cast<float*>(db1), static_cast<float*>(db2), p, m,
+        d, hidden, d_out, static_cast<cudaStream_t>(stream));
+  const F32Scratch sc = f32_scratch_of(1, m, d, hidden, d_out);
   float *h = p + sc.u, *a = p + sc.a, *dh = p + sc.du;
   const int sp = splits_for(m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

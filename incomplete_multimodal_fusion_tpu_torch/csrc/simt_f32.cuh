@@ -1,11 +1,12 @@
 // Full-f32 building blocks on the CUDA cores (FFMA), shared by the f32
-// instances of K2 (fused_ffn.cu), K2b (fused_ffn_bwd.cu) and K6 / K6b
-// (fused_block_attn.cu): a tiled matrix product with the epilogues those
-// kernels need, the bias-free LayerNorm and its backward a warp a row, the
-// GELU / GEGLU activation, column sums and the fixed-order reduction of
-// partial sums. Every product and sum is f32 (no TF32: the TPU kernels and
-// the plain versions keep f32's digits), and nothing is summed by atomics,
-// so two runs are bitwise equal.
+// instances of K6 / K6b (fused_block_attn.cu) and of K2 (fused_ffn.cu) and
+// K2b (fused_ffn_bwd.cu) past d 256 (ffn_tf32.cuh takes them up to d 256,
+// with this file's fixed-order reduction): a tiled matrix product with the
+// epilogues those kernels need, the bias-free LayerNorm and its backward a
+// warp a row, the GELU / GEGLU activation, column sums and the fixed-order
+// reduction of partial sums. Every product and sum is f32 (no TF32: the TPU
+// kernels and the plain versions keep f32's digits), and nothing is summed
+// by atomics, so two runs are bitwise equal.
 //
 // The product: C [m, n] = A [m, k] . B [k, n] with any element strides
 // (A(i, k) = a[i rs + k cs]), so one kernel reads row-major operands, the
@@ -15,8 +16,9 @@
 // staged in shared memory (each operand loaded along its contiguous axis).
 // A weight gradient splits its reduction (the batch's rows) into ranges of
 // at most SPLIT_ROWS rows, one f32 partial tile a range, which the
-// reduction kernel then sums in range order. Speed is later work (3xTF32
-// on wgmma); what bounds it is the CUDA cores' 67 TFLOP/s f32 rate.
+// reduction kernel then sums in range order. What bounds it is the CUDA
+// cores' 67 TFLOP/s f32 rate (ffn_tf32.cuh: the same f32 products in three
+// TF32 parts on the tensor cores).
 #pragma once
 
 #include <cuda_runtime.h>

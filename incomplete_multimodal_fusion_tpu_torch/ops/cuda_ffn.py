@@ -15,8 +15,12 @@ ops/library.py (``geglu_ffn``, ``mlp_ffn``, ``mlp_ffn_tasks`` and their
 backwards): on a CPU tensor the plain version, on a CUDA tensor the kernel,
 or an error on any other dtype: bf16 tensors the kernels above, f32
 ones their f32 instance (``*_f32`` in the libraries, the TPU kernels' f32
-path: every product and sum in f32, the activations through an f32
-workspace; forward GEGLU 4 launches, MLP 2; backward 9 each).
+path: every product in three TF32 parts on the tensor cores, every sum in
+f32 (csrc/ffn_tf32.cuh); forward 2 launches, 3 where the hidden width splits
+over blocks at small M; backward 4). The f32 instance takes d and the output
+width up to 256, every model width of the default paths; wider (`base`,
+`large`), by that shape rule alone, it runs its FFMA chain (simt_f32.cuh:
+forward GEGLU 4 launches, MLP 2; backward 9).
 ``mlp_ffn_tasks`` is the MLP with a task axis (T MLPs, each with its own
 weights, in one launch), the decoder trunks of T tasks batched.
 
@@ -240,6 +244,36 @@ def forward_kernels(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
     return n
 
 
+@functools.cache
+def _f32_plan_fn(source: str, name: str):
+    """An int query (a, m, d, hid, d_out) of an f32 library: kernels a call."""
+    fn = getattr(cuda_build.load(source), name)
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def forward_kernels_f32(geglu: bool, m: int, d: int, hid: int, d_out: int, tasks: int = 0) -> int:
+    """How many kernels one f32 forward launches on the card (``tasks``:
+    ``mlp_ffn_tasks`` over that many tasks): the split of the weights and the
+    row kernel, and the reduction where the hidden width splits over blocks;
+    past d or d_out 256 the FFMA chain's 4 (GEGLU) or 2 (MLP)."""
+    if tasks:
+        n = _f32_plan_fn("fused_ffn.cu", "ffn_fwd_tasks_f32_kernels")(tasks, m, d, hid, d_out)
+    else:
+        n = _f32_plan_fn("fused_ffn.cu", "ffn_fwd_f32_kernels")(0 if geglu else 1, m, d, hid, d_out)
+    if n < 0:
+        raise ValueError(f"fused_ffn: no f32 kernel for M = {m}, widths {d}, {hid}, {d_out}")
+    return n
+
+
+def backward_kernels_f32(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
+    """How many kernels one f32 backward launches: 4 (the split of the
+    weights, the row pass, the weight gradients, the reduction), or the
+    FFMA chain's 9 past d or d_out 256."""
+    return _f32_plan_fn("fused_ffn_bwd.cu", "ffn_bwd_f32_kernels")(0 if geglu else 1, m, d, hid, d_out)
+
+
 def _fwd_workspace(name, x, mode, m, d, hid, d_out):
     """The forward's workspace (mode 0 GEGLU, 1 MLP), as large as its library
     asks for the shapes: the row path's partial outputs where it splits the
@@ -273,7 +307,12 @@ def _f32_floats_fn(name: str):
 
 
 def _f32_workspace(x, name, mode, m, d, hid, d_out):
-    floats = _f32_floats_fn(name)(mode, m, d, hid, d_out)
+    """The f32 workspace the library asks for (``mode``: 0 GEGLU, 1 MLP, or
+    the task count), on x's device: its plan reads the card's SMs."""
+    with torch.cuda.device(x.device):
+        floats = _f32_floats_fn(name)(mode, m, d, hid, d_out)
+    if floats < 0:
+        raise ValueError(f"{name}: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
     return torch.empty((floats,), dtype=torch.float32, device=x.device)
 
 
@@ -486,7 +525,7 @@ def _mlp_tasks_cuda(x, w1, b1, w2, b2):
     t, m, d = x.shape
     y = torch.empty((t, m, out), dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
-        ws = _f32_workspace(x, "ffn_fwd_f32_workspace_floats", 1, t * m, d, hidden, out)
+        ws = _f32_workspace(x, "ffn_fwd_tasks_f32_workspace_floats", t, m, d, hidden, out)
         _launch_f32(x, "mlp_ffn_tasks_f32", [v.data_ptr() for v in (x, w1, b1, w2, b2, y, ws)],
                     [t, m, d, hidden, out], "mlp_ffn_tasks")
         LAUNCHES["mlp_tasks_f32"] += 1

@@ -281,15 +281,17 @@ F32_PER_CALL = {"zorro_attention_qkv/zorro_f32": 1, "zorro_attention_qkv/zorro_f
                 "zorro_attention_qkv/none_f32": 1, "zorro_attention_qkv/none_f32_backward": 2,
                 "zorro_attention_packed/zorro_f32": 1, "zorro_attention_packed/zorro_f32_backward": 2,
                 "zorro_sparse/f32_forward": 1, "zorro_sparse/f32_backward": 2,
-                "fused_ffn/geglu_f32": 4, "fused_ffn/geglu_f32_backward": 9, "fused_ffn/mlp_f32": 2,
-                "fused_ffn/mlp_f32_backward": 9, "fusion_row_attention/fusion_row_f32": 1,
+                "fused_ffn/geglu_f32": 2, "fused_ffn/geglu_f32_backward": 4, "fused_ffn/mlp_f32": 2,
+                "fused_ffn/mlp_f32_backward": 4, "fusion_row_attention/fusion_row_f32": 1,
                 "fusion_row_attention/fusion_row_f32_backward": 1, "fused_block_attn/f32_forward": 6,
                 "fused_block_attn/f32_backward": 15, "fused_ffn/mlp_tasks_f32": 2}
 F32_KERNELS = {"zorro": {"zorro_attention_f32_fwd_kernel", "zorro_attention_f32_dq_kernel",
                          "zorro_attention_f32_dkdv_kernel"},
                "simt": {"simt_f32_product_kernel", "simt_f32_colsum_kernel", "simt_f32_reduce_kernel",
                         "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel", "simt_f32_act_kernel",
-                        "simt_f32_product_tasks_kernel"}}
+                        "simt_f32_product_tasks_kernel"},
+               "tf32": {"ffn_tf32_split_kernel", "ffn_tf32_fwd_rows_kernel", "ffn_tf32_fwd_reduce_kernel",
+                        "ffn_tf32_bwd_rows_kernel", "ffn_tf32_wgrad_kernel"}}
 
 
 @pytest.mark.parametrize("entry", sorted(F32_PER_CALL))
@@ -309,7 +311,7 @@ def test_f32_entries_are_profiled_by_their_own_kernels(smoke, entry):
         assert picked == ({"fusion_row_bwd_kernel"} if entry.endswith("backward") else {"fusion_row_kernel"})
     else:
         assert picked and all("f32" in k for k in picked)
-        assert picked <= F32_KERNELS["zorro"] | F32_KERNELS["simt"]
+        assert picked <= F32_KERNELS["zorro"] | F32_KERNELS["simt"] | F32_KERNELS["tf32"]
 
 
 def test_the_f32_keys_of_the_bf16_entries(smoke):
@@ -364,14 +366,17 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
         cuda_ffn._f32_fn(name, 1, 1)
     for name in re.findall(r'_f32_workspace\(x, "(\w+)"', ffn_source):
         cuda_ffn._f32_floats_fn(name)
-    for binder in binders:
+    for source, name in re.findall(r'_f32_plan_fn\("(\w+\.cu)", "(\w+)"\)', ffn_source):
+        cuda_ffn._f32_plan_fn(source, name)
+    for binder in (*binders, cuda_ffn._f32_plan_fn):
         binder.cache_clear()
     f32 = {(source, name) for source, name in asked if "f32" in name}
     assert {name for _, name in f32} == {
         "zorro_attention_f32", "zorro_attention_bwd_f32", "fusion_row_attention_f32", "fusion_row_attention_bwd_f32",
         "fused_block_attn_fwd_f32", "fused_block_attn_bwd_f32", "fused_block_attn_f32_scratch_floats",
         "geglu_ffn_f32", "mlp_ffn_f32", "geglu_ffn_bwd_f32", "mlp_ffn_bwd_f32", "ffn_fwd_f32_workspace_floats",
-        "ffn_bwd_f32_scratch_floats", "mlp_ffn_tasks_f32"}
+        "ffn_bwd_f32_scratch_floats", "mlp_ffn_tasks_f32", "ffn_fwd_tasks_f32_workspace_floats",
+        "ffn_fwd_f32_kernels", "ffn_fwd_tasks_f32_kernels", "ffn_bwd_f32_kernels"}
     csrc = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
     for source, name in sorted(f32):
         assert name in _extern_c(csrc / source), (source, name)

@@ -1476,6 +1476,93 @@ def test_ffn_f32_at_the_training_rows_and_bitwise_run_to_run(dev, mode):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("mode,m", [("geglu", 1024), ("geglu", 256), ("geglu", 15300), ("geglu", 15360),
+                                    ("mlp", 256), ("mlp", 2048)])
+def test_ffn_f32_tensor_core_rows_match_plain_and_are_bitwise(dev, mode, m):
+    """The 3xTF32 instance at the f32 paths' other rows (serving M = 1024
+    and 256 with the hidden split, a ragged M, the fusion rows; the step's
+    M = 38,400 and 15,360 are the test above's), forward and every gradient
+    within F32_REL_L2 of the f32 plain version, and each bitwise the same run
+    to run (fixed-order sums, no atomics)."""
+    widths = (192, 512) if mode == "geglu" else (256, 1024, 256)
+    w, d, d_out = _f32_weights(dev, mode, widths, seed=50)
+    x, dy = _randf(dev, m, d, seed=51), _randf(dev, m, d_out, seed=52)
+    fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
+    out, again, ref = fwd[0](x, *w), fwd[0](x, *w), fwd[1](x, *w)
+    grads, grads_again, ref_grads = bwd[0](x, *w, dy), bwd[0](x, *w, dy), bwd[1](x, *w, dy)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel_all(grads, ref_grads) <= F32_REL_L2
+    assert torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_mlp_tasks_f32_at_the_batched_decoder_rows_is_bitwise(dev, b):
+    """The task axis in f32 at T = 3, M = 256 B: within F32_REL_L2 of three
+    plain MLPs, bitwise the same run to run."""
+    t, m, d, hidden = 3, 256 * b, 256, 1024
+    x = _randf(dev, t, m, d, seed=53)
+    w = (_randf(dev, t, hidden, d, scale=d ** -0.5, seed=54), _randf(dev, t, hidden, scale=0.1, seed=55),
+         _randf(dev, t, d, hidden, scale=hidden ** -0.5, seed=56), _randf(dev, t, d, scale=0.1, seed=57))
+    out, again = cuda_ffn.mlp_ffn_tasks(x, *w), cuda_ffn.mlp_ffn_tasks(x, *w)
+    ref = cuda_ffn.mlp_ffn_tasks_reference(x, *w)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("mode,widths", [("geglu", (192, 512)), ("mlp", (256, 1024, 256)), ("geglu", (768, 2048))])
+def test_ffn_f32_runs_tensor_core_kernels_up_to_d_256(dev, mode, widths):
+    """Up to d = 256 the f32 forward and backward launch ffn_tf32.cuh's
+    kernels and no FFMA product; past it (`base`), by the shape rule, the
+    FFMA chain. Measured as chip_smoke.py's profiles are: after a warm-up,
+    five calls a profile, up to three profiles (after another test's
+    profile the profiler has dropped a call's first kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    w, d, d_out = _f32_weights(dev, mode, widths, seed=58)
+    x, dy = _randf(dev, 300, d, seed=59), _randf(dev, 300, d_out, seed=60)
+    fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
+    fwd[0](x, *w), bwd[0](x, *w, dy)
+    torch.cuda.synchronize()
+    kinds = ("ffn_tf32_split", "ffn_tf32_fwd_rows", "ffn_tf32_bwd_rows", "ffn_tf32_wgrad")
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fwd[0](x, *w), bwd[0](x, *w, dy)
+            torch.cuda.synchronize()
+        names |= {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+        if d > 256 or all(any(k in n for n in names) for k in kinds):
+            break
+    tensor_core = {k for k in kinds if any(k in n for n in names)}
+    ffma = any("simt_f32_product" in n for n in names)
+    if d <= 256:
+        assert len(tensor_core) == 4 and not ffma, names
+    else:
+        assert ffma and not tensor_core, names
+
+
+def test_ffn_f32_in_a_cuda_graph_replays_bitwise(dev):
+    """A CUDA graph captured around one f32 GEGLU forward and backward
+    replays bitwise equal to the eager calls: the wrappers neither sync the
+    host nor allocate at launch outside the graph's pool."""
+    w, d, _ = _f32_weights(dev, "geglu", (192, 512), seed=61)
+    x, dy = _randf(dev, 1024, d, seed=62), _randf(dev, 1024, d, seed=63)
+    eager = [cuda_ffn.geglu_ffn(x, *w), *cuda_ffn.geglu_ffn_backward(x, *w, dy)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture asks
+        cuda_ffn.geglu_ffn(x, *w), cuda_ffn.geglu_ffn_backward(x, *w, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [cuda_ffn.geglu_ffn(x, *w), *cuda_ffn.geglu_ffn_backward(x, *w, dy)]
+    for c in captured:
+        c.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
 @pytest.mark.parametrize("t_mod", [1, 3, 8])
 @pytest.mark.parametrize("heads,dh", [(3, 64), (1, 32), (2, 128), (40, 32)])
 def test_fusion_row_f32_matches_plain(dev, t_mod, heads, dh):
