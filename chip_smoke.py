@@ -176,6 +176,21 @@ Phases (any failure raises; the exit code is then non-zero):
                  launches, within SEG_REL_L2 of the mean of the two forwards
                  by hand), panoptic_inference on the card's outputs equal to
                  the host's, save_segmentation_png read back.
+ 14. pretrain-variants -- the zorro, lstm and crossattn_v1 fusion modes,
+                 crossattn with the full MAE decoder and the quadruplet
+                 (s1_2ch, s2_4ch, dem, dnw) crossattn at PretrainConfig()
+                 widths, B = 60, bf16 over f32 masters: (a) per variant the
+                 loss and gradients against the plain path (TRAIN_LOSS_REL,
+                 TRAIN_GRAD_REL_L2), exact launches a step, p50, device ms,
+                 busy share, peak memory; one lstm make_multi_step group (K =
+                 2) against 2 eager steps; (b) the trained weights in bf16
+                 serving one B = 1 request with dem dropped (exact launches,
+                 bitwise unmoved by dem's pixels, SERVING_REL_L2), one f32
+                 cli.infer --fusion_mode lstm (f32 keys only); (c) a 3-step
+                 cli.pretrain --fusion_mode lstm --log_wandb --profile_dir
+                 (B = 12) in a subprocess (a wandb fallback line a step, K1 and K2 in the
+                 trace). Phase 3 holds K1 / K1b over the 2E layout, K2 / K2b
+                 at M = 46,080 and K3 / K3b at T = 4 for it.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -207,7 +222,7 @@ from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch, synthetic_instances
 from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, MaskFormerModel, build_maskformer
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
-from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE, build_multimae
+from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE, build_multimae, gathered_layout
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
 from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion
 from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
@@ -700,6 +715,25 @@ def fusion_row_sdpa_case(q, kv_grid, kv_f, heads: int, part: str):
     return lambda: torch.autograd.grad(out, (qh, k, v), do, retain_graph=True)
 
 
+def gathered_types_case(dev, b: int = 60, e: int = 384, f: int = 256):
+    """K1's PAD-coded types over the 2E layout of ``lstm`` / ``crossattn_v1``
+    (models/multimae.gathered_layout) at B = 60, e = 384: seeded random
+    masks whose rows keep 384, 300, 256 or 128 tokens, a modality dropped
+    whole in every row that keeps fewer than 384, so the padding sits in
+    the middle of the sequence and again at its end."""
+    rng = np.random.default_rng(SEED + 14)
+    flat = np.ones((b, 3 * f), np.int64)
+    for row in range(b):
+        keep = (384, 300, 256, 128)[row % 4]
+        allowed = np.arange(3 * f)
+        if keep < e:
+            dropped = row % 3
+            allowed = allowed[(allowed < dropped * f) | (allowed >= (dropped + 1) * f)]
+        flat[row, rng.choice(allowed, size=keep, replace=False)] = 0
+    mi = masking.mask_info_from_flat_mask(torch.from_numpy(flat).to(dev), ("s1", "s2", "dem"), (f,) * 3, e)
+    return gathered_layout(mi, e, f, 3).kernel_types
+
+
 def unfused_geglu(x, gamma, w_in, w_out):
     """K2's GEGLU function as the unfused PyTorch chain: F.layer_norm (no
     bias), F.linear, the GEGLU product, F.linear, in bf16 (cuBLAS). Printed
@@ -1134,6 +1168,40 @@ def phase_kernels(dev):
                   lambda: cuda_fusion_attn.fusion_row_attention_backward_reference(q3, kvg3, kvf3, do3, 3, 64),
                   (8.0 * 64 * 4 * 60 * f * 3, 2 * nbytes(q3, kvg3, kvf3) + nbytes(do3), PEAK_F32_PRODUCTS),
                   fusion_row_sdpa_case(q3, kvg3, kvf3, 3, "backward"), True))
+
+    # the pretraining variants' new shapes (phase 14): K1 / K1b over the 2E
+    # "gathered" layout of lstm / crossattn_v1 (N = 768, PAD at
+    # [num_visible, E) and again at [E + num_visible, 2E), modalities dropped
+    # in some rows), K2 / K2b GEGLU at M = B * 2E, K3 / K3b with the
+    # quadruplet's four modality slots
+    gathered_types = gathered_types_case(dev)
+    label_2e = "N=768 B=60 2E layout, dropped modalities"
+    qkv_2e = randn(60, 768, 3 * 192)
+    zorro_cases("zorro", label_2e, qkv_2e, 3, gathered_types, False)
+    zorro_bwd_cases("zorro", label_2e, qkv_2e, 3, gathered_types, False)
+    f32_attention_cases("zorro", label_2e, randf(60, 768, 3 * 192), 3, gathered_types, False)
+    m_2e = 60 * 768
+    geglu_case(f"M={m_2e} d=192 I=512 (2E)", randn(m_2e, d), geglu_w, False, ffn_work(m_2e, False, True))
+    x_2e, dy_2e = randn(m_2e, d), randn(m_2e, d)
+    cases.append(("fused_ffn/geglu_backward", f"M={m_2e} d=192 I=512 (2E)",
+                  lambda: cuda_ffn.geglu_ffn_backward(x_2e, *geglu_w, dy_2e),
+                  lambda: cuda_ffn.geglu_ffn_backward_reference(x_2e, *geglu_w, dy_2e),
+                  ffn_work(m_2e, True, True), None, False))
+    for rand, suffix, peak in ((randn, "", PEAK_BF16), (randf, "_f32", PEAK_F32_PRODUCTS)):
+        q4, kvg4, kvf4, do4 = rand(60, f, 192), rand(60, 4 * f, 384), rand(60, f, 384), rand(60, f, 192)
+        cases.append((f"fusion_row_attention/fusion_row{suffix}", "F=256 T=4 3x64 B=60 (quadruplet)",
+                      lambda q=q4, kvg=kvg4, kvf=kvf4: cuda_fusion_attn.fusion_row_attention(q, kvg, kvf, 3, 64),
+                      lambda q=q4, kvg=kvg4, kvf=kvf4: cuda_fusion_attn.fusion_row_attention_reference(
+                          q, kvg, kvf, 3, 64),
+                      (4.0 * 64 * 5 * 60 * f * 3, nbytes(q4, kvg4, kvf4, q4), peak),
+                      fusion_row_sdpa_case(q4, kvg4, kvf4, 3, "forward"), False))
+        cases.append((f"fusion_row_attention/fusion_row{suffix}_backward", "F=256 T=4 3x64 B=60 (quadruplet)",
+                      lambda q=q4, kvg=kvg4, kvf=kvf4, do=do4: cuda_fusion_attn.fusion_row_attention_backward(
+                          q, kvg, kvf, do, 3, 64),
+                      lambda q=q4, kvg=kvg4, kvf=kvf4, do=do4:
+                      cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, 3, 64),
+                      (8.0 * 64 * 5 * 60 * f * 3, 2 * nbytes(q4, kvg4, kvf4) + nbytes(do4), peak),
+                      fusion_row_sdpa_case(q4, kvg4, kvf4, 3, "backward"), False))
 
     x_blk32, dy_blk32 = x_blk.float(), dy_blk.float()
     blk_w32 = tuple(t.float() for t in blk_w)
@@ -2304,11 +2372,17 @@ def state_cfg():
 
 
 def state_parts(state):
-    """The pretraining state's tensors by part."""
+    """The pretraining state's tensors by part (the balancer's and the EMA's
+    where the state has them)."""
+    parts = {"masters": list(state.model.parameters()), "moments": [state.optimizer.mu, state.optimizer.nu],
+             "counts": [state.optimizer.count]}
     bal = state.balancer_optimizer
-    return {"masters": list(state.model.parameters()), "moments": [state.optimizer.mu, state.optimizer.nu],
-            "counts": [state.optimizer.count, bal.count],
-            "balancer": [*state.balancer_params.values(), bal.mu, bal.nu], "ema": list(state.ema.values())}
+    if bal is not None:
+        parts["counts"].append(bal.count)
+        parts["balancer"] = [*state.balancer_params.values(), bal.mu, bal.nu]
+    if state.ema is not None:
+        parts["ema"] = list(state.ema.values())
+    return parts
 
 
 def state_snapshot(state):
@@ -2941,6 +3015,218 @@ def _phase_export(dev):
     return dict(launches)
 
 
+# phase 14: the pretraining variants at the full `tiny` width
+VARIANTS = {  # name: (fusion_mode, decoder_style, in_domains)
+    "zorro": ("zorro", "simple", ("s1", "s2", "dem")),
+    "lstm": ("lstm", "simple", ("s1", "s2", "dem")),
+    "crossattn_v1": ("crossattn_v1", "simple", ("s1", "s2", "dem")),
+    "crossattn full decoder": ("crossattn", "full", ("s1", "s2", "dem")),
+    "quadruplet crossattn": ("crossattn", "simple", ("s1_2ch", "s2_4ch", "dem", "dnw")),
+}
+VARIANT_K = 2  # the CUDA-graph group of the lstm step
+VARIANT_DIR = os.path.join(ROOT, "build", "chip_smoke_variants")  # git-ignored
+
+
+def variant_cfg(name):
+    mode, style, doms = VARIANTS[name]
+    cfg = PretrainConfig()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fusion_mode=mode),
+                               data=dataclasses.replace(cfg.data, in_domains=doms, out_domains=doms),
+                               decoder=dataclasses.replace(cfg.decoder, style=style))
+
+
+def variant_per_forward(cfg, suffix: str = ""):
+    """The kernels a forward of the variant launches: K1 zorro a block; K2
+    GEGLU a block and a fusion block (crossattn); K3 a fusion block; a
+    decoder layer's K1 unmasked and K2 MLP a task, and the full decoder's
+    cross-attention MLP a task. ``suffix`` "_f32" gives the f32 keys."""
+    depth, dec, tasks = cfg.model.depth, cfg.decoder.depth, len(cfg.data.out_domains)
+    crossattn = cfg.model.fusion_mode == "crossattn"
+    out = {"zorro_attention_qkv/zorro": depth, "fused_ffn/geglu": depth * (2 if crossattn else 1),
+           "zorro_attention_qkv/none": dec * tasks,
+           "fused_ffn/mlp": (dec + (1 if cfg.decoder.style == "full" else 0)) * tasks}
+    if crossattn:
+        out["fusion_row_attention/fusion_row"] = depth
+    return {(f32_key(k) if suffix else k): n for k, n in out.items()}
+
+
+def launch_delta(before):
+    after = ops.kernel_launches()
+    return {k: n - before.get(k, 0) for k, n in after.items() if n - before.get(k, 0)}
+
+
+def phase_pretrain_variants(dev):
+    """Phase 14. (a) For each of VARIANTS at PretrainConfig() widths (B = 60,
+    bf16 over f32 masters): the loss and gradients of the kernel path
+    against the plain path on one set of masks, the exact launches of one
+    step, 3 warm-up and 5 timed steps (p50, profiled device ms, busy share,
+    peak memory); for lstm one make_multi_step group (K = 2) against 2 eager
+    steps from the same state. (b) The trained weights in bf16 serve one
+    B = 1 request with dem dropped: launches a forward, bitwise unmoved by
+    dem's pixels, within SERVING_REL_L2 of the plain path; one f32
+    ``cli.infer --fusion_mode lstm`` call (f32 keys only). (c) One short
+    ``cli.pretrain --fusion_mode lstm --log_wandb --profile_dir`` run in a
+    subprocess (full width, B = 12): a wandb fallback line a step, a trace
+    holding K1's and K2's kernels. Returns the launches counted in this
+    process."""
+    shutil.rmtree(VARIANT_DIR, ignore_errors=True)
+    os.makedirs(VARIANT_DIR)
+    try:
+        return _phase_pretrain_variants(dev)
+    finally:
+        shutil.rmtree(VARIANT_DIR, ignore_errors=True)
+
+
+def _phase_pretrain_variants(dev):
+    ops.reset_kernel_launches()
+    rng = np.random.default_rng(SEED + 14)
+    for name in VARIANTS:
+        cfg = variant_cfg(name)
+        doms, b, e = tuple(cfg.data.in_domains), cfg.data.batch_size, cfg.mask.num_encoded_tokens
+        nums = (cfg.data.num_patches,) * len(doms)
+        model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+        step = pretrain.make_train_step(model, cfg, optimizer)
+        batch = {d: torch.from_numpy(v).to(dev) for d, v in synthetic_batch(rng, doms, b, cfg.data.input_size).items()}
+        mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, b, device=dev)
+        loss_fn = pretrain.make_loss_fn(model, cfg)
+
+        def run_loss():
+            return loss_fn(dict(model.named_parameters()), batch, mi)[0]
+
+        loss_k, g_k = loss_and_grads(model, run_loss)
+        model.attn_impl = "xla"
+        loss_p, g_p = loss_and_grads(model, run_loss)
+        model.attn_impl = "auto"
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        grad_rel, worst = compare_grads(g_k, g_p)
+        del g_k, g_p
+        if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
+            raise RuntimeError(f"[variants] {name}: kernel vs plain path loss rel {loss_rel} (bound {TRAIN_LOSS_REL}),"
+                               f" gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2}); worst {worst}")
+        # the main path: one step, masks from the state's generator
+        before = ops.kernel_launches()
+        step(state, batch)
+        torch.cuda.synchronize()
+        per_step = launch_delta(before)
+        fwd = variant_per_forward(cfg)
+        want = {**fwd, **{f"{k}_backward": n for k, n in fwd.items()}}
+        if per_step != want:
+            raise RuntimeError(f"[variants] {name}: launches a step {per_step}, expected {want}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, losses = step_times(lambda: step(state, batch)[1], steps=5, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"[variants] {name}: losses {losses}")
+        p50 = statistics.median(times)
+        dev_ms, n_kernels, by_kind, _ = device_breakdown(lambda: step(state, batch), reps=2)
+        log(f"[variants] (a) {name}: loss kernel path {loss_k:.6g}, plain path {loss_p:.6g} (rel {loss_rel:.3g}), "
+            f"gradient rel_l2 {grad_rel:.3g} (worst {worst[0][1]} {worst[0][0]:.3g}); launches a step exact "
+            f"{per_step}; step p50 {p50:.6g} ms, device {dev_ms:.6g} ms in {n_kernels:.0f} kernels/copies, busy "
+            f"{dev_ms / p50:.3f}, by kind " + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items()))
+            + f"; peak device memory {peak / 2 ** 30:.4g} GiB; losses {[round(x, 4) for x in losses]}")
+
+        if name == "lstm":  # one CUDA-graph group of K steps against K eager steps, twice eager
+            multi = pretrain.make_multi_step(step, VARIANT_K)
+            stack = {d: torch.stack([batch[d]] * VARIANT_K) for d in doms}
+
+            def run_eager():
+                out = [step(state, {d: stack[d][i] for d in doms})[1] for i in range(VARIANT_K)]
+                return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
+            start = state_snapshot(state)
+            before = ops.kernel_launches()
+            m_e = run_eager()
+            eager1 = state_snapshot(state)
+            state_restore(state, start)
+            run_eager()
+            eager2 = state_snapshot(state)
+            state_restore(state, start)
+            m_g = multi(state, stack)[1]
+            torch.cuda.synchronize()
+            graphed = state_snapshot(state)
+            counted = launch_delta(before)
+            want_g = {k: (2 * VARIANT_K + 2) * n for k, n in want.items()}  # eager x 2, warm-up and capture
+            if counted != want_g:
+                raise RuntimeError(f"[variants] lstm graph group: launches {counted}, expected {want_g}")
+            # phase 11's rule: bitwise where two eager runs are, else within
+            # twice their spread (torch.gather's backward adds in a
+            # run-dependent order)
+            eager_same, eager_rel = state_compare(eager2, eager1)
+            graph_same, graph_rel = state_compare(graphed, eager1)
+            metrics_same = all(torch.equal(m_g[k], m_e[k]) for k in m_e)
+            worse = {k: (graph_rel[k], eager_rel[k]) for k in graph_rel if graph_rel[k] > 2 * eager_rel[k]}
+            if (eager_same and not (graph_same and metrics_same)) or (not eager_same and worse):
+                raise RuntimeError(f"[variants] lstm: the graph's {VARIANT_K} steps against the eager steps: rel L2 "
+                                   f"{graph_rel}, eager spread {eager_rel}")
+            log(f"[variants] (a) lstm make_multi_step K = {VARIANT_K}: eager run 2 vs 1 bitwise {eager_same} (rel by "
+                f"part {eager_rel}); graph vs eager bitwise {graph_same}, metrics bitwise {metrics_same} (rel by "
+                f"part {graph_rel}); losses eager {m_e['loss'].tolist()}, graph {m_g['loss'].tolist()}")
+
+        # (b) the trained weights in bf16 serve one B = 1 request, dem dropped
+        del state, optimizer, step, loss_fn
+        model = model.to(torch.bfloat16).eval()
+        closure = serving.infer_closure(model, None, doms)
+        run, perturbed = serve_request(model, closure, rng, 1, ("dem",))
+        before = ops.kernel_launches()
+        preds, pooled = run()
+        torch.cuda.synchronize()
+        served = launch_delta(before)
+        if served != fwd:
+            raise RuntimeError(f"[variants] {name}: serving launches {served}, expected {fwd}")
+        preds2, pooled2 = run(perturbed())
+        moved = [d for d in preds if not torch.equal(preds[d], preds2[d])] + ([] if torch.equal(pooled, pooled2)
+                                                                             else ["pooled"])
+        if moved or not all(torch.isfinite(p.float()).all() for p in preds.values()):
+            raise RuntimeError(f"[variants] {name}: dem's pixels moved {moved} (or non-finite preds)")
+        model.attn_impl = "xla"
+        preds_p, pooled_p = run()
+        model.attn_impl = "auto"
+        rel = max([rel_l2(preds[d], preds_p[d]) for d in preds] + [rel_l2(pooled, pooled_p)])
+        if not rel <= SERVING_REL_L2:
+            raise RuntimeError(f"[variants] {name}: serving rel L2 vs plain path {rel} > {SERVING_REL_L2}")
+        lat = wall_ms(run, reps=5, warmup=2)
+        log(f"[variants] (b) {name}: B=1 dem dropped, launches a forward exact, bitwise unmoved by dem's pixels, "
+            f"rel_l2 vs plain path {rel:.6g}, p50 {statistics.median(lat):.6g} ms")
+        del model, closure
+
+    # (b) one f32 cli.infer call in this process: the f32 keys alone
+    before = ops.kernel_launches()
+    png = os.path.join(VARIANT_DIR, "lstm.png")
+    rc, out = run_in_process(cli_infer.main, ["--fusion_mode", "lstm", "--ckpt_dir", os.path.join(VARIANT_DIR, "none"),
+                                              "--output", png])
+    torch.cuda.synchronize()
+    counted = launch_delta(before)
+    want = variant_per_forward(variant_cfg("lstm"), "_f32")
+    psnr = parsed(r"masked-patch PSNR (\S+) dB", out, "cli.infer --fusion_mode lstm")
+    if rc != 0 or counted != want or not all(math.isfinite(v) for v in psnr) or png_size(png)[0] < 3 * 256:
+        raise RuntimeError(f"[variants] cli.infer --fusion_mode lstm: rc {rc}, launches {counted} (expected "
+                           f"{want}), PSNR {psnr}: {out[-1500:]}")
+    log(f"[variants] (b) f32 cli.infer --fusion_mode lstm: launches {counted} (f32 keys only), PSNR {psnr}, "
+        f"PNG {png_size(png)}")
+
+    # (c) cli.pretrain with wandb's fallback and the profiler, in a subprocess
+    out_dir, prof = os.path.join(VARIANT_DIR, "cli"), os.path.join(VARIANT_DIR, "prof")
+    cmd = [sys.executable, "-m", f"{PKG}.cli.pretrain", "--fusion_mode", "lstm", "--batch_size", "12",
+           "--steps_per_epoch", "3", "--epochs", "1", "--seed", str(SEED), "--output_dir", out_dir, "--log_wandb",
+           "--profile_dir", prof, "--profile_start", "1", "--profile_steps", "1"]
+    t0 = time.time()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        raise RuntimeError(f"[variants] {' '.join(cmd)} exited {r.returncode}: {r.stdout[-2000:]} {r.stderr[-3000:]}")
+    with open(os.path.join(out_dir, "wandb_fallback.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    k1 = sorted({kernel_name(n) for n in names if "zorro_attention" in n})
+    k2 = sorted({kernel_name(n) for n in names if "ffn_fwd" in n or "ffn_bwd" in n})
+    if [row["step"] for row in logged] != [0, 1, 2] or not all(math.isfinite(row["loss"]) for row in logged) \
+            or not k1 or not k2:
+        raise RuntimeError(f"[variants] (c) wandb lines {logged}, K1 kernels in the trace {k1}, K2 {k2}")
+    log(f"[variants] (c) cli.pretrain --fusion_mode lstm --log_wandb --profile_dir: {len(logged)} fallback lines "
+        f"(steps {[row['step'] for row in logged]}), trace kernels K1 {k1}, K2 {k2}; {time.time() - t0:.1f} s")
+    return ops.kernel_launches()
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -3019,10 +3305,11 @@ def main(argv) -> int:
     state_trained = timed("pretrain-state", phase_pretrain_state, dev)
     by_cli = timed("cli", phase_cli, dev)
     exported = timed("export", phase_export, dev)
+    pretrain_variants = timed("pretrain variants", phase_pretrain_variants, dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
-                                                    sem_trained, state_trained, by_cli, exported))
+                                                    sem_trained, state_trained, by_cli, exported, pretrain_variants))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

@@ -10,8 +10,9 @@ Reads the ``.pth`` (a raw state dict or ``{'model': ...}``, ``module.``
 prefixes stripped), converts it with ``utils.torch_convert`` and writes
 ``output_dir/checkpoint-{step}`` holding the port's state dict alone
 (``utils.checkpoint.save_params``), which ``restore_params``, ``cli.infer``
-and ``cli.train_downstream --pretrained`` read. The ``crossattn_v1`` fusion
-mode raises ``NotImplementedError``.
+and ``cli.train_downstream --pretrained`` read. ``--fusion_mode
+crossattn_v1`` converts the 20231203 snapshot (its shared cross-attention
+and per-modality pools instead of the fusion blocks).
 """
 from __future__ import annotations
 
@@ -47,8 +48,6 @@ def get_args(argv=None):
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if args.fusion_mode != "crossattn":
-        raise NotImplementedError(f"--fusion_mode {args.fusion_mode} is not ported yet")
     raw = torch.load(args.checkpoint, map_location="cpu", weights_only=False)
     state = raw.get("model", raw) if isinstance(raw, dict) else raw
     in_domains = tuple(args.in_domains.split("-"))
@@ -61,7 +60,8 @@ def main(argv=None) -> int:
         # them here keeps --arch maskformer usable with unregistered domains
         out_channels = {d: modreg.get(d).num_channels for d in out_domains}
         params = convert_multimae_state(state, in_domains, out_domains, out_channels, patch_size=args.patch_size,
-                                        depth=args.depth, decoder_depth=args.decoder_depth)
+                                        depth=args.depth, decoder_depth=args.decoder_depth,
+                                        fusion_mode=args.fusion_mode)
     ckpt_lib.save_params(args.output_dir, args.step, params)
     n = sum(t.numel() for t in params.values())
     print(f"converted {len(state)} torch tensors -> {args.output_dir} (step {args.step}, {n / 1e6:.2f}M params)")

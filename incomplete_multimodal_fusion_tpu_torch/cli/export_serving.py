@@ -14,8 +14,10 @@ was exported). The flat signature is (x_<d0>..x_<dk>, mask_<d0>..mask_<dk>)
 with f32 rasters [B, S, S, C] and int32 masks [B, num_patches] (1 = drop that
 patch), the incomplete-fusion contract (multimae_crossattn.py:395-399). The
 model runs in f32, as the JAX script applies its f32 parameters (on the
-card: the f32 instances of K1-K3). A ``--fusion_mode`` other than
-``crossattn`` raises ``NotImplementedError``.
+card: the f32 instances of K1-K3). ``--fusion_mode`` takes every ported mode
+(``crossattn``, ``zorro``, ``lstm``, ``crossattn_v1``) and
+``--decoder_style`` the decoder the checkpoint was trained with; a semseg
+domain's argument is an int32 class map [B, S, S].
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import dataclasses
 import sys
 
 from .. import serving
-from ..config import MODEL_SIZES, DataConfig, PretrainConfig
+from ..config import MODEL_SIZES, DataConfig, DecoderConfig, PretrainConfig
 from ..models.multimae import build_multimae
 from ..utils import checkpoint as ckpt_lib
 
@@ -38,21 +40,20 @@ def get_args(argv=None):
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--input_size", type=int, default=256)
     p.add_argument("--patch_size", type=int, default=16)
-    p.add_argument("--fusion_mode", default="crossattn")
+    p.add_argument("--fusion_mode", default="crossattn", choices=["crossattn", "zorro", "lstm", "crossattn_v1"])
+    p.add_argument("--decoder_style", default="simple", choices=["simple", "full"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if args.fusion_mode != "crossattn":
-        raise NotImplementedError(f"--fusion_mode {args.fusion_mode} is not ported yet")
     domains = tuple(args.in_domains.split("-"))
     model_cfg = dataclasses.replace(MODEL_SIZES[args.model_size], fusion_mode=args.fusion_mode,
                                     num_fusion_tokens=(args.input_size // args.patch_size) ** 2)
     cfg = PretrainConfig(model=model_cfg, data=dataclasses.replace(
         DataConfig(), in_domains=domains, out_domains=domains, input_size=args.input_size,
-        patch_size=args.patch_size))
+        patch_size=args.patch_size), decoder=DecoderConfig(style=args.decoder_style))
     model = build_multimae(cfg, device=args.device)
     ckpt_lib.restore_params(args.checkpoint_dir, model)
     blob = serving.export_infer(model.eval(), None, batch=args.batch, image_size=args.input_size)

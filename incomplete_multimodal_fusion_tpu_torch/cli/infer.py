@@ -10,10 +10,12 @@ of ``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``), or
 warns and keeps the seeded initialisation; forwards one synthetic tile from
 ``--seed`` with random masks drawn from ``torch.Generator(--seed)`` (or, with
 ``--drop``, the named modalities masked out); prints each masked modality's
-masked-patch PSNR; writes the masked / predicted / ground-truth grid as PNG
-(the only format). The model runs in f32, as the JAX script applies its
-f32 parameters (on the card: the f32 instances of K1-K3). ``--data_path`` and the ``zorro`` / ``lstm`` fusion
-modes and the ``dnw`` domain raise ``NotImplementedError``.
+masked-patch PSNR (a class-map domain such as ``dnw``: the pixel accuracy
+of the argmax of its class logits); writes the masked / predicted /
+ground-truth grid as PNG (the only format). ``--fusion_mode`` takes
+``crossattn``, ``zorro`` and ``lstm``, as the JAX script does. The model
+runs in f32, as the JAX script applies its f32 parameters (on the card: the
+f32 instances of K1-K3). ``--data_path`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,21 +51,15 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args, domains) -> None:
+def refuse_unported(args) -> None:
     if args.data_path:
         raise NotImplementedError("--data_path is not ported yet (the port infers on a synthetic tile)")
-    if args.fusion_mode != "crossattn":
-        raise NotImplementedError(f"--fusion_mode {args.fusion_mode} is not ported yet")
-    semseg = [d for d in domains if modreg.get(d).adapter == "semseg"]
-    if semseg:
-        raise NotImplementedError(f"--in_domains {'-'.join(semseg)}: the semantic-map input adapter is not "
-                                  "ported yet")
 
 
 def main(argv=None) -> int:
     args = get_args(argv)
     domains = tuple(args.in_domains.split("-"))
-    refuse_unported(args, domains)
+    refuse_unported(args)
     model_cfg = dataclasses.replace(MODEL_SIZES[args.model_size], num_fusion_tokens=(args.input_size // 16) ** 2,
                                     fusion_mode=args.fusion_mode)
     cfg = PretrainConfig(model=model_cfg, data=DataConfig(input_size=args.input_size, in_domains=domains,
@@ -88,6 +84,10 @@ def main(argv=None) -> int:
         masked = int(m[0].sum())
         if int(m.sum()) == 0:
             print(f"{d}: fully visible (no reconstruction target)")
+            continue
+        if modreg.get(d).adapter == "semseg":
+            acc = float(infer_lib.pixel_accuracy(res.preds[d], torch.from_numpy(x[d])))
+            print(f"{d}: class-map pixel accuracy {acc:.6f} ({masked}/{m.shape[1]} patches masked)")
             continue
         psnr = float(infer_lib.masked_psnr(res.preds[d], torch.from_numpy(x[d]).to(device), m, p))
         print(f"{d}: masked-patch PSNR {psnr:.6f} dB ({masked}/{m.shape[1]} patches masked)")

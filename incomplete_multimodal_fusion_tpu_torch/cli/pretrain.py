@@ -3,19 +3,31 @@ device; reference pretraining/pretrain_mmae.py:75-185, 251-418).
 
     python -m incomplete_multimodal_fusion_tpu_torch.cli.pretrain \\
         [-c config.yaml] [--epochs N] [--steps_per_epoch S] [--steps_per_call K] \\
-        [--use_ema] [--task_balancer uncertainty] [--output_dir DIR] [--device cuda|cpu]
+        [--fusion_mode crossattn|zorro|lstm|crossattn_v1] [--decoder_style simple|full] \\
+        [--in_domains s1_2ch-s2_4ch-dem-dnw] [--use_ema] [--task_balancer uncertainty] \\
+        [--log_wandb] [--profile_dir DIR --profile_start I --profile_steps N] \\
+        [--output_dir DIR] [--device cuda|cpu]
 
 It reads the flags of scripts/pretrain.py that a single device needs and
 runs its loop (scripts/pretrain.py:282-325): a step (or, with
 ``--steps_per_call K``, K steps replayed from one CUDA graph) on synthetic
-batches, the metrics logged every 10 steps, an abort on a non-finite
-``recon_loss``, a checkpoint at the epoch boundaries that ``--save_ckpt_freq``
-picks (and at the end), and one JSON line of averaged metrics an epoch in
+batches (integer class maps for a semseg domain such as ``dnw``), the
+metrics logged every 10 steps, an abort on a non-finite ``recon_loss``, a
+checkpoint at the epoch boundaries that ``--save_ckpt_freq`` picks (and at
+the end), and one JSON line of averaged metrics an epoch in
 ``output_dir/log.txt``. With ``--auto_resume`` (the default) it continues
 from the latest checkpoint in ``output_dir``; the synthetic stream is
 advanced past the batches the checkpoint's steps took, so a resumed run sees
-the batches an unbroken run would. The flags of the real data path,
-parallelism, profiling and wandb raise ``NotImplementedError``.
+the batches an unbroken run would.
+
+``--log_wandb`` sends every step's metrics to wandb (scripts/pretrain.py:
+263-317), or, where wandb does not import or start, to
+``output_dir/wandb_fallback.jsonl``, a line a step; the metrics are read at
+the logging cadence, so the card is not made to wait every step.
+``--profile_dir`` writes a ``torch.profiler`` trace (Chrome JSON,
+``trace.json``) of ``--profile_steps`` steps from the ``--profile_start``-th
+step of the run (scripts/pretrain.py:85-89, :289-302). The flags of the real
+data path and of parallelism raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -33,12 +45,13 @@ from .. import config as cfg_lib
 from ..data.synthetic import synthetic_iterator
 from ..train import pretrain
 from ..utils import checkpoint as ckpt_lib
-from ..utils.logging import MetricLogger
+from ..utils.logging import MetricLogger, WandbLogger
 
 # flags of scripts/pretrain.py this port does not run yet, with the value
 # that leaves them off
 UNPORTED = {"data_path": None, "random_crop": False, "tp": 1, "fsdp": False, "sp": False, "pp": 1,
-            "pp_microbatches": 0, "profile_dir": None, "log_wandb": False}
+            "pp_microbatches": 0}
+LOG_EVERY = 10  # steps between metric reads (scripts/pretrain.py:304)
 
 
 def get_args(argv=None):
@@ -51,7 +64,9 @@ def get_args(argv=None):
     p.add_argument("--in_domains", type=str, default=None, help="hyphen separated")
     p.add_argument("--out_domains", type=str, default=None)
     p.add_argument("--model_size", type=str, default="tiny", choices=sorted(cfg_lib.MODEL_SIZES))
-    p.add_argument("--fusion_mode", type=str, default=None, choices=["crossattn", "zorro", "lstm"])
+    p.add_argument("--fusion_mode", type=str, default=None, choices=["crossattn", "zorro", "lstm", "crossattn_v1"])
+    p.add_argument("--decoder_style", type=str, default=None, choices=["simple", "full"],
+                   help="default: the config's (simple)")
     p.add_argument("--use_ema", action="store_true", default=None, help="keep a model EMA shadow")
     p.add_argument("--num_encoded_tokens", type=int, default=None)
     p.add_argument("--patch_size", type=int, default=None)
@@ -75,6 +90,16 @@ def get_args(argv=None):
     p.add_argument("--no_auto_resume", action="store_false", dest="auto_resume")
     p.add_argument("--compute_dtype", type=str, default=None, choices=["bfloat16", "float32"])
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of a few steps to this directory")
+    p.add_argument("--profile_start", type=int, default=10)
+    p.add_argument("--profile_steps", type=int, default=3)
+    # experiment tracking (pretrain_mmae.py:159-166); without wandb the
+    # metrics go to output_dir/wandb_fallback.jsonl
+    p.add_argument("--log_wandb", action="store_true")
+    p.add_argument("--wandb_entity", type=str, default="")
+    p.add_argument("--wandb_project", type=str, default="imf-tpu")
+    p.add_argument("--wandb_run_name", type=str, default="")
     # not ported yet (ROADMAP Queue 1 items 8 and 9): each raises when set
     p.add_argument("--data_path", type=str, default=None)
     p.add_argument("--random_crop", action="store_true")
@@ -83,8 +108,6 @@ def get_args(argv=None):
     p.add_argument("--sp", action="store_true")
     p.add_argument("--pp", type=int, default=1)
     p.add_argument("--pp_microbatches", type=int, default=0)
-    p.add_argument("--profile_dir", type=str, default=None)
-    p.add_argument("--log_wandb", action="store_true")
     return p.parse_args(argv)
 
 
@@ -125,8 +148,44 @@ def build_config(args) -> cfg_lib.PretrainConfig:
                                               "use_ema") if getattr(args, k) is not None}
     return cfg_lib.PretrainConfig(
         model=model_cfg, data=dataclasses.replace(cfg.data, **data_kw),
-        mask=dataclasses.replace(cfg.mask, **mask_kw), decoder=cfg.decoder,
+        mask=dataclasses.replace(cfg.mask, **mask_kw),
+        decoder=dataclasses.replace(cfg.decoder, **({"style": args.decoder_style} if args.decoder_style else {})),
         optim=dataclasses.replace(cfg.optim, **optim_kw), train=dataclasses.replace(cfg.train, **train_kw))
+
+
+def send_to(wandb_logger, pending):
+    """Each pending (step, metrics) to the wandb logger, in step order (the
+    host reads the metrics here); returns the emptied list."""
+    if wandb_logger is not None:
+        for at, m in pending:
+            wandb_logger.set_step(at)
+            wandb_logger.update(m)
+    return []
+
+
+def start_profiler(device: str):
+    """A running torch.profiler over the host and, on the card, the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.startswith("cuda") else [])
+    profiler = profile(activities=activities)
+    profiler.__enter__()
+    return profiler
+
+
+def stop_profiler(profiler, profile_dir: str) -> str:
+    """Ends the trace (after the device's queued work) and writes it as
+    Chrome JSON to ``profile_dir/trace.json``; returns the path."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    profiler.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    profiler.export_chrome_trace(path)
+    print(f"profiler trace written to {path}", flush=True)
+    return path
 
 
 def main(argv=None) -> int:
@@ -157,20 +216,32 @@ def main(argv=None) -> int:
     step_fn = pretrain.make_train_step(model, cfg, state.optimizer)
     multi_fn = pretrain.make_multi_step(step_fn, k) if k > 1 else None
     logger = MetricLogger()
+    wandb_logger = (WandbLogger(config=dataclasses.asdict(cfg), project=args.wandb_project, entity=args.wandb_entity,
+                                run_name=args.wandb_run_name, out_dir=out_dir) if args.log_wandb else None)
+    pending = []  # (step, metrics on the device) not yet sent to the wandb logger
+    profile_dir, profiler = args.profile_dir, None  # the trace is taken once
     log_path = os.path.join(out_dir, "log.txt")
     t_start = time.time()
     for step in range(start_step, total_steps, k):
         epoch = step // steps_per_epoch
+        if profile_dir and profiler is None and step - start_step >= args.profile_start:
+            profiler = start_profiler(args.device)
         if multi_fn is not None:
             stack = [next(data_iter) for _ in range(k)]
             state, ms = multi_fn(state, {d: np.stack([s[d] for s in stack]) for d in stack[0]})
             metrics = {name: v[-1] for name, v in ms.items()}
+            pending += [(step + i, {name: v[i] for name, v in ms.items()}) for i in range(k)]
         else:
             state, metrics = step_fn(state, next(data_iter))
-        if step % 10 == 0:
+            pending.append((step, metrics))
+        if profiler is not None and step + k - start_step >= args.profile_start + args.profile_steps:
+            stop_profiler(profiler, profile_dir)
+            profile_dir, profiler = None, None
+        if step % LOG_EVERY == 0:
             vals = {name: float(v) for name, v in metrics.items()}
             logger.update(**vals)
             print(f"epoch {epoch} step {step}: " + " ".join(f"{n}={v:.4f}" for n, v in vals.items()), flush=True)
+            pending = send_to(wandb_logger, pending)
             # non-finite-loss abort (pretrain_mmae.py:506-508), read with the
             # logged metrics so the card is not made to wait every step
             if not math.isfinite(vals["recon_loss"]):
@@ -184,6 +255,9 @@ def main(argv=None) -> int:
                 ckpt_lib.save_checkpoint(out_dir, done, state)
             with open(log_path, "a") as f:
                 f.write(logger.jsonl(epoch=epoch, step=step) + "\n")
+    send_to(wandb_logger, pending)
+    if profiler is not None:
+        stop_profiler(profiler, profile_dir)
     print(f"Training time {time.time() - t_start:.0f}s")
     return 0
 

@@ -23,8 +23,9 @@ class ModelConfig:
     ff_mult: int = 4
     num_fusion_tokens: int = 256
     drop_path_rate: float = 0.0
-    # 'crossattn' = per-layer fusion blocks (flagship; the only mode ported)
-    # 'zorro' | 'lstm' | 'crossattn_v1' | 'sup' exist in the JAX package
+    # 'crossattn' = per-layer fusion blocks (flagship) | 'zorro' | 'lstm' |
+    # 'crossattn_v1' (models/multimae.py); 'sup' is the downstream backbone's
+    # and is not ported yet
     fusion_mode: str = "crossattn"
     # 'auto' = hand-written kernels for CUDA tensors, plain PyTorch for CPU
     # tensors; 'xla' = plain PyTorch everywhere; 'pallas' = same as 'auto'
@@ -65,9 +66,10 @@ class DecoderConfig:
     dim: int = 256
     depth: int = 2
     num_heads: int = 8
+    # the full decoder's queries and cross-attention (adapters.SpatialOutputAdapterFull)
     use_task_queries: bool = True
     use_xattn: bool = True
-    style: str = "simple"  # 'simple' | 'full' (only 'simple' is ported)
+    style: str = "simple"  # 'simple' (over the fusion grid) | 'full' (MAE decoder over the packed tokens)
     # run the decoder trunk once for all tasks: MultiMAE(decoder_batch_tasks=...)
     # routes the output adapters through adapters.batched_trunks (K1 over the
     # tasks' rows, K2's MLP with a task axis)

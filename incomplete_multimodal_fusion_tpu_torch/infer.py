@@ -112,6 +112,13 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: Optional[float] =
     return 10.0 * torch.log10(data_range ** 2 / mse.clamp(min=1e-12))
 
 
+def pixel_accuracy(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """A class map's score (the JAX script's, scripts/infer.py:92-95): the
+    share of pixels where the argmax of the class logits [B, H, W, K]
+    equals the integer map [B, H, W]."""
+    return (logits.argmax(dim=-1) == target.to(logits.device)).float().mean()
+
+
 def masked_psnr(pred, target, mask, patch_size: int, data_range: Optional[float] = None):
     """PSNR over masked (reconstructed) patches only."""
     b, h, w, c = pred.shape
@@ -170,13 +177,18 @@ def reconstruction_grid(x: Mapping[str, Union[np.ndarray, torch.Tensor]], result
                         denorm: Optional[Dict[str, Tuple[float, float]]] = None) -> np.ndarray:
     """The grid of plot_reconstructions as a [rows * H, 3 * W, 3] uint8
     array: a row a modality of ``result.preds``, its masked input (the first
-    image, masked patches zeroed), prediction and ground truth."""
+    image, masked patches zeroed), prediction and ground truth; a class map
+    [B, H, W] (semseg) as one channel, its prediction the argmax of the
+    class logits."""
     rows = []
     for d in result.preds:
         gt = to_numpy(x[d][:1]).astype(np.float32)
+        pred = to_numpy(result.preds[d][0])
+        if gt.ndim == 3:  # a class map (semseg): the argmax of the class logits (JAX infer.py:134-140)
+            gt, pred = gt[..., None], np.argmax(pred, axis=-1).astype(np.float32)[..., None]
         mask = torch.as_tensor(to_numpy(result.task_masks[d][:1]))
         masked = masked_input(torch.from_numpy(gt), mask, patch_size).numpy()[0]
-        panels = [masked, to_numpy(result.preds[d][0]), gt[0]]
+        panels = [masked, pred, gt[0]]
         if denorm and d in denorm:
             mu, sigma = denorm[d]
             panels = [p * sigma + mu for p in panels]

@@ -1,8 +1,12 @@
 """Input / output adapters (JAX package models/adapters.py; reference
-pretraining/multimae/input_adapters.py and output_adapters_simple.py).
+pretraining/multimae/input_adapters.py, output_adapters_simple.py and
+output_adapters.py).
 
-Images are NHWC. The patch embedding is the strided convolution written as
-one product over (ph, pw, c)-ordered patch pixels.
+Images are NHWC, class maps [B, H, W] integers. The patch embedding is the
+strided convolution written as one product over (ph, pw, c)-ordered patch
+pixels. The full decoder's unshuffle into the grid and its re-gather to the
+packed slots are gathers, not the JAX one-hot products: each product sums
+one term, so the values are the same (config.py's rule for the KV grid).
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from torch import nn
 from ..ops import cuda_attn, cuda_ffn
 from ..ops.patches import conv_patch_embed, unpatchify
 from ..ops.posemb import build_2d_sincos_posemb, resize_posemb
-from .layers import ViTBlock
+from .layers import LayerNorm, Mlp, ViTBlock, ViTCrossAttention
 
 
 class PatchedInputAdapter(nn.Module):
@@ -64,6 +68,49 @@ class PatchedInputAdapter(nn.Module):
         return tokens + pos[None]
 
 
+class SemSegInputAdapter(nn.Module):
+    """Class embedding + patchify for a class-map modality such as the
+    Dynamic-World ``dnw`` input (input_adapters.py:209-328, JAX
+    adapters.py:82-117): an integer map [B, H, W] gathers ``class_emb``
+    [num_classes, dim_class_emb] rows, the patch product runs over
+    p * p * dim_class_emb, and the resized sin-cos posemb is added."""
+
+    def __init__(self, num_classes: int, dim_tokens: int, patch_size: int = 16, image_size: int = 256,
+                 stride_level: int = 1, dim_class_emb: int = 64):
+        super().__init__()
+        self.num_classes = num_classes
+        self.dim_tokens = dim_tokens
+        self.patch_size = patch_size
+        self.image_size = image_size
+        self.stride_level = stride_level
+        p = self.p
+        self.class_emb = nn.Parameter(torch.zeros(num_classes, dim_class_emb))
+        self.proj = nn.Linear(p * p * dim_class_emb, dim_tokens)
+
+    @property
+    def p(self) -> int:
+        return max(1, self.patch_size // self.stride_level)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        _, h, w = x.shape
+        emb = F.embedding(x.long(), self.class_emb)  # [B, H, W, dim_class_emb]
+        tokens = conv_patch_embed(emb, self.proj.weight.t(), self.proj.bias, p)
+        hp = self.image_size // (self.stride_level * p)
+        pos = build_2d_sincos_posemb(hp, hp, self.dim_tokens, device=x.device)
+        pos = resize_posemb(pos, (hp, hp), (h // p, w // p)).to(tokens.dtype)
+        return tokens + pos[None]
+
+
+def input_adapter(spec, dim_tokens: int, patch_size: int, image_size: int) -> nn.Module:
+    """The input adapter of a registry entry (modalities.py): the class-map
+    adapter for ``semseg`` modalities, the patch adapter otherwise."""
+    if spec.adapter == "semseg":
+        return SemSegInputAdapter(spec.num_classes, dim_tokens, patch_size, image_size, spec.stride_level,
+                                  spec.dim_class_emb)
+    return PatchedInputAdapter(spec.num_channels, dim_tokens, patch_size, image_size, spec.stride_level)
+
+
 class SpatialOutputAdapter(nn.Module):
     """Per-task reconstruction decoder over the fusion-token grid
     (output_adapters_simple.py:33-188):
@@ -104,6 +151,103 @@ class SpatialOutputAdapter(nn.Module):
             x = blk(x, use_kernel=use_kernel)
         if trunk_only:
             return x
+        x = self.out_proj(x)
+        if patch_output:
+            return x
+        return unpatchify(x, p, n_hw, n_hw, self.num_channels)
+
+
+class SpatialOutputAdapterFull(nn.Module):
+    """The full MAE decoder (reference output_adapters.py:60-282, JAX
+    adapters.py:128-226) over the packed encoder tokens [B, E, D_enc]:
+
+      * ``proj_context``, then the unshuffle into the T * F grid: grid
+        position g takes packed slot ``ids_restore[g]`` where that slot holds
+        a visible token, else ``mask_token``;
+      * per context task ``task_emb_<task>`` plus the 2D sin-cos posemb;
+      * the queries: this task's section of the grid, or ``mask_token`` plus
+        the posemb without ``use_task_queries`` (or when the task is no
+        context task);
+      * with ``use_xattn``: the cross-attention (``decoder``) from the
+        normed queries to the normed grid gathered back to the packed slots,
+        the padded slots keyed out, then ``x + mlp(out_norm(x))``;
+      * ``depth`` ViT blocks and ``out_proj``.
+
+    ``use_kernel`` runs the blocks' attention as K1 (unmasked) and every
+    Mlp as K2's MLP, the same function the JAX package computes there with
+    its plain attention and Dense layers; the cross-attention stays plain,
+    as in JAX."""
+
+    def __init__(self, num_channels: int, task: str, context_tasks, dim_tokens_enc: int, patch_size: int = 16,
+                 image_size: int = 256, stride_level: int = 1, dim_tokens: int = 256, depth: int = 2,
+                 num_heads: int = 8, use_task_queries: bool = True, use_xattn: bool = True):
+        super().__init__()
+        self.num_channels = num_channels
+        self.task = task
+        self.context_tasks = tuple(context_tasks)
+        self.patch_size = patch_size
+        self.image_size = image_size
+        self.stride_level = stride_level
+        self.use_task_queries = use_task_queries
+        self.use_xattn = use_xattn
+        p = self.p
+        self.proj_context = nn.Linear(dim_tokens_enc, dim_tokens)
+        self.mask_token = nn.Parameter(torch.zeros(1, 1, dim_tokens))
+        for tk in self.context_tasks:
+            self.register_parameter(f"task_emb_{tk}", nn.Parameter(torch.zeros(1, 1, dim_tokens)))
+        if use_xattn:
+            self.decoder = ViTCrossAttention(dim_tokens, num_heads, qkv_bias=True)
+            self.query_norm = LayerNorm(dim_tokens, eps=1e-6)
+            self.context_norm = LayerNorm(dim_tokens, eps=1e-6)
+            self.out_norm = LayerNorm(dim_tokens, eps=1e-6)
+            self.mlp = Mlp(dim_tokens, dim_tokens * 4)
+        self.blocks = nn.ModuleList(
+            ViTBlock(dim_tokens, num_heads, qkv_bias=True, norm_eps=1e-6) for _ in range(depth))
+        self.out_proj = nn.Linear(dim_tokens, num_channels * p * p)
+
+    @property
+    def p(self) -> int:
+        return max(1, self.patch_size // self.stride_level)
+
+    def forward(self, encoder_tokens: torch.Tensor, mask_info, num_encoded_tokens: int, use_kernel: bool = False,
+                patch_output: bool = False) -> torch.Tensor:
+        b, e, _ = encoder_tokens.shape
+        p = self.p
+        n_hw = self.image_size // (self.stride_level * p)
+        f = n_hw * n_hw
+        ctx = self.proj_context(encoder_tokens)  # [B, E, d]
+        d = ctx.shape[-1]
+        dtype = ctx.dtype
+        mask_token = self.mask_token.to(dtype)
+        slot = mask_info.ids_restore
+        use = (slot < num_encoded_tokens) & (slot < mask_info.num_visible[:, None])
+        gathered = torch.gather(ctx, 1, slot.clamp(max=e - 1)[..., None].expand(-1, -1, d))
+        grid = torch.where(use[..., None], gathered, mask_token)
+
+        pos = build_2d_sincos_posemb(n_hw, n_hw, d, device=ctx.device)
+        emb = torch.cat([getattr(self, f"task_emb_{tk}") + pos[None] for tk in self.context_tasks], dim=1)
+        grid = grid + emb.to(dtype)
+
+        if self.use_task_queries and self.task in self.context_tasks:
+            ti = self.context_tasks.index(self.task)
+            queries = grid[:, ti * f:(ti + 1) * f]
+        else:
+            queries = (self.mask_token + pos[None]).to(dtype).expand(b, -1, -1)
+
+        if self.use_xattn:
+            # the embedded grid back at the packed slots: slot s < num_visible
+            # sits at grid position order[s]; the padded slots are zeros and
+            # keyed out
+            key_valid = torch.arange(e, device=ctx.device)[None] < mask_info.num_visible[:, None]
+            context = torch.gather(grid, 1, mask_info.order[:, :e, None].expand(-1, -1, d))
+            context = torch.where(key_valid[..., None], context, torch.zeros_like(context))
+            x = self.decoder(self.query_norm(queries), self.context_norm(context),
+                             attn_mask=key_valid[:, None, None, :])
+            x = x + self.mlp(self.out_norm(x), use_kernel=use_kernel)
+        else:
+            x = queries
+        for blk in self.blocks:
+            x = blk(x, use_kernel=use_kernel)
         x = self.out_proj(x)
         if patch_output:
             return x

@@ -297,6 +297,53 @@ class FusionBlockFast(nn.Module):
         return fus + self.mlp(self.norm2(fus), use_kernel=use_kernel)
 
 
+def stack_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each query [B, N, H, dh] over its own short stack of keys and values
+    [B, N, M, H, dh] as elementwise products and sums (JAX layers.py:389-398,
+    :655-661): logits of the scaled query and softmax over M in f32, the
+    probabilities cast to v's dtype; ``key_valid`` [B, N, M] keys entries out
+    (finite -0.7 * f32 max, as JAX). -> [B, N, H * dh]."""
+    sim = ((q[:, :, None] * q.shape[-1] ** -0.5).float() * k.float()).sum(-1)  # [B, N, M, H]
+    if key_valid is not None:
+        sim = torch.where(key_valid[..., None], sim, torch.full_like(sim, -0.7 * torch.finfo(torch.float32).max))
+    attn = torch.softmax(sim, dim=2)
+    return (attn[..., None].to(v.dtype) * v).sum(2).flatten(2)
+
+
+class FusionBlock(nn.Module):
+    """The reference form of ``FusionBlockFast`` (JAX layers.py:362-410,
+    zorro_utils.py:243-258), with the same parameter names: each fusion
+    position's stack [B, N, M, D] of (modalities..., fusion) is normed and
+    projected whole, and the fusion row alone queries it.
+
+      fus = stack[:, :, -1] + to_out(attn(norm1(stack))[fusion row])
+      fus = fus + ff(norm2(fus))
+
+    ``key_valid`` [B, N, M] bool keys out stack entries."""
+
+    def __init__(self, dim: int, dim_head: int = 64, heads: int = 8, ff_mult: int = 4):
+        super().__init__()
+        inner = dim_head * heads
+        self.heads = heads
+        self.dim_head = dim_head
+        self.norm1 = BiaslessLayerNorm(dim)
+        self.attn_norm = BiaslessLayerNorm(dim)
+        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_kv = nn.Linear(dim, inner * 2, bias=False)
+        self.to_out = nn.Linear(inner, dim, bias=False)
+        self.norm2 = BiaslessLayerNorm(dim)
+        self.mlp = GEGLUFeedForward(dim, ff_mult)
+
+    def forward(self, stack: torch.Tensor, key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, m, _ = stack.shape
+        h = self.attn_norm(self.norm1(stack))
+        q = self.to_q(h[:, :, -1]).reshape(b, n, self.heads, self.dim_head)
+        k, v = (t.reshape(b, n, m, self.heads, self.dim_head) for t in self.to_kv(h).chunk(2, dim=-1))
+        fus = stack[:, :, -1] + self.to_out(stack_attention(q, k, v, key_valid))
+        return fus + self.mlp(self.norm2(fus))
+
+
 class ViTSelfAttention(nn.Module):
     """Fused-QKV self-attention (multimae_utils.py:158-182) of the decoder;
     kernel K1 in its unmasked mode with ``use_kernel``."""
@@ -326,6 +373,128 @@ class ViTBlock(nn.Module):
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         x = x + self.attn(self.norm1(x), use_kernel=use_kernel)
         return x + self.mlp(self.norm2(x), use_kernel=use_kernel)
+
+
+class ViTCrossAttention(nn.Module):
+    """Cross-attention (multimae_utils.py:185-214, JAX layers.py:584-605):
+    q from ``x``, packed kv from ``context``, a biased output projection;
+    ``attn_mask`` (True = may attend, broadcastable to [B, H, Nq, Nk]) keys
+    out context slots. Plain masked attention, as in JAX."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, dim * 2, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, attn_mask=None) -> torch.Tensor:
+        b, n, c = x.shape
+        m, h = context.shape[1], self.num_heads
+        k, v = self.kv(context).chunk(2, dim=-1)
+        out = multihead_attention(self.q(x).reshape(b, n, h, c // h), k.reshape(b, m, h, c // h),
+                                  v.reshape(b, m, h, c // h), mask=attn_mask)
+        return self.proj(out.reshape(b, n, c))
+
+
+class ViTDecoderBlock(nn.Module):
+    """Self-attention, cross-attention and MLP (multimae_utils.py:235-253,
+    JAX layers.py:608-628)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0, qkv_bias: bool = False,
+                 norm_eps: float = 1e-6):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, eps=norm_eps)
+        self.self_attn = ViTSelfAttention(dim, num_heads, qkv_bias)
+        self.query_norm = LayerNorm(dim, eps=norm_eps)
+        self.context_norm = LayerNorm(dim, eps=norm_eps)
+        self.cross_attn = ViTCrossAttention(dim, num_heads, qkv_bias)
+        self.norm2 = LayerNorm(dim, eps=norm_eps)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        x = x + self.self_attn(self.norm1(x), use_kernel=use_kernel)
+        x = x + self.cross_attn(self.query_norm(x), self.context_norm(context))
+        return x + self.mlp(self.norm2(x), use_kernel=use_kernel)
+
+
+class SnapshotCrossAttention(nn.Module):
+    """Per-position cross-attention over a short stack axis
+    (zorro_utils.py:198-224 as the 20231203 snapshot's
+    ``attn_pool_modalities`` uses it; JAX layers.py:631-663): each query
+    token attends over its own T-entry stack (``stack_attention``); q and
+    kv bias-free, ``proj`` biased. [B, E, D], [B, E, T, D] -> [B, E, D]."""
+
+    def __init__(self, dim: int, num_heads: int = 8):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = nn.Linear(dim, dim, bias=False)
+        self.kv = nn.Linear(dim, dim * 2, bias=False)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, q_tokens: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        b, e, d = q_tokens.shape
+        t, h = ctx.shape[2], self.num_heads
+        qh = self.q(q_tokens).reshape(b, e, h, d // h)
+        k, v = (s.reshape(b, e, t, h, d // h) for s in self.kv(ctx).chunk(2, dim=-1))
+        return self.proj(stack_attention(qh, k, v))
+
+
+LSTM_GATES = ("i", "f", "g", "o")
+
+
+class LSTMCell(nn.Module):
+    """flax ``nn.LSTMCell`` as plain tensor ops, with its parameter tree:
+    input kernels ``ii`` / ``if`` / ``ig`` / ``io`` without bias, recurrent
+    kernels ``hi`` / ``hf`` / ``hg`` / ``ho`` with bias (the modules named
+    so, ``if`` as ``if_``: a keyword is no attribute torch.export's code can
+    read; utils.jax_params maps it). Gates sigmoid i, f, o and tanh g; ``c = f c + i g``,
+    ``h = o tanh(c)``. The projections follow flax's dtype rule (``Dense``):
+    the carry starts as f32 zeros, as flax's ``initialize_carry`` makes it,
+    so the state stays f32 under bf16 weights."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.ii, self.if_, self.ig, self.io = (Dense(in_features, features, bias=False) for _ in LSTM_GATES)
+        self.hi, self.hf, self.hg, self.ho = (Dense(features, features) for _ in LSTM_GATES)
+
+    def forward(self, carry, x: torch.Tensor):
+        c, h = carry
+        pre = {gate: inp(x) + rec(h) for gate, inp, rec in zip(
+            LSTM_GATES, (self.ii, self.if_, self.ig, self.io), (self.hi, self.hf, self.hg, self.ho))}
+        c = torch.sigmoid(pre["f"]) * c + torch.sigmoid(pre["i"]) * torch.tanh(pre["g"])
+        h = torch.sigmoid(pre["o"]) * torch.tanh(c)
+        return (c, h), h
+
+
+class AttentionBiLSTM(nn.Module):
+    """BiLSTM and attention pooling over a short axis (zorro_utils.py:276-299,
+    JAX layers.py:666-701): an LSTM each way over the M axis from a zero
+    carry, the two directions' outputs summed, each position scored by
+    ``attention`` (Linear(D, 1)) on their tanh, a softmax in f32, the
+    weighted sum. [N, M, D] -> [N, D] in the input's dtype (in a bf16 run
+    the JAX package lets the f32 result promote the encoder trunk to f32;
+    the port keeps the trunk in the compute dtype). No TPU kernel computes
+    it: it stays plain PyTorch."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.lstm_fwd = LSTMCell(dim, dim)
+        self.lstm_bwd = LSTMCell(dim, dim)
+        self.attention = Dense(dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, m, d = x.shape
+        zeros = x.new_zeros((n, d), dtype=torch.float32)
+        ys = [[None] * m, [None] * m]
+        for direction, (cell, steps) in enumerate(((self.lstm_fwd, range(m)), (self.lstm_bwd, reversed(range(m))))):
+            carry = (zeros, zeros)
+            for t in steps:
+                carry, ys[direction][t] = cell(carry, x[:, t])
+        y = torch.stack(ys[0], dim=1) + torch.stack(ys[1], dim=1)
+        scores = self.attention(torch.tanh(y))[..., 0]
+        alpha = torch.softmax(scores.float(), dim=-1).to(y.dtype)
+        return torch.einsum("nm,nmd->nd", alpha, y).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,24 +1,53 @@
-"""MultiMAE incomplete-multimodal fusion encoder, ``crossattn`` mode (JAX
-package models/multimae.py; reference pretraining/multimae/
-multimae_crossattn.py:37-545).
+"""MultiMAE incomplete-multimodal fusion encoder (JAX package
+models/multimae.py; reference pretraining/multimae/multimae_crossattn.py:37-545
+and its variants).
 
-Learned fusion tokens, modality-typed Zorro-masked self-attention and a
-per-layer cross-modal fusion block. The forward uses the JAX package's fixed
-packed layout of ``num_encoded_tokens`` slots: visible tokens first in
-ascending global index, padding slots after them, the fusion tokens last.
-Padding slots are excluded everywhere by the PAD token type and the
-``use``/``valid`` masks, so any modality-dropout pattern, a fully missing
-modality included, runs the same shapes.
+Learned fusion tokens and modality-typed Zorro-masked self-attention, with
+the fusion modes of the JAX package:
 
-The pack and the per-layer KV grid are gathers (``torch.gather``) that write
-zeros (the pack) or the mask embedding (the grid) where the slot is not in
+  * ``crossattn`` (the flagship): a per-layer cross-modal fusion block
+    (kernel K3) before each encoder block, over ``[packed | fusion]`` with
+    N = E + F;
+  * ``zorro``: the same loop without the fusion blocks; the fusion tokens
+    join through the masked self-attention alone (JAX multimae.py:472-521);
+  * ``lstm`` (multimae_lstm.py): the fusion stream is the fusion token at
+    each packed slot's grid position (``order % F``); one BiLSTM fuses each
+    (token, fusion token) pair before the encoder blocks run over the 2E
+    "gathered" layout ``[packed | gathered fusion]``; the fusion tokens are
+    scattered back to the grid for the decoder (JAX :568-611);
+  * ``crossattn_v1`` (the dated 20231203 snapshot): the gathered 2E layout,
+    and each layer first scatters the current visible tokens into
+    mask-embedded per-modality grids, lets each fusion token attend over its
+    slot's T-stack (``attn_pool_modalities``) and adds
+    ``mlp_modalities(norm(.))``; its pools have their own attention and MLP
+    per modality (JAX :614-690).
+
+Decoders: ``simple`` decodes the fusion-token grid (output_adapters_simple.py);
+``full`` is the MAE decoder over the packed encoder tokens
+(output_adapters.py), for ``crossattn``, ``zorro`` and ``crossattn_v1``. A
+``semseg`` domain (the quadruplet's ``dnw`` class map) takes the class-map
+adapter and raises the fusion type to the number of input domains.
+
+The forward uses the JAX package's fixed packed layout of
+``num_encoded_tokens`` slots: visible tokens first in ascending global index,
+padding slots after them. Padding slots are excluded everywhere by the PAD
+token type and the ``use``/``valid`` masks, so any modality-dropout pattern, a
+fully missing modality included, runs the same shapes; in the 2E layout the
+padding sits at ``[num_visible, E)`` and again at ``[E + num_visible, 2E)``.
+
+The pack, the grids and the scatter-back are gathers (``torch.gather``) that
+write zeros, the mask embedding or the fusion tokens where a slot is not in
 use -- the values the JAX one-hot products give.
 
-``attn_impl``: 'auto' (or 'pallas') routes the encoder attention, the FFs,
-the fusion-row attention and the decoder's attention and MLP through the
-hand-written kernels' wrappers, which launch the kernels for CUDA tensors
-and run the plain versions for CPU tensors; 'xla' runs the plain versions
-everywhere.
+``attn_impl``: 'auto' (or 'pallas') routes the encoder attention, the
+encoder FFs, the fusion-row attention and the decoders' attention and MLPs
+through the hand-written kernels' wrappers, which launch the kernels for
+CUDA tensors and run the plain versions for CPU tensors; 'xla' runs the
+plain versions everywhere. The JAX package decodes the ``lstm`` and
+``crossattn_v1`` grids and runs the full decoder without its Pallas
+kernels; the port runs its kernels there too, the same function. The BiLSTM,
+the snapshot's cross-attention and MLPs, the pools and the full decoder's
+cross-attention run plain, as in JAX.
 """
 from __future__ import annotations
 
@@ -33,9 +62,13 @@ from ..ops.cuda_attn import PAD_TYPE
 from ..ops.masking import MaskInfo
 from ..ops.patches import unpatchify
 from ..ops.posemb import build_2d_sincos_posemb
-from .adapters import PatchedInputAdapter, SpatialOutputAdapter, batched_trunks
-from .layers import (BiaslessLayerNorm, EncoderBlock, FusionBlockFast, LayerNorm, Mlp,
-                     ZorroAttention, trunc_normal_, xavier_uniform_)
+from .adapters import SpatialOutputAdapter, SpatialOutputAdapterFull, batched_trunks, input_adapter
+from .layers import (AttentionBiLSTM, BiaslessLayerNorm, EncoderBlock, FusionBlockFast, LayerNorm, Mlp,
+                     SnapshotCrossAttention, ZorroAttention, trunc_normal_, xavier_uniform_)
+
+FUSION_MODES = ("crossattn", "zorro", "lstm", "crossattn_v1")
+GATHERED_MODES = ("lstm", "crossattn_v1")  # the fusion stream gathered at the packed slots: N = 2E
+DECODER_STYLES = ("simple", "full")
 
 
 class PackedLayout(NamedTuple):
@@ -47,25 +80,57 @@ class PackedLayout(NamedTuple):
     use: torch.Tensor  # [B, T*F] bool: the grid position holds a packed token
 
 
-def pack_tokens(tokens_in, fusion_tokens: torch.Tensor, mask_info: MaskInfo, e: int,
-                num_patches: int) -> PackedLayout:
-    """The packed layout of ``e`` slots plus the fusion tokens: slot s holds
-    token ``order[s]`` while s < num_visible, else zeros. ``tokens_in``: one
-    [B, num_patches, D] tensor per modality, in domain order."""
+def pack_visible(tokens_in, mask_info: MaskInfo, e: int) -> torch.Tensor:
+    """[B, e, D]: slot s holds token ``order[s]`` while s < num_visible,
+    else zeros. ``tokens_in``: one [B, num_patches, D] tensor per modality,
+    in domain order."""
     full = torch.cat(tokens_in, dim=1)
     keep = mask_info.order[:, :e]
     packed = torch.gather(full, 1, keep[..., None].expand(-1, -1, full.shape[-1]))
     slot_real = torch.arange(e, device=full.device)[None, :] < mask_info.num_visible[:, None]
-    packed = torch.where(slot_real[..., None], packed, torch.zeros_like(packed))
-    tokens = torch.cat([packed, fusion_tokens], dim=1)
+    return torch.where(slot_real[..., None], packed, torch.zeros_like(packed))
 
+
+def slot_use(mask_info: MaskInfo, e: int) -> torch.Tensor:
+    """[B, T*F] bool: the grid position's packed slot holds a visible token."""
+    slot = mask_info.ids_restore
+    return (slot < e) & (slot < mask_info.num_visible[:, None])
+
+
+def kernel_types_of(types: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K1's mask input: int32 types with PAD_TYPE where the slot is padding."""
+    return torch.where(valid, types, torch.full_like(types, PAD_TYPE)).to(torch.int32)
+
+
+def pack_tokens(tokens_in, fusion_tokens: torch.Tensor, mask_info: MaskInfo, e: int,
+                num_patches: int) -> PackedLayout:
+    """The packed layout of ``e`` slots (``pack_visible``) plus the fusion
+    tokens."""
+    tokens = torch.cat([pack_visible(tokens_in, mask_info, e), fusion_tokens], dim=1)
     n_dom, f = len(tokens_in), fusion_tokens.shape[1]
     types = packed_token_types(mask_info.order, (num_patches,) * n_dom, e, f, n_dom)
     valid = packed_valid(mask_info.num_visible, e, f)
-    kernel_types = torch.where(valid, types, torch.full_like(types, PAD_TYPE)).to(torch.int32)
-    slot = mask_info.ids_restore
-    use = (slot < e) & (slot < mask_info.num_visible[:, None])
-    return PackedLayout(tokens, types, valid, kernel_types, slot, use)
+    return PackedLayout(tokens, types, valid, kernel_types_of(types, valid), mask_info.ids_restore,
+                        slot_use(mask_info, e))
+
+
+class GatheredLayout(NamedTuple):
+    mod_types: torch.Tensor  # [B, E] modality type of each packed slot
+    slot_valid: torch.Tensor  # [B, E] bool, False at padding slots
+    types: torch.Tensor  # [B, 2E]: the packed slots' types, then the fusion type E times
+    valid: torch.Tensor  # [B, 2E]: slot_valid twice
+    kernel_types: torch.Tensor  # int32 types with PAD_TYPE at both halves' padding slots
+
+
+def gathered_layout(mask_info: MaskInfo, e: int, num_patches: int, n_dom: int) -> GatheredLayout:
+    """Types and validity of the ``[packed | gathered fusion]`` 2E layout
+    (JAX multimae.py:328-337): the fusion half takes the fusion type, and
+    both halves are PAD past ``num_visible``."""
+    mod_types = packed_token_types(mask_info.order, (num_patches,) * n_dom, e, 0, n_dom)
+    slot_valid = packed_valid(mask_info.num_visible, e, 0)
+    types = torch.cat([mod_types, torch.full_like(mod_types, n_dom)], dim=1)
+    valid = torch.cat([slot_valid, slot_valid], dim=1)
+    return GatheredLayout(mod_types, slot_valid, types, valid, kernel_types_of(types, valid))
 
 
 class MultiMAE(nn.Module):
@@ -89,12 +154,22 @@ class MultiMAE(nn.Module):
         decoder_num_heads: int = 8,
         decoder_style: str = "simple",
         decoder_batch_tasks: bool = False,
+        decoder_use_task_queries: bool = True,
+        decoder_use_xattn: bool = True,
     ):
         super().__init__()
-        if fusion_mode != "crossattn":
-            raise NotImplementedError(f"fusion_mode={fusion_mode!r} is not ported yet")
-        if decoder_style != "simple":
-            raise NotImplementedError("only the 'simple' decoder is ported yet")
+        if fusion_mode == "sup":
+            raise NotImplementedError(
+                "fusion_mode='sup' is a downstream backbone variant with no pretraining script "
+                "(JAX multimae.py:410-415); its downstream backbone is not ported yet")
+        if fusion_mode not in FUSION_MODES:
+            raise ValueError(f"fusion_mode must be one of {FUSION_MODES}, got {fusion_mode!r}")
+        if decoder_style not in DECODER_STYLES:
+            raise ValueError(f"decoder_style must be one of {DECODER_STYLES}, got {decoder_style!r}")
+        if decoder_style == "full" and fusion_mode == "lstm":
+            # JAX multimae.py:600 decodes the lstm grid with the simple
+            # decoder's call, which the full decoder does not take
+            raise ValueError("fusion_mode='lstm' decodes the fusion grid: decoder_style must be 'simple'")
         if attn_impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {attn_impl!r}")
         self.in_domains = tuple(in_domains)
@@ -103,25 +178,27 @@ class MultiMAE(nn.Module):
         self.patch_size = patch_size
         self.dim_tokens = dim_tokens
         self.num_fusion_tokens = num_fusion_tokens
+        self.fusion_mode = fusion_mode
         self.attn_impl = attn_impl
+        self.decoder_style = decoder_style
         self.decoder_batch_tasks = decoder_batch_tasks
         if num_fusion_tokens != self.num_patches:  # reference multimae_crossattn.py:87
             raise ValueError("num_fusion_tokens must equal the number of patches")
 
-        self.input_adapters = nn.ModuleDict()
-        for d in self.in_domains:
-            spec = modreg.get(d)
-            if spec.adapter != "patched":
-                raise NotImplementedError(f"the {spec.adapter!r} input adapter is not ported yet")
-            self.input_adapters[d] = PatchedInputAdapter(
-                spec.num_channels, dim_tokens, patch_size, image_size, spec.stride_level)
+        self.input_adapters = nn.ModuleDict(
+            {d: input_adapter(modreg.get(d), dim_tokens, patch_size, image_size) for d in self.in_domains})
         self.output_adapters = nn.ModuleDict()
         for d in self.out_domains:
             spec = modreg.get(d)
             out_ch = spec.num_classes if spec.loss == "cross_entropy" else spec.num_channels
-            self.output_adapters[d] = SpatialOutputAdapter(
-                out_ch, dim_tokens, patch_size, image_size, spec.stride_level, decoder_dim,
-                decoder_depth, decoder_num_heads)
+            if decoder_style == "full":
+                self.output_adapters[d] = SpatialOutputAdapterFull(
+                    out_ch, d, self.in_domains, dim_tokens, patch_size, image_size, spec.stride_level, decoder_dim,
+                    decoder_depth, decoder_num_heads, decoder_use_task_queries, decoder_use_xattn)
+            else:
+                self.output_adapters[d] = SpatialOutputAdapter(
+                    out_ch, dim_tokens, patch_size, image_size, spec.stride_level, decoder_dim, decoder_depth,
+                    decoder_num_heads)
 
         self.fusion_tokens = nn.Parameter(torch.zeros(1, num_fusion_tokens, dim_tokens))
         # one return token per (modality..., fusion) type (multimae_crossattn.py:93-99)
@@ -135,8 +212,20 @@ class MultiMAE(nn.Module):
         dpr = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
         self.blocks = nn.ModuleList(
             EncoderBlock(dim_tokens, dim_head, heads, ff_mult, dpr[i]) for i in range(depth))
-        self.fus_blocks = nn.ModuleList(
-            FusionBlockFast(dim_tokens, dim_head, heads, ff_mult) for _ in range(depth))
+        if fusion_mode == "crossattn":
+            self.fus_blocks = nn.ModuleList(
+                FusionBlockFast(dim_tokens, dim_head, heads, ff_mult) for _ in range(depth))
+        if fusion_mode == "lstm":
+            self.attn_lstm = AttentionBiLSTM(dim_tokens)
+        if fusion_mode == "crossattn_v1":
+            # one shared per-position cross-attention over the mask-embedded
+            # modality grids and its MLP (multimae_crossattn_20231203.py:106,
+            # :115), and a pool attention and MLP per modality (:107-118)
+            self.attn_pool_modalities = SnapshotCrossAttention(dim_tokens, heads)
+            self.mlp_modalities = Mlp(dim_tokens, int(dim_tokens * 4.0))
+            for d in self.in_domains:
+                self.add_module(f"attn_{d}", ZorroAttention(dim_tokens, dim_head, heads))
+                self.add_module(f"mlp_{d}", Mlp(dim_tokens, int(dim_tokens * 4.0)))
         self.norm = BiaslessLayerNorm(dim_tokens)
 
     @property
@@ -152,12 +241,14 @@ class MultiMAE(nn.Module):
         """The JAX package's initializers, drawn from ``generator``:
         xavier-uniform for every projection (fused xavier for packed kv/qkv),
         zero biases, unit LayerNorm weights, truncated normal 0.02 for the
-        fusion/return tokens and task embeddings, normal(1.0) for the
-        per-modality pool tokens (multimae_crossattn.py:105-109) and a zero
-        mask embedding."""
+        fusion/return tokens, task embeddings and class embeddings,
+        normal(1.0) for the per-modality pool tokens
+        (multimae_crossattn.py:105-109), a zero mask embedding and mask
+        token, and flax LSTMCell's lecun-normal input and orthogonal
+        recurrent kernels."""
         for name, module in self.named_modules():
             if isinstance(module, nn.Linear):
-                split = 2 if name.endswith("to_kv") else 3 if name.endswith("attn.qkv") else 1
+                split = 2 if name.endswith(("to_kv", ".kv")) else 3 if name.endswith("attn.qkv") else 1
                 xavier_uniform_(module.weight, generator, split)
                 if module.bias is not None:
                     nn.init.zeros_(module.bias)
@@ -170,8 +261,24 @@ class MultiMAE(nn.Module):
         for d in self.in_domains:
             with torch.no_grad():
                 getattr(self, f"return_token_{d}").normal_(0.0, 1.0, generator=generator)
+            ad = self.input_adapters[d]
+            if hasattr(ad, "class_emb"):
+                trunc_normal_(ad.class_emb, generator)
         for ad in self.output_adapters.values():
-            trunc_normal_(ad.task_emb, generator)
+            if isinstance(ad, SpatialOutputAdapterFull):
+                nn.init.zeros_(ad.mask_token)
+                for tk in ad.context_tasks:
+                    trunc_normal_(getattr(ad, f"task_emb_{tk}"), generator)
+            else:
+                trunc_normal_(ad.task_emb, generator)
+        if self.fusion_mode == "lstm":
+            for cell in (self.attn_lstm.lstm_fwd, self.attn_lstm.lstm_bwd):
+                for name, lin in cell.named_children():
+                    if name.startswith("i"):
+                        trunc_normal_(lin.weight, generator, std=lin.weight.shape[1] ** -0.5)
+                    else:
+                        with torch.no_grad():
+                            nn.init.orthogonal_(lin.weight, generator=generator)
         nn.init.zeros_(self.mask_embedding)
         return self
 
@@ -191,6 +298,15 @@ class MultiMAE(nn.Module):
         feats = batched_trunks(ads, grid, use_kernel)
         return {d: a.out_proj(feats[i]) for i, (d, a) in enumerate(zip(doms, ads))}
 
+    def _decode(self, grid: torch.Tensor, packed_tokens: torch.Tensor, mask_info: MaskInfo, e: int,
+                use_kernel: bool) -> Dict[str, torch.Tensor]:
+        """The decoder of ``decoder_style``: the simple one over the fusion
+        grid, or the full one over the packed encoder tokens."""
+        if self.decoder_style == "full":
+            return {d: self.output_adapters[d](packed_tokens, mask_info, e, use_kernel=use_kernel,
+                                               patch_output=True) for d in self.out_domains}
+        return self._decode_simple(grid, use_kernel)
+
     def _unpatchify_preds(self, preds_patch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = {}
         for d, x in preds_patch.items():
@@ -199,10 +315,53 @@ class MultiMAE(nn.Module):
             out[d] = unpatchify(x, ad.p, n_h, n_h, ad.num_channels)
         return out
 
+    def _pool_returns(self, tokens: torch.Tensor, types: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """Attention pooling (multimae_crossattn.py:474-497, JAX :339-357):
+        each return token sees its own modality's slots, the fusion return
+        token everything valid; a modality with no visible slot attends
+        uniformly over the valid keys (ops/attention.multihead_attention)."""
+        b = tokens.shape[0]
+        ret_types = torch.arange(len(self.in_domains) + 1, device=tokens.device)
+        pool_mask = zorro_mask_from_types(ret_types[None].expand(b, -1), types, self.fusion_type,
+                                          valid_k=valid)[:, None]
+        ret = self.return_tokens.to(tokens.dtype).expand(b, -1, -1)
+        ret = self.attn_pool(ret, context=tokens, attn_mask=pool_mask,
+                             empty_rows_uniform_over=valid[:, None, None, :])
+        return ret + self.mlp(self.norm(ret))
+
+    def _modality_pool(self, d: str, context: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        """The contrastive pool of modality ``d`` over ``context`` [B, N, D]
+        with ``key_mask`` [B, N]: the shared pool modules, or crossattn_v1's
+        own per modality."""
+        b = context.shape[0]
+        attn, mlp = ((getattr(self, f"attn_{d}"), getattr(self, f"mlp_{d}")) if self.fusion_mode == "crossattn_v1"
+                     else (self.attn_pool, self.mlp))
+        p = getattr(self, f"return_token_{d}").to(context.dtype).expand(b, -1, -1)
+        p = attn(p, context=context, attn_mask=key_mask[:, None, None, :])
+        return (p + mlp(self.norm(p)))[:, 0]
+
+    def _scatter_back(self, fusion_part: torch.Tensor, fusion_full: torch.Tensor, mask_info: MaskInfo,
+                      e: int) -> torch.Tensor:
+        """The packed fusion tokens back on the F-grid (multimae_lstm.py:484-494,
+        JAX :359-374): grid position ``index % F`` takes the fusion token of
+        the slot holding token ``index``; modality after modality, so a later
+        modality overwrites an earlier one, as the reference's sequential
+        scatter over cat(s1_idx, s2_idx, dem_idx) does. Positions no visible
+        token reaches keep ``fusion_full``."""
+        f = self.num_fusion_tokens
+        slot = mask_info.ids_restore
+        gathered = torch.gather(fusion_part, 1, slot.clamp(max=e - 1)[..., None].expand(-1, -1, fusion_part.shape[-1]))
+        use = slot_use(mask_info, e)
+        grid = fusion_full
+        for m in range(len(self.in_domains)):
+            grid = torch.where(use[:, m * f:(m + 1) * f, None], gathered[:, m * f:(m + 1) * f], grid)
+        return grid
+
     def forward(self, x: Dict[str, torch.Tensor], mask_info: MaskInfo, num_encoded_tokens: int):
-        """x: {domain: [B, H, W, C]} NHWC. A dropped modality still needs an
-        input (zeros will do): its tokens are computed and fully masked out.
-        Returns the JAX package's output dict."""
+        """x: {domain: [B, H, W, C]} NHWC ([B, H, W] integer class map for a
+        semseg domain). A dropped modality still needs an input (zeros will
+        do): its tokens are computed and fully masked out. Returns the JAX
+        package's output dict."""
         e = num_encoded_tokens
         b = x[self.in_domains[0]].shape[0]
         use_kernel = self.attn_impl != "xla"
@@ -215,43 +374,27 @@ class MultiMAE(nn.Module):
         hp = self.image_size // self.patch_size
         fus_pos = build_2d_sincos_posemb(hp, hp, self.dim_tokens, device=device)
         fusion_tokens = (self.fusion_tokens + fus_pos[None]).to(dtype).expand(b, -1, -1)
+        if self.fusion_mode in GATHERED_MODES:
+            return self._forward_gathered(tokens_in, fusion_tokens, mask_info, e, use_kernel)
 
         tokens, types, valid, kernel_types, slot, use = pack_tokens(
             tokens_in, fusion_tokens, mask_info, e, self.num_patches)
         mask_emb = self.mask_embedding.to(dtype)
-        for blk, fus_blk in zip(self.blocks, self.fus_blocks):
-            fusion_new = fus_blk(tokens[:, :e], tokens[:, e:], mask_emb, slot, use,
-                                 use_kernel=use_kernel)
-            tokens = torch.cat([tokens[:, :e], fusion_new], dim=1)
+        for i, blk in enumerate(self.blocks):
+            if self.fusion_mode == "crossattn":
+                fusion_new = self.fus_blocks[i](tokens[:, :e], tokens[:, e:], mask_emb, slot, use,
+                                                use_kernel=use_kernel)
+                tokens = torch.cat([tokens[:, :e], fusion_new], dim=1)
             tokens = blk(tokens, kernel_types, self.fusion_type, use_kernel=use_kernel)
-
         tokens = self.norm(tokens)
-
-        # attention pooling: each return token sees its own modality's packed
-        # slots, the fusion return token everything valid; a modality with no
-        # visible slot attends uniformly over the valid keys
-        # (multimae_crossattn.py:474-497, ops/attention.multihead_attention)
-        ret_types = torch.arange(len(self.in_domains) + 1, device=device)
-        pool_mask = zorro_mask_from_types(ret_types[None].expand(b, -1), types, self.fusion_type,
-                                          valid_k=valid)[:, None]
-        ret = self.return_tokens.to(dtype).expand(b, -1, -1)
-        ret = self.attn_pool(ret, context=tokens, attn_mask=pool_mask,
-                             empty_rows_uniform_over=valid[:, None, None, :])
-        ret = ret + self.mlp(self.norm(ret))
+        ret = self._pool_returns(tokens, types, valid)
 
         encoder_fusion_tokens = tokens[:, e:]
-        preds_patch = self._decode_simple(encoder_fusion_tokens, use_kernel)
-
+        preds_patch = self._decode(encoder_fusion_tokens, tokens[:, :e], mask_info, e, use_kernel)
         # contrastive pools over the fusion tokens at each modality's visible
         # positions (multimae_crossattn.py:529-543)
-        pooled_mod = {}
-        for d in self.in_domains:
-            key_mask = (mask_info.task_masks[d] == 0)[:, None, None, :]
-            p = getattr(self, f"return_token_{d}").to(dtype).expand(b, -1, -1)
-            p = self.attn_pool(p, context=encoder_fusion_tokens, attn_mask=key_mask)
-            p = p + self.mlp(self.norm(p))
-            pooled_mod[d] = p[:, 0]
-
+        pooled_mod = {d: self._modality_pool(d, encoder_fusion_tokens, mask_info.task_masks[d] == 0)
+                      for d in self.in_domains}
         return {
             "preds": self._unpatchify_preds(preds_patch),
             "preds_patch": preds_patch,  # [B, F, p*p*C] per task
@@ -260,6 +403,61 @@ class MultiMAE(nn.Module):
             "ori_tokens": tokens[:, :e],
             "fusion_tokens": encoder_fusion_tokens,
             "pooled_mod": pooled_mod,  # {domain: [B, D]}
+        }
+
+    def _forward_gathered(self, tokens_in, fusion_full: torch.Tensor, mask_info: MaskInfo, e: int,
+                          use_kernel: bool):
+        """``lstm`` and ``crossattn_v1`` (JAX multimae.py:568-690) over the
+        2E layout ``[packed | fusion stream]``, the fusion stream the fusion
+        token at each slot's grid position ``order % F``."""
+        b, f, d = fusion_full.shape
+        t_mod = len(self.in_domains)
+        packed = pack_visible(tokens_in, mask_info, e)
+        keep = mask_info.order[:, :e] % f
+        fusion_stream = torch.gather(fusion_full, 1, keep[..., None].expand(-1, -1, d))
+        layout = gathered_layout(mask_info, e, self.num_patches, t_mod)
+
+        if self.fusion_mode == "lstm":
+            # one BiLSTM fusion of each (modality token, fusion token) pair
+            # (multimae_lstm.py:437-442)
+            pairs = torch.stack([packed, fusion_stream], dim=2).reshape(b * e, 2, d)
+            tokens = torch.cat([packed, self.attn_lstm(pairs).reshape(b, e, d)], dim=1)
+            for blk in self.blocks:
+                tokens = blk(tokens, layout.kernel_types, self.fusion_type, use_kernel=use_kernel)
+        else:
+            slot, use = mask_info.ids_restore, slot_use(mask_info, e)
+            idx = slot.clamp(max=e - 1)[..., None].expand(-1, -1, d)
+            mask_emb = self.mask_embedding.to(packed.dtype).repeat(1, t_mod, 1)
+            pick = keep[:, :, None, None].expand(-1, -1, t_mod, d)  # each slot's grid position, every plane
+            tokens = torch.cat([packed, fusion_stream], dim=1)
+            for blk in self.blocks:
+                cur, fus = tokens[:, :e], tokens[:, e:]
+                # the visible tokens in mask-embedded per-modality grids, and
+                # each slot's T-stack at its grid position
+                # (multimae_crossattn_20231203.py:458-475)
+                grid = torch.where(use[..., None], torch.gather(cur, 1, idx), mask_emb)
+                grid = grid.reshape(b, t_mod, f, d).transpose(1, 2)  # [B, F, T, D]
+                ctx = torch.gather(grid, 1, pick)  # [B, E, T, D]
+                crossed = self.attn_pool_modalities(fus, ctx)
+                fus = fus + self.mlp_modalities(self.norm(crossed))
+                tokens = blk(torch.cat([cur, fus], dim=1), layout.kernel_types, self.fusion_type,
+                             use_kernel=use_kernel)
+        tokens = self.norm(tokens)
+
+        ret = self._pool_returns(tokens, layout.types, layout.valid)
+        fusion_part = tokens[:, e:]  # aligned with the packed slots
+        grid_complete = self._scatter_back(fusion_part, fusion_full, mask_info, e)
+        preds_patch = self._decode(grid_complete, tokens[:, :e], mask_info, e, use_kernel)
+        pooled_mod = {dm: self._modality_pool(dm, fusion_part, (layout.mod_types == i) & layout.slot_valid)
+                      for i, dm in enumerate(self.in_domains)}
+        return {
+            "preds": self._unpatchify_preds(preds_patch),
+            "preds_patch": preds_patch,
+            "task_masks": mask_info.task_masks,
+            "pooled": ret,
+            "ori_tokens": tokens[:, :e],
+            "fusion_tokens": grid_complete,
+            "pooled_mod": pooled_mod,
         }
 
 
@@ -293,6 +491,8 @@ def build_multimae(cfg, device="cuda", generator: Optional[torch.Generator] = No
         decoder_num_heads=cfg.decoder.num_heads,
         decoder_style=cfg.decoder.style,
         decoder_batch_tasks=cfg.decoder.batch_tasks,
+        decoder_use_task_queries=cfg.decoder.use_task_queries,
+        decoder_use_xattn=cfg.decoder.use_xattn,
     )
     model.init_weights(generator if generator is not None else torch.Generator().manual_seed(0))
     return model.to(device)

@@ -80,14 +80,17 @@ def export_infer(model, params, batch: int = 1, image_size: int = 256) -> bytes:
     """The serving forward at a static ``batch`` and ``image_size``,
     exported with its weights (``params``: None, a module or a state dict)
     on the device the model lives on, serialized to bytes. The arguments
-    are f32 rasters [B, S, S, C] and int32 masks [B, num_patches]."""
+    are f32 rasters [B, S, S, C] (int32 class maps [B, S, S] for a semseg
+    domain) and int32 masks [B, num_patches]."""
     from . import modalities
     from .infer import resolve_module
 
     module = resolve_module(model, params)
     domains = tuple(module.in_domains)
     device = next(module.parameters()).device
-    args = [torch.zeros((batch, image_size, image_size, modalities.get(d).num_channels), device=device)
+    args = [torch.zeros((batch, image_size, image_size), dtype=torch.int32, device=device)
+            if modalities.get(d).adapter == "semseg" else
+            torch.zeros((batch, image_size, image_size, modalities.get(d).num_channels), device=device)
             for d in domains]
     args += [torch.zeros((batch, module.num_patches), dtype=torch.int32, device=device) for _ in domains]
     was_training = module.training
@@ -109,20 +112,26 @@ def exported_device(program) -> torch.device:
     return torch.device("cpu")
 
 
+def input_dtypes(program):
+    """The dtypes of an exported program's user inputs, in order."""
+    names = set(program.graph_signature.user_inputs)
+    return [n.meta["val"].dtype for n in program.graph.nodes if n.op == "placeholder" and n.name in names]
+
+
 def load_exported(blob: bytes):
     """Deserializes an ``export_infer`` artifact into a callable taking the
     same flat (x_d0..x_dk, mask_d0..mask_dk) arguments (numpy arrays or
-    tensors; rasters as f32 and masks as int32 on the program's device)."""
+    tensors, each taken to the program's device in the dtype it was
+    exported with: f32 rasters, int32 class maps and masks)."""
     program = torch.export.load(io.BytesIO(blob))
     fn = program.module()
     device = exported_device(program)
+    dtypes = input_dtypes(program)
 
     def serve(*args):
-        n_dom = len(args) // 2
-        xs = [torch.as_tensor(a).to(device=device, dtype=torch.float32) for a in args[:n_dom]]
-        masks = [torch.as_tensor(a).to(device=device, dtype=torch.int32) for a in args[n_dom:]]
+        args = [torch.as_tensor(a).to(device=device, dtype=dt) for a, dt in zip(args, dtypes)]
         with torch.inference_mode():
-            return fn(*xs, *masks)
+            return fn(*args)
 
     serve.program = program
     return serve

@@ -6,8 +6,10 @@ bf16 training needs no loss scaler; what survives of NativeScaler is the
 clip by the raw global gradient norm and the skip of the whole update
 (parameters, moments and count) when that norm reaches ``skip_grad``.
 Weight decay is decoupled and masked by the reference's no-decay rules
-(optim_factory.py:49-72). Layer-wise LR decay is not ported: pretraining
-does not use it.
+(optim_factory.py:49-72). Layer-wise LR decay (optim_factory.py:49-101,
+JAX optim.py:67-104) scales each parameter's update by
+``decay ** (num_layers + 1 - layer_id)``, the layer id read from the
+parameter's flax path (``utils.jax_params.flax_path``).
 
 ``step()`` never waits for the host: the count lives on the device, the lr
 and wd are read from f32 tables indexed by it, the skip is a select, and the
@@ -19,6 +21,8 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+
+from ..utils.jax_params import flax_path
 
 NO_DECAY_NAMES = (
     "pos_emb",
@@ -40,6 +44,36 @@ def wd_mask(named_params: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, bool]
             for name, p in named_params}
 
 
+def get_num_layer_for_vit(path: str, num_layers: int) -> int:
+    """Layer id for layer-wise LR decay (optim_factory.py:49-64, JAX
+    optim.py:67-80) from a flax path: the embeddings and input adapters 0,
+    ``block{i}`` / ``fus_block{i}`` i + 1, everything else (decoders,
+    norms, pools) num_layers + 1."""
+    head = path.split("/")[0]
+    if head.startswith(("input_adapter", "pos_emb", "fusion_tokens", "mask_embedding")):
+        return 0
+    if head.startswith(("block", "fus_block")):
+        digits = "".join(c for c in head.split("block")[-1] if c.isdigit())
+        return int(digits) + 1 if digits else num_layers + 1
+    return num_layers + 1
+
+
+def layer_decay_scales(named_params: Iterable[Tuple[str, torch.Tensor]], num_layers: int,
+                       decay: float) -> Dict[str, float]:
+    """{name: lr scale} (LayerDecayValueAssigner, optim_factory.py:66-101;
+    JAX optim.py:83-92): ``decay ** (num_layers + 1 - layer_id)``, the layer
+    id of the parameter's flax path."""
+    return {name: decay ** (num_layers + 1 - get_num_layer_for_vit(flax_path(name), num_layers))
+            for name, _ in named_params}
+
+
+def scale_by_layer_decay(updates: Mapping[str, torch.Tensor], scales: Mapping[str, float]) -> Dict[str, torch.Tensor]:
+    """Each update times its parameter's lr scale (JAX optim.py:95-104, the
+    optax chain's last transform; ``FlatAdamW`` applies the same scales to
+    its flat update)."""
+    return {name: u * scales[name] for name, u in updates.items()}
+
+
 def _table(schedule, device) -> torch.Tensor:
     """A schedule as its f32 device table: a tensor as it is, else the
     schedule's own ``table`` (train/schedules.py)."""
@@ -57,12 +91,16 @@ class FlatAdamW(torch.optim.Optimizer):
 
     ``lr_schedule`` / ``wd_schedule``: a schedule of train/schedules.py or
     an f32 table (entry i serves step i, the last entry every later step).
+    ``lr_scales``: {name: lr scale} (``layer_decay_scales``), one f32 entry
+    a parameter element multiplying the update after the weight decay, as
+    ``flat_adamw``'s ``ld_vec`` (JAX optim.py:160-163, :192-193).
     ``step()`` updates the parameters in place and returns the raw gradient
     norm (a 0-d tensor on the parameters' device)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], lr_schedule, wd_schedule, *,
                  betas=(0.9, 0.95), eps: float = 1e-8, clip_grad: Optional[float] = None,
-                 skip_grad: Optional[float] = None, decay_mask: Optional[Mapping[str, bool]] = None):
+                 skip_grad: Optional[float] = None, decay_mask: Optional[Mapping[str, bool]] = None,
+                 lr_scales: Optional[Mapping[str, float]] = None):
         named = list(named_params)
         params = [p for _, p in named]
         super().__init__(params, dict(betas=tuple(betas), eps=eps))
@@ -70,6 +108,8 @@ class FlatAdamW(torch.optim.Optimizer):
         mask = wd_mask(named) if decay_mask is None else decay_mask
         device = params[0].device
         self.decay = torch.cat([torch.full((p.numel(),), bool(mask[name])) for name, p in named]).to(device)
+        self.lr_scale = None if lr_scales is None else torch.cat(
+            [torch.full((p.numel(),), float(lr_scales[name]), dtype=torch.float32) for name, p in named]).to(device)
         self.lr_table, self.wd_table = _table(lr_schedule, device), _table(wd_schedule, device)
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.mu = torch.zeros(self.decay.numel(), dtype=torch.float32, device=device)
@@ -97,6 +137,8 @@ class FlatAdamW(torch.optim.Optimizer):
         nu_hat = nu / (1.0 - b2 ** cf)
         wd = self._at_count(self.wd_table) * self.decay
         upd = -self._at_count(self.lr_table) * (mu_hat / (nu_hat.sqrt() + self.defaults["eps"]) + wd * flat)
+        if self.lr_scale is not None:
+            upd = upd * self.lr_scale
         new = flat + upd
         if self.skip_grad is not None:
             skip = gnorm >= self.skip_grad
@@ -123,9 +165,15 @@ class FlatAdamW(torch.optim.Optimizer):
 
 def create_optimizer(named_params, lr_schedule, wd_schedule, *, betas=(0.9, 0.95), eps: float = 1e-8,
                      clip_grad: Optional[float] = None, skip_grad: Optional[float] = None,
-                     decay_mask: Optional[Mapping[str, bool]] = None) -> FlatAdamW:
+                     decay_mask: Optional[Mapping[str, bool]] = None, layer_decay: Optional[float] = None,
+                     num_layers: int = 12) -> FlatAdamW:
     """The pretraining optimizer. The JAX package's two forms
     (``fused_adamw`` True or False) give the same update
-    (tests/test_optim_fused.py), so the port has only the flat one."""
-    return FlatAdamW(named_params, lr_schedule, wd_schedule, betas=betas, eps=eps,
-                     clip_grad=clip_grad, skip_grad=skip_grad, decay_mask=decay_mask)
+    (tests/test_optim_fused.py), so the port has only the flat one; both
+    forms' layer-wise LR decay (JAX optim.py:157-163 fused, :216-248 chain)
+    are its ``lr_scales``, taken for ``layer_decay`` < 1."""
+    named = list(named_params)
+    scales = (layer_decay_scales(named, num_layers, layer_decay)
+              if layer_decay is not None and layer_decay < 1.0 else None)
+    return FlatAdamW(named, lr_schedule, wd_schedule, betas=betas, eps=eps, clip_grad=clip_grad,
+                     skip_grad=skip_grad, decay_mask=decay_mask, lr_scales=scales)

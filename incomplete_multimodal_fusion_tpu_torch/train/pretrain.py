@@ -18,7 +18,12 @@ The step's device work never waits for the host: the masks are drawn on the
 host before it, and the optimizers, balancer and EMA update their tensors in
 place. ``make_multi_step`` captures that work once in a CUDA graph and
 replays it K times, the counterpart of the JAX package's ``lax.scan``.
-Not ported yet: parallelism and layer-wise LR decay.
+Every fusion mode and decoder of ``models.multimae`` trains through it; a
+semseg domain's batch is its integer class map (the model's class-map
+adapter reads it, the patch cross-entropy scores it) and is never cast to
+the compute dtype. Layer-wise LR decay is ``optim.create_optimizer``'s
+(``layer_decay``); the JAX step does not use it either. Not ported yet:
+parallelism.
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@ renaming plus the Dense transpose:
 
   * ``input_adapter_{d}`` -> ``input_adapters.{d}``,
     ``output_adapter_{d}`` -> ``output_adapters.{d}``,
-    ``block{i}`` -> ``blocks.{i}``, ``fus_block{i}`` -> ``fus_blocks.{i}``;
+    ``block{i}`` -> ``blocks.{i}``, ``fus_block{i}`` -> ``fus_blocks.{i}``,
+    a module named by a Python keyword (flax LSTMCell's ``if``) -> the name
+    with ``_`` appended;
   * a Dense ``kernel`` [in, out] -> ``weight`` [out, in]; the input
     adapter's ``proj_kernel`` / ``proj_bias`` -> ``proj.weight`` (transposed)
     / ``proj.bias``;
@@ -27,6 +29,14 @@ The downstream head's modules carry their flax names in the port
 (``enc_layer{i}``, ``input_proj{i}``, ``fpn_lateral2_gn``, ``cross{i}``,
 ``self{i}``, ``ffn{i}``, ``mask_embed.layer{j}``, ...), so they need no rule.
 
+The LSTM cells (``attn_lstm/lstm_fwd/ii``, ``if`` -> ``if_``, ...), the class-map adapter
+(``input_adapter_dnw``: ``class_emb``, ``proj_kernel``, ``proj_bias``), the
+full decoder (``task_emb_*``, ``mask_token``, ``decoder``, ``query_norm``,
+``block{i}``, ...) and the snapshot's modules (``attn_pool_modalities``,
+``mlp_modalities``, ``attn_{d}``, ``mlp_{d}``) carry their flax names in the
+port too, so the same rules carry them. ``flax_path`` runs the module
+renaming backwards (the layer-wise LR decay reads the flax path).
+
 The input is the tree as nested dicts of numpy or JAX arrays
 (``{"params": ...}`` or the inner tree). Any tree of the parameters' shape
 carries over the same way: a gradient tree from ``jax.grad`` or the bool
@@ -34,6 +44,7 @@ tree of ``wd_mask`` lands on the port's parameter names.
 """
 from __future__ import annotations
 
+import keyword
 import re
 from typing import Dict, Mapping, Tuple
 
@@ -52,7 +63,38 @@ def _module_name(key: str) -> str:
     for pattern, repl in _MODULE_RULES:
         if pattern.match(key):
             return pattern.sub(repl, key)
-    return key
+    # a Python keyword (flax LSTMCell's input kernel ``if``) cannot be a
+    # module attribute that torch.export's generated code reads: ``if_``
+    return key + "_" if keyword.iskeyword(key) else key
+
+
+_PORT_MODULES = (
+    (re.compile(r"^input_adapters\.([^.]+)"), r"input_adapter_\1"),
+    (re.compile(r"^output_adapters\.([^.]+)"), r"output_adapter_\1"),
+    (re.compile(r"^fus_blocks\.(\d+)"), r"fus_block\1"),
+    (re.compile(r"^blocks\.(\d+)"), r"block\1"),
+)
+
+
+def flax_path(name: str) -> str:
+    """A port parameter name as the flax tree's path of its module
+    (``blocks.3.attn.to_q.weight`` -> ``block3/attn/to_q/weight``): the
+    module renaming of ``params_from_jax`` run backwards, each dotted part
+    that one of its rules maps joined back to one flax key. Leaf names stay
+    the port's."""
+    out = []
+    rest = name
+    while rest:
+        for pattern, repl in _PORT_MODULES:
+            m = pattern.match(rest)
+            if m:
+                out.append(m.expand(repl))
+                rest = rest[m.end():].lstrip(".")
+                break
+        else:
+            head, _, rest = rest.partition(".")
+            out.append(head[:-1] if head.endswith("_") and keyword.iskeyword(head[:-1]) else head)
+    return "/".join(out)
 
 
 _CONV_TRANSPOSE = re.compile(r"^up\d+_conv\d*$")

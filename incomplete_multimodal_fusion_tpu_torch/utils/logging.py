@@ -1,10 +1,12 @@
-"""Metric logging (JAX package utils/logging.py:16-97; reference
-pretraining/utils/logger.py:24-167): ``SmoothedValue`` and ``MetricLogger``.
-One process trains on one card, so there is nothing to reduce across
-processes; the host reads a metric only when it logs it."""
+"""Metric logging (JAX package utils/logging.py; reference
+pretraining/utils/logger.py:24-198): ``SmoothedValue``, ``MetricLogger`` and
+the experiment tracker's ``WandbLogger``. One process trains on one card, so
+there is nothing to reduce across processes; the host reads a metric only
+when it logs it."""
 from __future__ import annotations
 
 import json
+import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
@@ -76,3 +78,38 @@ class MetricLogger:
         stats = {k: m.global_avg for k, m in self.meters.items()}
         stats.update(extra)
         return json.dumps(stats)
+
+
+class WandbLogger:
+    """Experiment-tracker logger (reference utils/logger.py:170-198, JAX
+    utils/logging.py:88-127). ``wandb`` is optional: where it does not
+    import, or its ``init`` fails (no network), the metrics go to
+    ``out_dir/wandb_fallback.jsonl``, one JSON line a ``update``."""
+
+    def __init__(self, config=None, project: str = "imf-tpu", entity: str = "", group: str = "",
+                 run_name: str = "", out_dir: str = "."):
+        self.step = 0
+        self._wandb = None
+        self.fallback_path = os.path.join(out_dir, "wandb_fallback.jsonl")
+        try:
+            import wandb
+
+            wandb.init(config=config, project=project, entity=entity or None, group=group or None,
+                       name=run_name or None)
+            self._wandb = wandb
+        except Exception:
+            os.makedirs(out_dir, exist_ok=True)
+
+    def set_step(self, step=None):
+        self.step = step if step is not None else self.step + 1
+
+    def update(self, metrics: dict):
+        log = {k: float(v) for k, v in metrics.items() if v is not None}
+        if self._wandb is not None:
+            self._wandb.log(log, step=self.step)
+        else:
+            with open(self.fallback_path, "a") as f:
+                f.write(json.dumps({"step": self.step, **log}) + "\n")
+
+    def flush(self):
+        pass

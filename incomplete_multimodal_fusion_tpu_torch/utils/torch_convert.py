@@ -18,7 +18,8 @@ reference's layouts, so most tensors only change name:
   * zorro LayerNorms' ``gamma`` becomes ``weight``;
   * fixed sin-cos position buffers are not carried: the port recomputes them.
 
-Covered: the flagship MultiMAE (``crossattn``, multimae_crossattn.py) and the
+Covered: the flagship MultiMAE (``crossattn``, multimae_crossattn.py), the
+20231203 snapshot (``crossattn_v1``) and the
 downstream MaskFormer (MaskFormerModel_vit.py: the ViT backbone, the
 MSDeformAttn pixel decoder and the Mask2Former decoder), each part also on
 its own.
@@ -158,13 +159,27 @@ def _output_adapter(s: Arrays, out: Arrays, src: str, dst: str, task: str, num_c
     out[f"{dst}.out_proj.bias"] = b.reshape(num_channels, patch, patch).transpose(1, 2, 0).reshape(-1)
 
 
+def _snapshot_cross_attention(s: Arrays, out: Arrays, src: str, dst: str) -> None:
+    """zorro_utils.CrossAttention (q / kv bias-free, proj biased) ->
+    layers.SnapshotCrossAttention."""
+    _linear(s, out, f"{src}.q", f"{dst}.q", bias=False)
+    _linear(s, out, f"{src}.kv", f"{dst}.kv", bias=False)
+    _linear(s, out, f"{src}.proj", f"{dst}.proj")
+
+
 def convert_multimae_state(state: Mapping, in_domains: Sequence[str], out_domains: Sequence[str],
                            out_channels: Mapping[str, int], patch_size: int = 16, depth: int = 12,
-                           decoder_depth: int = 2) -> Dict[str, torch.Tensor]:
-    """Reference MultiMAE (multimae_crossattn.py, crossattn fusion) ->
-    the state dict of ``models.multimae.MultiMAE``. ``out_channels``: the
+                           decoder_depth: int = 2, fusion_mode: str = "crossattn") -> Dict[str, torch.Tensor]:
+    """Reference MultiMAE -> the state dict of ``models.multimae.MultiMAE``
+    (JAX utils/torch_convert.py:176-275). ``fusion_mode='crossattn'``: the
+    flagship (multimae_crossattn.py) with a Block_Fusion a layer;
+    ``'crossattn_v1'``: the 20231203 snapshot (multimae_crossattn_20231203.py),
+    the shared per-layer cross-attention and its MLP and a pool attention
+    and MLP a modality instead of the fusion blocks. ``out_channels``: the
     reconstruction channels of each out-domain (its class count for a
     semseg domain)."""
+    if fusion_mode not in ("crossattn", "crossattn_v1"):
+        raise ValueError(f"fusion_mode must be 'crossattn' or 'crossattn_v1', got {fusion_mode!r}")
     s = strip_prefixes(state)
     out: Arrays = {}
     for name in ("fusion_tokens", "return_tokens", "mask_embedding"):
@@ -177,7 +192,14 @@ def convert_multimae_state(state: Mapping, in_domains: Sequence[str], out_domain
         _input_adapter(s, out, f"input_adapters.{d}", f"input_adapters.{d}")
     for i in range(depth):
         _encoder_block(s, out, f"blocks.{i}", f"blocks.{i}")
-        _fusion_block(s, out, f"fus_blocks.{i}", f"fus_blocks.{i}")
+        if fusion_mode == "crossattn":
+            _fusion_block(s, out, f"fus_blocks.{i}", f"fus_blocks.{i}")
+    if fusion_mode == "crossattn_v1":
+        _snapshot_cross_attention(s, out, "attn_pool_modalities", "attn_pool_modalities")
+        _mlp(s, out, "mlp_modalities", "mlp_modalities")
+        for d in in_domains:
+            _zorro_attention(s, out, f"attn_{d}", f"attn_{d}")
+            _mlp(s, out, f"mlp_{d}", f"mlp_{d}")
     for d in out_domains:
         _output_adapter(s, out, f"output_adapters.{d}", f"output_adapters.{d}", d, out_channels[d],
                         patch_size, decoder_depth)

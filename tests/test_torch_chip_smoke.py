@@ -383,10 +383,11 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
 
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
-               "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export")
+               "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export",
+               "phase_pretrain_variants")
 
 
-@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export"])
+@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts
@@ -495,3 +496,40 @@ def test_phase_export_counts_the_batched_decoders_launches(smoke):
     assert smoke.BATCHED_PER_FORWARD == {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 2,
                                          "fused_ffn/geglu": 24, "fused_ffn/mlp_tasks": 2,
                                          "fusion_row_attention/fusion_row": 12}
+
+
+def test_pretrain_variants_launch_counts(smoke):
+    """Phase 14's launches a forward: K1 zorro a block; K2 GEGLU a block and
+    a fusion block; K3 a fusion block (crossattn only); K1 unmasked and K2
+    MLP a decoder layer and task, one more MLP a task for the full
+    decoder's cross-attention; the f32 keys for an f32 run."""
+    got = {name: smoke.variant_per_forward(smoke.variant_cfg(name)) for name in smoke.VARIANTS}
+    base = {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 6, "fused_ffn/mlp": 6}
+    assert got["zorro"] == got["lstm"] == got["crossattn_v1"] == {**base, "fused_ffn/geglu": 12}
+    assert got["crossattn full decoder"] == {**base, "fused_ffn/mlp": 9, "fused_ffn/geglu": 24,
+                                             "fusion_row_attention/fusion_row": 12}
+    assert got["quadruplet crossattn"] == {"zorro_attention_qkv/zorro": 12, "zorro_attention_qkv/none": 8,
+                                           "fused_ffn/mlp": 8, "fused_ffn/geglu": 24,
+                                           "fusion_row_attention/fusion_row": 12}
+    assert smoke.variant_per_forward(smoke.variant_cfg("lstm"), "_f32") == {
+        "zorro_attention_qkv/zorro_f32": 12, "zorro_attention_qkv/none_f32": 6, "fused_ffn/mlp_f32": 6,
+        "fused_ffn/geglu_f32": 12}
+    assert all(k in smoke.REPLACES for counts in got.values() for k in counts)
+
+
+def test_gathered_types_case_pads_mid_sequence(smoke):
+    """Phase 3's 2E-layout types: rows that keep fewer than E tokens are
+    PAD at [num_visible, E) and at [E + num_visible, 2E), the fusion half
+    typed 3 before each; a dropped modality's type never appears."""
+    import torch
+
+    types = smoke.gathered_types_case(torch.device("cpu"))
+    pad = smoke.cuda_attn.PAD_TYPE
+    assert types.shape == (60, 768) and types.dtype == torch.int32
+    for row in range(60):
+        keep = (384, 300, 256, 128)[row % 4]
+        first, second = types[row, :384], types[row, 384:]
+        assert (first[:keep] != pad).all() and (first[keep:] == pad).all()
+        assert (second[:keep] == 3).all() and (second[keep:] == pad).all()
+        if keep < 384:
+            assert not (first[:keep] == row % 3).any()

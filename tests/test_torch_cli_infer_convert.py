@@ -5,7 +5,8 @@
     restores bit for bit to ``convert_multimae_state``'s output, and to the
     JAX package's scripts/convert_checkpoint.py output carried by
     ``params_from_jax``; ``--arch maskformer`` likewise on the three
-    downstream goldens as one checkpoint; ``crossattn_v1`` raises;
+    downstream goldens as one checkpoint (``crossattn_v1``:
+    tests/test_torch_run_logging.py);
   * ``cli.infer`` on a ``cli.pretrain`` checkpoint (the ``tiny`` widths at
     64²; the golden's widths are not a model size the CLI builds) prints
     each masked modality's PSNR equal, to 1e-5, to ``infer.masked_psnr`` of
@@ -28,7 +29,6 @@ import torch
 from incomplete_multimodal_fusion_tpu.utils import torch_convert as jconvert
 from incomplete_multimodal_fusion_tpu_torch import infer as tinfer
 from incomplete_multimodal_fusion_tpu_torch.cli import infer as cli_infer
-from incomplete_multimodal_fusion_tpu_torch.cli import convert_checkpoint as cli_convert
 from incomplete_multimodal_fusion_tpu_torch.config import MODEL_SIZES, DataConfig, PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import build_multimae
@@ -82,11 +82,6 @@ def test_convert_maskformer_is_bitwise_the_converter(tmp_path):
     kw = dict(depth=4, enc_layers=1, dec_layers=3, hidden_dim=32)
     _assert_bitwise(ckpt_lib.load_model_state(str(tmp_path / "out")),
                     params_from_jax(jconvert.convert_maskformer_state(state, DOMAINS, **kw)))
-
-
-def test_convert_refuses_crossattn_v1(tmp_path):
-    with pytest.raises(NotImplementedError, match="crossattn_v1"):
-        cli_convert.main([str(tmp_path / "x.pth"), str(tmp_path / "out"), "--fusion_mode", "crossattn_v1"])
 
 
 @pytest.fixture(scope="module")
@@ -150,10 +145,7 @@ def test_infer_without_a_checkpoint_warns(tmp_path):
     assert "WARNING: no checkpoint found; using random init" in log
 
 
-@pytest.mark.parametrize("flag,match", [(["--data_path", "/dfc"], "--data_path"),
-                                        (["--fusion_mode", "zorro"], "--fusion_mode"),
-                                        (["--fusion_mode", "lstm"], "--fusion_mode"),
-                                        (["--in_domains", "s1-s2-dnw"], "dnw")])
+@pytest.mark.parametrize("flag,match", [(["--data_path", "/dfc"], "--data_path")])
 def test_infer_unported_flags_raise(flag, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli_infer.main([*INFER, "--ckpt_dir", str(tmp_path), *flag])

@@ -78,8 +78,7 @@ def test_steps_per_call_is_k_sequential_steps(straight, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--data_path", "/data"], ["--random_crop"], ["--tp", "2"], ["--fsdp"],
-                                  ["--sp"], ["--pp", "2"], ["--pp_microbatches", "4"],
-                                  ["--profile_dir", "trace"], ["--log_wandb"]])
+                                  ["--sp"], ["--pp", "2"], ["--pp_microbatches", "4"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *flag])

@@ -15,7 +15,9 @@ same from run to run; K3's and K3b's 2-byte paths on operands off 16 bytes
 and both at 40 heads; K5b's fixed-point adds on skewed points and at
 ragged P, bitwise the same from run to run; K4b's
 shared-memory dV at B = 1 and 30, near and off the reference points, and
-with levels past shared memory. Also the autograd Functions' launches and the wrappers'
+with levels past shared memory; K1 / K1b over the pretraining variants' 2E
+layout (PAD mid-sequence) and K3 / K3b with the quadruplet's four slots, in
+bf16 and f32. Also the autograd Functions' launches and the wrappers'
 refusals. These tests need a CUDA card and skip without one; on a
 card run them with
 
@@ -1836,3 +1838,62 @@ def test_export_round_trip_on_the_card(dev):
     for d in doms:
         assert torch.equal(out["preds"][d], live["preds"][d]), d
     assert torch.equal(out["pooled"], live["pooled"])
+
+
+def _gathered_types(dev, b=4, e=384, f=256):
+    """K1's PAD-coded types over the 2E layout of the lstm and crossattn_v1
+    modes (models/multimae.gathered_layout): rows keeping 384, 300, 256 and
+    128 of 768 tokens, a modality dropped whole in each row that keeps
+    fewer than E, so the padding sits at [num_visible, E) and again at
+    [E + num_visible, 2E), mid-sequence."""
+    from incomplete_multimodal_fusion_tpu_torch.models.multimae import gathered_layout
+    from incomplete_multimodal_fusion_tpu_torch.ops import masking
+
+    g = torch.Generator().manual_seed(5)
+    flat = torch.ones(b, 3 * f, dtype=torch.long)
+    for row in range(b):
+        keep = (384, 300, 256, 128)[row % 4]
+        allowed = torch.arange(3 * f)
+        if keep < e:
+            allowed = allowed[(allowed // f) != row % 3]
+        flat[row, allowed[torch.randperm(allowed.numel(), generator=g)[:keep]]] = 0
+    mi = masking.mask_info_from_flat_mask(flat.to(dev), ("s1", "s2", "dem"), (f,) * 3, e)
+    return gathered_layout(mi, e, f, 3).kernel_types
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_zorro_on_the_gathered_2e_layout(dev, dtype):
+    """K1 / K1b at N = 768 where the PAD slots sit mid-sequence: query
+    tiles of the fusion half meet key tiles that are PAD in the middle of
+    the sequence (the finite NEG_INF, no NaN), against the plain versions
+    at the bf16 and f32 bounds."""
+    types = _gathered_types(dev)
+    assert (types[1, 300:384] == cuda_attn.PAD_TYPE).all() and (types[1, 384:684] == 3).all()
+    if dtype == torch.float32:
+        _zorro_f32_case(dev, _randf(dev, 4, 768, 3 * 192, seed=6), 3, types)
+        return
+    qkv = _randn(dev, 4, 768, 3 * 192, seed=6)
+    out = cuda_attn.zorro_attention_qkv(qkv, 3, types, 3)
+    ref = cuda_attn.zorro_attention_qkv_reference(qkv, 3, types, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and _rel(out, ref) <= REL_L2
+    _zorro_backward_case(dev, qkv, 3, types)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 60])
+def test_fusion_row_with_the_quadruplets_four_slots(dev, dtype, b):
+    """K3 / K3b at T = 4 (the quadruplet's SLOTS(4) instance) at F = 256, 3
+    heads of 64, against the plain versions at the bf16 and f32 bounds."""
+    rand, bound = (_randn, REL_L2) if dtype == torch.bfloat16 else (_randf, F32_REL_L2)
+    f, inner = 256, 192
+    q, kvg, kvf = rand(dev, b, f, inner, seed=31), rand(dev, b, 4 * f, 2 * inner, seed=32), \
+        rand(dev, b, f, 2 * inner, seed=33)
+    do = rand(dev, b, f, inner, seed=34)
+    out = cuda_fusion_attn.fusion_row_attention(q, kvg, kvf, 3, 64)
+    ref = cuda_fusion_attn.fusion_row_attention_reference(q, kvg, kvf, 3, 64)
+    grads = cuda_fusion_attn.fusion_row_attention_backward(q, kvg, kvf, do, 3, 64)
+    ref_grads = cuda_fusion_attn.fusion_row_attention_backward_reference(q, kvg, kvf, do, 3, 64)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and _rel(out, ref) <= bound
+    assert _rel_all(grads, ref_grads) <= bound

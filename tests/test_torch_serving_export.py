@@ -164,11 +164,6 @@ def test_cli_exports_a_checkpoint_that_reloads(tmp_path, capsys):
     np.testing.assert_allclose(to_np(out["pooled"]), to_np(live["pooled"]), atol=1e-5)
 
 
-def test_cli_refuses_other_fusion_modes(tmp_path):
-    with pytest.raises(NotImplementedError, match="zorro"):
-        export_serving.main([str(tmp_path), str(tmp_path / "x.pt2"), "--fusion_mode", "zorro", "--device", "cpu"])
-
-
 def test_exported_fused_block_encoder_holds_k6():
     """An encoder built with ``fused_block=True`` (at a width its gate
     takes: 2 heads of 32) exports with one K6 node a block, in place of
