@@ -13,9 +13,10 @@ the f32 paths through the kernels' f32 instances, the semantic
 downstream training step, the pretraining state (balancer, EMA, the
 K-step CUDA graph, checkpoints through the CLI, the reference converter)
 and the command line (convert, infer, fine-tune, a learning run), and
-checks what comes out; last, the serving forward as an exported program
+checks what comes out; then the serving forward as an exported program
 reloaded without model code, the batched decoder trunk and the
-segmentation extras.
+segmentation extras; last, the other downstream backbones (the ViT-Adapter,
+ResNet, Swin, the 'sup' fusion mode) and the standard decoder.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -191,6 +192,31 @@ Phases (any failure raises; the exit code is then non-zero):
                  (B = 12) in a subprocess (a wandb fallback line a step, K1 and K2 in the
                  trace). Phase 3 holds K1 / K1b over the 2E layout, K2 / K2b
                  at M = 46,080 and K3 / K3b at T = 4 for it.
+ 15. backbones -- the other downstream backbones and decoders at full
+                 width (seeded weights; the ViT-Adapter's injector gamma and
+                 every deformable attention's sampling kernels drawn
+                 non-zero): (a) MaskFormerConfig(backbone_type='vit_adapter',
+                 num_classes=10), bf16 backbone and f32 head, through
+                 forward_segmentation at B = 1, B = 1 with dem dropped
+                 (bitwise unmoved by dem's pixels) and B = 30: exact
+                 launches a forward (K4 8 in the injectors and extractors,
+                 2 in the pixel decoder; K1 12, K2 24), outputs within
+                 SEG_REL_L2 of the plain path; (b) the B = 30 instance step
+                 on the adapter (phase 7's settings): loss and gradients
+                 against the plain path with the head's attention-mask bits
+                 pinned to the kernel path's (TRAIN_LOSS_REL,
+                 TRAIN_GRAD_REL_L2), the free plain path's loss and flipped
+                 bits (FREE_LOSS_REL, FREE_MASK_BITS) beside an f64
+                 deformable-attention control, exact launches a step (K4b
+                 8 + 2); (c) resnet50, resnet18,
+                 swin, the 'sup' fusion mode and the vit backbone with the
+                 'standard' decoder: one such step each and one B = 30
+                 forward_instance_segmentation on its weights with the
+                 backbone in bf16 (K4 / K4b in the pixel decoder, K5 / K5b
+                 in the criterion, K1 unmasked and K2 in 'sup'); for each,
+                 p50, device ms, busy share and peak memory. Phase 3 holds
+                 K4 / K4b at the injector's and extractor's shapes for it,
+                 and K1 / K1b unmasked and K2 / K2b GEGLU at 'sup''s.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -221,9 +247,11 @@ from incomplete_multimodal_fusion_tpu_torch import infer, infer_segmentation, op
 from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch, synthetic_instances
 from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, MaskFormerModel, build_maskformer
+from incomplete_multimodal_fusion_tpu_torch.models import msda_module
 from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
 from incomplete_multimodal_fusion_tpu_torch.models.multimae import MultiMAE, build_multimae, gathered_layout
 from incomplete_multimodal_fusion_tpu_torch.models.pixel_decoder import reference_points_for
+from incomplete_multimodal_fusion_tpu_torch.models.vit_baseline import interaction_groups
 from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion
 from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTargets, scipy_assign_host
 from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_build, cuda_ffn,
@@ -603,35 +631,38 @@ def block_attn_work(x, inner, heads, mask, backward: bool):
 MSDA_LEVELS = ((8, 8), (16, 16), (32, 32))  # the pixel decoder's levels at 256^2, low -> high
 
 
-def msda_inputs(dev, g, b, heads=8, dim=32, points=4, near_reference=False):
-    """K4's operands at the pixel decoder's shapes, f32: locations uniform in
-    [-0.1, 1.1], or with ``near_reference`` each query's level reference
-    point plus N(0, 2 pixels) offsets, as a trained decoder's samples lie."""
-    s = sum(h * w for h, w in MSDA_LEVELS)
-    l = len(MSDA_LEVELS)
+def msda_inputs(dev, g, b, heads=8, dim=32, points=4, near_reference=False, levels=MSDA_LEVELS, lq=None):
+    """K4's operands, f32, at the pixel decoder's shapes (``levels``, every
+    position a query) or another call site's (``levels``, ``lq`` queries):
+    locations uniform in [-0.1, 1.1], or with ``near_reference`` each
+    query's level reference point plus N(0, 2 pixels) offsets, as a trained
+    decoder's samples lie."""
+    s = sum(h * w for h, w in levels)
+    lq = s if lq is None else lq
+    l = len(levels)
     value = torch.randn(b, s, heads, dim, device=dev, generator=g)
     if near_reference:
-        ref = reference_points_for(MSDA_LEVELS, device=dev)[None, :, None, :, None, :]
-        size = torch.tensor([[w, h] for h, w in MSDA_LEVELS], dtype=torch.float32, device=dev)
+        ref = reference_points_for(levels, device=dev)[None, :, None, :, None, :]
+        size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=dev)
         noise = 2.0 * torch.randn(b, s, heads, l, points, 2, device=dev, generator=g)
         locs = ref + noise / size[None, None, None, :, None, :]
     else:
-        locs = -0.1 + 1.2 * torch.rand(b, s, heads, l, points, 2, device=dev, generator=g)
-    aw = torch.softmax(torch.randn(b, s, heads, l * points, device=dev, generator=g), dim=-1)
-    return value, locs, aw.reshape(b, s, heads, l, points).contiguous()
+        locs = -0.1 + 1.2 * torch.rand(b, lq, heads, l, points, 2, device=dev, generator=g)
+    aw = torch.softmax(torch.randn(b, lq, heads, l * points, device=dev, generator=g), dim=-1)
+    return value, locs, aw.reshape(b, lq, heads, l, points).contiguous()
 
 
-def msda_live(locs):
+def msda_live(locs, levels=MSDA_LEVELS):
     """Samples of these locations with a tap inside their level."""
     live = 0
-    for lid, (h, w) in enumerate(MSDA_LEVELS):
+    for lid, (h, w) in enumerate(levels):
         px = locs[:, :, :, lid, :, 0] * w - 0.5
         py = locs[:, :, :, lid, :, 1] * h - 0.5
         live += int(((px > -1) & (px < w) & (py > -1) & (py < h)).sum())
     return live
 
 
-def msda_work(value, locs, aw):
+def msda_work(value, locs, aw, levels=MSDA_LEVELS):
     """Operations and bytes of K4 on these inputs: 10 f32 operations per
     channel of each sample with a tap inside its level (4 corner products
     and adds, the weighting; a sample wholly outside contributes nothing
@@ -639,16 +670,23 @@ def msda_work(value, locs, aw):
     each moved once."""
     b, s, m, d = value.shape
     out_bytes = b * locs.shape[1] * m * d * 4
-    return 10.0 * msda_live(locs) * d, nbytes(value, locs, aw) + out_bytes, PEAK_F32
+    return 10.0 * msda_live(locs, levels) * d, nbytes(value, locs, aw) + out_bytes, PEAK_F32
 
 
-def msda_bwd_work(value, locs, aw, dout):
+def msda_bwd_work(value, locs, aw, dout, levels=MSDA_LEVELS):
     """Operations and bytes of K4b on these inputs: 16 f32 operations per
     channel of each live sample (per tap: the <v, g> product and the dV
     term's product and add), against value, locations, weights and dOut
     read once and dV, dlocations, dweights written once."""
     d = value.shape[-1]
-    return 16.0 * msda_live(locs) * d, 2 * nbytes(value, locs, aw) + nbytes(dout), PEAK_F32
+    return 16.0 * msda_live(locs, levels) * d, 2 * nbytes(value, locs, aw) + nbytes(dout), PEAK_F32
+
+
+# the ViT-Adapter's interactions at 256^2, 6 heads x 32, 4 points: the
+# injector's 256 fusion tokens over the priors' levels 32^2 / 16^2 / 8^2
+# (high -> low resolution, S = 1344), the extractor's 1344 priors over the
+# 16^2 token map (one level)
+ADAPTER_MSDA = (("injector", ((32, 32), (16, 16), (8, 8)), 256), ("extractor", ((16, 16),), 1344))
 
 
 # the criterion's point-sampling calls at B = 30, G = 8, 100 queries,
@@ -753,6 +791,16 @@ def unfused_mlp(x, w1, b1, w2, b2):
     (bf16, cuBLAS), for reference beside the K2 rows."""
     F = torch.nn.functional
     return lambda: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+
+def unfused_backward(chain, operands, dy):
+    """The autograd backward of an unfused chain (``unfused_geglu`` or
+    ``unfused_mlp``) on ``operands``, every operand's gradient against
+    ``dy``: the yardstick beside the bf16 K2b rows. The forward runs once
+    here; each call replays the backward of its graph."""
+    leaves = [t.detach().requires_grad_(True) for t in operands]
+    y = chain(*leaves)()
+    return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
 
 def outputs(r):
@@ -915,12 +963,15 @@ def phase_kernels(dev):
         geglu_case(f"M={m} d=192 I=512", randn(m, d), geglu_w, m == 1024, ffn_work(m, False, True))
     # an M that is not a multiple of the 128-row tile
     geglu_case("M=15300 d=192 I=512", randn(15300, d), geglu_w, False, ffn_work(15300, False, True))
+    # beside each bf16 K2b row the chain: the unfused bf16 chain's autograd
+    # backward (cuBLAS products), as the f32 rows carry the f32 chain's
     for m in (38400, 15360):
         x, dy = randn(m, d), randn(m, d)
         cases.append(("fused_ffn/geglu_backward", f"M={m} d=192 I=512",
                       lambda x=x, dy=dy: cuda_ffn.geglu_ffn_backward(x, *geglu_w, dy),
                       lambda x=x, dy=dy: cuda_ffn.geglu_ffn_backward_reference(x, *geglu_w, dy),
                       ffn_work(m, True, True), None, m == 38400))
+        chains["fused_ffn/geglu_backward", f"M={m} d=192 I=512"] = unfused_backward(unfused_geglu, (x, *geglu_w), dy)
     for m in (256, 2048, 15360):
         mlp_case(f"M={m} d=256 H=1024", randn(m, dd), mlp_w, m == 2048, ffn_work(m, False, False))
     x, dy = randn(15360, dd), randn(15360, dd)
@@ -928,6 +979,7 @@ def phase_kernels(dev):
                   lambda: cuda_ffn.mlp_ffn_backward(x, *mlp_w, dy),
                   lambda: cuda_ffn.mlp_ffn_backward_reference(x, *mlp_w, dy),
                   ffn_work(15360, True, False), None, True))
+    chains["fused_ffn/mlp_backward", "M=15360 d=256 H=1024"] = unfused_backward(unfused_mlp, (x, *mlp_w), dy)
 
     # K2's and K2b's wide paths at the `base` widths (d = 768, I = 2048,
     # H = 3072), past the row paths' d <= 256; no main path runs them
@@ -1008,6 +1060,26 @@ def phase_kernels(dev):
                       lambda v=value, lc=locs, a=aw, do=dout: cuda_msda.ms_deform_attn_backward_reference(
                           v, MSDA_LEVELS, lc, a, do),
                       msda_bwd_work(value, locs, aw, dout), None, b == 30 and not near))
+    # K4 / K4b (f32) at the ViT-Adapter's call sites (phase 15): random
+    # locations off the pixel centres, B = 30 and B = 1 (where K4b splits a
+    # slice's queries over blocks)
+    for site, levels, lq in ADAPTER_MSDA:
+        for b in (30, 1):
+            value, locs, aw = msda_inputs(dev, g, b, heads=6, levels=levels, lq=lq)
+            dout = torch.randn(b, lq, 6 * 32, device=dev, generator=g)
+            s_ = value.shape[1]
+            label = f"{site} B={b} Lq={lq} S={s_} 6x32 L={len(levels)} P=4"
+            per_call["ms_deform_attn/backward", label] = cuda_msda.backward_kernels(b, lq, 6, 32, levels, 4)
+            cases.append(("ms_deform_attn/forward", label,
+                          lambda v=value, lc=locs, a=aw, lv=levels: cuda_msda.ms_deform_attn(v, lv, lc, a),
+                          lambda v=value, lc=locs, a=aw, lv=levels: cuda_msda.ms_deform_attn_core(v, lv, lc, a),
+                          msda_work(value, locs, aw, levels), None, False))
+            cases.append(("ms_deform_attn/backward", label,
+                          lambda v=value, lc=locs, a=aw, do=dout, lv=levels: cuda_msda.ms_deform_attn_backward(
+                              v, lv, lc, a, do),
+                          lambda v=value, lc=locs, a=aw, do=dout, lv=levels:
+                          cuda_msda.ms_deform_attn_backward_reference(v, lv, lc, a, do),
+                          msda_bwd_work(value, locs, aw, dout, levels), None, False))
     # K5 at the criterion's four shapes, K5b at the loss's; coords uniform in
     # [-0.05, 1.05], past the borders too
     for label, (n, h, w), rows, group in POINT_SHAPES:
@@ -1187,6 +1259,21 @@ def phase_kernels(dev):
                   lambda: cuda_ffn.geglu_ffn_backward(x_2e, *geglu_w, dy_2e),
                   lambda: cuda_ffn.geglu_ffn_backward_reference(x_2e, *geglu_w, dy_2e),
                   ffn_work(m_2e, True, True), None, False))
+    # the 'sup' backbone's blocks (phase 15): K1 / K1b unmasked over all 3 x
+    # 256 tokens at 3 heads x 64, K2 / K2b GEGLU at M = B * 768, B = 30
+    label_sup = "N=768 3x64 B=30 (sup)"
+    qkv_sup = randn(30, 768, 3 * 192)
+    zorro_cases("none", label_sup, qkv_sup, 3, None, False)
+    zorro_bwd_cases("none", label_sup, qkv_sup, 3, None, False)
+    m_sup = 30 * 768
+    geglu_case(f"M={m_sup} d=192 I=512 (sup)", randn(m_sup, d), geglu_w, False, ffn_work(m_sup, False, True))
+    x_sup, dy_sup = randn(m_sup, d), randn(m_sup, d)
+    cases.append(("fused_ffn/geglu_backward", f"M={m_sup} d=192 I=512 (sup)",
+                  lambda: cuda_ffn.geglu_ffn_backward(x_sup, *geglu_w, dy_sup),
+                  lambda: cuda_ffn.geglu_ffn_backward_reference(x_sup, *geglu_w, dy_sup),
+                  ffn_work(m_sup, True, True), None, False))
+    chains["fused_ffn/geglu_backward", f"M={m_sup} d=192 I=512 (sup)"] = unfused_backward(
+        unfused_geglu, (x_sup, *geglu_w), dy_sup)
     for rand, suffix, peak in ((randn, "", PEAK_BF16), (randf, "_f32", PEAK_F32_PRODUCTS)):
         q4, kvg4, kvf4, do4 = rand(60, f, 192), rand(60, 4 * f, 384), rand(60, f, 384), rand(60, f, 192)
         cases.append((f"fusion_row_attention/fusion_row{suffix}", "F=256 T=4 3x64 B=60 (quadruplet)",
@@ -1682,22 +1769,30 @@ SEG_TRAIN_BATCH = 30
 MASK_EMB_GRAD_REL_L2 = 0.25
 
 
-def head_masks(model, run):
-    """``run()``'s result and the Mask2Former head's attention masks over
-    that call (the ``allowed`` bits each cross-attention layer reads, one
-    [B, 1, Q, h w] tensor a layer)."""
+@contextlib.contextmanager
+def head_masks(model, pinned=None):
+    """Yields a list that, once the block ends, holds the Mask2Former head's
+    attention masks over the block (the ``allowed`` bits each
+    cross-attention layer reads, one [B, 1, Q, h w] tensor a layer). With
+    ``pinned`` (such a list from another run) the head reads those in place
+    of the bits it computes: the discrete decisions of another run held
+    fixed, as the matches and points are."""
     dec = model.predictor
     real, masks = dec._heads, []
 
     def spy(*args):
-        out = real(*args)
-        masks.append(out[2].detach())
-        return out
+        logits, masks_out, allowed = real(*args)
+        if pinned is not None and len(masks) < len(pinned):
+            allowed = pinned[len(masks)]
+        masks.append(allowed.detach())
+        return logits, masks_out, allowed
 
     dec._heads = spy
-    result = run()
-    del dec._heads
-    return result, masks[:dec.dec_layers]
+    try:
+        yield masks
+    finally:
+        del dec._heads
+        del masks[dec.dec_layers:]
 
 
 def mask_bits_differ(a, b):
@@ -1731,8 +1826,9 @@ def phase_segment_train(dev):
                                          SEG_TRAIN_BATCH, device=dev)
     present = present.to(dev)
     model.zero_grad(set_to_none=True)
-    (loss_k, _, aux), bits_k = head_masks(model, lambda: step.loss_fn(
-        dict(model.named_parameters()), batch, targets, mi, present, SEED, return_aux=True))
+    with head_masks(model) as bits_k:
+        loss_k, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                      return_aux=True)
     loss_k.backward()
     g_k = flat_grads(model)
     # the kernel path once more on the same inputs: its run-to-run spread
@@ -1743,9 +1839,9 @@ def phase_segment_train(dev):
     g_k2 = flat_grads(model)
     model.attn_impl = "xla"
     model.zero_grad(set_to_none=True)
-    (loss_p, _), bits_p = head_masks(model, lambda: step.loss_fn(
-        dict(model.named_parameters()), batch, targets, mi, present, SEED, matched_override=aux["matched"],
-        point_coords_override=aux["point_coords"]))
+    with head_masks(model) as bits_p:
+        loss_p, _ = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                 matched_override=aux["matched"], point_coords_override=aux["point_coords"])
     loss_p.backward()
     g_p = flat_grads(model)
     model.attn_impl = "auto"
@@ -2181,8 +2277,9 @@ def phase_f32(dev, seg_ctx):
     results = {}
     for impl in ("auto", "xla"):
         model.attn_impl = impl
-        (loss, grads), masks = head_masks(model, lambda: loss_and_grads(
-            model, lambda: step32.loss_fn(dict(model.named_parameters()), *args, **over)[0]))
+        with head_masks(model) as masks:
+            loss, grads = loss_and_grads(model, lambda: step32.loss_fn(dict(model.named_parameters()), *args,
+                                                                       **over)[0])
         results[impl] = (loss, grads, masks)
     model.attn_impl = "auto"
     (loss_k, g_k, m_k), (loss_p, g_p, m_p) = results["auto"], results["xla"]
@@ -3227,6 +3324,292 @@ def _phase_pretrain_variants(dev):
     return ops.kernel_launches()
 
 
+# phase 15's backbones and decoders: MaskFormerConfig changes, each at the
+# defaults' widths (tiny ViT, ResNet and Swin-T as the JAX modules define
+# them)
+BACKBONES = {
+    "vit_adapter": dict(backbone_type="vit_adapter"),
+    "resnet50": dict(backbone_type="resnet50"),
+    "resnet18": dict(backbone_type="resnet18"),
+    "swin": dict(backbone_type="swin"),
+    "sup": dict(fusion_mode="sup"),
+    "vit standard decoder": dict(decoder_type="standard"),
+}
+BACKBONE_BATCH = 30
+# phase 15's free plain path (the head computing its own attention-mask
+# bits) against the kernel path: about twice the largest of the five
+# masked backbones' readings (H100 80GB HBM3, 700 W; the same in three
+# runs): loss rel 1.02e-2 (swin), 55,625 of 4,032,000 bits (1.38%,
+# vit_adapter). Phase 7's model flips 1,946 (0.05%) and holds its free
+# plain path at TRAIN_LOSS_REL unpinned
+FREE_LOSS_REL = 2e-2
+FREE_MASK_BITS = 3e-2  # a share of the bits
+
+
+def backbone_per_forward(cfg: MaskFormerConfig):
+    """The kernels one forward launches: K4 twice in the pixel decoder (its
+    two encoder layers); in a ViT backbone K1 zorro and K2 GEGLU a block and
+    a fusion block (crossattn), or K1 unmasked and K2 a block ('sup', whose
+    attention JAX runs plain: the same function); the ViT-Adapter's injector
+    and extractor K4 an interaction group each."""
+    out = collections.Counter({"ms_deform_attn/forward": cfg.transformer_enc_layers})
+    if cfg.backbone_type in ("vit", "vit_adapter"):
+        if cfg.backbone_type == "vit" and cfg.fusion_mode == "sup":
+            out.update({"zorro_attention_qkv/none": cfg.depth, "fused_ffn/geglu": cfg.depth})
+        else:
+            out.update({"zorro_attention_qkv/zorro": cfg.depth, "fused_ffn/geglu": 2 * cfg.depth})
+    if cfg.backbone_type == "vit_adapter":
+        out["ms_deform_attn/forward"] += 2 * len(interaction_groups(cfg.depth))
+    return dict(out)
+
+
+def backbone_per_step(cfg: MaskFormerConfig):
+    """A step's kernels: each forward kernel's backward once, and the
+    criterion's K5 five times and K5b once a prediction level (the decoder's
+    layers, plus the Mask2Former decoder's initial prediction)."""
+    fwd = backbone_per_forward(cfg)
+    levels = cfg.dec_layers + (1 if cfg.decoder_type == "mask2former" else 0)
+    out = {**fwd, **{("ms_deform_attn/backward" if k == "ms_deform_attn/forward" else f"{k}_backward"): n
+                     for k, n in fwd.items()}}
+    return {**out, "point_sample/forward": 5 * levels, "point_sample/backward": levels}
+
+
+def backbone_model(dev, cfg: MaskFormerConfig, serving: bool):
+    """build_maskformer(cfg) with seeded weights, as segment_model: N(0,
+    0.02) noise on every deformable attention's zero sampling kernels (the
+    adapter's too), the injectors' zero gamma drawn N(0, 0.1), the mask
+    head's last layer x 6; for serving the backbone bf16 and the head f32."""
+    from incomplete_multimodal_fusion_tpu_torch.models.vit_adapter import Injector
+
+    model = build_maskformer(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
+    if serving:
+        model.backbone.to(torch.bfloat16)
+    noise = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MSDeformAttn):
+                for lin in (m.sampling_offsets, m.attention_weights):
+                    lin.weight.add_((0.02 * torch.randn(lin.weight.shape, generator=noise)).to(lin.weight))
+            elif isinstance(m, Injector):
+                m.gamma.copy_((0.1 * torch.randn(m.gamma.shape, generator=noise)).to(m.gamma))
+        layer2 = model.predictor.mask_embed.layer2
+        layer2.weight.mul_(6.0)
+        layer2.bias.mul_(6.0)
+    return model.eval() if serving else model
+
+
+def backbone_forward(tag, model, run, x, dropped, want):
+    """One main-path forward ``run(x)`` with the counts from 0: its launches
+    (exactly ``want``); its outputs against the plain path within
+    SEG_REL_L2, as phase 6 holds them: pred_logits, pred_masks and, for a
+    semantic request, the class probabilities, for an instance request the
+    instances' scores (each image's, sorted); with ``dropped``, bitwise
+    unmoved by the dropped pixels; wall p50, device ms, busy share, peak
+    memory. Returns the launches."""
+    ops.reset_kernel_launches()
+    answer = run(x)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    if counts != want:
+        raise RuntimeError(f"[backbones] {tag}: launches a forward {counts}, expected {want}")
+    out_k = infer_segmentation.segmentation_outputs(model, None, x, dropped)
+    model.attn_impl = "xla"
+    out_p = infer_segmentation.segmentation_outputs(model, None, x, dropped)
+    answer_p = run(x)
+    model.attn_impl = "auto"
+    hw = (model.cfg.image_size, model.cfg.image_size)
+    compared = {k: (out_k[k], out_p[k]) for k in ("pred_logits", "pred_masks")}
+    if isinstance(answer, list):  # instances: each image's scores, sorted
+        compared["instance scores"] = tuple(torch.stack([a["scores"].sort().values for a in ans])
+                                            for ans in (answer, answer_p))
+    else:
+        compared["probabilities"] = (infer_segmentation.semantic_probabilities(out_k, hw),
+                                     infer_segmentation.semantic_probabilities(out_p, hw))
+    if not all(torch.isfinite(a).all() for a, _ in compared.values()):
+        raise RuntimeError(f"[backbones] {tag}: non-finite outputs")
+    rels = {k: rel_l2(a, b) for k, (a, b) in compared.items()}
+    if not max(rels.values()) <= SEG_REL_L2:
+        raise RuntimeError(f"[backbones] {tag}: rel L2 vs plain path {rels} > {SEG_REL_L2}")
+    note = ""
+    if dropped:
+        moved = {d: (v * 0.0 + 123.0 if d in dropped else v) for d, v in x.items()}
+        out_m = infer_segmentation.segmentation_outputs(model, None, moved, dropped)
+        if not (all(torch.equal(out_k[k], out_m[k]) for k in ("pred_logits", "pred_masks"))
+                and torch.equal(run(moved), answer)):
+            raise RuntimeError(f"[backbones] {tag}: the answer moved with the dropped pixels {dropped}")
+        note = f", bitwise unmoved by {'/'.join(dropped)}'s pixels"
+    b = next(iter(x.values())).shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    p50 = statistics.median(wall_ms(lambda: run(x), reps=5, warmup=1))
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms, n_kernels, by_kind, _ = device_breakdown(lambda: run(x), reps=2, top_n=0)
+    log(f"[backbones] {tag}: launches a forward exact {counts}; rel_l2 vs plain path "
+        + ", ".join(f"{k} {v:.6g}" for k, v in rels.items()) + f"{note}; p50 {p50:.6g} ms ({b / p50 * 1e3:.6g} "
+        f"images/s), device {dev_ms:.6g} ms a forward in {n_kernels:.0f} kernels/copies, busy "
+        f"{dev_ms / p50:.3f}, by kind " + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items()))
+        + f"; peak device memory {peak / 2 ** 30:.4g} GiB")
+    return counts
+
+
+@contextlib.contextmanager
+def msda_core_in_f64():
+    """The plain deformable-attention core computed in f64 on the same
+    operands and cast back to the value's dtype: the same function with the
+    f32 core's rounding taken out, the control beside phase 15's free plain
+    path."""
+    real = msda_module.ms_deform_attn_core
+
+    def core(value, shapes, locs, weights):
+        return real(value.double(), shapes, locs.double(), weights.double()).to(value.dtype)
+
+    msda_module.ms_deform_attn_core = core
+    try:
+        yield
+    finally:
+        msda_module.ms_deform_attn_core = real
+
+
+def backbone_step(tag, dev, model, cfg, rng):
+    """The B = 30 instance step (phase 7's settings) on ``model``: the
+    kernel path's loss and gradients against the plain path on the same
+    masks, matches and points, dropout off, and with the Mask2Former head's
+    attention-mask bits pinned to the kernel path's (TRAIN_LOSS_REL,
+    TRAIN_GRAD_REL_L2; a crossattn backbone's mask embedding at
+    MASK_EMB_GRAD_REL_L2): in bf16 the kernels' last-bit differences flip
+    some of those bits near the sigmoid's 0.5, and the head amplifies each
+    flip (phase 9 c: none flip in f32). The free plain path (its own bits)
+    is held too, at FREE_LOSS_REL and FREE_MASK_BITS; beside it the control,
+    the free plain path with its deformable-attention core in f64, against
+    the plain path: what rounding alone, in one module, moves. Then one
+    main-path step
+    with the counts from 0 (exactly backbone_per_step); 3 timed steps,
+    device ms, busy share, peak memory. Returns the step's launches."""
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=cfg.frozen_stages)
+    step = downstream.make_downstream_train_step(model, cfg, optimizer)
+    state = downstream.DownstreamState(model, optimizer, torch.Generator().manual_seed(SEED))
+    x, targets = synthetic_instances(rng, BACKBONE_BATCH, cfg.image_size, 1)
+    batch = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    targets = downstream.as_targets(targets, dev)
+    doms, nums = cfg.in_domains, (cfg.num_patches,) * len(cfg.in_domains)
+    g = torch.Generator().manual_seed(SEED)
+    present = masking.sample_modality_subset(g, len(doms))
+    mi = masking.incomplete_random_masks(g, doms, nums, present, cfg.max_encoded_tokens, BACKBONE_BATCH,
+                                         device=dev)
+    present = present.to(dev)
+    masked = cfg.decoder_type == "mask2former"
+
+    def run_loss(**kw):
+        return step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED, **kw)
+
+    model.zero_grad(set_to_none=True)
+    with head_masks(model) if masked else contextlib.nullcontext() as bits_k:
+        loss_k, _, aux = run_loss(return_aux=True)
+    loss_k.backward()
+    g_k = flat_grads(model)
+    fixed = dict(matched_override=aux["matched"], point_coords_override=aux["point_coords"])
+    model.attn_impl = "xla"
+    free, free_ok = "", True
+    if masked:
+        with torch.no_grad():
+            with head_masks(model) as bits_p:
+                loss_free = float(run_loss(**fixed)[0])
+            with head_masks(model) as bits_c, msda_core_in_f64():
+                loss_ctrl = float(run_loss(**fixed)[0])
+        free_rel = abs(loss_free - float(loss_k.detach())) / abs(loss_free)
+        flips, ctrl_flips = mask_bits_differ(bits_k, bits_p), mask_bits_differ(bits_c, bits_p)
+        free_ok = free_rel <= FREE_LOSS_REL and flips[0] <= FREE_MASK_BITS * flips[1]
+        free = (f"; free plain path (its own head mask bits) loss {loss_free:.6g}, rel {free_rel:.3g} (bound "
+                f"{FREE_LOSS_REL}), bits that differ {flips[0]} of {flips[1]} (bound {FREE_MASK_BITS} of them); "
+                f"control, its deformable-attention core in f64: loss {loss_ctrl:.6g}, rel "
+                f"{abs(loss_ctrl - loss_free) / abs(loss_free):.3g}, bits that differ from the free plain path's "
+                f"{ctrl_flips[0]}")
+    model.zero_grad(set_to_none=True)
+    with head_masks(model, pinned=bits_k) if masked else contextlib.nullcontext():
+        loss_p, _ = run_loss(**fixed)
+    loss_p.backward()
+    g_p = flat_grads(model)
+    model.attn_impl = "auto"
+    model.zero_grad(set_to_none=True)
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emb = "backbone.mask_embedding"
+    rest = [n for n in g_p if n != emb]
+    grad_rel, worst = compare_grads(g_k, g_p, rest)
+    emb_rel = rel_l2(g_k[emb], g_p[emb]) if emb in g_p else 0.0
+    del aux, g_k, g_p
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2
+            and emb_rel <= MASK_EMB_GRAD_REL_L2 and free_ok):
+        raise RuntimeError(f"[backbones] {tag} step: kernel vs plain path loss rel {loss_rel} (bound "
+                           f"{TRAIN_LOSS_REL}), gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2}), mask "
+                           f"embedding {emb_rel} (bound {MASK_EMB_GRAD_REL_L2}); worst {worst}{free}")
+    ops.reset_kernel_launches()
+    step(state, batch, targets)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    want = backbone_per_step(cfg)
+    if counts != want:
+        raise RuntimeError(f"[backbones] {tag} step: launches {counts}, expected {want}")
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = step_times(lambda: step(state, batch, targets)[1], steps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"[backbones] {tag} step: losses {losses}")
+    p50 = statistics.median(times)
+    dev_ms, n_kernels, by_kind, _ = device_breakdown(lambda: step(state, batch, targets), reps=1, top_n=0)
+    log(f"[backbones] {tag} step B={BACKBONE_BATCH}: loss kernel path {loss_k:.6g}, plain path {loss_p:.6g} "
+        f"(rel {loss_rel:.3g}), flat gradient rel_l2 {grad_rel:.3g}"
+        + (f", the mask embedding's {emb_rel:.3g}" if emb in dict(model.named_parameters()) else "")
+        + f" (worst {worst[0][1]} {worst[0][0]:.3g}){free}; launches a step exact {counts}; p50 {p50:.6g} ms "
+        f"({BACKBONE_BATCH / p50 * 1e3:.6g} images/s), device {dev_ms:.6g} ms a step in {n_kernels:.0f} "
+        f"kernels/copies, busy {dev_ms / p50:.3f}, by kind "
+        + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items()))
+        + f"; peak device memory {peak / 2 ** 30:.4g} GiB; losses {[round(v, 4) for v in losses]}")
+    return counts
+
+
+def phase_backbones(dev):
+    """Phase 15. (a) MaskFormerConfig(backbone_type='vit_adapter',
+    num_classes=10), bf16 backbone and f32 head: forward_segmentation at B =
+    1, B = 1 with dem dropped and B = 30 (K4 8 in the backbone and 2 in the
+    pixel decoder a forward). (b) The B = 30 instance step on the adapter
+    (K4b 8 + 2). (c) resnet50, resnet18, swin, sup and the vit backbone
+    with the standard decoder: one B = 30 step each and, on the step's
+    weights with the backbone in bf16, one B = 30
+    forward_instance_segmentation. Returns the main-path runs' launches."""
+    rng = np.random.default_rng(SEED + 15)
+    launches = collections.Counter()
+    cfg = MaskFormerConfig(num_classes=SEG_CLASSES, backbone_type="vit_adapter")
+    model = backbone_model(dev, cfg, serving=True)
+    doms, size = cfg.in_domains, cfg.image_size
+    x1, x30 = synthetic_batch(rng, doms, 1, size), synthetic_batch(rng, doms, 30, size)
+
+    def semantic(dropped):
+        return lambda x: infer_segmentation.forward_segmentation(model, None, x, SEG_CLASSES, dropped)
+
+    want = backbone_per_forward(cfg)
+    for kind, x, dropped in (("B=1", x1, ()), ("B=1 dem dropped", x1, ("dem",)), ("B=30", x30, ())):
+        launches.update(backbone_forward(f"(a) vit_adapter semantic {kind}", model, semantic(dropped), x, dropped,
+                                         want))
+    del model
+    for name, change in BACKBONES.items():
+        cfg = MaskFormerConfig(num_classes=1, **change)
+        model = backbone_model(dev, cfg, serving=False)
+        tag = "(b) vit_adapter" if name == "vit_adapter" else f"(c) {name}"
+        launches.update(backbone_step(tag, dev, model, cfg, rng))
+        if name == "vit_adapter":
+            continue
+        model.backbone.to(torch.bfloat16)
+        model.eval()
+        x = synthetic_batch(rng, doms, BACKBONE_BATCH, size)
+        launches.update(backbone_forward(
+            f"{tag} instance B={BACKBONE_BATCH}", model,
+            lambda x: infer_segmentation.forward_instance_segmentation(model, None, x, topk=100), x, (),
+            backbone_per_forward(cfg)))
+        del model
+    return dict(launches)
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -3306,10 +3689,12 @@ def main(argv) -> int:
     by_cli = timed("cli", phase_cli, dev)
     exported = timed("export", phase_export, dev)
     pretrain_variants = timed("pretrain variants", phase_pretrain_variants, dev)
+    backbones = timed("backbones", phase_backbones, dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
-                                                    sem_trained, state_trained, by_cli, exported, pretrain_variants))
+                                                    sem_trained, state_trained, by_cli, exported, pretrain_variants,
+                                                    backbones))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

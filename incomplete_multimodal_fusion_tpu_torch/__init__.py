@@ -10,7 +10,9 @@ with the balancer, the EMA and ``make_multi_step``; ``utils.checkpoint``;
 ``cli.pretrain``), the converter of reference checkpoints
 (``utils.torch_convert``, ``cli.convert_checkpoint``), the downstream
 MaskFormer segmentation forward (``infer_segmentation.forward_segmentation``
-and ``forward_instance_segmentation``), its training step and CLI
+and ``forward_instance_segmentation``) on every backbone and decoder of the
+JAX package (the ViT-Adapter, 'sup', ResNet, Swin, the standard decoder),
+its training step and CLI
 (``train.downstream``, ``cli.train_downstream``), MAE inference with its
 reconstruction grid (``cli.infer``) and COCO mask evaluation
 (``eval.coco_eval``, ``eval.structures``), with hand-written CUDA kernels under

@@ -17,9 +17,10 @@ ReduceLROnPlateau (mode 'max'); a checkpoint every ``--save_freq`` epochs
 and at the last (``output_dir/checkpoint-{epoch}``, utils/checkpoint.py).
 ``--pretrained DIR`` copies the backbone tensors of the latest checkpoint
 in DIR that match by name and shape (a pretraining checkpoint of
-``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``). The
-flags of the real data paths, augmentation and the other backbones and
-fusion modes raise ``NotImplementedError``.
+``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``).
+``--backbone`` and ``--fusion_mode`` take the JAX script's choices. The
+flags of the real data paths and augmentation raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from ..utils import checkpoint as ckpt_lib
 # flags of scripts/train_downstream.py this port does not run yet, with the
 # value that leaves them off
 UNPORTED = {"coco_root": "", "coco_json": "", "quad_root": "", "ade_root": "", "odgt": "", "aug": False,
-            "segm_downsampling_rate": 1, "backbone": "vit", "fusion_mode": "crossattn"}
+            "segm_downsampling_rate": 1}
 
 
 def get_args(argv=None):
@@ -72,11 +73,11 @@ def get_args(argv=None):
     p.add_argument("--per_sample_masks", action="store_true",
                    help="independent token keep-mask per sample (default: one mask for the batch)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # not ported yet (ROADMAP Queue 1 items 6 and 9): each raises when set
     p.add_argument("--backbone", default="vit",
                    choices=["vit", "vit_adapter", "swin", "resnet18", "resnet34", "resnet50", "resnet101",
                             "resnet152"])
     p.add_argument("--fusion_mode", default="crossattn", choices=["crossattn", "sup"])
+    # not ported yet (ROADMAP Queue 1 item 9): each raises when set
     p.add_argument("--coco_root", default="")
     p.add_argument("--coco_json", default="")
     p.add_argument("--quad_root", default="")
@@ -90,8 +91,7 @@ def get_args(argv=None):
 def refuse_unported(args) -> None:
     for name, off in UNPORTED.items():
         if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name} is not ported yet (the port trains the 'vit' crossattn backbone "
-                                      "on synthetic batches)")
+            raise NotImplementedError(f"--{name} is not ported yet (the port trains on synthetic batches)")
 
 
 def build_config(args) -> MaskFormerConfig:
@@ -101,7 +101,8 @@ def build_config(args) -> MaskFormerConfig:
     return MaskFormerConfig(
         image_size=args.input_size, num_classes=args.num_classes, dim_tokens=m.dim_tokens, depth=m.depth,
         dim_head=m.dim_head, heads=m.heads, num_fusion_tokens=(args.input_size // 16) ** 2,
-        num_queries=args.num_queries, dec_layers=args.dec_layers, frozen_stages=args.frozen_stages)
+        num_queries=args.num_queries, dec_layers=args.dec_layers, frozen_stages=args.frozen_stages,
+        backbone_type=args.backbone, fusion_mode=args.fusion_mode)
 
 
 def main(argv=None) -> int:

@@ -129,8 +129,10 @@ class ZorroAttention(nn.Module):
     Self-attention with ``packed_types`` projects q/k/v with one product
     against the stacked [to_q; to_kv] weights -- the same columns as the two
     separate projections -- and runs kernel K1 (zorro mode) on the fused
-    slab. Cross-attention (``context``) with an explicit ``attn_mask`` runs
-    the plain masked attention.
+    slab; without types or a mask, and with ``use_kernel``, it runs K1's
+    unmasked mode on that slab (the 'sup' backbone's full attention, which
+    JAX computes plain). Cross-attention (``context``) or an explicit
+    ``attn_mask`` runs the plain masked attention.
     """
 
     def __init__(self, dim: int, dim_head: int = 64, heads: int = 8):
@@ -146,7 +148,7 @@ class ZorroAttention(nn.Module):
     def forward(self, x, context=None, attn_mask=None, packed_types=None, fusion_type=None,
                 use_kernel: bool = False, empty_rows_uniform_over=None):
         x = self.norm(x)
-        if packed_types is not None and context is None:
+        if context is None and (packed_types is not None or (use_kernel and attn_mask is None)):
             qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight], dim=0))
             fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
             return self.to_out(fn(qkv, self.heads, packed_types, fusion_type))

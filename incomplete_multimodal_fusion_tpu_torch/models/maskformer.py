@@ -3,9 +3,12 @@ reference MaskFormerModel_vit.py:22-105): the incomplete-fusion ViT
 backbone -> 4-level pyramid -> MSDeformAttn pixel decoder -> Mask2Former
 query decoder -> {'pred_logits', 'pred_masks', 'aux_outputs'}.
 
-Ported: the 'vit' backbone in 'crossattn' mode with the 'mask2former'
-decoder. The other backbones ('resnet*', 'swin', 'vit_adapter', the 'sup'
-fusion mode) and the 'standard' decoder raise ``NotImplementedError``.
+Every backbone of the JAX package: 'vit' ('crossattn' or 'sup' fusion),
+'vit_adapter', 'resnet18' / '34' / '50' / '101' / '152' and 'swin' (the
+last two on ``x[cfg.resnet_input]`` alone, with no masks); the pixel
+decoder's widths follow the backbone's. Either decoder: 'mask2former'
+(multi-scale, masked) or 'standard' (DETR-style, on the lowest-resolution
+map).
 """
 from __future__ import annotations
 
@@ -16,12 +19,20 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import modalities as modreg
 from ..ops.masking import MaskInfo, full_visible_mask_info
 from .layers import GroupNorm, LayerNorm, trunc_normal_, xavier_uniform_
 from .mask2former_decoder import MultiScaleMaskedTransformerDecoder
+from .maskformer_decoder import StandardTransformerDecoder
 from .msda_module import MSDeformAttn
 from .pixel_decoder import MSDeformAttnPixelDecoder
+from .resnet import RESNET_SPEC, ResNet
+from .swin import SwinTransformer
+from .vit_adapter import Injector, SpatialPriorModule
 from .vit_baseline import ConvTranspose2x2, ViTBaseline
+
+BACKBONES = ("vit", "vit_adapter", "swin") + tuple(f"resnet{d}" for d in RESNET_SPEC)
+DECODERS = ("mask2former", "standard")
 
 
 @dataclass(frozen=True)
@@ -77,44 +88,63 @@ class MaskFormerModel(nn.Module):
 
     def __init__(self, cfg: MaskFormerConfig, attn_impl: str = "auto"):
         super().__init__()
-        if cfg.backbone_type != "vit":
-            raise NotImplementedError(f"backbone_type={cfg.backbone_type!r} is not ported yet")
-        if cfg.decoder_type != "mask2former":
-            raise NotImplementedError(f"decoder_type={cfg.decoder_type!r} is not ported yet")
+        if cfg.backbone_type not in BACKBONES:
+            raise ValueError(f"backbone_type must be one of {BACKBONES}, got {cfg.backbone_type!r}")
+        if cfg.decoder_type not in DECODERS:
+            raise ValueError(f"decoder_type must be one of {DECODERS}, got {cfg.decoder_type!r}")
         self.cfg = cfg
-        self.backbone = ViTBaseline(
-            in_domains=cfg.in_domains, image_size=cfg.image_size, patch_size=cfg.patch_size,
-            dim_tokens=cfg.dim_tokens, depth=cfg.depth, dim_head=cfg.dim_head, heads=cfg.heads,
-            num_fusion_tokens=cfg.num_fusion_tokens, fusion_mode=cfg.fusion_mode)
+        in_ch = modreg.get(cfg.resnet_input).num_channels
+        if cfg.backbone_type.startswith("resnet"):
+            self.backbone = ResNet(int(cfg.backbone_type[len("resnet"):]), in_ch)
+        elif cfg.backbone_type == "swin":
+            self.backbone = SwinTransformer(in_channels=in_ch)
+        else:
+            self.backbone = ViTBaseline(
+                in_domains=cfg.in_domains, image_size=cfg.image_size, patch_size=cfg.patch_size,
+                dim_tokens=cfg.dim_tokens, depth=cfg.depth, dim_head=cfg.dim_head, heads=cfg.heads,
+                num_fusion_tokens=cfg.num_fusion_tokens,
+                fusion_mode="crossattn" if cfg.backbone_type == "vit_adapter" else cfg.fusion_mode,
+                adapter=cfg.backbone_type == "vit_adapter")
         self.pixel_decoder = MSDeformAttnPixelDecoder(
-            (cfg.dim_tokens,) * 4, conv_dim=cfg.conv_dim, mask_dim=cfg.mask_dim,
+            self.backbone.out_channels, conv_dim=cfg.conv_dim, mask_dim=cfg.mask_dim,
             transformer_enc_layers=cfg.transformer_enc_layers, num_fpn_levels=cfg.num_fpn_levels)
-        self.predictor = MultiScaleMaskedTransformerDecoder(
-            num_classes=cfg.num_classes, hidden_dim=cfg.conv_dim, num_queries=cfg.num_queries,
-            dec_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward, mask_dim=cfg.mask_dim)
+        if cfg.decoder_type == "standard":
+            self.predictor = StandardTransformerDecoder(
+                num_classes=cfg.num_classes, in_channels=cfg.conv_dim, hidden_dim=cfg.conv_dim,
+                num_queries=cfg.num_queries, dec_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward,
+                mask_dim=cfg.mask_dim, pre_norm=cfg.pre_norm)
+        else:
+            self.predictor = MultiScaleMaskedTransformerDecoder(
+                num_classes=cfg.num_classes, hidden_dim=cfg.conv_dim, num_queries=cfg.num_queries,
+                dec_layers=cfg.dec_layers, dim_feedforward=cfg.dim_feedforward, mask_dim=cfg.mask_dim)
         self.attn_impl = attn_impl
 
     @property
     def attn_impl(self) -> str:
-        return self.backbone.attn_impl
+        """The route of the modules that read it (every model's pixel
+        decoder has deformable attention)."""
+        return next(m.impl for m in self.modules() if isinstance(m, MSDeformAttn))
 
     @attn_impl.setter
     def attn_impl(self, impl: str) -> None:
         if impl not in ("auto", "pallas", "xla"):
             raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {impl!r}")
-        self.backbone.attn_impl = impl
         for m in self.modules():
             if isinstance(m, MSDeformAttn):
                 m.impl = impl
+            elif isinstance(m, ViTBaseline):
+                m.attn_impl = impl
 
     def init_weights(self, generator: torch.Generator) -> "MaskFormerModel":
         """The JAX package's initializers, drawn from ``generator``:
         xavier-uniform for every projection and convolution (fused xavier for
         the packed kv), zero biases, unit norm weights, He-normal (fan-out)
-        for the pyramid's transposed convolutions, the sampling-offset grid
-        with zero sampling kernels, truncated normal 0.02 for the fusion
-        tokens, a zero mask embedding, normal(1.0) for the level embeddings
-        and the queries."""
+        for the transposed convolutions, the sampling-offset grid with zero
+        sampling kernels, truncated normal 0.02 for the fusion and return
+        tokens and the adapter's level embedding, a zero mask embedding and
+        a zero injector gamma, normal(1.0) for the level embeddings and the
+        queries; flax's defaults (lecun-normal kernels) for the ResNet, Swin
+        and spatial-prior convolutions and Swin's projections."""
         for name, module in self.named_modules():
             if isinstance(module, (nn.Linear, nn.Conv2d)):
                 w = module.weight
@@ -139,11 +169,24 @@ class MaskFormerModel(nn.Module):
         for module in self.modules():
             if isinstance(module, MSDeformAttn):
                 module.reset_offsets()
-        trunc_normal_(self.backbone.fusion_tokens, generator)
-        nn.init.zeros_(self.backbone.mask_embedding)
+            elif isinstance(module, Injector):
+                nn.init.zeros_(module.gamma)
+            elif isinstance(module, (ResNet, SwinTransformer, SpatialPriorModule)):
+                module.init_weights(generator)
+        bb = self.backbone
+        if isinstance(bb, ViTBaseline):
+            if bb.fusion_mode == "crossattn":
+                trunc_normal_(bb.fusion_tokens, generator)
+                nn.init.zeros_(bb.mask_embedding)
+            else:
+                trunc_normal_(bb.return_tokens, generator)
+            if bb.adapter:
+                trunc_normal_(bb.adapter_level_embed, generator)
+        embeds = [self.pixel_decoder.level_embed, self.predictor.query_embed]
+        if isinstance(self.predictor, MultiScaleMaskedTransformerDecoder):
+            embeds += [self.predictor.level_embed, self.predictor.query_feat]
         with torch.no_grad():
-            for p in (self.pixel_decoder.level_embed, self.predictor.level_embed,
-                      self.predictor.query_feat, self.predictor.query_embed):
+            for p in embeds:
                 p.normal_(0.0, 1.0, generator=generator)
         return self
 
@@ -153,6 +196,8 @@ class MaskFormerModel(nn.Module):
         is visible (the eval path); with it, ``num_encoded_tokens`` slots
         (default ``cfg.max_encoded_tokens``) are packed."""
         c = self.cfg
+        if not isinstance(self.backbone, ViTBaseline):  # the CNN variants: one input, no masks
+            return self._head(self.backbone(x[c.resnet_input]))
         b = x[c.in_domains[0]].shape[0]
         if mask_info is None:
             mask_info = full_visible_mask_info(c.in_domains, (c.num_patches,) * len(c.in_domains), b,
@@ -160,8 +205,12 @@ class MaskFormerModel(nn.Module):
             e = c.num_patches * len(c.in_domains)
         else:
             e = num_encoded_tokens or c.max_encoded_tokens
-        feats = self.backbone(x, mask_info, e, present=present)
+        return self._head(self.backbone(x, mask_info, e, present=present))
+
+    def _head(self, feats):
         mask_features, ms_feats = self.pixel_decoder(feats)
+        if isinstance(self.predictor, StandardTransformerDecoder):
+            return self.predictor(ms_feats[0], mask_features)
         return self.predictor(ms_feats, mask_features)
 
 

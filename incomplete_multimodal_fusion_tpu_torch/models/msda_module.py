@@ -6,6 +6,12 @@ offset-bias init (:66-80). Flattened [B, S, C] layout.
 ``impl``: 'auto' or 'pallas' run the core through kernel K4's autograd
 Function (the kernel for a CUDA tensor, the plain core for a CPU one);
 'xla' runs the plain core (``ops.msda.ms_deform_attn_core``) everywhere.
+K4 takes f32 operands. A bf16 call (the ViT-Adapter's interactions inside
+the bf16 backbone) casts value, locations and weights up to f32 before the
+kernel and the result back to value's dtype, as the TPU kernel reads its
+operands as f32 and casts its output (pallas_msda.py:83, :239-241, :251):
+the up-cast is exact, so the one rounding is the output's, and autograd
+carries K4b's gradients back through the casts.
 """
 from __future__ import annotations
 
@@ -80,5 +86,5 @@ class MSDeformAttn(nn.Module):
         if self.impl == "xla":
             out = ms_deform_attn_core(value, shapes, locs, weights)
         else:
-            out = MSDeformAttnFunction.apply(value, shapes, locs, weights)
+            out = MSDeformAttnFunction.apply(value.float(), shapes, locs.float(), weights.float()).to(value.dtype)
         return self.output_proj(out)

@@ -52,7 +52,10 @@ ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default, no mask
 def freeze_mask(model, frozen_stages: int) -> Dict[str, bool]:
     """{parameter name: True if trainable} (downstream.py:45-63) on the
     port's names, which follow the flax tree. ``model``: a module or
-    (name, tensor) pairs."""
+    (name, tensor) pairs. The rule holds for every backbone: the 'sup'
+    backbone freezes its input adapters and blocks 1..frozen_stages; the
+    ViT-Adapter's prior module, injectors, extractors and ``adapter_*``
+    stay trainable, and so do the ResNet and Swin backbones whole."""
     named = model.named_parameters() if isinstance(model, torch.nn.Module) else model
 
     def trainable(name: str) -> bool:
@@ -120,9 +123,11 @@ class DownstreamOptimizer:
 def create_downstream_optimizer(model: torch.nn.Module, lr: float = 1e-4, clip_grad: float = 0.01,
                                 frozen_stages: int = 0, optimizer: str = "adamw") -> DownstreamOptimizer:
     """The downstream optimizer of ``model``'s parameters
-    (downstream.py:66-89)."""
-    return DownstreamOptimizer(model.named_parameters(), lr, clip_grad,
-                               freeze_mask(model, frozen_stages), optimizer)
+    (downstream.py:66-89); with ``frozen_stages`` 0 nothing is frozen, as
+    JAX masks the updates only above 0 (:86)."""
+    trainable = freeze_mask(model, frozen_stages) if frozen_stages > 0 else \
+        {name: True for name, _ in model.named_parameters()}
+    return DownstreamOptimizer(model.named_parameters(), lr, clip_grad, trainable, optimizer)
 
 
 def set_learning_rate(optimizer: DownstreamOptimizer, lr: float) -> DownstreamOptimizer:
@@ -162,7 +167,8 @@ class ReduceLROnPlateau:
 def load_pretrained_backbone(model: MaskFormerModel, pretrain_params) -> Dict[str, list]:
     """Copy the pretraining MultiMAE's parameters that the backbone shares
     (same name, same shape) into ``model.backbone``, non-strict
-    (checkpoint.py:26-72). ``pretrain_params``: a module or a state dict.
+    (checkpoint.py:26-72), whatever the backbone (the ResNet and Swin ones
+    share none). ``pretrain_params``: a module or a state dict.
     Returns {'copied', 'missing_in_ckpt', 'unused_from_ckpt'} lists of
     names."""
     if isinstance(pretrain_params, torch.nn.Module):

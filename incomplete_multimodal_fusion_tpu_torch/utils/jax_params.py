@@ -21,13 +21,23 @@ renaming plus the Dense transpose:
     torch_convert.py:234-241);
   * ``gamma`` -> ``weight`` and ``beta`` -> ``bias`` of a LayerNorm (the
     ``_Param`` holders ``mlp/norm/gamma``, ``mlp/proj_in/kernel`` keep their
-    module names); flax ``LayerNorm`` / ``GroupNorm`` ``scale`` -> ``weight``;
+    module names); flax ``LayerNorm`` / ``GroupNorm`` ``scale`` -> ``weight``.
+    A norm is a module of leaves alone: a ``gamma`` beside submodules (the
+    ViT-Adapter injector's, a ConvNeXt block's layer scale) keeps its name,
+    and so does the ``scale`` of a ResNet's frozen batch norm (modules
+    ``bn{i}`` and ``downsample_bn``);
+  * the ViT-Adapter's ``adapter_up`` is a transposed convolution like the
+    pyramid's;
   * every other leaf (``fusion_tokens``, ``task_emb``, ``bias``,
-    ``level_embed``, ...) keeps its name.
+    ``level_embed``, ``relative_position_bias_table``, ``query_embed``,
+    ``return_tokens``, ...) keeps its name.
 
 The downstream head's modules carry their flax names in the port
 (``enc_layer{i}``, ``input_proj{i}``, ``fpn_lateral2_gn``, ``cross{i}``,
-``self{i}``, ``ffn{i}``, ``mask_embed.layer{j}``, ...), so they need no rule.
+``self{i}``, ``ffn{i}``, ``mask_embed.layer{j}``, the standard decoder's
+``enc{i}`` / ``dec{i}``, ...), and so do the other backbones' (``spm``,
+``injector{i}``, ``extractor{i}``, ``attn_pool``, ``layer{s}_{b}``,
+``stage{s}_block{i}``, ``merge{s}``, ...), so they need no rule.
 
 The LSTM cells (``attn_lstm/lstm_fwd/ii``, ``if`` -> ``if_``, ...), the class-map adapter
 (``input_adapter_dnw``: ``class_emb``, ``proj_kernel``, ``proj_bias``), the
@@ -97,10 +107,11 @@ def flax_path(name: str) -> str:
     return "/".join(out)
 
 
-_CONV_TRANSPOSE = re.compile(r"^up\d+_conv\d*$")
+_CONV_TRANSPOSE = re.compile(r"^(up\d+_conv\d*|adapter_up)$")
+_FROZEN_BN = re.compile(r"^(bn\d+|downsample_bn)$")
 
 
-def _leaf(module: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+def _leaf(module: str, key: str, arr: np.ndarray, norm: bool) -> Tuple[str, np.ndarray]:
     if key == "kernel" and arr.ndim == 4:
         if _CONV_TRANSPOSE.match(module):
             return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -111,7 +122,7 @@ def _leaf(module: str, key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
         return "proj.weight", arr.T
     if key == "proj_bias":
         return "proj.bias", arr
-    if key in ("gamma", "scale"):
+    if key in ("gamma", "scale") and norm and not (key == "scale" and _FROZEN_BN.match(module)):
         return "weight", arr
     if key == "beta":
         return "bias", arr
@@ -125,11 +136,12 @@ def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str, module: str):
+        norm = not any(isinstance(v, Mapping) for v in tree.values())
         for key, value in tree.items():
             if isinstance(value, Mapping):
                 walk(value, prefix + _module_name(key) + ".", key)
             else:
-                name, arr = _leaf(module, key, np.array(value, dtype=np.float32))  # a writable copy
+                name, arr = _leaf(module, key, np.array(value, dtype=np.float32), norm)  # a writable copy
                 out[prefix + name] = torch.from_numpy(np.ascontiguousarray(arr))
 
     walk(params, "", "")

@@ -384,10 +384,11 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
                "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export",
-               "phase_pretrain_variants")
+               "phase_pretrain_variants", "phase_backbones")
 
 
-@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants"])
+@pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants",
+                                       "phase_backbones"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts
@@ -515,6 +516,30 @@ def test_pretrain_variants_launch_counts(smoke):
         "zorro_attention_qkv/zorro_f32": 12, "zorro_attention_qkv/none_f32": 6, "fused_ffn/mlp_f32": 6,
         "fused_ffn/geglu_f32": 12}
     assert all(k in smoke.REPLACES for counts in got.values() for k in counts)
+
+
+def test_backbone_launch_counts(smoke):
+    """Phase 15's launches: K4 twice a forward in the pixel decoder and,
+    on the ViT-Adapter, once a injector and extractor (4 interaction groups
+    at depth 12); K1 zorro and K2 GEGLU in a crossattn ViT, K1 unmasked and
+    K2 a block in 'sup'; a step adds each backward and the criterion's K5 /
+    K5b, 5 and 1 a prediction level (4 levels with the Mask2Former decoder,
+    3 with the standard one)."""
+    cfgs = {name: smoke.MaskFormerConfig(num_classes=1, **change) for name, change in smoke.BACKBONES.items()}
+    fwd = {name: smoke.backbone_per_forward(cfg) for name, cfg in cfgs.items()}
+    vit = {"zorro_attention_qkv/zorro": 12, "fused_ffn/geglu": 24}
+    assert fwd["vit_adapter"] == {"ms_deform_attn/forward": 10, **vit}
+    assert fwd["vit standard decoder"] == {"ms_deform_attn/forward": 2, **vit}
+    assert fwd["sup"] == {"ms_deform_attn/forward": 2, "zorro_attention_qkv/none": 12, "fused_ffn/geglu": 12}
+    assert fwd["resnet50"] == fwd["resnet18"] == fwd["swin"] == {"ms_deform_attn/forward": 2}
+    step = smoke.backbone_per_step(cfgs["vit_adapter"])
+    assert step == {"ms_deform_attn/forward": 10, "ms_deform_attn/backward": 10, **vit,
+                    "zorro_attention_qkv/zorro_backward": 12, "fused_ffn/geglu_backward": 24,
+                    "point_sample/forward": 20, "point_sample/backward": 4}
+    assert step == {**smoke.SEG_TRAIN_PER_STEP, "ms_deform_attn/forward": 10, "ms_deform_attn/backward": 10}
+    std = smoke.backbone_per_step(cfgs["vit standard decoder"])
+    assert std["point_sample/forward"] == 15 and std["point_sample/backward"] == 3
+    assert all(k in smoke.REPLACES for cfg in cfgs.values() for k in smoke.backbone_per_step(cfg))
 
 
 def test_gathered_types_case_pads_mid_sequence(smoke):

@@ -13,7 +13,8 @@ in subprocesses, at a small size (the ``tiny`` widths on 64² rasters, B = 2,
     input adapters among them (the frozen ones still equal after training);
   * a non-finite loss (a huge lr) exits with code 1;
   * each flag of the JAX script the port does not run yet raises
-    ``NotImplementedError`` naming it; the device defaults to ``cuda``;
+    ``NotImplementedError`` naming it; ``--backbone`` and ``--fusion_mode``
+    reach the config; the device defaults to ``cuda``;
   * ``data.synthetic.synthetic_instances`` is bitwise
     scripts/train_downstream.py's for three seeds; ``ReduceLROnPlateau``
     (mode 'max') gives the JAX class's lr sequence.
@@ -124,12 +125,20 @@ def test_a_non_finite_loss_exits_with_code_1(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--coco_root", "/data"], ["--coco_json", "a.json"], ["--quad_root", "/q"],
                                   ["--ade_root", "/a"], ["--odgt", "x.odgt"], ["--aug"],
-                                  ["--segm_downsampling_rate", "4"], ["--backbone", "swin"],
-                                  ["--fusion_mode", "sup"]])
+                                  ["--segm_downsampling_rate", "4"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *flag])
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+@pytest.mark.parametrize("flag,field,value", [(["--backbone", "swin"], "backbone_type", "swin"),
+                                              (["--fusion_mode", "sup"], "fusion_mode", "sup")])
+def test_backbone_flags_reach_the_config(flag, field, value):
+    """--backbone and --fusion_mode take the JAX script's choices into the
+    model config (scripts/train_downstream.py:124-125)."""
+    cfg = cli.build_config(cli.get_args(flag))
+    assert getattr(cfg, field) == value
 
 
 def test_the_device_defaults_to_cuda(tmp_path):

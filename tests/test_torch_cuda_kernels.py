@@ -262,11 +262,12 @@ def _check_ffn_backward(dev, mode, m, widths):
 
 
 @pytest.mark.parametrize("mode", ["geglu", "mlp"])
-@pytest.mark.parametrize("m", [1, 63, 64, 65, 38400])
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 23040, 38400])
 def test_ffn_backward_at_the_model_widths(dev, mode, m):
     """K2b at the model's widths, M below, at and past the 64-row warpgroup
-    tile and the 128-row block (a partial last tile), and the pretraining
-    shape (several weight-gradient row ranges)."""
+    tile and the 128-row block (a partial last tile), and the 'sup'
+    backbone's and pretraining shapes (several weight-gradient row
+    ranges)."""
     _check_ffn_backward(dev, mode, m, "model")
 
 
@@ -311,10 +312,10 @@ def _check_ffn_forward(dev, mode, m, widths):
 
 
 @pytest.mark.parametrize("mode", ["geglu", "mlp"])
-@pytest.mark.parametrize("m", [1, 127, 256, 1024, 15300, 15360, 38400])
+@pytest.mark.parametrize("m", [1, 127, 256, 1024, 15300, 15360, 23040, 38400])
 def test_ffn_forward_at_the_model_widths(dev, mode, m):
-    """K2's row path at the model's widths: the serving and training M, and
-    M below and not a multiple of the 128-row tile."""
+    """K2's row path at the model's widths: the serving, training and 'sup'
+    backbone's M, and M below and not a multiple of the 128-row tile."""
     _check_ffn_forward(dev, mode, m, "model")
 
 
@@ -746,6 +747,81 @@ def test_k4b_launches_the_kernels_its_library_plans(dev, b, planned):
     assert cuda_msda.backward_kernels(b, 1344, 8, 32, FULL_LEVELS, 4) == planned
     run = lambda: cuda_msda.ms_deform_attn_backward(value, FULL_LEVELS, locs, aw, dout)  # noqa: E731
     assert _device_kernels(run, "ms_deform_attn_bwd") == planned
+
+
+# the ViT-Adapter's interactions at 256^2 (6 heads x 32, 4 points): the
+# injector's 256 fusion tokens over the priors' levels 32^2 / 16^2 / 8^2
+# (high -> low resolution, S = 1344), the extractor's 1344 priors over the
+# 16^2 token map (one level)
+INJECTOR_LEVELS = ((32, 32), (16, 16), (8, 8))
+EXTRACTOR_LEVELS = ((16, 16),)
+
+
+@pytest.mark.parametrize("b,lq,shapes", [(30, 256, INJECTOR_LEVELS), (1, 256, INJECTOR_LEVELS),
+                                         (30, 1344, EXTRACTOR_LEVELS), (1, 1344, EXTRACTOR_LEVELS)])
+def test_msda_forward_and_backward_at_the_adapter_shapes(dev, b, lq, shapes):
+    value, locs, aw = _msda_inputs(dev, b, lq, 6, 32, 4, shapes, seed=47)
+    locs = _off_integer(locs, shapes)
+    out = cuda_msda.ms_deform_attn(value, shapes, locs, aw)
+    ref = cuda_msda.ms_deform_attn_core(value, shapes, locs, aw)
+    assert _rel(out, ref) <= MSDA_REL_L2
+    dout = torch.randn(b, lq, 6 * 32, device=dev, generator=torch.Generator(device=dev).manual_seed(48))
+    grads = cuda_msda.ms_deform_attn_backward(value, shapes, locs, aw, dout)
+    want = cuda_msda.ms_deform_attn_backward_reference(value, shapes, locs, aw, dout)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(t).all() for t in grads)
+    assert _rel_all(grads, want) <= MSDA_REL_L2
+    planned = cuda_msda.backward_kernels(b, lq, 6, 32, shapes, 4)
+    run = lambda: cuda_msda.ms_deform_attn_backward(value, shapes, locs, aw, dout)  # noqa: E731
+    assert _device_kernels(run, "ms_deform_attn_bwd") == planned
+
+
+@pytest.mark.parametrize("levels", [INJECTOR_LEVELS, EXTRACTOR_LEVELS])
+def test_msda_module_bf16_operands_launch_k4(dev, levels):
+    """The adapter's MSDeformAttn in the bf16 backbone: its bf16 value,
+    offsets and weights go to K4 / K4b cast up to f32 (one launch each way),
+    and the result matches the plain route (impl 'xla', the plain core on
+    the bf16 operands) and its gradients."""
+    from incomplete_multimodal_fusion_tpu_torch.models.msda_module import MSDeformAttn
+
+    torch.manual_seed(0)
+    mod = MSDeformAttn(192, len(levels), 6, 4)
+    with torch.no_grad():
+        for lin in (mod.sampling_offsets, mod.attention_weights):
+            lin.weight.normal_(0.0, 0.02)
+    mod = mod.to(dev, torch.bfloat16)
+    lq, s = (256, 1344) if len(levels) == 3 else (1344, 256)
+    q = torch.randn(4, lq, 192, device=dev).to(torch.bfloat16)
+    v = torch.randn(4, s, 192, device=dev).to(torch.bfloat16)
+    ref_pts = torch.rand(4, lq, 1, 2, device=dev).expand(-1, -1, len(levels), -1)
+    outs, grads = {}, {}
+    for impl in ("auto", "xla"):
+        mod.impl = impl
+        mod.zero_grad()
+        before = dict(cuda_msda.LAUNCHES)
+        out = mod(q, ref_pts, v, levels)
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        launched = {k: cuda_msda.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"forward": 1, "backward": 1} if impl == "auto" else {"forward": 0, "backward": 0})
+        outs[impl] = out
+        grads[impl] = {n: p.grad.float() for n, p in mod.named_parameters()}
+    assert outs["auto"].dtype == torch.bfloat16
+    assert _rel(outs["auto"], outs["xla"]) <= 1e-2
+    for name in grads["xla"]:
+        assert _rel(grads["auto"][name], grads["xla"][name]) <= REL_L2, name
+
+
+def test_unmasked_at_the_sup_backbones_shape(dev):
+    """The 'sup' backbone's attention at B = 30: K1 / K1b unmasked over all
+    3 x 256 tokens at 3 heads x 64, against the plain versions at the bf16
+    bound (its K2 / K2b rows, M = 30 * 768, are the FFN tests' 23040)."""
+    qkv = _randn(dev, 30, 768, 3 * 192, seed=8)
+    out = cuda_attn.zorro_attention_qkv(qkv, 3)
+    ref = cuda_attn.zorro_attention_qkv_reference(qkv, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and _rel(out, ref) <= REL_L2
+    _zorro_backward_case(dev, qkv, 3, None)
 
 
 POINTS_REL_L2 = 1e-5  # f32 both sides: the same taps, sums in another order

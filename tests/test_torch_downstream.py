@@ -490,5 +490,14 @@ def test_build_maskformer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 @pytest.mark.parametrize("change", [dict(backbone_type="resnet50"), dict(backbone_type="swin"),
                                     dict(decoder_type="standard"), dict(fusion_mode="sup")])
 def test_unported_variants_raise(change):
-    with pytest.raises(NotImplementedError):
-        tmf.MaskFormerModel(tmf.MaskFormerConfig(**{**CFG, **change}))
+    """These variants are ported now (tests/test_torch_backbones_model.py
+    holds them against flax): each builds and answers; a value the JAX
+    config does not know raises."""
+    model = tmf.MaskFormerModel(tmf.MaskFormerConfig(**{**CFG, **change})).eval()
+    x = {d: torch.from_numpy(v) for d, v in _vit_inputs(21, b=1).items()}
+    with torch.no_grad():
+        out = model(x)
+    assert out["pred_masks"].shape == (1, 10, 16, 16) and torch.isfinite(out["pred_masks"]).all()
+    key = next(iter(change))
+    with pytest.raises(ValueError):
+        tmf.MaskFormerModel(tmf.MaskFormerConfig(**{**CFG, key: "unknown"}))

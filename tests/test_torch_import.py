@@ -24,6 +24,8 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.eval import metrics\n"
         "from incomplete_multimodal_fusion_tpu_torch.models import (mask2former_decoder, maskformer,\n"
         "    msda_module, pixel_decoder, position_encoding, vit_baseline)\n"
+        "from incomplete_multimodal_fusion_tpu_torch.models import (dpt_utils, maskformer_decoder, resnet, swin,\n"
+        "    vit_adapter)\n"
         "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_msda, msda, resize\n"
         "from incomplete_multimodal_fusion_tpu_torch.ops import cuda_points, points\n"
         "from incomplete_multimodal_fusion_tpu_torch.losses import set_criterion\n"
