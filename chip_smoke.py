@@ -15,8 +15,10 @@ K-step CUDA graph, checkpoints through the CLI, the reference converter)
 and the command line (convert, infer, fine-tune, a learning run), and
 checks what comes out; then the serving forward as an exported program
 reloaded without model code, the batched decoder trunk and the
-segmentation extras; last, the other downstream backbones (the ViT-Adapter,
-ResNet, Swin, the 'sup' fusion mode) and the standard decoder.
+segmentation extras; the other downstream backbones (the ViT-Adapter,
+ResNet, Swin, the 'sup' fusion mode) and the standard decoder; last, the
+host data path: the readers, the native raster ops and the pinned ring
+feeding the steps and the CLIs from trees on disk.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
@@ -217,6 +219,28 @@ Phases (any failure raises; the exit code is then non-zero):
                  p50, device ms, busy share and peak memory. Phase 3 holds
                  K4 / K4b at the injector's and extractor's shapes for it,
                  and K1 / K1b unmasked and K2 / K2b GEGLU at 'sup''s.
+ 16. data     -- the host data path, on trees written with the port's
+                 write_tiff under build/ (removed after): a DFC2023 tree of
+                 120 256^2 uncompressed tiles (u8 RGB, f32 SAR and DSM), a
+                 deflate 512^2 copy, a COCO, a quadruplet and an ADE .npy
+                 tree. (a) The first B = 60 pretraining batch through the
+                 pinned ring (data.loader.DeviceLoader over
+                 data.dfc2023.DFC2023Batches): the device batch bitwise its
+                 pinned host batch, the host batch within NATIVE_ATOL of the
+                 numpy path, the first step's loss bitwise the same step fed
+                 by torch.from_numpy(batch).cuda(); (b) exact launches of
+                 every path: the eager and K = 4 pretraining steps fed from
+                 disk, cli.pretrain --data_path --steps_per_call 4,
+                 cli.infer --data_path (f32), cli.train_downstream's instance
+                 step from COCO (and once with --aug) and semantic steps from
+                 the quadruplet and ADE trees (B = 30); (c) the host ms to
+                 build a batch (thread count, os.cpu_count()) on the fused
+                 path, the resize path (the 512^2 copy read at 256) and the
+                 random crop (the 512^2 copy cut to 256), each native
+                 against numpy within NATIVE_ATOL; the ms each step waited
+                 for its batch, wall p50 a step and busy share fed from disk
+                 beside one device batch and the CLI's synthetic stream,
+                 eager and K = 4, and the pinned MB.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -226,6 +250,7 @@ import collections
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -245,6 +270,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from incomplete_multimodal_fusion_tpu_torch import infer, infer_segmentation, ops, serving
 from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
+from incomplete_multimodal_fusion_tpu_torch.data import dfc2023, sample_trees
+from incomplete_multimodal_fusion_tpu_torch.data.loader import DeviceLoader
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch, synthetic_instances
 from incomplete_multimodal_fusion_tpu_torch.models.maskformer import MaskFormerConfig, MaskFormerModel, build_maskformer
 from incomplete_multimodal_fusion_tpu_torch.models import msda_module
@@ -260,6 +287,7 @@ from incomplete_multimodal_fusion_tpu_torch.ops import masking
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
 from incomplete_multimodal_fusion_tpu_torch.cli import infer as cli_infer
+from incomplete_multimodal_fusion_tpu_torch.cli import pretrain as cli_pretrain
 from incomplete_multimodal_fusion_tpu_torch.cli import train_downstream as cli_downstream
 from incomplete_multimodal_fusion_tpu_torch.train import downstream, pretrain
 from incomplete_multimodal_fusion_tpu_torch.utils import checkpoint as ckpt_lib
@@ -2437,7 +2465,7 @@ def phase_semantic_train(dev):
 
 
 STATE_K = 4  # steps a CUDA graph group replays (make_multi_step's K)
-STATE_GROUPS = 5  # timed groups of K steps, after one warm-up group
+STATE_GROUPS = 3  # timed groups of K steps, after one warm-up group
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")  # git-ignored
 GOLDEN = os.path.join(ROOT, "tests", "golden", "fullmodel_golden.npz")
 # the golden's model (tests/test_fullmodel_parity.py:36-52)
@@ -2687,7 +2715,7 @@ def phase_pretrain_state(dev):
 # the f32 instances of K1 / K2 (K4 takes f32 only)
 SEG_EVAL_F32_PER_FORWARD = {(k if k.startswith("ms_deform_attn/") else f32_key(k)): n
                             for k, n in SEG_PER_FORWARD.items()}
-LEARN_STEPS = 150
+LEARN_STEPS = 100  # the loss halves by then (DOWNSTREAM_E2E_TORCH.json's curve: 4.68 at step 75 from 15.31)
 DOWNSTREAM_E2E = os.path.join(ROOT, "DOWNSTREAM_E2E.json")
 
 
@@ -3610,6 +3638,272 @@ def phase_backbones(dev):
     return dict(launches)
 
 
+
+# phase 16: the host data path. Trees written from SEED under build/ and
+# removed after; the pretraining cell of the slice (B = 60 on 256^2 tiles)
+DATA_DIR = os.path.join(ROOT, "build", "chip_smoke_data")  # git-ignored
+DATA_TILES = 120  # 256^2 DFC2023 tiles, two B = 60 batches an epoch
+DATA_TILES_512 = 60  # the deflate 512^2 copy: one batch an epoch
+DATA_TREE = 64  # images or tiles of the COCO, quadruplet and ADE trees
+DATA_STEPS, DATA_WARMUP = 4, 1  # timed eager steps after untimed ones (the synthetic stream: 2, no warm-up)
+DATA_GROUPS = 4  # timed groups of K = 4 steps from disk, past the ring's 3 filled slots (the others: 2, 1)
+NATIVE_ATOL = 1e-4  # the native normalizations against numpy (tests/test_native.py's loader tolerance)
+
+
+def fed_steps(run, batches, n: int, warmup: int):
+    """``run(next(batches))`` ``warmup + n`` times with no synchronize
+    between calls, as the CLI loops: (wall ms from each timed call's start to
+    the next's, the last ending in a synchronize; ms each timed call waited
+    for its batch)."""
+    starts, waits = [], []
+    for i in range(warmup + n):
+        if i == warmup:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        if i >= warmup:
+            starts.append(t0)
+            waits.append((time.perf_counter() - t0) * 1e3)
+        run(batch)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    return [(b - a) * 1e3 for a, b in zip(starts, starts[1:])], waits
+
+
+def host_batch_ms(source, reps: int):
+    """Host ms of ``source.fill`` into fresh arrays, a batch (median of
+    ``reps``), and the first batch."""
+    times, batches = [], []
+    for _ in range(reps):
+        out = {k: np.empty(shape, dtype) for k, (shape, dtype) in source.specs.items()}
+        t0 = time.perf_counter()
+        source.fill(out)
+        times.append((time.perf_counter() - t0) * 1e3)
+        batches.append(out)
+    return statistics.median(times), batches[0]
+
+
+def copies_ms(per_name) -> float:
+    """The copies' share of a device_breakdown's (name, ms) list."""
+    return sum(ms for n, ms in per_name if "memcpy" in n.lower())
+
+
+def max_abs(a, b) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in a)
+
+
+def cli_run(tag, main_fn, argv, want):
+    """A CLI in this process with the counts from 0: its output, checked to
+    exit 0 with exactly ``want`` launches; returns (output, launches)."""
+    ops.reset_kernel_launches()
+    rc, out = run_in_process(main_fn, argv)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    log(f"[data] (b) {tag}: exit {rc}; launches {counts}")
+    if rc != 0 or counts != want:
+        raise RuntimeError(f"[data] (b) {tag}: exit {rc}, launches {counts} (expected {want}): {out[-3000:]}")
+    return out, counts
+
+
+def log_cli_times(tag: str, out: str) -> None:
+    """The step wall p50 and batch wait p50 a CLI printed."""
+    wall = parsed(r"step wall p50 (\S+) ms", out, f"(b) {tag} wall")[0]
+    wait = parsed(r"batch wait p50 (\S+) ms", out, f"(b) {tag} wait")[0]
+    log(f"[data] (b)   {tag}: step wall p50 {wall:.6g} ms, batch wait p50 {wait:.6g} ms")
+
+
+def phase_data(dev):
+    """Phase 16. Writes the trees (a DFC2023 tree of DATA_TILES 256^2
+    uncompressed tiles, a deflate 512^2 copy, COCO, quadruplet and ADE .npy
+    trees), then (c) the host ms to build a batch on the fused, resize and
+    random-crop paths, native against numpy; (a) the first pretraining batch
+    through the pinned ring: the device batch bitwise its pinned host batch,
+    the host batch within NATIVE_ATOL of the numpy path, the first step's
+    loss bitwise the same step fed by torch.from_numpy(batch).cuda(); (c)
+    eager and K = 4 steps fed from disk beside one device batch and the
+    synthetic stream: wall p50, the ms waited for a batch, busy share,
+    pinned MB; (b) the CLIs on the trees: cli.pretrain --data_path
+    --steps_per_call 4, cli.infer --data_path (f32), the instance step from
+    COCO (and once with --aug), the semantic step from the quadruplet and
+    the ADE trees. Returns the main-path runs' launches."""
+    launches = collections.Counter()
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    try:
+        t0 = time.time()
+        threads = min(8, os.cpu_count() or 1)
+        cfg = PretrainConfig()
+        doms, b, size = tuple(cfg.data.in_domains), cfg.data.batch_size, cfg.data.input_size
+        dfc = sample_trees.write_dfc2023(os.path.join(DATA_DIR, "dfc"), DATA_TILES, size, seed=SEED, threads=threads)
+        dfc512 = sample_trees.write_dfc2023(os.path.join(DATA_DIR, "dfc512"), DATA_TILES_512, 2 * size, seed=SEED + 1,
+                                            compression="deflate", threads=threads)
+        coco_root, coco_json = sample_trees.write_coco(os.path.join(DATA_DIR, "coco"), DATA_TREE, size, seed=SEED,
+                                                       threads=threads)
+        quad = sample_trees.write_quadruplet(os.path.join(DATA_DIR, "quad"), DATA_TREE, size, seed=SEED,
+                                             threads=threads)
+        ade_root, odgt = sample_trees.write_ade(os.path.join(DATA_DIR, "ade"), DATA_TREE, (size + 64, size + 128),
+                                                seed=SEED)
+        sizes = {name: sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(os.path.join(DATA_DIR, name))
+                           for f in fs) / 2 ** 20 for name in ("dfc", "dfc512", "coco", "quad", "ade")}
+        log(f"[data] trees written in {time.time() - t0:.1f} s on {threads} threads (MB): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in sizes.items()))
+
+        # (c) host ms a batch: the fused load_into path (256^2, uncompressed),
+        # the generic path with the resize (512^2 deflate read at 256) and
+        # the random crop (512^2 deflate loaded whole, a 256^2 window cut),
+        # each native and numpy
+        builds = {}
+        for name, root, crop in (("fused 256^2", dfc, False), ("resize 512^2 deflate", dfc512, False),
+                                 ("crop 512^2 deflate", dfc512, True)):
+            for native in (True, False):
+                source = dfc2023.DFC2023Batches(root, doms, b, size, seed=SEED, native=native, random_crop=crop)
+                builds[name, native] = host_batch_ms(source, 1)
+                source.close()
+        errs = {name: max_abs(builds[name, True][1], builds[name, False][1]) for name, _ in builds}
+        log(f"[data] (c) host ms to build a B = {b} batch on {source.num_threads} threads (os.cpu_count() "
+            f"{os.cpu_count()}), native / numpy: " + ", ".join(
+                f"{name} {builds[name, True][0]:.6g} / {builds[name, False][0]:.6g}" for name in errs)
+            + f"; native vs numpy max abs {errs}")
+        if not max(errs.values()) <= NATIVE_ATOL:
+            raise RuntimeError(f"[data] native batches {errs} from numpy's (bound {NATIVE_ATOL})")
+
+        # (a) the first pretraining batch and step through the pinned ring
+        model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+        step = pretrain.make_train_step(model, cfg, optimizer)
+        multi = pretrain.make_multi_step(step, STATE_K)
+        ops.reset_kernel_launches()
+        loader = DeviceLoader(dfc2023.DFC2023Batches(dfc, doms, b, size, seed=SEED), dev)
+        try:
+            first = next(loader)
+            torch.cuda.synchronize()
+            host = {k: v.copy() for k, v in loader.host.items()}
+            same_device = all(torch.equal(first[k].cpu(), torch.from_numpy(host[k])) for k in doms)
+            plain = dfc2023.DFC2023Batches(dfc, doms, b, size, seed=SEED, native=False)
+            plain_batch = {k: np.empty(shape, dtype) for k, (shape, dtype) in plain.specs.items()}
+            plain.fill(plain_batch)
+            host_err = {k: float(np.abs(host[k] - plain_batch[k]).max()) for k in doms}
+            snap = state_snapshot(state)
+            mi = step.draw_masks(state, b, dev)
+            loss_loader = step(state, first, mi)[1]["loss"]
+            state_restore(state, snap)
+            loss_direct = step(state, {d: torch.from_numpy(host[d]).to(dev) for d in doms}, mi)[1]["loss"]
+            same_loss = torch.equal(loss_loader, loss_direct)
+            log(f"[data] (a) first batch: device batch bitwise its pinned host batch {same_device}; host batch vs "
+                f"the numpy path max abs {host_err}; first step's loss fed by the loader {float(loss_loader):.9g}, "
+                f"by torch.from_numpy(batch).cuda() {float(loss_direct):.9g}: bitwise {same_loss}")
+            if not (same_device and same_loss and max(host_err.values()) <= NATIVE_ATOL):
+                raise RuntimeError(f"[data] (a) device batch bitwise {same_device}, loss bitwise {same_loss}, "
+                                   f"host vs numpy {host_err} (bound {NATIVE_ATOL})")
+
+            # (c) eager: disk (this loader) against the synthetic stream
+            results = {}
+            run_eager = lambda batch: step(state, batch)  # noqa: E731
+            wall, wait = fed_steps(run_eager, loader, DATA_STEPS, DATA_WARMUP)
+            dev_ms, _, _, per_name = device_breakdown(lambda: run_eager(next(loader)), reps=1, top_n=None)
+            results["disk eager"] = (wall, wait, dev_ms, copies_ms(per_name))
+            steps_run = 2 + DATA_WARMUP + DATA_STEPS + 1
+            counts = {k: n for k, n in ops.kernel_launches().items() if n}
+            want = {k: steps_run * n for k, n in PER_STEP.items()}
+            log(f"[data] (b) pretraining from disk, eager, {steps_run} steps: launches {counts}")
+            if counts != want:
+                raise RuntimeError(f"[data] eager launches {counts}, expected {want}")
+            launches.update(counts)
+            fill_ms, pinned = [x * 1e3 for x in loader.fill_s], loader.pinned_bytes
+        finally:
+            loader.close()
+        # the step alone: one batch already on the device, fed again and again
+        fixed = itertools.repeat(first)
+        wall, wait = fed_steps(run_eager, fixed, DATA_STEPS, DATA_WARMUP)
+        dev_ms, _, _, per_name = device_breakdown(lambda: run_eager(next(fixed)), reps=1, top_n=None)
+        results["one device batch, eager"] = (wall, wait, dev_ms, copies_ms(per_name))
+        # the CLI's synthetic stream: its draws take about 0.5 s a batch, so fewer steps
+        synth, _ = cli_pretrain.open_data(cfg, False, 0, 1, dev)
+        wall, wait = fed_steps(run_eager, synth, 2, 0)
+        dev_ms, _, _, per_name = device_breakdown(lambda: run_eager(next(synth)), reps=1, top_n=None)
+        results["synthetic eager"] = (wall, wait, dev_ms, copies_ms(per_name))
+
+        # (c) K = 4 (one CUDA graph replayed): disk, then the synthetic stream
+        ops.reset_kernel_launches()
+        run_graph = lambda batch: multi(state, batch)  # noqa: E731
+        loader4 = DeviceLoader(dfc2023.DFC2023Batches(dfc, doms, b, size, seed=SEED), dev, stack=STATE_K)
+        try:
+            wall, wait = fed_steps(run_graph, loader4, DATA_GROUPS, 1)
+            dev_ms, _, _, per_name = device_breakdown(lambda: run_graph(next(loader4)), reps=1, top_n=None)
+            results[f"disk K={STATE_K}"] = ([w / STATE_K for w in wall], wait, dev_ms / STATE_K,
+                                            copies_ms(per_name) / STATE_K)
+            fill4_ms, pinned4 = [x * 1e3 for x in loader4.fill_s], loader4.pinned_bytes
+        finally:
+            loader4.close()
+        counts = {k: n for k, n in ops.kernel_launches().items() if n}
+        want = {k: 2 * n for k, n in PER_STEP.items()}  # the warm-up step and the capture
+        log(f"[data] (b) pretraining from disk, K = {STATE_K}, {DATA_GROUPS + 2} groups: launches {counts}")
+        if counts != want:
+            raise RuntimeError(f"[data] K = {STATE_K} launches {counts}, expected {want}")
+        launches.update(counts)
+        fixed4 = itertools.repeat({d: first[d].expand(STATE_K, *first[d].shape) for d in doms})
+        wall, wait = fed_steps(run_graph, fixed4, 2, 0)
+        dev_ms, _, _, per_name = device_breakdown(lambda: run_graph(next(fixed4)), reps=1, top_n=None)
+        results[f"one device batch, K={STATE_K}"] = ([w / STATE_K for w in wall], wait, dev_ms / STATE_K,
+                                                    copies_ms(per_name) / STATE_K)
+        synth4, _ = cli_pretrain.open_data(cfg, False, 0, STATE_K, dev)
+        wall, wait = fed_steps(run_graph, synth4, 1, 0)
+        dev_ms, _, _, per_name = device_breakdown(lambda: run_graph(next(synth4)), reps=1, top_n=None)
+        results[f"synthetic K={STATE_K}"] = ([w / STATE_K for w in wall], wait, dev_ms / STATE_K,
+                                             copies_ms(per_name) / STATE_K)
+        for name, (wall, wait, dev_ms, copy_ms) in results.items():
+            p50 = statistics.median(wall)
+            log(f"[data] (c) pretraining B = {b}, {name}: wall p50 {p50:.6g} ms a step "
+                f"({[round(w, 2) for w in wall]}), "
+                f"waited for the batch p50 {statistics.median(wait):.6g} ms (max {max(wait):.6g}) a "
+                f"{'group' if 'K=' in name else 'step'}, device {dev_ms:.6g} ms a step (copies {copy_ms:.6g}), busy "
+                f"{dev_ms / p50:.3f}")
+        log(f"[data] (c) producer ms to fill a pinned slot: eager p50 {statistics.median(fill_ms):.6g} "
+            f"({len(fill_ms)} slots), K = {STATE_K} p50 "
+            f"{statistics.median(fill4_ms):.6g} ({len(fill4_ms)} slots of {STATE_K} batches); pinned MB "
+            f"{pinned / 2 ** 20:.6g} (eager ring), {pinned4 / 2 ** 20:.6g} (K = {STATE_K} ring)")
+        del model, state, optimizer, step, multi, first, snap
+        torch.cuda.empty_cache()
+
+        # (b) the CLIs on the trees
+        pre_dir = os.path.join(DATA_DIR, "pretrain")
+        out, counts = cli_run(f"cli.pretrain --data_path --steps_per_call {STATE_K}", cli_pretrain.main,
+                              ["--data_path", dfc, "--steps_per_epoch", str(STATE_K), "--epochs", "1",
+                               "--steps_per_call", str(STATE_K), "--output_dir", pre_dir],
+                              {k: 2 * n for k, n in PER_STEP.items()})
+        launches.update(counts)
+        seconds = parsed(r"Training time (\S+)s", out, "(b) pretraining time")[0]
+        log(f"[data] (b)   pretraining: one group of K = {STATE_K} in {seconds:.6g} s (the CLI's training time, the "
+            f"capture included)")
+        out, counts = cli_run("cli.infer --data_path (f32, tile 0)", cli_infer.main,
+                              ["--ckpt_dir", pre_dir, "--data_path", dfc, "--output",
+                               os.path.join(DATA_DIR, "grid.png")], F32_PER_FORWARD)
+        launches.update(counts)
+        psnr = parsed(r"PSNR (-?[0-9.]+|nan|inf) dB", out, "(b) infer PSNR")
+        if "restored params" not in out or not all(math.isfinite(v) for v in psnr):
+            raise RuntimeError(f"[data] (b) infer: {out[-2000:]}")
+        log(f"[data] (b)   infer PSNR {psnr}")
+        down = ["--epochs", "1", "--eval_freq", "100", "--save_freq", "100"]
+        for tag, argv, steps, per_step in (
+                ("instance, COCO", ["--coco_root", coco_root, "--coco_json", coco_json], 1, SEG_TRAIN_PER_STEP),
+                ("instance, COCO --aug", ["--coco_root", coco_root, "--coco_json", coco_json, "--aug"], 1,
+                 SEG_TRAIN_PER_STEP),
+                ("semantic, quadruplet", ["--task", "semantic", "--num_classes", str(SEG_CLASSES), "--quad_root",
+                                          quad], 1, SEM_TRAIN_PER_STEP),
+                ("semantic, ADE .npy", ["--task", "semantic", "--num_classes", str(SEG_CLASSES), "--odgt", odgt,
+                                        "--ade_root", ade_root], 1, SEM_TRAIN_PER_STEP)):
+            out, counts = cli_run(f"cli.train_downstream {tag}, B = 30, {steps} steps", cli_downstream.main,
+                                  [*argv, *down, "--steps_per_epoch", str(steps), "--output_dir",
+                                   os.path.join(DATA_DIR, tag.replace(" ", "_").replace(",", ""))],
+                                  {k: steps * n for k, n in per_step.items()})
+            launches.update(counts)
+            losses = parsed(r"epoch \d+: loss=(\S+)", out, f"(b) {tag} loss")
+            if not all(math.isfinite(v) for v in losses):
+                raise RuntimeError(f"[data] (b) {tag}: losses {losses}")
+            log_cli_times(f"{tag}, loss {losses}", out)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    return dict(launches)
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -3690,11 +3984,12 @@ def main(argv) -> int:
     exported = timed("export", phase_export, dev)
     pretrain_variants = timed("pretrain variants", phase_pretrain_variants, dev)
     backbones = timed("backbones", phase_backbones, dev)
+    from_disk = timed("data", phase_data, dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
                                                     sem_trained, state_trained, by_cli, exported, pretrain_variants,
-                                                    backbones))
+                                                    backbones, from_disk))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

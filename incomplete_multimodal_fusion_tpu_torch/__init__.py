@@ -14,8 +14,11 @@ and ``forward_instance_segmentation``) on every backbone and decoder of the
 JAX package (the ViT-Adapter, 'sup', ResNet, Swin, the standard decoder),
 its training step and CLI
 (``train.downstream``, ``cli.train_downstream``), MAE inference with its
-reconstruction grid (``cli.infer``) and COCO mask evaluation
-(``eval.coco_eval``, ``eval.structures``), with hand-written CUDA kernels under
+reconstruction grid (``cli.infer``), COCO mask evaluation
+(``eval.coco_eval``, ``eval.structures``) and the host data path (``data``:
+the DFC2023, COCO, quadruplet, ADE and SEN12MS readers, the TIFF codec, the
+native raster ops, augmentation and the pinned loader that feeds the card),
+with hand-written CUDA kernels under
 ``csrc/`` (zorro attention, fused FFN, fusion-row attention, deformable
 attention) in place of the JAX package's Pallas kernels.
 """

@@ -3,19 +3,21 @@ scripts/infer.py on one device; reference pretraining/infer_mmae.py:291-362).
 
     python -m incomplete_multimodal_fusion_tpu_torch.cli.infer \\
         [--ckpt_dir DIR] [--num_encoded_tokens E] [--seed S] [--drop dem] [--output grid.png] \\
-        [--device cuda|cpu]
+        [--data_path DIR --tile_index I] [--device cuda|cpu]
 
 Restores the latest checkpoint in ``--ckpt_dir`` (a pretraining checkpoint
 of ``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``), or
-warns and keeps the seeded initialisation; forwards one synthetic tile from
-``--seed`` with random masks drawn from ``torch.Generator(--seed)`` (or, with
-``--drop``, the named modalities masked out); prints each masked modality's
+warns and keeps the seeded initialisation; forwards one tile, the
+``--tile_index``-th of the DFC2023 tree ``--data_path`` (read at
+``--input_size``) or else a synthetic one from ``--seed``, with random
+masks drawn from ``torch.Generator(--seed)`` (or, with ``--drop``, the
+named modalities masked out); prints each masked modality's
 masked-patch PSNR (a class-map domain such as ``dnw``: the pixel accuracy
 of the argmax of its class logits); writes the masked / predicted /
 ground-truth grid as PNG (the only format). ``--fusion_mode`` takes
 ``crossattn``, ``zorro`` and ``lstm``, as the JAX script does. The model
 runs in f32, as the JAX script applies its f32 parameters (on the card: the
-f32 instances of K1-K3). ``--data_path`` raises ``NotImplementedError``.
+f32 instances of K1-K3).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 from .. import infer as infer_lib
 from .. import modalities as modreg
 from ..config import MODEL_SIZES, DataConfig, PretrainConfig
+from ..data.dfc2023 import DFC2023Dataset
 from ..data.synthetic import synthetic_batch
 from ..models.multimae import build_multimae
 from ..utils import checkpoint as ckpt_lib
@@ -44,22 +47,16 @@ def get_args(argv=None):
     p.add_argument("--num_encoded_tokens", type=int, default=256)  # infer_mmae.py:330
     p.add_argument("--seed", type=int, default=1)  # torch.manual_seed(1)
     p.add_argument("--drop", default="", help="modalities to ablate, hyphen separated")
-    p.add_argument("--data_path", default="", help="DFC2023 tree (not ported yet); synthetic if empty")
+    p.add_argument("--data_path", default="", help="DFC2023 tree; synthetic if empty")
     p.add_argument("--tile_index", type=int, default=0)
     p.add_argument("--output", default="output.png", help="the grid, PNG")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    if args.data_path:
-        raise NotImplementedError("--data_path is not ported yet (the port infers on a synthetic tile)")
-
-
 def main(argv=None) -> int:
     args = get_args(argv)
     domains = tuple(args.in_domains.split("-"))
-    refuse_unported(args)
     model_cfg = dataclasses.replace(MODEL_SIZES[args.model_size], num_fusion_tokens=(args.input_size // 16) ** 2,
                                     fusion_mode=args.fusion_mode)
     cfg = PretrainConfig(model=model_cfg, data=DataConfig(input_size=args.input_size, in_domains=domains,
@@ -74,7 +71,11 @@ def main(argv=None) -> int:
     model = model.eval()
     device = next(model.parameters()).device
 
-    x = synthetic_batch(np.random.default_rng(args.seed), domains, 1, args.input_size)
+    if args.data_path:
+        s = DFC2023Dataset(args.data_path, size=args.input_size)[args.tile_index]
+        x = {k: np.ascontiguousarray(v.transpose(1, 2, 0))[None] for k, v in s.items() if k in domains}
+    else:
+        x = synthetic_batch(np.random.default_rng(args.seed), domains, 1, args.input_size)
     drop = tuple(d for d in args.drop.split("-") if d)
     res = infer_lib.infer(model, None, x, args.num_encoded_tokens, generator=torch.Generator().manual_seed(args.seed),
                           drop_modalities=drop)

@@ -6,19 +6,27 @@ device; reference pretraining/pretrain_mmae.py:75-185, 251-418).
         [--fusion_mode crossattn|zorro|lstm|crossattn_v1] [--decoder_style simple|full] \\
         [--in_domains s1_2ch-s2_4ch-dem-dnw] [--use_ema] [--task_balancer uncertainty] \\
         [--log_wandb] [--profile_dir DIR --profile_start I --profile_steps N] \\
-        [--output_dir DIR] [--device cuda|cpu]
+        [--data_path DIR [--random_crop]] [--output_dir DIR] [--device cuda|cpu]
 
 It reads the flags of scripts/pretrain.py that a single device needs and
 runs its loop (scripts/pretrain.py:282-325): a step (or, with
-``--steps_per_call K``, K steps replayed from one CUDA graph) on synthetic
-batches (integer class maps for a semseg domain such as ``dnw``), the
+``--steps_per_call K``, K steps replayed from one CUDA graph) a batch, the
 metrics logged every 10 steps, an abort on a non-finite ``recon_loss``, a
 checkpoint at the epoch boundaries that ``--save_ckpt_freq`` picks (and at
 the end), and one JSON line of averaged metrics an epoch in
-``output_dir/log.txt``. With ``--auto_resume`` (the default) it continues
-from the latest checkpoint in ``output_dir``; the synthetic stream is
-advanced past the batches the checkpoint's steps took, so a resumed run sees
-the batches an unbroken run would.
+``output_dir/log.txt``. The batches are synthetic (integer class maps for a
+semseg domain such as ``dnw``), or with ``--data_path`` a DFC2023 tree's
+(``data.dfc2023.DFC2023Batches``: the JAX script's shuffle from ``--seed``,
+``--random_crop`` loading at twice ``--input_size`` and cutting a shared
+window), filled by a producer thread into pinned host buffers and copied to
+the card on a side stream (``data.loader.DeviceLoader``; with
+``--steps_per_call K`` a buffer holds the K batches of a group). With
+``--auto_resume`` (the default) it continues from the latest checkpoint in
+``output_dir``; either stream is advanced past the batches the
+checkpoint's steps took (a DFC2023 tree's without reading them), so a
+resumed run sees the batches an unbroken run would. (The JAX script
+restarts its DFC2023 stream from the seed instead.) At the end it prints
+the wall p50 of a step and the p50 ms a step waited for its batch.
 
 ``--log_wandb`` sends every step's metrics to wandb (scripts/pretrain.py:
 263-317), or, where wandb does not import or start, to
@@ -26,8 +34,8 @@ the batches an unbroken run would.
 the logging cadence, so the card is not made to wait every step.
 ``--profile_dir`` writes a ``torch.profiler`` trace (Chrome JSON,
 ``trace.json``) of ``--profile_steps`` steps from the ``--profile_start``-th
-step of the run (scripts/pretrain.py:85-89, :289-302). The flags of the real
-data path and of parallelism raise ``NotImplementedError``.
+step of the run (scripts/pretrain.py:85-89, :289-302). The flags of
+parallelism raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,12 +44,15 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import sys
 import time
 
 import numpy as np
 
 from .. import config as cfg_lib
+from ..data.dfc2023 import DFC2023Batches
+from ..data.loader import DeviceLoader
 from ..data.synthetic import synthetic_iterator
 from ..train import pretrain
 from ..utils import checkpoint as ckpt_lib
@@ -49,8 +60,7 @@ from ..utils.logging import MetricLogger, WandbLogger
 
 # flags of scripts/pretrain.py this port does not run yet, with the value
 # that leaves them off
-UNPORTED = {"data_path": None, "random_crop": False, "tp": 1, "fsdp": False, "sp": False, "pp": 1,
-            "pp_microbatches": 0}
+UNPORTED = {"tp": 1, "fsdp": False, "sp": False, "pp": 1, "pp_microbatches": 0}
 LOG_EVERY = 10  # steps between metric reads (scripts/pretrain.py:304)
 
 
@@ -100,9 +110,10 @@ def get_args(argv=None):
     p.add_argument("--wandb_entity", type=str, default="")
     p.add_argument("--wandb_project", type=str, default="imf-tpu")
     p.add_argument("--wandb_run_name", type=str, default="")
-    # not ported yet (ROADMAP Queue 1 items 8 and 9): each raises when set
-    p.add_argument("--data_path", type=str, default=None)
-    p.add_argument("--random_crop", action="store_true")
+    p.add_argument("--data_path", type=str, default=None, help="DFC2023-layout dir; synthetic data if empty")
+    p.add_argument("--random_crop", action="store_true",
+                   help="load rasters at 2x input size and take a shared random crop per sample")
+    # not ported yet (ROADMAP Queue 1 item 8): each raises when set
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--sp", action="store_true")
@@ -114,8 +125,7 @@ def get_args(argv=None):
 def refuse_unported(args) -> None:
     for name, off in UNPORTED.items():
         if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name} is not ported yet (the port trains on synthetic batches on "
-                                      "one device)")
+            raise NotImplementedError(f"--{name} is not ported yet (the port trains on one device)")
 
 
 def build_config(args) -> cfg_lib.PretrainConfig:
@@ -133,7 +143,7 @@ def build_config(args) -> cfg_lib.PretrainConfig:
     n_grid = (input_size // patch_size) ** 2
     if model_cfg.num_fusion_tokens != n_grid:
         model_cfg = dataclasses.replace(model_cfg, num_fusion_tokens=n_grid)
-    data_kw = {k: getattr(args, k) for k in ("batch_size", "patch_size", "input_size")
+    data_kw = {k: getattr(args, k) for k in ("batch_size", "patch_size", "input_size", "data_path")
                if getattr(args, k) is not None}
     if args.in_domains:
         data_kw["in_domains"] = tuple(args.in_domains.split("-"))
@@ -193,8 +203,7 @@ def main(argv=None) -> int:
     refuse_unported(args)
     cfg = build_config(args)
     k = max(args.steps_per_call, 1)
-    steps_per_epoch = args.steps_per_epoch
-    total_steps = steps_per_epoch * cfg.train.epochs
+    total_steps = args.steps_per_epoch * cfg.train.epochs
     batch_size = cfg.data.batch_size
     print(f"device={args.device} batch={batch_size} total_steps={total_steps} steps_per_call={k}")
     print(json.dumps(dataclasses.asdict(cfg)))
@@ -209,10 +218,42 @@ def main(argv=None) -> int:
         state = ckpt_lib.restore_checkpoint(out_dir, state)
         start_step = state.step
         print(f"Resumed from step {start_step}")
-    data_iter = synthetic_iterator(cfg.train.seed, cfg.data.in_domains, batch_size, cfg.data.input_size)
-    for _ in range(start_step):
-        next(data_iter)
+    batches, loader = open_data(cfg, args.random_crop, start_step, k, args.device)
+    try:
+        return train(args, cfg, model, state, batches, start_step, total_steps, k)
+    finally:
+        if loader is not None:
+            loader.close()
 
+
+def open_data(cfg, random_crop: bool, start_step: int, k: int, device):
+    """The step inputs from ``start_step`` on, K-stacked ({d: [K, B, ...]})
+    with K > 1: (iterator, its DeviceLoader or None). A DFC2023 tree
+    (``cfg.data.data_path``) goes through pinned buffers to ``device``; the
+    synthetic stream gives numpy batches."""
+    if cfg.data.data_path:
+        source = DFC2023Batches(cfg.data.data_path, cfg.data.in_domains, cfg.data.batch_size, cfg.data.input_size,
+                                seed=cfg.train.seed, random_crop=random_crop)
+        source.skip(start_step)
+        loader = DeviceLoader(source, device, stack=k)
+        return loader, loader
+    data = synthetic_iterator(cfg.train.seed, cfg.data.in_domains, cfg.data.batch_size, cfg.data.input_size)
+    for _ in range(start_step):
+        next(data)
+
+    def groups():
+        while True:
+            stack = [next(data) for _ in range(k)]
+            yield {d: np.stack([s[d] for s in stack]) for d in stack[0]} if k > 1 else stack[0]
+
+    return groups(), None
+
+
+def train(args, cfg, model, state, batches, start_step: int, total_steps: int, k: int) -> int:
+    """The loop of scripts/pretrain.py:282-325 from ``start_step``; returns
+    the exit code."""
+    steps_per_epoch = args.steps_per_epoch
+    out_dir = cfg.train.output_dir
     step_fn = pretrain.make_train_step(model, cfg, state.optimizer)
     multi_fn = pretrain.make_multi_step(step_fn, k) if k > 1 else None
     logger = MetricLogger()
@@ -221,18 +262,25 @@ def main(argv=None) -> int:
     pending = []  # (step, metrics on the device) not yet sent to the wandb logger
     profile_dir, profiler = args.profile_dir, None  # the trace is taken once
     log_path = os.path.join(out_dir, "log.txt")
+    step_ms, wait_ms = [], []  # wall ms a step from one group's start to the next's; ms waited for a batch
     t_start = time.time()
+    t_group = None
     for step in range(start_step, total_steps, k):
+        t0 = time.perf_counter()
+        if t_group is not None:
+            step_ms.append((t0 - t_group) * 1e3 / k)
+        t_group = t0
         epoch = step // steps_per_epoch
         if profile_dir and profiler is None and step - start_step >= args.profile_start:
             profiler = start_profiler(args.device)
+        batch = next(batches)
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
         if multi_fn is not None:
-            stack = [next(data_iter) for _ in range(k)]
-            state, ms = multi_fn(state, {d: np.stack([s[d] for s in stack]) for d in stack[0]})
+            state, ms = multi_fn(state, batch)
             metrics = {name: v[-1] for name, v in ms.items()}
             pending += [(step + i, {name: v[i] for name, v in ms.items()}) for i in range(k)]
         else:
-            state, metrics = step_fn(state, next(data_iter))
+            state, metrics = step_fn(state, batch)
             pending.append((step, metrics))
         if profiler is not None and step + k - start_step >= args.profile_start + args.profile_steps:
             stop_profiler(profiler, profile_dir)
@@ -258,9 +306,11 @@ def main(argv=None) -> int:
     send_to(wandb_logger, pending)
     if profiler is not None:
         stop_profiler(profiler, profile_dir)
+    if step_ms:
+        print(f"step wall p50 {statistics.median(step_ms):.6g} ms; batch wait p50 {statistics.median(wait_ms):.6g} ms "
+              f"a {'group' if k > 1 else 'step'}")
     print(f"Training time {time.time() - t_start:.0f}s")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -4,12 +4,24 @@ downstream/*/main.py and maskformer_train_ins_vit.py).
 
     python -m incomplete_multimodal_fusion_tpu_torch.cli.train_downstream \\
         [--task instance|semantic] [--epochs N] [--steps_per_epoch S] [--batch_size B] \\
-        [--pretrained DIR] [--match_mode exact|auction|greedy] [--output_dir DIR] [--device cuda|cpu]
+        [--pretrained DIR] [--match_mode exact|auction|greedy] [--output_dir DIR] [--device cuda|cpu] \\
+        [--coco_root DIR --coco_json FILE | --quad_root DIR | --odgt FILE --ade_root DIR] [--aug] \\
+        [--segm_downsampling_rate R]
 
 The MaskFormer (``MODEL_SIZES[--model_size]`` widths, one fusion token a
 patch) is built on the card unless ``--device cpu``, from ``--seed``, and
-trained on the script's synthetic instance batches: a step a batch, the
-metrics fetched every step, an abort with exit code 1 on a non-finite loss,
+trained on the data of scripts/train_downstream.py:133-215: with ``--task
+instance --coco_root`` a COCO-json rgb/sar/dsm tree (``--aug``: the shared
+geometric augmentation), with ``--task semantic --odgt`` an ADE20k odgt
+list (RGB only: the model's one domain is s2; ``--aug`` flips,
+``--segm_downsampling_rate`` strides the labels), with ``--task semantic
+--quad_root`` a quadruplet tree with land-cover labels (``--aug``), else
+the script's synthetic instance batches. The readers' batches are filled by
+a producer thread into pinned host buffers and copied to the card on a side
+stream (``data.loader.DeviceLoader``); the semantic labels become per-class
+targets on the device. As in the JAX script the first batch is taken for
+the model's initialisation and training starts at the second. A step a
+batch, the metrics fetched every step, an abort with exit code 1 on a non-finite loss,
 the per-epoch mean metrics and the lr printed; every ``--eval_freq`` epochs
 the dice of the full-modality forward on a fresh batch (and for
 ``--task semantic`` the ConfMatrix AA and mIoU), which steps
@@ -18,9 +30,7 @@ and at the last (``output_dir/checkpoint-{epoch}``, utils/checkpoint.py).
 ``--pretrained DIR`` copies the backbone tensors of the latest checkpoint
 in DIR that match by name and shape (a pretraining checkpoint of
 ``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``).
-``--backbone`` and ``--fusion_mode`` take the JAX script's choices. The
-flags of the real data paths and augmentation raise
-``NotImplementedError``.
+``--backbone`` and ``--fusion_mode`` take the JAX script's choices.
 """
 from __future__ import annotations
 
@@ -35,17 +45,13 @@ import numpy as np
 import torch
 
 from ..config import MODEL_SIZES
+from ..data.loader import DeviceLoader
 from ..data.synthetic import synthetic_instances
 from ..eval.metrics import ConfMatrix
+from ..losses.set_criterion import targets_from_semantic_labels
 from ..models.maskformer import MaskFormerConfig, build_maskformer
 from ..train import downstream as ds
 from ..utils import checkpoint as ckpt_lib
-
-# flags of scripts/train_downstream.py this port does not run yet, with the
-# value that leaves them off
-UNPORTED = {"coco_root": "", "coco_json": "", "quad_root": "", "ade_root": "", "odgt": "", "aug": False,
-            "segm_downsampling_rate": 1}
-
 
 def get_args(argv=None):
     p = argparse.ArgumentParser("MaskFormer downstream training (PyTorch / CUDA port)")
@@ -77,47 +83,93 @@ def get_args(argv=None):
                    choices=["vit", "vit_adapter", "swin", "resnet18", "resnet34", "resnet50", "resnet101",
                             "resnet152"])
     p.add_argument("--fusion_mode", default="crossattn", choices=["crossattn", "sup"])
-    # not ported yet (ROADMAP Queue 1 item 9): each raises when set
     p.add_argument("--coco_root", default="")
     p.add_argument("--coco_json", default="")
     p.add_argument("--quad_root", default="")
-    p.add_argument("--ade_root", default="")
-    p.add_argument("--odgt", default="")
+    p.add_argument("--ade_root", default="", help="root dir the odgt fpath_img/fpath_segm are relative to")
+    p.add_argument("--odgt", default="", help="ADE20k-style odgt json-lines list (main_seg.py:64-92)")
     p.add_argument("--segm_downsampling_rate", type=int, default=1)
-    p.add_argument("--aug", action="store_true")
+    p.add_argument("--aug", action="store_true",
+                   help="train-time geometric augmentation (rotate/scale/translate/shear/flip)")
     return p.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    for name, off in UNPORTED.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name} is not ported yet (the port trains on synthetic batches)")
 
 
 def build_config(args) -> MaskFormerConfig:
     """The model of scripts/train_downstream.py:111-127: the size's widths,
     one fusion token a patch."""
     m = MODEL_SIZES[args.model_size]
+    # the ADE20k odgt path is RGB-only (main_seg.py:64-92): one 's2' domain
+    extra = {"in_domains": ("s2",)} if args.odgt else {}
     return MaskFormerConfig(
         image_size=args.input_size, num_classes=args.num_classes, dim_tokens=m.dim_tokens, depth=m.depth,
         dim_head=m.dim_head, heads=m.heads, num_fusion_tokens=(args.input_size // 16) ** 2,
         num_queries=args.num_queries, dec_layers=args.dec_layers, frozen_stages=args.frozen_stages,
-        backbone_type=args.backbone, fusion_mode=args.fusion_mode)
+        backbone_type=args.backbone, fusion_mode=args.fusion_mode, **extra)
+
+
+def open_data(args, device):
+    """The training batches of scripts/train_downstream.py:133-215, as
+    (iterator of (batch, targets), its DeviceLoader or None, dense_masks):
+    the readers' on ``device`` through pinned buffers, the synthetic
+    stream's numpy."""
+    if args.task == "instance" and args.coco_root:
+        from ..data.coco_instance import CocoBatches, CocoInstanceDataset, split_targets
+
+        source = CocoBatches(CocoInstanceDataset(args.coco_root, args.coco_json, args.input_size), args.batch_size,
+                             seed=args.seed, augment=_augment_config(args))
+        loader = DeviceLoader(source, device)
+        return (split_targets(b) for b in loader), loader, False
+    if args.task == "semantic" and args.odgt:
+        from ..data.ade_odgt import ADEBatches, ADEOdgtDataset
+
+        ds = ADEOdgtDataset(args.odgt, root=args.ade_root, img_size=args.input_size,
+                            segm_downsampling_rate=args.segm_downsampling_rate, flip=args.aug, seed=args.seed)
+        loader = DeviceLoader(ADEBatches(ds, args.batch_size, seed=args.seed), device)
+        # criterion_seg.py:169-204: dense masks
+        return (({"s2": b["image"]}, targets_from_semantic_labels(b["label"], args.num_classes))
+                for b in loader), loader, True
+    if args.task == "semantic" and args.quad_root:
+        from ..data.quadruplet import QuadrupletBatches, QuadrupletDataset
+
+        ds = QuadrupletDataset(args.quad_root, unlabeled=False, crop_size=args.input_size)
+        loader = DeviceLoader(QuadrupletBatches(ds, args.batch_size, seed=args.seed, augment=_augment_config(args)),
+                              device)
+        return (({k: b[k] for k in ("s1", "s2", "dem")}, targets_from_semantic_labels(b["label"], args.num_classes))
+                for b in loader), loader, True
+    rng = np.random.default_rng(args.seed)
+
+    def synthetic():
+        while True:
+            yield synthetic_instances(rng, args.batch_size, args.input_size, args.num_classes)
+
+    return synthetic(), None, False
+
+
+def _augment_config(args):
+    if not args.aug:
+        return None
+    from ..data.augment import AugmentConfig
+
+    return AugmentConfig()
 
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    refuse_unported(args)
     cfg = build_config(args)
     model = build_maskformer(cfg, device=args.device, generator=torch.Generator().manual_seed(args.seed))
     device = next(model.parameters()).device
-    rng = np.random.default_rng(args.seed)
+    data, loader, dense_masks = open_data(args, device)
+    try:
+        return train(args, cfg, model, data, dense_masks)
+    finally:
+        if loader is not None:
+            loader.close()
 
-    def data_iter():
-        while True:
-            yield synthetic_instances(rng, args.batch_size, args.input_size, args.num_classes)
 
-    data = data_iter()
+def train(args, cfg: MaskFormerConfig, model, data, dense_masks: bool) -> int:
+    """The epoch loop of scripts/train_downstream.py:264-309; returns the
+    exit code."""
+    device = next(model.parameters()).device
     # the JAX script initialises its parameters on the first batch, so its
     # training stream starts at the second
     next(data)
@@ -132,22 +184,25 @@ def main(argv=None) -> int:
     optimizer = ds.create_downstream_optimizer(model, lr=args.lr, clip_grad=args.clip_grad,
                                                frozen_stages=args.frozen_stages)
     state = ds.DownstreamState(model, optimizer, torch.Generator().manual_seed(args.seed))
-    # synthetic targets are padded instances on both tasks: point-sampled
-    # mask losses (scripts/train_downstream.py:132)
-    step_fn = ds.make_downstream_train_step(model, cfg, optimizer, num_points=args.num_points, dense_masks=False,
-                                            compute_dtype=args.compute_dtype, match_mode=args.match_mode,
-                                            per_sample_masks=args.per_sample_masks)
+    # padded instances (COCO, synthetic) take point-sampled mask losses, the
+    # semantic flows dense ones (scripts/train_downstream.py:132, :157, :177)
+    step_fn = ds.make_downstream_train_step(model, cfg, optimizer, num_points=args.num_points,
+                                            dense_masks=dense_masks, compute_dtype=args.compute_dtype,
+                                            match_mode=args.match_mode, per_sample_masks=args.per_sample_masks)
     eval_fn = ds.make_eval_step(model, cfg)
-    sem_pred_fn = ds.make_semantic_pred_step(model, cfg, out_size=args.input_size)
+    sem_pred_fn = ds.make_semantic_pred_step(model, cfg,
+                                             out_size=args.input_size // max(args.segm_downsampling_rate, 1))
     sched = ds.ReduceLROnPlateau(lr=args.lr, mode="max")  # maximize dice
     os.makedirs(args.output_dir, exist_ok=True)
-    step_ms = []
+    step_ms, wait_ms = [], []
     t0 = time.time()
     for epoch in range(args.epochs):
         agg = {}
         for _ in range(args.steps_per_epoch):
+            t_wait = time.perf_counter()
             batch, targets = next(data)
             t_step = time.perf_counter()
+            wait_ms.append((t_step - t_wait) * 1e3)
             state, metrics = step_fn(state, batch, targets)
             # one fetch a step, as the JAX script's: the abort needs the loss
             values = torch.stack([v.float() for v in metrics.values()]).tolist()
@@ -178,7 +233,8 @@ def main(argv=None) -> int:
             print(f"  eval dice={dice:.4f} lr -> {new_lr:.2e}", flush=True)
         if (epoch + 1) % args.save_freq == 0 or epoch + 1 == args.epochs:
             ckpt_lib.save_checkpoint(args.output_dir, epoch + 1, state)
-    print(f"done: {len(step_ms)} steps, step wall p50 {statistics.median(step_ms):.6g} ms" if step_ms else "done")
+    print(f"done: {len(step_ms)} steps, step wall p50 {statistics.median(step_ms):.6g} ms, batch wait p50 "
+          f"{statistics.median(wait_ms):.6g} ms" if step_ms else "done")
     return 0
 
 

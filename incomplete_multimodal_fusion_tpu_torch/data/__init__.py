@@ -1,8 +1,20 @@
+"""The host data path: synthetic batches, the dataset readers (DFC2023,
+COCO instances, quadruplets, ADE odgt lists, SEN12MS), the TIFF codec, the
+native raster ops, augmentation and the loader that feeds the card. The
+submodules load on first use."""
+import importlib
+
 import numpy as np
 
-from . import ade_metadata, synthetic, targets
+_SUBMODULES = ("ade_metadata", "ade_odgt", "augment", "coco_instance", "dfc2023", "loader", "native",
+               "quadruplet", "sample_trees", "sen12ms", "synthetic", "targets", "tiff")
+__all__ = [*_SUBMODULES, "patchify_batch"]
 
-__all__ = ["ade_metadata", "synthetic", "targets", "patchify_batch"]
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def patchify_batch(batch, patch_size: int):

@@ -384,11 +384,11 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
                "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export",
-               "phase_pretrain_variants", "phase_backbones")
+               "phase_pretrain_variants", "phase_backbones", "phase_data")
 
 
 @pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants",
-                                       "phase_backbones"])
+                                       "phase_backbones", "phase_data"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts

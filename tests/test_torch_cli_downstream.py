@@ -12,9 +12,8 @@ in subprocesses, at a small size (the ``tiny`` widths on 64² rasters, B = 2,
     the pretraining model shares at equal shape, the fusion tokens and the
     input adapters among them (the frozen ones still equal after training);
   * a non-finite loss (a huge lr) exits with code 1;
-  * each flag of the JAX script the port does not run yet raises
-    ``NotImplementedError`` naming it; ``--backbone`` and ``--fusion_mode``
-    reach the config; the device defaults to ``cuda``;
+  * ``--backbone`` and ``--fusion_mode`` reach the config; the device
+    defaults to ``cuda`` (the data flags: tests/test_torch_data_cli.py);
   * ``data.synthetic.synthetic_instances`` is bitwise
     scripts/train_downstream.py's for three seeds; ``ReduceLROnPlateau``
     (mode 'max') gives the JAX class's lr sequence.
@@ -121,15 +120,6 @@ def test_a_non_finite_loss_exits_with_code_1(tmp_path):
     log = _run("train_downstream", *SMALL_RUN, "--epochs", "1", "--steps_per_epoch", "4", "--lr", "1e30",
                "--clip_grad", "0", "--match_mode", "greedy", "--output_dir", str(tmp_path), expect=1)
     assert re.search(r"Loss is \S+, stopping training", log) and not os.listdir(tmp_path)
-
-
-@pytest.mark.parametrize("flag", [["--coco_root", "/data"], ["--coco_json", "a.json"], ["--quad_root", "/q"],
-                                  ["--ade_root", "/a"], ["--odgt", "x.odgt"], ["--aug"],
-                                  ["--segm_downsampling_rate", "4"]])
-def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *flag])
-    assert not os.listdir(tmp_path)  # refused before anything ran
 
 
 @pytest.mark.parametrize("flag,field,value", [(["--backbone", "swin"], "backbone_type", "swin"),

@@ -12,8 +12,8 @@
     each masked modality's PSNR equal, to 1e-5, to ``infer.masked_psnr`` of
     the port's ``infer`` under the same generator, "fully visible" for the
     others; ``--drop dem`` masks every dem patch; the PNG grid is written;
-    the unported flags raise, a non-PNG output raises, the device
-    defaults to ``cuda``.
+    a non-PNG output raises, the device defaults to ``cuda`` (``--data_path``:
+    tests/test_torch_data_cli.py).
 """
 import dataclasses
 import os
@@ -143,12 +143,6 @@ def test_infer_drop_masks_every_dem_patch(pretrained, tmp_path):
 def test_infer_without_a_checkpoint_warns(tmp_path):
     log = _run("infer", *INFER, "--ckpt_dir", str(tmp_path / "none"), "--output", str(tmp_path / "g.png"))
     assert "WARNING: no checkpoint found; using random init" in log
-
-
-@pytest.mark.parametrize("flag,match", [(["--data_path", "/dfc"], "--data_path")])
-def test_infer_unported_flags_raise(flag, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_infer.main([*INFER, "--ckpt_dir", str(tmp_path), *flag])
 
 
 def test_infer_refuses_other_image_formats_and_defaults_to_cuda(pretrained, tmp_path):

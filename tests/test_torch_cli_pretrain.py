@@ -10,8 +10,9 @@ f32, 2 epochs of 2 steps, the balancer and the EMA on):
     straight run's;
   * ``--steps_per_call 2`` (``make_multi_step``, a loop of steps on the CPU)
     writes the same last checkpoint bit for bit;
-  * each flag of the JAX script the port does not run yet raises
-    ``NotImplementedError`` naming it, and the device defaults to ``cuda``.
+  * each flag of the JAX script the port does not run yet (parallelism)
+    raises ``NotImplementedError`` naming it, and the device defaults to
+    ``cuda``. ``--data_path`` runs: tests/test_torch_data_cli.py.
 """
 import json
 import os
@@ -77,8 +78,7 @@ def test_steps_per_call_is_k_sequential_steps(straight, tmp_path):
     assert_bitwise(_load(tmp_path / "checkpoint-4"), _load(out / "checkpoint-4"))
 
 
-@pytest.mark.parametrize("flag", [["--data_path", "/data"], ["--random_crop"], ["--tp", "2"], ["--fsdp"],
-                                  ["--sp"], ["--pp", "2"], ["--pp_microbatches", "4"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp"], ["--sp"], ["--pp", "2"], ["--pp_microbatches", "4"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *flag])

@@ -38,6 +38,9 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.eval import coco_eval, structures\n"
         "from incomplete_multimodal_fusion_tpu_torch.data import patchify_batch\n"
         "from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_instances\n"
+        "from incomplete_multimodal_fusion_tpu_torch.data import (ade_odgt, augment, coco_instance, dfc2023,\n"
+        "    loader, native, quadruplet, sample_trees, sen12ms, tiff)\n"
+        "assert native._lib is None  # nothing built or loaded at import\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('learn', 'tools/train_downstream_synthetic_torch.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
