@@ -241,6 +241,30 @@ Phases (any failure raises; the exit code is then non-zero):
                  for its batch, wall p50 a step and busy share fed from disk
                  beside one device batch and the CLI's synthetic stream,
                  eager and K = 4, and the pinned MB.
+ 17. parallel -- parallel/ at full width, each mode held against the
+                 one-process step on the same weights, batch and masks
+                 (loss TRAIN_LOSS_REL, the first step's global gradient
+                 TRAIN_GRAD_REL_L2, FlatAdamW's first moment after it
+                 PARALLEL_MU_REL_L2, the change of the weights over the
+                 steps PARALLEL_DELTA_REL_L2 (weights left unchanged read 1;
+                 each mode with data ranks also reads what a rank that
+                 skipped the all-reduce would, above both limits) with its
+                 launches exactly the one-process step's: (a) two gloo
+                 ranks on cuda:0 (NCCL takes one rank a device; this script
+                 re-run with --parallel-worker): data parallel pretraining
+                 2 x 30 rows, ZeRO, tensor parallel at tp = 2 (the 3 heads
+                 replicated, K2 at I = 256, the decoder's 4 heads and H =
+                 512 a rank),
+                 tensor + sequence parallel, the data-parallel downstream
+                 step 2 x 15 rows; (b) one NCCL rank in this process: the
+                 data-parallel step graphed at K = 4 (its all-reduces inside
+                 the CUDA graph), ZeRO, the pipelined trunk at 2
+                 microbatches; (c) names what gloo cannot take on CUDA
+                 tensors; (d) the class-map backbone (dnw, K1 at N = 1280):
+                 a B = 30 forward and a step's loss and gradient against the
+                 plain path. For each mode device ms a step, its
+                 collectives' ms and peak memory a rank: two ranks share
+                 one card, so none is a multi-GPU figure.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -284,6 +308,8 @@ from incomplete_multimodal_fusion_tpu_torch.losses.set_criterion import SegTarge
 from incomplete_multimodal_fusion_tpu_torch.ops import (cuda_attn, cuda_block_attn, cuda_build, cuda_ffn,
                                                         cuda_fusion_attn, cuda_msda, cuda_points, cuda_zorro_sparse)
 from incomplete_multimodal_fusion_tpu_torch.ops import masking
+from incomplete_multimodal_fusion_tpu_torch.parallel import dist as pdist
+from incomplete_multimodal_fusion_tpu_torch.parallel.mesh import downstream_layout, make_layout, shard_rows
 from incomplete_multimodal_fusion_tpu_torch.ops.attention import (packed_token_types, packed_valid,
                                                                    zorro_mask_from_padded_types)
 from incomplete_multimodal_fusion_tpu_torch.cli import infer as cli_infer
@@ -1659,7 +1685,7 @@ SEG_PER_FORWARD = {"ms_deform_attn/forward": 2, "zorro_attention_qkv/zorro": 12,
 SEG_CLASSES = 10  # the 9 Dynamic-World land-cover classes and the dead channel 0
 
 
-def segment_model(dev, num_classes: int, serving: bool = True):
+def segment_model(dev, num_classes: int, serving: bool = True, in_domains=None):
     """The full-width MaskFormer (MaskFormerConfig defaults) with seeded
     random weights: for serving the backbone bf16 and the head f32, in eval
     mode; else all f32, the training step's master weights. Two changes to
@@ -1668,8 +1694,8 @@ def segment_model(dev, num_classes: int, serving: bool = True):
     pixel centres, and mask_embed.layer2 x 6, so the mask logits leave the
     hard 0.5 threshold of the masked attention
     (test_full_maskformer_parity.py:139)."""
-    model = build_maskformer(MaskFormerConfig(num_classes=num_classes), device=dev,
-                             generator=torch.Generator().manual_seed(SEED))
+    cfg = MaskFormerConfig(num_classes=num_classes, **({} if in_domains is None else {"in_domains": in_domains}))
+    model = build_maskformer(cfg, device=dev, generator=torch.Generator().manual_seed(SEED))
     if serving:
         model.backbone.to(torch.bfloat16)
     noise = torch.Generator().manual_seed(SEED + 1)
@@ -2715,7 +2741,7 @@ def phase_pretrain_state(dev):
 # the f32 instances of K1 / K2 (K4 takes f32 only)
 SEG_EVAL_F32_PER_FORWARD = {(k if k.startswith("ms_deform_attn/") else f32_key(k)): n
                             for k, n in SEG_PER_FORWARD.items()}
-LEARN_STEPS = 100  # the loss halves by then (DOWNSTREAM_E2E_TORCH.json's curve: 4.68 at step 75 from 15.31)
+LEARN_STEPS = 75  # the loss halves by then (DOWNSTREAM_E2E_TORCH.json's curve: 4.68 at step 75 from 15.31)
 DOWNSTREAM_E2E = os.path.join(ROOT, "DOWNSTREAM_E2E.json")
 
 
@@ -3238,7 +3264,7 @@ def _phase_pretrain_variants(dev):
         if per_step != want:
             raise RuntimeError(f"[variants] {name}: launches a step {per_step}, expected {want}")
         torch.cuda.reset_peak_memory_stats(dev)
-        times, losses = step_times(lambda: step(state, batch)[1], steps=5, warmup=3)
+        times, losses = step_times(lambda: step(state, batch)[1], steps=3, warmup=2)
         peak = torch.cuda.max_memory_allocated(dev)
         if not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"[variants] {name}: losses {losses}")
@@ -3904,6 +3930,539 @@ def phase_data(dev):
         shutil.rmtree(DATA_DIR, ignore_errors=True)
     return dict(launches)
 
+# ---------------------------------------------------------------------------
+# phase 17: the parallel modes (parallel/), on the one card
+# ---------------------------------------------------------------------------
+# (a) two ranks on cuda:0 over gloo (NCCL refuses two ranks on one device);
+# (b) one rank over NCCL, its collectives real but over a group of one;
+# (c) what gloo cannot take on CUDA tensors, named and run in (b) alone.
+# Each mode is held against the one-process step on the same card, weights,
+# batch and masks.
+PARALLEL_STEPS = 2
+# The change of the weights over the steps against the reference's change (a
+# state left unchanged reads 1), and FlatAdamW's first moment after the first
+# step, (1 - beta1) times the clipped global gradient (a moment left at 0 reads
+# 1): the two read the optimizer's all-reduce, reduce-scatter and all-gather.
+# Each mode with data ranks also prints what a rank that skipped the
+# all-reduce would read (from its own gradient), which must exceed the limit.
+PARALLEL_DELTA_REL_L2 = 0.15
+PARALLEL_MU_REL_L2 = TRAIN_GRAD_REL_L2
+PARALLEL_GLOO = (("dp", {}, 1), ("zero", {"fsdp": True}, 1), ("tp", {"tp": 2}, 1),
+                 ("tp+sp", {"tp": 2, "sp": True}, 1))
+PARALLEL_NCCL = ((f"dp graphed K={STATE_K}", {}, STATE_K), ("zero", {"fsdp": True}, 1),
+                 ("pp M=2", {"microbatches": 2}, 1))
+GLOO_CANNOT = ("pp (gloo's send / recv of a CUDA tensor fails: 'writev ... Bad address'), a graphed step (a CUDA "
+               "graph cannot capture gloo's collectives; make_multi_step raises); both run over NCCL in (b); "
+               "sp at one rank is the identity (tp = 1), so it runs in (a) alone")
+TRUNK_KERNELS = ("zorro_attention_qkv/zorro", "fusion_row_attention/fusion_row", "fused_ffn/geglu")
+CLASSMAP_DOMAINS = ("s1", "s2", "dem", "dnw")
+
+
+def parallel_inputs(cfg, dev, n_masks: int):
+    """The global batch of ``cfg`` and ``n_masks`` steps' masks, from seeds:
+    every process draws the same."""
+    doms = tuple(cfg.data.in_domains)
+    nums = (cfg.data.num_patches,) * len(doms)
+    b = cfg.data.batch_size
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), doms, b, cfg.data.input_size).items()}
+    masks = [masking.generate_random_masks(torch.Generator().manual_seed(SEED + 100 + i), doms, nums,
+                                           cfg.mask.num_encoded_tokens, b, device=dev) for i in range(n_masks)]
+    return batch, masks
+
+
+def segment_inputs(cfg, dev, b: int):
+    """The downstream batch, targets, modality subset and masks of phase 7's
+    comparison (seeded), the global batch's."""
+    x, targets = synthetic_instances(np.random.default_rng(SEED), b, cfg.image_size, 1)
+    batch = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    g = torch.Generator().manual_seed(SEED)
+    doms, nums = cfg.in_domains, (cfg.num_patches,) * len(cfg.in_domains)
+    present = masking.sample_modality_subset(g, len(doms))
+    mi = masking.incomplete_random_masks(g, doms, nums, present, cfg.max_encoded_tokens, b, device=dev)
+    return batch, downstream.as_targets(targets, dev), present.to(dev), mi
+
+
+def nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def parallel_reference(dev, path: str):
+    """The one-process steps every mode is held against, written to
+    ``path``: the pretraining step (PretrainConfig(), B = 60) from STATE_K
+    fixed masks, eager, and the downstream step (B = 30) with phase 7's
+    injections; each step's loss and launches, the first step's gradient
+    (and FlatAdamW's first moment after it), the start weights and the
+    weights after PARALLEL_STEPS steps (pretraining: and after STATE_K)."""
+    cfg = PretrainConfig()
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    batch, masks = parallel_inputs(cfg, dev, STATE_K)
+    ref = {"pretrain": {"losses": [], "launches": None, "start": weights(model), "params": {}}}
+    for i in range(STATE_K):
+        ops.reset_kernel_launches()
+        state, m = step(state, batch, mask_info=masks[i])
+        ref["pretrain"]["losses"].append(float(m["loss"]))
+        if i == 0:
+            ref["pretrain"]["launches"] = nonzero(ops.kernel_launches())
+            ref["pretrain"]["grads"] = {n: g.cpu() for n, g in flat_grads(model).items()}
+            ref["pretrain"]["mu"] = {n: v.cpu() for n, v in first_moment(optimizer, state).items()}
+            ref["pretrain"]["betas"], ref["pretrain"]["eps"] = optimizer.defaults["betas"], optimizer.defaults["eps"]
+            ref["pretrain"]["clip"] = optimizer.clip_grad
+        if i + 1 in (PARALLEL_STEPS, STATE_K):
+            ref["pretrain"]["params"][i + 1] = weights(model)
+    del model, state, optimizer, step
+    scfg = MaskFormerConfig(num_classes=1)
+    model = segment_model(dev, 1, serving=False)
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=scfg.frozen_stages)
+    step = downstream.make_downstream_train_step(model, scfg, optimizer)
+    state = downstream.DownstreamState(model, optimizer, torch.Generator().manual_seed(SEED))
+    batch, targets, present, mi = segment_inputs(scfg, dev, SEG_TRAIN_BATCH)
+    _, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED, return_aux=True)
+    ref["downstream"] = {"losses": [], "matched": aux["matched"].cpu(), "coords": aux["point_coords"].cpu(),
+                         "start": weights(model)}
+    for i in range(PARALLEL_STEPS):
+        ops.reset_kernel_launches()
+        state, m = step(state, batch, targets, aux["matched"], mask_info=mi, present=present,
+                        point_coords_override=aux["point_coords"], deterministic=True)
+        ref["downstream"]["losses"].append(float(m["loss"]))
+        if i == 0:
+            ref["downstream"]["launches"] = nonzero(ops.kernel_launches())
+            ref["downstream"]["grads"] = {n: g.cpu() for n, g in flat_grads(model).items()}
+    ref["downstream"]["params"] = weights(model)
+    torch.save(ref, path)
+    del model, state, optimizer, step, aux
+    torch.cuda.empty_cache()
+    return ref
+
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast", "send",
+               "recv")
+
+
+def step_profile(fn):
+    """One ``fn()`` under torch.profiler, each collective it calls from
+    Python timed by the host clock between two synchronizes (gloo reduces on
+    the host, so its device share is only the copies): (device ms, NCCL's
+    kernels' device ms, the collectives' ms, the collective calls)."""
+    spent = [0.0, 0]
+
+    def clocked(real):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += (time.perf_counter() - t0) * 1e3
+            spent[1] += 1
+            return out
+        return call
+
+    real = {name: getattr(torch.distributed, name) for name in COLLECTIVES if hasattr(torch.distributed, name)}
+    for name, fn_ in real.items():
+        setattr(torch.distributed, name, clocked(fn_))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn_ in real.items():
+            setattr(torch.distributed, name, fn_)
+    dev_ms = nccl_ms = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            dev_ms += evt.device_time_total / 1e3
+            if "nccl" in evt.name.lower():
+                nccl_ms += evt.device_time_total / 1e3
+    return dev_ms, nccl_ms, spent[0], spent[1]
+
+
+def global_grads(model, state, layout):
+    """This step's gradient of the global batch in the one-device layout:
+    each rank's part (p.grad) summed over the data ranks, the cuts gathered
+    over the model ranks."""
+    grads = flat_grads(model)
+    if state.parallel is not None:
+        grads = state.parallel.gather(grads)
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1) for n in names])
+    torch.distributed.all_reduce(flat, group=layout.data_group)
+    return dict(zip(names, (v.view_as(grads[n]) for n, v in zip(names, flat.split([grads[n].numel()
+                                                                                    for n in names])))))
+
+
+def flat_vec(tensors, names):
+    """``tensors``' entries ``names`` as one f32 vector on the card (the
+    CPU where there is none), where phase 17 compares."""
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    return torch.cat([tensors[n].to(dev, torch.float32).reshape(-1) for n in names])
+
+
+def flat_rel(got, want, names=None) -> float:
+    names = list(want) if names is None else names
+    a, b = flat_vec(got, names), flat_vec(want, names)
+    return float((a - b).norm() / b.norm())
+
+
+def weights(model, state=None):
+    """The model's weights on the host, in the one-device layout."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    if state is not None and state.parallel is not None:
+        params = state.parallel.gather(params)
+    return {n: p.cpu().clone() for n, p in params.items()}
+
+
+def first_moment(optimizer, state):
+    """FlatAdamW's mu {name: tensor} in the one-device layout: ZeRO's
+    slices all-gathered, the tensor-parallel cuts gathered over the model
+    ranks."""
+    mu = optimizer.state_dict()["mu"].clone()  # the optimizer updates its own in place
+    params = optimizer.param_groups[0]["params"]
+    parts = dict(zip(optimizer.names, (v.view_as(p) for v, p in zip(mu.split([p.numel() for p in params]),
+                                                                    params))))
+    return state.parallel.gather(parts) if state.parallel is not None else parts
+
+
+def delta_rel(got, start, want) -> float:
+    """The change of the weights ``got`` - ``start`` against the reference's
+    ``want`` - ``start``, relative L2 over the whole model: 1 for weights
+    left unchanged."""
+    names = list(want)
+    g, w, s = (flat_vec(t, names) for t in (got, want, start))
+    return float((g - w).norm() / (w - s).norm())
+
+
+def skipped_allreduce(local, ref) -> tuple:
+    """What a rank that used its own gradient ``local`` (its rows' part, in
+    the one-device layout) instead of the all-reduced one would read against
+    the reference ``ref`` after its first step: its mu, (1 - beta1) times
+    the gradient clipped by its own norm, and its first update, whose
+    direction is g / (|g| + eps) (AdamW's first step; its weight decay and
+    lr are the reference's)."""
+    b1, eps, clip = ref["betas"][0], ref["eps"], ref["clip"]
+    names = list(ref["mu"])
+    g, mu_ref, g_ref = flat_vec(local, names), flat_vec(ref["mu"], names), flat_vec(ref["grads"], names)
+    norm = float(g.double().norm())
+    scale = (1.0 - b1) * (min(1.0, clip / norm) if clip is not None else 1.0)
+    mu = float((g * scale - mu_ref).norm() / mu_ref.norm())
+    step, step_ref = g / (g.abs() + eps), g_ref / (g_ref.abs() + eps)
+    return mu, float((step - step_ref).norm() / step_ref.norm())
+
+
+def parallel_pretrain_mode(dev, ref, inputs, kw, k: int):
+    """One pretraining mode on this rank (``inputs``: parallel_inputs' global
+    batch and masks): its numbers against the reference, its launches over
+    the compared steps, its device and collective ms a step and its peak
+    memory."""
+    cfg = PretrainConfig()
+    layout = make_layout(**kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev, layout=layout,
+                                                          total_batch_size=cfg.data.batch_size)
+    step = pretrain.make_train_step(model, cfg, optimizer, layout=layout)
+    batch, masks = inputs
+    rows = layout.rows(cfg.data.batch_size)
+    batch = {d: v[rows] for d, v in batch.items()}
+    masks = [shard_rows(mi, rows) for mi in masks]
+    want = ref["losses"]
+    out = {"dp": layout.dp, "tp": layout.tp, "pp": layout.pp, "rows": rows.stop - rows.start}
+    ops.reset_kernel_launches()
+    if k == 1:
+        losses = []
+        for i in range(PARALLEL_STEPS):
+            # the last step is the timed one: under the profiler, its collectives clocked
+            last = i == PARALLEL_STEPS - 1
+            held = []
+            timing = step_profile(lambda: held.append(step(state, batch, mask_info=masks[i])[1])) if last else None
+            m = held[0] if last else step(state, batch, mask_info=masks[i])[1]
+            losses.append(float(m["loss"]))
+            if i == 0:
+                out["grad_rel"] = flat_rel(global_grads(model, state, layout), ref["grads"])
+                out["mu_rel"] = flat_rel(first_moment(optimizer, state), ref["mu"])
+                if layout.dp > 1:  # p.grad is this rank's rows' part
+                    local = flat_grads(model)
+                    local = state.parallel.gather(local) if state.parallel is not None else local
+                    out["mu_rel_skip"], out["delta_rel_skip"] = skipped_allreduce(local, ref)
+            if i == PARALLEL_STEPS - 1:
+                out["delta_rel"] = delta_rel(weights(model, state), ref["start"], ref["params"][PARALLEL_STEPS])
+        out["launches"] = nonzero(ops.kernel_launches())
+    else:
+        multi = pretrain.make_multi_step(step, k)
+        stacked = {d: v.expand(k, *v.shape) for d, v in batch.items()}
+        state, ms = multi(state, stacked, masks[:k])
+        losses = [float(x) for x in ms["loss"]]
+        out["launches"] = nonzero(ops.kernel_launches())
+        out["delta_rel"] = delta_rel(weights(model, state), ref["start"], ref["params"][k])
+        timing = step_profile(lambda: multi(state, stacked, masks[:k]))  # a group of replays
+    out["losses"] = losses
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+    dev_ms, nccl_ms, coll_ms, calls = timing
+    out.update(dev_ms=dev_ms / k, nccl_ms=nccl_ms / k, coll_ms=coll_ms / k, coll_calls=calls / k,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del model, state, optimizer, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_downstream_mode(dev, ref):
+    """The data-parallel downstream step (phase 7's, B = 30 over the ranks)
+    with the reference's injections, two steps."""
+    cfg = MaskFormerConfig(num_classes=1)
+    layout = downstream_layout(SEG_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = segment_model(dev, 1, serving=False)
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=cfg.frozen_stages, layout=layout)
+    step = downstream.make_downstream_train_step(model, cfg, optimizer, layout=layout)
+    state = downstream.DownstreamState(model, optimizer, torch.Generator().manual_seed(SEED))
+    batch, targets, present, mi = segment_inputs(cfg, dev, SEG_TRAIN_BATCH)
+    rows = layout.rows(SEG_TRAIN_BATCH)
+    batch, targets, mi = shard_rows(batch, rows), shard_rows(targets, rows), shard_rows(mi, rows)
+    g = ref["matched"].shape[-1]
+    matched = ref["matched"][:, rows].to(dev)
+    coords = ref["coords"].reshape(ref["coords"].shape[0], SEG_TRAIN_BATCH, g, *ref["coords"].shape[2:])
+    coords = coords[:, rows].reshape(coords.shape[0], -1, *coords.shape[3:]).to(dev)
+    out = {"dp": layout.dp, "rows": rows.stop - rows.start, "losses": []}
+    ops.reset_kernel_launches()
+    emb = "backbone.mask_embedding"
+    def run():
+        return step(state, batch, targets, matched, mask_info=mi, present=present, point_coords_override=coords,
+                    deterministic=True)[1]
+
+    for i in range(PARALLEL_STEPS):
+        held = []
+        if i == PARALLEL_STEPS - 1:  # the timed step
+            timing = step_profile(lambda: held.append(run()))
+        m = held[0] if held else run()
+        out["losses"].append(float(m["loss"]))
+        if i == 0:  # the optimizer summed the gradients over the ranks in place
+            grads = flat_grads(model)
+            out["grad_rel"] = flat_rel(grads, ref["grads"], [n for n in grads if n != emb])
+            out["emb_rel"] = flat_rel(grads, ref["grads"], [emb])
+    out["launches"] = nonzero(ops.kernel_launches())
+    out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"]))
+    out["delta_rel"] = delta_rel(weights(model), ref["start"], ref["params"])
+    dev_ms, nccl_ms, coll_ms, calls = timing
+    out.update(dev_ms=dev_ms, nccl_ms=nccl_ms, coll_ms=coll_ms, coll_calls=calls,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del model, state, optimizer, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_modes(dev, backend: str, ref) -> dict:
+    """This rank's modes of ``backend`` (PARALLEL_GLOO and the downstream
+    step, or PARALLEL_NCCL) against the reference ``ref``: {mode: numbers}."""
+    inputs = parallel_inputs(PretrainConfig(), dev, STATE_K)
+    results = {}
+    for name, kw, k in (PARALLEL_GLOO if backend == "gloo" else PARALLEL_NCCL):
+        t0 = time.time()
+        results[name] = parallel_pretrain_mode(dev, ref["pretrain"], inputs, kw, k)
+        results[name]["seconds"] = time.time() - t0
+    if backend == "gloo":
+        t0 = time.time()
+        results["downstream dp"] = parallel_downstream_mode(dev, ref["downstream"])
+        results["downstream dp"]["seconds"] = time.time() - t0
+    return results
+
+
+def parallel_worker(argv) -> int:
+    """One gloo rank of phase 17 (a): ``--parallel-worker gloo REF RANK
+    WORLD PORT``; rank 0 writes its modes' numbers to REF.gloo.json."""
+    backend, ref_path, rank, world, port = argv[0], argv[1], int(argv[2]), int(argv[3]), int(argv[4])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.init_distributed_mode("cuda", backend=backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                                rank=rank)
+    try:
+        results = parallel_modes(torch.device("cuda", 0), backend, torch.load(ref_path, weights_only=False))
+        if rank == 0:
+            with open(f"{ref_path}.{backend}.json", "w") as f:
+                json.dump(results, f)
+    finally:
+        pdist.destroy()
+    return 0
+
+
+def nccl_modes(dev, ref) -> dict:
+    """Phase 17 (b) in this process: a process group of one rank over
+    NCCL."""
+    pdist.init_distributed_mode("cuda", backend="nccl", init_method=f"tcp://127.0.0.1:{pdist.free_port()}",
+                                world_size=1, rank=0)
+    try:
+        return parallel_modes(dev, "nccl", ref)
+    finally:
+        pdist.destroy()
+
+
+def spawn_ranks(backend: str, ref_path: str, world: int, timeout: int = 300) -> dict:
+    """``world`` worker processes of this script on cuda:0 (``backend``
+    gloo); their modes' numbers (rank 0's)."""
+    port = pdist.free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker", backend, ref_path,
+                               str(r), str(world), str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"[parallel] {backend} ranks failed:\n" + "\n".join(x[-4000:] for x in logs))
+    with open(f"{ref_path}.{backend}.json") as f:
+        return json.load(f)
+
+
+def expected_launches(per_step, name: str, steps: int = PARALLEL_STEPS):
+    """A mode's launches over its compared steps: the one-process step's
+    per step; the trunk's kernels once a microbatch under the pipeline; the
+    graphed step's warm-up and capture (its replays launch nothing)."""
+    micro = 2 if name.startswith("pp") else 1
+    out = {k: n * steps * (micro if k.replace("_backward", "") in TRUNK_KERNELS else 1)
+           for k, n in per_step.items()}
+    return out
+
+
+def classmap_backbone(dev):
+    """(d) The class-map backbone (in_domains s1, s2, dem, dnw: K1 at
+    N = 1024 + 256): one B = 30 forward and one step's loss and gradient,
+    kernel path against plain path; returns the forward's and the step's
+    launches."""
+    x, _ = synthetic_instances(np.random.default_rng(SEED), SEG_TRAIN_BATCH, 256, 1)
+    x["dnw"] = np.random.default_rng(SEED + 1).integers(0, 9, (SEG_TRAIN_BATCH, 256, 256)).astype(np.int32)
+    batch = {d: torch.from_numpy(v).to(dev) for d, v in x.items()}
+    model = segment_model(dev, 1, serving=True, in_domains=CLASSMAP_DOMAINS)
+    ops.reset_kernel_launches()
+    with torch.no_grad():
+        out_k = model(batch)
+    torch.cuda.synchronize()
+    fwd_launches = nonzero(ops.kernel_launches())
+    model.attn_impl = "xla"
+    with torch.no_grad():
+        out_p = model(batch)
+    model.attn_impl = "auto"
+    rels = {k: rel_l2(out_k[k], out_p[k]) for k in ("pred_logits", "pred_masks")}
+    log(f"[parallel] (d) class-map backbone B={SEG_TRAIN_BATCH} forward, kernel vs plain path rel_l2 "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()) + f"; launches {fwd_launches}")
+    if fwd_launches != SEG_PER_FORWARD or max(rels.values()) > SEG_REL_L2:
+        raise RuntimeError(f"[parallel] (d) forward: launches {fwd_launches} (want {SEG_PER_FORWARD}), rel_l2 "
+                           f"{rels} (bound {SEG_REL_L2})")
+    del model, out_k, out_p
+    cfg = MaskFormerConfig(num_classes=1, in_domains=CLASSMAP_DOMAINS)
+    model = segment_model(dev, 1, serving=False, in_domains=CLASSMAP_DOMAINS)
+    optimizer = downstream.create_downstream_optimizer(model, lr=1e-4, clip_grad=0.01,
+                                                       frozen_stages=cfg.frozen_stages)
+    step = downstream.make_downstream_train_step(model, cfg, optimizer)
+    _, targets = synthetic_instances(np.random.default_rng(SEED), SEG_TRAIN_BATCH, 256, 1)
+    targets = downstream.as_targets(targets, dev)
+    g = torch.Generator().manual_seed(SEED)
+    nums = (cfg.num_patches,) * len(CLASSMAP_DOMAINS)
+    present = torch.ones(len(CLASSMAP_DOMAINS), dtype=torch.bool)
+    mi = masking.incomplete_random_masks(g, CLASSMAP_DOMAINS, nums, present, cfg.max_encoded_tokens,
+                                         SEG_TRAIN_BATCH, device=dev)
+    present = present.to(dev)
+    ops.reset_kernel_launches()
+    model.zero_grad(set_to_none=True)
+    with head_masks(model) as bits_k:
+        loss_k, _, aux = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                      return_aux=True)
+    loss_k.backward()
+    torch.cuda.synchronize()
+    step_launches = nonzero(ops.kernel_launches())
+    g_k = flat_grads(model)
+    model.attn_impl = "xla"
+    model.zero_grad(set_to_none=True)
+    with head_masks(model, pinned=bits_k):
+        loss_p, _ = step.loss_fn(dict(model.named_parameters()), batch, targets, mi, present, SEED,
+                                 matched_override=aux["matched"], point_coords_override=aux["point_coords"])
+    loss_p.backward()
+    g_p = flat_grads(model)
+    model.attn_impl = "auto"
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emb = "backbone.mask_embedding"
+    grad_rel, worst = compare_grads(g_k, g_p, [n for n in g_p if n != emb])
+    emb_rel = rel_l2(g_k[emb], g_p[emb])
+    class_rel = rel_l2(g_k["backbone.input_adapters.dnw.class_emb"], g_p["backbone.input_adapters.dnw.class_emb"])
+    log(f"[parallel] (d) class-map backbone step, kernel vs plain path (head bits pinned): loss "
+        f"{loss_k:.6g} vs {loss_p:.6g}, rel {loss_rel:.3g}; gradient rel_l2 {grad_rel:.3g} (the "
+        f"class embedding's {class_rel:.3g}, the mask embedding's {emb_rel:.3g}); launches {step_launches}; "
+        "worst: " + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2 and emb_rel <= MASK_EMB_GRAD_REL_L2):
+        raise RuntimeError(f"[parallel] (d) step: loss rel {loss_rel}, gradient {grad_rel}, mask embedding "
+                           f"{emb_rel}")
+    del model, optimizer, step, g_k, g_p, aux
+    torch.cuda.empty_cache()
+    return fwd_launches, step_launches
+
+
+def phase_parallel(dev):
+    """Phase 17 (parallel/): (a) two gloo ranks on the card, (b) one NCCL
+    rank in this process, (c) what gloo cannot take, (d) the class-map
+    backbone; returns the launches of the modes' steps (the gloo workers'
+    counts among them) and of (d)."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ref_path = os.path.join(ROOT, "build", "chip_smoke_parallel.pt")
+    launches = collections.Counter()
+    failed = []
+    try:
+        ref = timed("parallel: the one-process reference", parallel_reference, dev, ref_path)
+        per_step = ref["pretrain"]["launches"]
+        if per_step != PER_STEP:
+            raise RuntimeError(f"[parallel] the one-process step launched {per_step}, expected {PER_STEP}")
+        log(f"[parallel] one-process reference: pretraining losses {[round(x, 5) for x in ref['pretrain']['losses']]}"
+            f", downstream {[round(x, 5) for x in ref['downstream']['losses']]}")
+        log(f"[parallel] (c) not over gloo on CUDA tensors: {GLOO_CANNOT}")
+        for backend, world in (("gloo", 2), ("nccl", 1)):
+            results = (timed("parallel: (a) 2 gloo ranks", spawn_ranks, backend, ref_path, world) if backend == "gloo"
+                       else timed("parallel: (b) 1 nccl rank, in this process", nccl_modes, dev, ref))
+            for name, r in results.items():
+                is_down = name.startswith("downstream")
+                want = expected_launches(ref["downstream"]["launches"] if is_down else per_step, name) \
+                    if not name.startswith("dp graphed") else {k: 2 * n for k, n in per_step.items()}
+                part = "(a)" if backend == "gloo" else "(b)"
+                log(f"[parallel] {part} {backend} {name}: {world} rank(s) x {r['rows']} rows (dp {r['dp']}"
+                    + (f", tp {r['tp']}, pp {r['pp']}" if not is_down else "")
+                    + f"); losses {[round(x, 5) for x in r['losses']]}, rel to one process {r['loss_rel']:.3g}"
+                    + (f", gradient rel_l2 {r['grad_rel']:.3g}" if "grad_rel" in r else "")
+                    + (f" (mask embedding {r['emb_rel']:.3g})" if "emb_rel" in r else "")
+                    + (f", first moment rel_l2 {r['mu_rel']:.3g}" if "mu_rel" in r else "")
+                    + f", change of the weights rel_l2 {r['delta_rel']:.3g} (unchanged reads 1)"
+                    + (f"; a rank that skipped the all-reduce would read mu {r['mu_rel_skip']:.3g}, first step "
+                       f"{r['delta_rel_skip']:.3g}" if "mu_rel_skip" in r else "")
+                    + f"; device {r['dev_ms']:.6g} ms a step, collectives {r['coll_ms']:.6g} ms a step "
+                    f"({r['coll_calls']:.0f} calls from Python, each synchronized; NCCL kernels "
+                    f"{r['nccl_ms']:.6g} ms on the device); peak {r['peak_gib']:.4g} GiB a rank; "
+                    f"{r['seconds']:.1f} s (ranks share one card: no multi-GPU figure)")
+                bad = (r["launches"] != want or not r["loss_rel"] <= TRAIN_LOSS_REL
+                       or not r.get("grad_rel", 0.0) <= TRAIN_GRAD_REL_L2
+                       or not r.get("emb_rel", 0.0) <= MASK_EMB_GRAD_REL_L2
+                       or not r.get("mu_rel", 0.0) <= PARALLEL_MU_REL_L2
+                       or not r["delta_rel"] <= PARALLEL_DELTA_REL_L2
+                       # the checks must see a rank that skipped the all-reduce
+                       or not r.get("mu_rel_skip", math.inf) > PARALLEL_MU_REL_L2
+                       or not r.get("delta_rel_skip", math.inf) > PARALLEL_DELTA_REL_L2)
+                if bad:  # every mode is read before the phase fails
+                    failed.append(f"{backend} {name}: {r} (launches want {want})")
+                launches.update(r["launches"])
+        if failed:
+            raise RuntimeError("[parallel] " + "\n".join(failed))
+        fwd, step = timed("parallel: (d) the class-map backbone", classmap_backbone, dev)
+        launches.update(fwd)
+        launches.update(step)
+    finally:
+        for suffix in ("", ".gloo.json"):
+            if os.path.exists(ref_path + suffix):
+                os.remove(ref_path + suffix)
+    return dict(launches)
+
+
 REPLACES = {
     "zorro_attention_qkv/zorro": ("csrc/zorro_attention.cu",
                                   "incomplete_multimodal_fusion_tpu/ops/pallas_attn.py:707"),
@@ -3963,6 +4522,8 @@ def timed(name: str, phase, *args):
 
 
 def main(argv) -> int:
+    if argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(argv[2:])
     smi = phase_device()
     dev = torch.device("cuda", 0)
     timed("build", phase_build)
@@ -3985,11 +4546,12 @@ def main(argv) -> int:
     pretrain_variants = timed("pretrain variants", phase_pretrain_variants, dev)
     backbones = timed("backbones", phase_backbones, dev)
     from_disk = timed("data", phase_data, dev)
+    in_parallel = timed("parallel", phase_parallel, dev)
     entries = []
     for name in REPLACES:
         launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
                                                     sem_trained, state_trained, by_cli, exported, pretrain_variants,
-                                                    backbones, from_disk))
+                                                    backbones, from_disk, in_parallel))
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

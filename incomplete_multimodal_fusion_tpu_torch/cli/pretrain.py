@@ -1,15 +1,16 @@
-"""Pretraining CLI of the port (the JAX package's scripts/pretrain.py, one
-device; reference pretraining/pretrain_mmae.py:75-185, 251-418).
+"""Pretraining CLI of the port (the JAX package's scripts/pretrain.py;
+reference pretraining/pretrain_mmae.py:75-185, 251-418).
 
-    python -m incomplete_multimodal_fusion_tpu_torch.cli.pretrain \\
+    [torchrun --nproc_per_node N -m] python -m incomplete_multimodal_fusion_tpu_torch.cli.pretrain \\
         [-c config.yaml] [--epochs N] [--steps_per_epoch S] [--steps_per_call K] \\
+        [--tp T [--sp]] [--fsdp] [--pp S [--pp_microbatches M]] \\
         [--fusion_mode crossattn|zorro|lstm|crossattn_v1] [--decoder_style simple|full] \\
         [--in_domains s1_2ch-s2_4ch-dem-dnw] [--use_ema] [--task_balancer uncertainty] \\
         [--log_wandb] [--profile_dir DIR --profile_start I --profile_steps N] \\
         [--data_path DIR [--random_crop]] [--output_dir DIR] [--device cuda|cpu]
 
-It reads the flags of scripts/pretrain.py that a single device needs and
-runs its loop (scripts/pretrain.py:282-325): a step (or, with
+It reads the flags of scripts/pretrain.py and runs its loop
+(scripts/pretrain.py:282-325): a step (or, with
 ``--steps_per_call K``, K steps replayed from one CUDA graph) a batch, the
 metrics logged every 10 steps, an abort on a non-finite ``recon_loss``, a
 checkpoint at the epoch boundaries that ``--save_ckpt_freq`` picks (and at
@@ -34,8 +35,20 @@ the wall p50 of a step and the p50 ms a step waited for its batch.
 the logging cadence, so the card is not made to wait every step.
 ``--profile_dir`` writes a ``torch.profiler`` trace (Chrome JSON,
 ``trace.json``) of ``--profile_steps`` steps from the ``--profile_start``-th
-step of the run (scripts/pretrain.py:85-89, :289-302). The flags of
-parallelism raise ``NotImplementedError``.
+step of the run (scripts/pretrain.py:85-89, :289-302).
+
+Parallel training (parallel/, scripts/pretrain.py:160-233): under
+``torchrun`` (or with a parallel flag on one process, which then forms a
+group of one) the ranks form a (data, model) mesh with ``--tp`` (``--sp``
+shards the encoder stream's tokens over it), a (data, stage) mesh with
+``--pp`` / ``--pp_microbatches``, else a data mesh; ``--fsdp`` shards
+FlatAdamW's flat vectors over the data ranks (ZeRO). ``--batch_size`` is a
+data rank's batch: the global batch is batch_size x dp, the lr rule's total
+batch, and each data rank reads its rows of it (the synthetic stream's and
+a DFC2023 tree's global order). The JAX script's refusals exit with its
+words. NCCL on the card, gloo with ``--device cpu``; rank 0 prints, logs and
+writes the checkpoints, which are in the one-device layout, so a run
+resumes at any world size.
 """
 from __future__ import annotations
 
@@ -49,18 +62,18 @@ import sys
 import time
 
 import numpy as np
+import torch
 
 from .. import config as cfg_lib
 from ..data.dfc2023 import DFC2023Batches
 from ..data.loader import DeviceLoader
 from ..data.synthetic import synthetic_iterator
+from ..parallel import dist as pdist
+from ..parallel.mesh import check_parallel_flags, make_layout
 from ..train import pretrain
 from ..utils import checkpoint as ckpt_lib
 from ..utils.logging import MetricLogger, WandbLogger
 
-# flags of scripts/pretrain.py this port does not run yet, with the value
-# that leaves them off
-UNPORTED = {"tp": 1, "fsdp": False, "sp": False, "pp": 1, "pp_microbatches": 0}
 LOG_EVERY = 10  # steps between metric reads (scripts/pretrain.py:304)
 
 
@@ -113,19 +126,30 @@ def get_args(argv=None):
     p.add_argument("--data_path", type=str, default=None, help="DFC2023-layout dir; synthetic data if empty")
     p.add_argument("--random_crop", action="store_true",
                    help="load rasters at 2x input size and take a shared random crop per sample")
-    # not ported yet (ROADMAP Queue 1 item 8): each raises when set
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--sp", action="store_true")
-    p.add_argument("--pp", type=int, default=1)
-    p.add_argument("--pp_microbatches", type=int, default=0)
+    # parallelism (scripts/pretrain.py:60-75)
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks (the model axis)")
+    p.add_argument("--fsdp", action="store_true", help="shard the optimizer's flat vectors over the data ranks")
+    p.add_argument("--sp", action="store_true", help="sequence parallelism over the model axis (needs --tp)")
+    p.add_argument("--pp", type=int, default=1, help="pipeline stages over the trunk's layers")
+    p.add_argument("--pp_microbatches", type=int, default=0, help="pipeline microbatches (default: --pp)")
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    for name, off in UNPORTED.items():
-        if getattr(args, name) != off:
-            raise NotImplementedError(f"--{name} is not ported yet (the port trains on one device)")
+def open_layout(args):
+    """The parallel layout of the run, None on one device without a parallel
+    flag. Refuses the flags the JAX script refuses (SystemExit with its
+    words) before any group forms."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world == 1 and args.tp == 1 and args.pp == 1 and not (args.sp or args.fsdp or args.pp_microbatches):
+        return None
+    try:
+        check_parallel_flags(world, args.tp, args.pp, args.sp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if not pdist.init_distributed_mode(args.device):
+        pdist.init_distributed_mode(args.device, init_method=f"tcp://127.0.0.1:{pdist.free_port()}", world_size=1,
+                                    rank=0)
+    return make_layout(tp=args.tp, pp=args.pp, sp=args.sp, fsdp=args.fsdp, microbatches=args.pp_microbatches)
 
 
 def build_config(args) -> cfg_lib.PretrainConfig:
@@ -200,65 +224,84 @@ def stop_profiler(profiler, profile_dir: str) -> str:
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    refuse_unported(args)
     cfg = build_config(args)
+    layout = open_layout(args)
+    try:
+        return run(args, cfg, layout)
+    finally:
+        pdist.destroy()
+
+
+def run(args, cfg, layout) -> int:
     k = max(args.steps_per_call, 1)
     total_steps = args.steps_per_epoch * cfg.train.epochs
-    batch_size = cfg.data.batch_size
-    print(f"device={args.device} batch={batch_size} total_steps={total_steps} steps_per_call={k}")
-    print(json.dumps(dataclasses.asdict(cfg)))
+    dp = 1 if layout is None else layout.dp
+    global_batch = cfg.data.batch_size * dp
+    device = args.device if layout is None or layout.backend != "nccl" else f"cuda:{torch.cuda.current_device()}"
+    pdist.print_main(f"device={args.device} world={pdist.get_world_size()} global_batch={global_batch} "
+                     f"total_steps={total_steps} steps_per_call={k}")
+    if layout is not None:
+        pdist.print_main(f"mesh: dp={layout.dp} tp={layout.tp} pp={layout.pp} sp={layout.sp} fsdp={layout.fsdp} "
+                         f"microbatches={layout.microbatches} backend={layout.backend}")
+    pdist.print_main(json.dumps(dataclasses.asdict(cfg)))
 
-    model, state, _ = pretrain.create_train_state(cfg, cfg.train.seed, total_steps, total_batch_size=batch_size,
-                                                  device=args.device)
-    print(f"Number of params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
+    model, state, _ = pretrain.create_train_state(cfg, cfg.train.seed, total_steps, total_batch_size=global_batch,
+                                                  device=device, layout=layout)
+    pdist.print_main(f"Number of params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
     out_dir = cfg.train.output_dir
     os.makedirs(out_dir, exist_ok=True)
     start_step = 0
     if args.auto_resume and ckpt_lib.latest_step(out_dir) is not None:
         state = ckpt_lib.restore_checkpoint(out_dir, state)
         start_step = state.step
-        print(f"Resumed from step {start_step}")
-    batches, loader = open_data(cfg, args.random_crop, start_step, k, args.device)
+        pdist.print_main(f"Resumed from step {start_step}")
+    batches, loader = open_data(cfg, args.random_crop, start_step, k, device, layout)
     try:
-        return train(args, cfg, model, state, batches, start_step, total_steps, k)
+        return train(args, cfg, model, state, batches, start_step, total_steps, k, layout)
     finally:
         if loader is not None:
             loader.close()
 
 
-def open_data(cfg, random_crop: bool, start_step: int, k: int, device):
+def open_data(cfg, random_crop: bool, start_step: int, k: int, device, layout=None):
     """The step inputs from ``start_step`` on, K-stacked ({d: [K, B, ...]})
-    with K > 1: (iterator, its DeviceLoader or None). A DFC2023 tree
+    with K > 1: (iterator, its DeviceLoader or None); under data
+    parallelism this rank's rows of each global batch. A DFC2023 tree
     (``cfg.data.data_path``) goes through pinned buffers to ``device``; the
     synthetic stream gives numpy batches."""
+    dp, rank = (1, 0) if layout is None else (layout.dp, layout.dp_rank)
+    global_batch = cfg.data.batch_size * dp
     if cfg.data.data_path:
-        source = DFC2023Batches(cfg.data.data_path, cfg.data.in_domains, cfg.data.batch_size, cfg.data.input_size,
-                                seed=cfg.train.seed, random_crop=random_crop)
+        source = DFC2023Batches(cfg.data.data_path, cfg.data.in_domains, global_batch, cfg.data.input_size,
+                                seed=cfg.train.seed, random_crop=random_crop, shard=(rank, dp))
         source.skip(start_step)
         loader = DeviceLoader(source, device, stack=k)
         return loader, loader
-    data = synthetic_iterator(cfg.train.seed, cfg.data.in_domains, cfg.data.batch_size, cfg.data.input_size)
+    data = synthetic_iterator(cfg.train.seed, cfg.data.in_domains, global_batch, cfg.data.input_size)
     for _ in range(start_step):
         next(data)
+    rows = slice(rank * cfg.data.batch_size, (rank + 1) * cfg.data.batch_size)
 
     def groups():
         while True:
-            stack = [next(data) for _ in range(k)]
+            stack = [{d: v[rows] for d, v in next(data).items()} for _ in range(k)]
             yield {d: np.stack([s[d] for s in stack]) for d in stack[0]} if k > 1 else stack[0]
 
     return groups(), None
 
 
-def train(args, cfg, model, state, batches, start_step: int, total_steps: int, k: int) -> int:
+def train(args, cfg, model, state, batches, start_step: int, total_steps: int, k: int, layout=None) -> int:
     """The loop of scripts/pretrain.py:282-325 from ``start_step``; returns
     the exit code."""
     steps_per_epoch = args.steps_per_epoch
     out_dir = cfg.train.output_dir
-    step_fn = pretrain.make_train_step(model, cfg, state.optimizer)
+    main_rank = pdist.is_main_process()
+    step_fn = pretrain.make_train_step(model, cfg, state.optimizer, layout=layout)
     multi_fn = pretrain.make_multi_step(step_fn, k) if k > 1 else None
     logger = MetricLogger()
     wandb_logger = (WandbLogger(config=dataclasses.asdict(cfg), project=args.wandb_project, entity=args.wandb_entity,
-                                run_name=args.wandb_run_name, out_dir=out_dir) if args.log_wandb else None)
+                                run_name=args.wandb_run_name, out_dir=out_dir) if args.log_wandb and main_rank
+                    else None)
     pending = []  # (step, metrics on the device) not yet sent to the wandb logger
     profile_dir, profiler = args.profile_dir, None  # the trace is taken once
     log_path = os.path.join(out_dir, "log.txt")
@@ -271,7 +314,7 @@ def train(args, cfg, model, state, batches, start_step: int, total_steps: int, k
             step_ms.append((t0 - t_group) * 1e3 / k)
         t_group = t0
         epoch = step // steps_per_epoch
-        if profile_dir and profiler is None and step - start_step >= args.profile_start:
+        if profile_dir and main_rank and profiler is None and step - start_step >= args.profile_start:
             profiler = start_profiler(args.device)
         batch = next(batches)
         wait_ms.append((time.perf_counter() - t0) * 1e3)
@@ -288,28 +331,30 @@ def train(args, cfg, model, state, batches, start_step: int, total_steps: int, k
         if step % LOG_EVERY == 0:
             vals = {name: float(v) for name, v in metrics.items()}
             logger.update(**vals)
-            print(f"epoch {epoch} step {step}: " + " ".join(f"{n}={v:.4f}" for n, v in vals.items()), flush=True)
+            pdist.print_main(f"epoch {epoch} step {step}: " + " ".join(f"{n}={v:.4f}" for n, v in vals.items()),
+                             flush=True)
             pending = send_to(wandb_logger, pending)
             # non-finite-loss abort (pretrain_mmae.py:506-508), read with the
             # logged metrics so the card is not made to wait every step
             if not math.isfinite(vals["recon_loss"]):
-                print(f"Loss is {vals['recon_loss']}, stopping training", flush=True)
+                pdist.print_main(f"Loss is {vals['recon_loss']}, stopping training", flush=True)
                 return 1
         # epoch boundary: the loop strides K steps, so test whether this
         # group crossed one rather than landed on it
         done = step + k
         if done % steps_per_epoch < k:
             if (epoch + 1) % cfg.train.save_ckpt_freq == 0 or done >= total_steps:
-                ckpt_lib.save_checkpoint(out_dir, done, state)
-            with open(log_path, "a") as f:
-                f.write(logger.jsonl(epoch=epoch, step=step) + "\n")
+                ckpt_lib.save_checkpoint(out_dir, done, state)  # every rank: the payload is gathered
+            if main_rank:
+                with open(log_path, "a") as f:
+                    f.write(logger.jsonl(epoch=epoch, step=step) + "\n")
     send_to(wandb_logger, pending)
     if profiler is not None:
         stop_profiler(profiler, profile_dir)
     if step_ms:
-        print(f"step wall p50 {statistics.median(step_ms):.6g} ms; batch wait p50 {statistics.median(wait_ms):.6g} ms "
-              f"a {'group' if k > 1 else 'step'}")
-    print(f"Training time {time.time() - t_start:.0f}s")
+        pdist.print_main(f"step wall p50 {statistics.median(step_ms):.6g} ms; batch wait p50 "
+                         f"{statistics.median(wait_ms):.6g} ms a {'group' if k > 1 else 'step'}")
+    pdist.print_main(f"Training time {time.time() - t_start:.0f}s")
     return 0
 
 if __name__ == "__main__":

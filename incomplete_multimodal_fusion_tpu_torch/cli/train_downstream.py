@@ -31,6 +31,17 @@ and at the last (``output_dir/checkpoint-{epoch}``, utils/checkpoint.py).
 in DIR that match by name and shape (a pretraining checkpoint of
 ``cli.pretrain`` or converted weights of ``cli.convert_checkpoint``).
 ``--backbone`` and ``--fusion_mode`` take the JAX script's choices.
+
+Under ``torchrun`` (``torchrun --nproc_per_node N -m
+incomplete_multimodal_fusion_tpu_torch.cli.train_downstream ...``) the step
+runs data parallel over ``gcd(batch_size, N)`` ranks
+(scripts/train_downstream.py:249-274; the other ranks sit out): ``--batch_size``
+is the global batch, each rank reads its rows of the global stream
+(``data.loader.RowShard``; the synthetic stream's rows), matches its own
+rows and draws the points of its rows, the criterion's normalisers and the
+gradients are summed over the ranks (train/downstream.py), the eval's dice
+is averaged and its confusion matrix summed over them, so every rank steps
+the same learning rate. Rank 0 prints and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -45,11 +56,13 @@ import numpy as np
 import torch
 
 from ..config import MODEL_SIZES
-from ..data.loader import DeviceLoader
+from ..data.loader import DeviceLoader, RowShard
 from ..data.synthetic import synthetic_instances
 from ..eval.metrics import ConfMatrix
 from ..losses.set_criterion import targets_from_semantic_labels
 from ..models.maskformer import MaskFormerConfig, build_maskformer
+from ..parallel import dist as pdist
+from ..parallel.mesh import downstream_layout
 from ..train import downstream as ds
 from ..utils import checkpoint as ckpt_lib
 
@@ -107,24 +120,29 @@ def build_config(args) -> MaskFormerConfig:
         backbone_type=args.backbone, fusion_mode=args.fusion_mode, **extra)
 
 
-def open_data(args, device):
+def open_data(args, device, layout=None):
     """The training batches of scripts/train_downstream.py:133-215, as
     (iterator of (batch, targets), its DeviceLoader or None, dense_masks):
     the readers' on ``device`` through pinned buffers, the synthetic
-    stream's numpy."""
+    stream's numpy; under data parallelism this rank's rows of each."""
+    index, count = (0, 1) if layout is None else (layout.dp_rank, layout.dp)
+
+    def shard(source):
+        return source if count == 1 else RowShard(source, index, count)
+
     if args.task == "instance" and args.coco_root:
         from ..data.coco_instance import CocoBatches, CocoInstanceDataset, split_targets
 
         source = CocoBatches(CocoInstanceDataset(args.coco_root, args.coco_json, args.input_size), args.batch_size,
                              seed=args.seed, augment=_augment_config(args))
-        loader = DeviceLoader(source, device)
+        loader = DeviceLoader(shard(source), device)
         return (split_targets(b) for b in loader), loader, False
     if args.task == "semantic" and args.odgt:
         from ..data.ade_odgt import ADEBatches, ADEOdgtDataset
 
         ds = ADEOdgtDataset(args.odgt, root=args.ade_root, img_size=args.input_size,
                             segm_downsampling_rate=args.segm_downsampling_rate, flip=args.aug, seed=args.seed)
-        loader = DeviceLoader(ADEBatches(ds, args.batch_size, seed=args.seed), device)
+        loader = DeviceLoader(shard(ADEBatches(ds, args.batch_size, seed=args.seed)), device)
         # criterion_seg.py:169-204: dense masks
         return (({"s2": b["image"]}, targets_from_semantic_labels(b["label"], args.num_classes))
                 for b in loader), loader, True
@@ -132,15 +150,17 @@ def open_data(args, device):
         from ..data.quadruplet import QuadrupletBatches, QuadrupletDataset
 
         ds = QuadrupletDataset(args.quad_root, unlabeled=False, crop_size=args.input_size)
-        loader = DeviceLoader(QuadrupletBatches(ds, args.batch_size, seed=args.seed, augment=_augment_config(args)),
-                              device)
+        loader = DeviceLoader(shard(QuadrupletBatches(ds, args.batch_size, seed=args.seed,
+                                                      augment=_augment_config(args))), device)
         return (({k: b[k] for k in ("s1", "s2", "dem")}, targets_from_semantic_labels(b["label"], args.num_classes))
                 for b in loader), loader, True
     rng = np.random.default_rng(args.seed)
+    rows = slice(index * args.batch_size // count, (index + 1) * args.batch_size // count)
 
     def synthetic():
         while True:
-            yield synthetic_instances(rng, args.batch_size, args.input_size, args.num_classes)
+            batch, targets = synthetic_instances(rng, args.batch_size, args.input_size, args.num_classes)
+            yield {k: v[rows] for k, v in batch.items()}, type(targets)(*(t[rows] for t in targets))
 
     return synthetic(), None, False
 
@@ -156,24 +176,46 @@ def _augment_config(args):
 def main(argv=None) -> int:
     args = get_args(argv)
     cfg = build_config(args)
-    model = build_maskformer(cfg, device=args.device, generator=torch.Generator().manual_seed(args.seed))
-    device = next(model.parameters()).device
-    data, loader, dense_masks = open_data(args, device)
+    layout = None
+    if pdist.init_distributed_mode(args.device):
+        layout = downstream_layout(args.batch_size)
     try:
-        return train(args, cfg, model, data, dense_masks)
+        if layout is not None and layout.dp_rank < 0:
+            print(f"rank {pdist.get_rank()}: outside the data mesh of {layout.dp} ranks "
+                  f"(gcd of the batch {args.batch_size} and the world {pdist.get_world_size()})")
+            return 0
+        device = args.device if layout is None or layout.backend != "nccl" else f"cuda:{torch.cuda.current_device()}"
+        model = build_maskformer(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
+        data, loader, dense_masks = open_data(args, next(model.parameters()).device, layout)
+        try:
+            return train(args, cfg, model, data, dense_masks, layout)
+        finally:
+            if loader is not None:
+                loader.close()
     finally:
-        if loader is not None:
-            loader.close()
+        pdist.destroy()
 
 
-def train(args, cfg: MaskFormerConfig, model, data, dense_masks: bool) -> int:
+def _rank_sum(a: np.ndarray, layout) -> np.ndarray:
+    """An array summed over the data ranks (itself on one device)."""
+    if layout is None:
+        return a
+    t = torch.from_numpy(np.asarray(a, np.float64)).to("cuda" if layout.backend == "nccl" else "cpu")
+    torch.distributed.all_reduce(t, group=layout.data_group)
+    return t.cpu().numpy()
+
+
+def train(args, cfg: MaskFormerConfig, model, data, dense_masks: bool, layout=None) -> int:
     """The epoch loop of scripts/train_downstream.py:264-309; returns the
     exit code."""
     device = next(model.parameters()).device
+    print = pdist.print_main
     # the JAX script initialises its parameters on the first batch, so its
     # training stream starts at the second
     next(data)
     print(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M  queries={cfg.num_queries}")
+    if layout is not None:
+        print(f"data parallel over {layout.dp} ranks ({layout.backend}), {args.batch_size // layout.dp} rows each")
 
     if args.pretrained:
         step_n = ckpt_lib.latest_step(args.pretrained)
@@ -182,13 +224,14 @@ def train(args, cfg: MaskFormerConfig, model, data, dense_masks: bool) -> int:
             print(f"restored {len(report['copied'])} backbone tensors from {args.pretrained} step {step_n}")
 
     optimizer = ds.create_downstream_optimizer(model, lr=args.lr, clip_grad=args.clip_grad,
-                                               frozen_stages=args.frozen_stages)
+                                               frozen_stages=args.frozen_stages, layout=layout)
     state = ds.DownstreamState(model, optimizer, torch.Generator().manual_seed(args.seed))
     # padded instances (COCO, synthetic) take point-sampled mask losses, the
     # semantic flows dense ones (scripts/train_downstream.py:132, :157, :177)
     step_fn = ds.make_downstream_train_step(model, cfg, optimizer, num_points=args.num_points,
                                             dense_masks=dense_masks, compute_dtype=args.compute_dtype,
-                                            match_mode=args.match_mode, per_sample_masks=args.per_sample_masks)
+                                            match_mode=args.match_mode, per_sample_masks=args.per_sample_masks,
+                                            layout=layout)
     eval_fn = ds.make_eval_step(model, cfg)
     sem_pred_fn = ds.make_semantic_pred_step(model, cfg,
                                              out_size=args.input_size // max(args.segm_downsampling_rate, 1))
@@ -220,12 +263,15 @@ def train(args, cfg: MaskFormerConfig, model, data, dense_masks: bool) -> int:
         if (epoch + 1) % args.eval_freq == 0:
             eval_batch, eval_targets = next(data)
             gt = ds.label_map_from_targets(ds.as_targets(eval_targets, device))
-            dice = float(eval_fn(None, eval_batch, gt))
+            # a rank's mean dice over its rows; the global batch's over the ranks' equal shares
+            dice = float(_rank_sum(np.array([float(eval_fn(None, eval_batch, gt))]), layout)[0]) / \
+                (1 if layout is None else layout.dp)
             score = dice
             if args.task == "semantic":
                 # ConfMatrix AA / mIoU eval (maskformer_train_seg.py:242-285)
                 cm = ConfMatrix(args.num_classes + 1)
                 cm.add_batch(gt, sem_pred_fn(None, eval_batch))
+                cm.state = _rank_sum(cm.state, layout)  # the global batch's matrix
                 score = cm.get_miou()
                 print(f"  eval AA={cm.get_aa():.4f} mIoU={score:.4f}", flush=True)
             new_lr = sched.step(score)

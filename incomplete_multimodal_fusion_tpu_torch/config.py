@@ -25,7 +25,7 @@ class ModelConfig:
     drop_path_rate: float = 0.0
     # 'crossattn' = per-layer fusion blocks (flagship) | 'zorro' | 'lstm' |
     # 'crossattn_v1' (models/multimae.py); 'sup' is the downstream backbone's
-    # and is not ported yet
+    # (models/vit_baseline.py, MaskFormerConfig(fusion_mode='sup'))
     fusion_mode: str = "crossattn"
     # 'auto' = hand-written kernels for CUDA tensors, plain PyTorch for CPU
     # tensors; 'xla' = plain PyTorch everywhere; 'pallas' = same as 'auto'

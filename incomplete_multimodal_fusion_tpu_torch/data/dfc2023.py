@@ -232,11 +232,15 @@ class DFC2023Batches:
     ``fill(out)`` writes the next batch: a pool of ``num_threads`` threads
     (at most the host's cores less one) writes each sample into its slot,
     through ``load_into`` where it can. ``skip(n)`` passes over n batches
-    without reading them. ``specs`` is {domain: ((B, H, W, C), float32)}."""
+    without reading them. ``specs`` is {domain: ((B, H, W, C), float32)}.
+    ``shard`` = (i, k) (data parallelism): ``batch_size`` is the global
+    batch, cut in k equal shares, and this reader fills share i's rows of
+    each global batch alone (the order, the shuffle and ``skip`` are the
+    global stream's; each sample's crop is drawn from its own index)."""
 
     def __init__(self, path: str, in_domains: Sequence[str], batch_size: int, input_size: int = 256,
                  seed: int = 0, shuffle: bool = True, num_threads: int = 4, load_size: Optional[int] = None,
-                 random_crop: bool = False, native: bool = True):
+                 random_crop: bool = False, native: bool = True, shard: Tuple[int, int] = (0, 1)):
         from concurrent.futures import ThreadPoolExecutor
 
         if random_crop:
@@ -248,6 +252,11 @@ class DFC2023Batches:
             raise ValueError(f"{path}: {len(self.ds)} samples, fewer than a batch of {batch_size}")
         self.in_domains = tuple(in_domains)
         self.batch_size = batch_size
+        index, count = shard
+        if batch_size % count:
+            raise ValueError(f"a global batch of {batch_size} does not divide {count} shares")
+        local = batch_size // count
+        self.rows = slice(index * local, (index + 1) * local)
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
         self.order = np.arange(len(self.ds))
@@ -256,7 +265,7 @@ class DFC2023Batches:
         self.pool = ThreadPoolExecutor(max_workers=self.num_threads) if self.num_threads > 1 else None
         # output shapes discovered once (crop changes H/W)
         s0 = self.ds[0]
-        self.specs = {k: ((batch_size, s0[k].shape[1], s0[k].shape[2], s0[k].shape[0]), np.dtype(np.float32))
+        self.specs = {k: ((local, s0[k].shape[1], s0[k].shape[2], s0[k].shape[0]), np.dtype(np.float32))
                       for k in self.in_domains}
 
     def next_indices(self) -> np.ndarray:
@@ -282,7 +291,7 @@ class DFC2023Batches:
             for k in self.in_domains:
                 out[k][slot] = s[k].transpose(1, 2, 0)
 
-        jobs = list(enumerate(self.next_indices()))
+        jobs = list(enumerate(self.next_indices()[self.rows]))
         if self.pool is None:
             for job in jobs:
                 one(job)

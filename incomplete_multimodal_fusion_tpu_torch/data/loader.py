@@ -77,6 +77,33 @@ def host_batches(source, prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
     return batches()
 
 
+class RowShard:
+    """Share ``index`` of ``count`` of each batch a source fills (data
+    parallelism): the source fills the global batch, its random draws taken
+    in their order, into a buffer of this wrapper's, and ``fill`` hands on
+    this share's rows. A reader whose per-sample draws come from one shared
+    generator (the COCO, ADE and quadruplet readers) gives every rank the
+    rows of the stream one device would read."""
+
+    def __init__(self, source, index: int, count: int):
+        self.source = source
+        self.buf = {k: np.empty(shape, dtype) for k, (shape, dtype) in source.specs.items()}
+        first = next(iter(source.specs.values()))[0][0]
+        if first % count:
+            raise ValueError(f"a batch of {first} does not divide {count} shares")
+        local = first // count
+        self.rows = slice(index * local, (index + 1) * local)
+        self.specs = {k: ((local,) + tuple(shape[1:]), dtype) for k, (shape, dtype) in source.specs.items()}
+
+    def fill(self, out: Dict[str, np.ndarray]) -> None:
+        self.source.fill(self.buf)
+        for k, v in out.items():
+            v[...] = self.buf[k][self.rows]
+
+    def close(self) -> None:
+        self.source.close()
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 

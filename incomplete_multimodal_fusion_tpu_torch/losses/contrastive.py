@@ -19,14 +19,19 @@ def _l2norm(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
 
 
 def dino_loss(student: torch.Tensor, teacher: torch.Tensor, teacher_temp: float = 0.04,
-              student_temp: float = 0.1) -> torch.Tensor:
+              student_temp: float = 0.1, batch_sum=None) -> torch.Tensor:
     """dino_loss_func (criterion.py:328-335): the fusion pool is the student,
-    the modality pool the teacher, whose gradient is stopped."""
+    the modality pool the teacher, whose gradient is stopped. ``batch_sum``
+    (data parallelism) makes the batch mean the global batch's."""
     student = _l2norm(student.float(), dim=1)
     teacher = _l2norm(teacher.float(), dim=1)
     s = torch.log_softmax(student / student_temp, dim=-1)
     t = torch.softmax(teacher / teacher_temp, dim=-1).detach()
-    return (-t * s).sum(dim=-1).mean()
+    per_sample = (-t * s).sum(dim=-1)
+    if batch_sum is None:
+        return per_sample.mean()
+    total, count = batch_sum(torch.stack([per_sample.sum(), per_sample.new_full((), float(per_sample.numel()))]))
+    return total / count
 
 
 def byol_loss(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,19 @@ def point_sample(masks: torch.Tensor, coords: torch.Tensor, group: int = 1,
     return cuda_points.PointSampleFunction.apply(masks, coords, group)
 
 
+def uniform_rows(generator: Optional[torch.Generator], n: int, tail: Tuple[int, ...], device,
+                 share: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """U[0, 1) draws [n, *tail] from ``generator``. With ``share`` = (i, k)
+    (data parallelism: this rank holds the i-th of k equal shares of the
+    global batch) the draw is the global batch's, k * n rows, and share i's
+    rows are kept: a rank draws the points the one-device step would give
+    its rows."""
+    if share is None:
+        return torch.rand((n,) + tail, generator=generator, device=device)
+    i, k = share
+    return torch.rand((k * n,) + tail, generator=generator, device=device)[i * n:(i + 1) * n]
+
+
 def calculate_uncertainty(logits: torch.Tensor) -> torch.Tensor:
     """-|logit| (criterion_ins.py calculate_uncertainty)."""
     return -logits.abs()
@@ -66,20 +79,21 @@ def uncertain_point_coords(generator: Optional[torch.Generator], logits: torch.T
                            num_points: int, oversample_ratio: float = 3.0,
                            importance_sample_ratio: float = 0.75,
                            draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                           impl: str = "auto") -> torch.Tensor:
+                           impl: str = "auto", share: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """get_uncertain_point_coords_with_randomness: num_points * oversample
     uniform points, the most uncertain importance fraction of them kept
     (exact top-k), the rest fresh uniform points. logits [N, H, W] ->
     coords [N, num_points, 2]. ``draws`` = (oversampled [N, n_sampled, 2],
-    fresh [N, n_rand, 2]) replaces the two uniform draws."""
+    fresh [N, n_rand, 2]) replaces the two uniform draws; ``share``
+    (``uniform_rows``) draws them for the global batch's rows."""
     n = logits.shape[0]
     n_sampled = int(num_points * oversample_ratio)
     n_unc = int(importance_sample_ratio * num_points)
     n_rand = num_points - n_unc
     dev = logits.device
     if draws is None:
-        coords = torch.rand((n, n_sampled, 2), generator=generator, device=dev)
-        rand_coords = torch.rand((n, n_rand, 2), generator=generator, device=dev)
+        coords = uniform_rows(generator, n, (n_sampled, 2), dev, share)
+        rand_coords = uniform_rows(generator, n, (n_rand, 2), dev, share)
     else:
         coords, rand_coords = (d.to(dev, torch.float32) for d in draws)
     unc = calculate_uncertainty(point_sample(logits, coords, impl=impl))
@@ -234,7 +248,8 @@ def hungarian_match(cost: torch.Tensor, exact: bool = True, mode: Optional[str] 
 def match_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targets: SegTargets,
                 generator: Optional[torch.Generator], num_points: int, cost_class: float = 1.0,
                 cost_mask: float = 1.0, cost_dice: float = 1.0,
-                coords: Optional[torch.Tensor] = None, impl: str = "auto") -> torch.Tensor:
+                coords: Optional[torch.Tensor] = None, impl: str = "auto",
+                share: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Matching cost [B, Q, G] (matcher_ins.py:95-146), padded target
     columns at PAD_COST, without gradient. One row of uniform points per
     image [B, num_points, 2] (``coords``, or drawn from ``generator``),
@@ -247,7 +262,7 @@ def match_costs(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targets: Se
         safe = targets.labels.long().clamp(0, prob.shape[-1] - 1)
         c_class = -torch.gather(prob, 2, safe[:, None, :].expand(b, q, g))
         if coords is None:
-            coords = torch.rand((b, num_points, 2), generator=generator, device=pred_masks.device)
+            coords = uniform_rows(generator, b, (num_points, 2), pred_masks.device, share)
         coords = coords.reshape(b, num_points, 2)
         out_pts = point_sample(pred_masks.reshape(b * q, *pred_masks.shape[2:]), coords, q, impl)
         tgt_pts = point_sample(targets.masks.reshape(b * g, *targets.masks.shape[2:]), coords, g, impl)
@@ -272,18 +287,23 @@ def match_outputs_to_targets(pred_logits, pred_masks, targets: SegTargets,
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
-def sigmoid_ce_loss(point_logits, point_labels, weights, num_masks):
+def _summed(x: torch.Tensor, batch_sum) -> torch.Tensor:
+    return x if batch_sum is None else batch_sum(x)
+
+
+def sigmoid_ce_loss(point_logits, point_labels, weights, num_masks, batch_sum=None):
     """Per-mask mean over points, summed over masks / num_masks; padded rows
-    weighted 0 (criterion_ins.py sigmoid_ce_loss)."""
+    weighted 0 (criterion_ins.py sigmoid_ce_loss). ``batch_sum`` (data
+    parallelism, parallel/comm.py) sums over the global batch's masks."""
     loss = torch.where(point_labels > 0.5, F.softplus(-point_logits), F.softplus(point_logits))
-    return (loss.mean(dim=-1) * weights).sum() / num_masks
+    return _summed((loss.mean(dim=-1) * weights).sum(), batch_sum) / num_masks
 
 
-def dice_loss(point_logits, point_labels, weights, num_masks):
+def dice_loss(point_logits, point_labels, weights, num_masks, batch_sum=None):
     p = torch.sigmoid(point_logits)
     num = 2 * (p * point_labels).sum(dim=-1)
     den = p.sum(dim=-1) + point_labels.sum(dim=-1)
-    return ((1 - (num + 1) / (den + 1)) * weights).sum() / num_masks
+    return _summed(((1 - (num + 1) / (den + 1)) * weights).sum(), batch_sum) / num_masks
 
 
 def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, targets: SegTargets,
@@ -291,7 +311,8 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
                      num_masks: torch.Tensor, eos_coef: float = 0.1, num_points: int = 12544,
                      oversample_ratio: float = 3.0, importance_sample_ratio: float = 0.75,
                      dense_masks: bool = False, point_coords_override: Optional[torch.Tensor] = None,
-                     impl: str = "auto") -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                     impl: str = "auto", batch_sum=None, share: Optional[Tuple[int, int]] = None
+                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """loss_labels + loss_masks of one prediction level
     (criterion_ins.py:153-221). Returns the losses and the PointRend coords
     [B*G, P, 2] they were taken at (``point_coords_override`` when given,
@@ -299,7 +320,10 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
     169-204) the mask losses are taken over the whole masks, the targets
     resized to the predictions' size by ``jax.image.resize(method=
     'nearest')``'s rule (half-pixel centres: 'nearest-exact'), and the
-    coords returned are None."""
+    coords returned are None. ``batch_sum`` and ``share`` (data
+    parallelism): the class loss's weight sum and the mask losses' sums are
+    the global batch's, the random points those the global draw gives this
+    rank's rows."""
     b, q, _ = pred_logits.shape
     g = targets.labels.shape[1]
     dev = pred_logits.device
@@ -317,7 +341,11 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
     class_w[num_classes] = eos_coef
     w = class_w[target_classes]
     nll = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
-    loss_ce = (nll * w).sum() / w.sum().clamp(min=1e-6)
+    if batch_sum is None:
+        loss_ce = (nll * w).sum() / w.sum().clamp(min=1e-6)
+    else:
+        total, weight = batch_sum(torch.stack([(nll * w).sum(), w.sum()]))
+        loss_ce = total / weight.clamp(min=1e-6)
 
     # masks: the matched prediction of each target column
     h, wd = pred_masks.shape[2:]
@@ -327,8 +355,8 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
         with torch.no_grad():
             tgt = F.interpolate(targets.masks.float(), size=(h, wd), mode="nearest-exact")
         pl_, tl_ = src.reshape(b * g, h * wd), tgt.reshape(b * g, h * wd)
-        return {"loss_ce": loss_ce, "loss_mask": sigmoid_ce_loss(pl_, tl_, weights, num_masks),
-                "loss_dice": dice_loss(pl_, tl_, weights, num_masks)}, None
+        return {"loss_ce": loss_ce, "loss_mask": sigmoid_ce_loss(pl_, tl_, weights, num_masks, batch_sum),
+                "loss_dice": dice_loss(pl_, tl_, weights, num_masks, batch_sum)}, None
     src_f = src.reshape(b * g, h, wd)
     tgt_f = targets.masks.float().reshape(b * g, *targets.masks.shape[2:])
     if point_coords_override is not None:
@@ -336,14 +364,14 @@ def criterion_losses(pred_logits: torch.Tensor, pred_masks: torch.Tensor, target
     else:
         with torch.no_grad():
             coords = uncertain_point_coords(generator, src_f.detach(), num_points, oversample_ratio,
-                                            importance_sample_ratio, impl=impl)
+                                            importance_sample_ratio, impl=impl, share=share)
     point_logits = point_sample(src_f, coords, impl=impl)
     with torch.no_grad():
         point_labels = point_sample(tgt_f, coords, impl=impl)
     losses = {
         "loss_ce": loss_ce,
-        "loss_mask": sigmoid_ce_loss(point_logits, point_labels, weights, num_masks),
-        "loss_dice": dice_loss(point_logits, point_labels, weights, num_masks),
+        "loss_mask": sigmoid_ce_loss(point_logits, point_labels, weights, num_masks, batch_sum),
+        "loss_dice": dice_loss(point_logits, point_labels, weights, num_masks, batch_sum),
     }
     return losses, coords
 
@@ -361,14 +389,14 @@ def level_generator(key: int, level: int, stream: int, device) -> torch.Generato
 
 def set_criterion_costs(outputs: Dict, targets: SegTargets, key: int, num_points: int = 12544,
                         cost_class: float = 1.0, cost_mask: float = 1.0, cost_dice: float = 1.0,
-                        impl: str = "auto") -> torch.Tensor:
+                        impl: str = "auto", share: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Per-level matching costs [L, B, Q, G] (level order: final, aux 0,
     aux 1, ...), each level's points from ``level_generator(key, li, 0)``,
     so host assignments from them equal ``set_criterion(key)``'s."""
     return torch.stack([
         match_costs(out["pred_logits"], out["pred_masks"], targets,
                     level_generator(key, li, 0, out["pred_masks"].device), num_points,
-                    cost_class, cost_mask, cost_dice, impl=impl)
+                    cost_class, cost_mask, cost_dice, impl=impl, share=share)
         for li, out in enumerate(_levels(outputs))])
 
 
@@ -379,7 +407,8 @@ def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int
                   exact_match: bool = True, match_mode: Optional[str] = None,
                   matched_override: Optional[torch.Tensor] = None,
                   point_coords_override: Optional[Sequence[torch.Tensor]] = None,
-                  impl: str = "auto", return_aux: bool = False):
+                  impl: str = "auto", return_aux: bool = False, batch_sum=None,
+                  share: Optional[Tuple[int, int]] = None):
     """The full criterion with the aux levels (criterion_ins.py:224-278).
 
     Without ``matched_override`` [L, B, G] the costs of all levels are
@@ -389,14 +418,21 @@ def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int
     (``criterion_losses``). ``point_coords_override`` [L, B*G, P, 2]
     evaluates the mask losses at given PointRend coords. With
     ``return_aux`` also returns {'matched': [L, B, G], 'point_coords':
-    [L, B*G, P, 2], or None with ``dense_masks``}, what this call used."""
+    [L, B*G, P, 2], or None with ``dense_masks``}, what this call used.
+
+    Data parallelism: ``outputs`` and ``targets`` are this rank's rows,
+    ``share`` = (i, k) its share of the global batch (the random points are
+    the global draw's rows of it) and ``batch_sum`` sums over the ranks, so
+    ``num_masks`` and every normaliser are the global batch's (JAX keeps the
+    targets replicated, set_criterion.py:437); each rank matches its own
+    rows."""
     levels = _levels(outputs)
     if matched_override is None:
         mode = match_mode or ("exact" if exact_match else "greedy")
         costs = set_criterion_costs(outputs, targets, key, num_points, cost_class, cost_mask,
-                                    cost_dice, impl=impl)
+                                    cost_dice, impl=impl, share=share)
         matched_override = hungarian_match(costs, mode=mode)
-    num_masks = targets.valid.float().sum().clamp(min=1.0)
+    num_masks = _summed(targets.valid.float().sum(), batch_sum).clamp(min=1.0)
     losses, used = {}, []
     for li, out in enumerate(levels):
         dev = out["pred_masks"].device
@@ -404,7 +440,8 @@ def set_criterion(outputs: Dict, targets: SegTargets, key: int, num_classes: int
         level_losses, coords = criterion_losses(
             out["pred_logits"], out["pred_masks"], targets, matched_override[li].to(dev),
             level_generator(key, li, 1, dev), num_classes, num_masks, eos_coef, num_points,
-            oversample_ratio, importance_sample_ratio, dense_masks, point_coords_override=override, impl=impl)
+            oversample_ratio, importance_sample_ratio, dense_masks, point_coords_override=override, impl=impl,
+            batch_sum=batch_sum, share=share)
         suffix = "" if li == 0 else f"_{li - 1}"
         losses.update({k + suffix: v for k, v in level_losses.items()})
         used.append(coords)

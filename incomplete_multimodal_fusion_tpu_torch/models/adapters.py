@@ -299,17 +299,31 @@ def batched_trunks(adapters, encoder_tokens: torch.Tensor, use_kernel: bool = Fa
     x = _linear(rows, [a.proj_context for a in adapters]) + _stacked(adapters, "task_emb").reshape(t, 1, -1)
     for i in range(len(adapters[0].blocks)):
         blocks = [a.blocks[i] for a in adapters]
-        qkv = _linear(_layer_norm(x, [blk.norm1 for blk in blocks]), [blk.attn.qkv for blk in blocks])
+        # tensor parallelism (each module's ``tp``): this rank's heads and
+        # hidden units, the row-parallel biases after the all-reduce
+        attn_tp, mlp_tp = blocks[0].attn.tp, blocks[0].mlp.tp
+        h = _layer_norm(x, [blk.norm1 for blk in blocks])
+        qkv = _linear(h if attn_tp is None else attn_tp.into(h), [blk.attn.qkv for blk in blocks])
         qkv = qkv.reshape(t * b, f, qkv.shape[-1])
         fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
         out = fn(qkv, blocks[0].attn.num_heads).reshape(t, b * f, -1)
-        x = x + _linear(out, [blk.attn.proj for blk in blocks])
+        proj = [blk.attn.proj for blk in blocks]
+        if attn_tp is None:
+            x = x + _linear(out, proj)
+        else:
+            x = x + attn_tp.out(torch.bmm(out, _stacked(proj, "weight").transpose(1, 2))) \
+                + _stacked(proj, "bias")[:, None, :]
         h = _layer_norm(x, [blk.norm2 for blk in blocks])
         fc1, fc2 = [blk.mlp.fc1 for blk in blocks], [blk.mlp.fc2 for blk in blocks]
+        b2 = _stacked(fc2, "bias")
+        if mlp_tp is not None:
+            h, b2 = mlp_tp.into(h), torch.zeros_like(b2)
         if use_kernel:
             y = cuda_ffn.mlp_ffn_tasks(h.contiguous(), _stacked(fc1, "weight"), _stacked(fc1, "bias"),
-                                       _stacked(fc2, "weight"), _stacked(fc2, "bias"))
+                                       _stacked(fc2, "weight"), b2)
         else:
-            y = _linear(F.gelu(_linear(h, fc1)), fc2)
+            y = torch.baddbmm(b2[:, None, :], F.gelu(_linear(h, fc1)), _stacked(fc2, "weight").transpose(1, 2))
+        if mlp_tp is not None:
+            y = mlp_tp.out(y) + _stacked(fc2, "bias")[:, None, :]
         x = x + y
     return x.reshape(t, b, f, -1)

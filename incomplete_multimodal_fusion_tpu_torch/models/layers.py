@@ -25,7 +25,7 @@ autograd differentiates them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +33,7 @@ from torch import nn
 
 from ..ops import cuda_attn, cuda_block_attn, cuda_ffn, cuda_fusion_attn
 from ..ops.attention import multihead_attention
+from ..parallel.comm import collective
 
 
 class LayerNorm(nn.Module):
@@ -43,14 +44,19 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim)) if bias else None
+        self.tp = None  # parallel.sharding.TPLink: normed on a token shard (sequence parallelism)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if self.tp is not None:  # each rank's gradient covers its tokens alone
+            weight = self.tp.weight(weight)
+            bias = None if bias is None else self.tp.weight(bias)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = xf.var(dim=-1, unbiased=False, keepdim=True)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight.float()
-        if self.bias is not None:
-            y = y + self.bias.float()
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * weight.float()
+        if bias is not None:
+            y = y + bias.float()
         return y.to(x.dtype)
 
 
@@ -88,7 +94,9 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> fc2 (multimae_utils.py:138-155). With ``use_kernel``
-    the pair runs as kernel K2 in MLP mode."""
+    the pair runs as kernel K2 in MLP mode. Tensor-parallel (``tp``, a
+    parallel.sharding.TPLink): this rank's hidden units, fc2's bias added
+    after the output's all-reduce."""
 
     def __init__(self, dim: int, hidden_features: Optional[int] = None,
                  out_features: Optional[int] = None):
@@ -96,12 +104,21 @@ class Mlp(nn.Module):
         hidden = hidden_features or dim
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out_features or dim)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
+        if self.tp is not None:
+            x = self.tp.into(x)
+        b2 = self.fc2.bias if self.tp is None or not self.tp.sharded else torch.zeros_like(self.fc2.bias)
         if use_kernel:
-            y = cuda_ffn.mlp_ffn(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight, self.fc2.bias)
-            return y.reshape(*x.shape[:-1], y.shape[-1])
-        return self.fc2(F.gelu(self.fc1(x)))
+            y = cuda_ffn.mlp_ffn(_rows(x), self.fc1.weight, self.fc1.bias, self.fc2.weight, b2)
+            y = y.reshape(*x.shape[:-1], y.shape[-1])
+        else:
+            y = F.linear(F.gelu(self.fc1(x)), self.fc2.weight, b2)
+        if self.tp is None:
+            return y
+        y = self.tp.out(y)
+        return y + self.fc2.bias if self.tp.sharded else y
 
 
 class GEGLUFeedForward(nn.Module):
@@ -116,11 +133,17 @@ class GEGLUFeedForward(nn.Module):
         self.norm = BiaslessLayerNorm(dim)
         self.proj_in = nn.Linear(dim, inner * 2, bias=False)
         self.proj_out = nn.Linear(inner, dim, bias=False)
+        self.tp = None  # parallel.sharding.TPLink: this rank's inner units
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         fn = cuda_ffn.geglu_ffn if use_kernel else cuda_ffn.geglu_ffn_reference
-        y = fn(_rows(x), self.norm.weight, self.proj_in.weight, self.proj_out.weight)
-        return y.reshape(x.shape)
+        gamma = self.norm.weight
+        if self.tp is not None:
+            x = self.tp.into(x)
+            if self.tp.sharded:  # the kernel's LayerNorm: each rank's dgamma is its units' part
+                gamma = self.tp.weight(gamma)
+        y = fn(_rows(x), gamma, self.proj_in.weight, self.proj_out.weight).reshape(x.shape)
+        return y if self.tp is None else self.tp.out(y)
 
 
 class ZorroAttention(nn.Module):
@@ -144,14 +167,18 @@ class ZorroAttention(nn.Module):
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_kv = nn.Linear(dim, inner * 2, bias=False)
         self.to_out = nn.Linear(inner, dim, bias=False)
+        self.tp = None  # parallel.sharding.TPLink (self-attention): this rank's heads
 
     def forward(self, x, context=None, attn_mask=None, packed_types=None, fusion_type=None,
                 use_kernel: bool = False, empty_rows_uniform_over=None):
         x = self.norm(x)
         if context is None and (packed_types is not None or (use_kernel and attn_mask is None)):
+            if self.tp is not None:
+                x = self.tp.into(x)
             qkv = F.linear(x, torch.cat([self.to_q.weight, self.to_kv.weight], dim=0))
             fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
-            return self.to_out(fn(qkv, self.heads, packed_types, fusion_type))
+            y = self.to_out(fn(qkv, self.heads, packed_types, fusion_type))
+            return y if self.tp is None else self.tp.out(y)
         kv_x = context if context is not None else x
         b, n = x.shape[:2]
         m = kv_x.shape[1]
@@ -203,6 +230,40 @@ class DropPath(nn.Module):
         return x / keep * mask
 
 
+class Dropout(nn.Module):
+    """``nn.Dropout`` whose mask can be the global batch's: with ``share`` =
+    (i, k) (data parallelism: this rank holds the i-th of k equal shares of
+    the batch) the mask is ``F.dropout``'s over k times the rows (a draw
+    that depends on the generator, the element count and the dtype, not on
+    the values) and share i's rows are kept, so under one seed a rank drops
+    what ``nn.Dropout`` on the global batch drops for its rows. Without a
+    share it is ``F.dropout`` itself. ``set_dropout_share`` sets ``share``
+    on a model's dropouts."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.share: Optional[Tuple[int, int]] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if self.share is None:
+            return F.dropout(x, self.rate, training=True)
+        i, k = self.share
+        n = x.shape[0]
+        keep = F.dropout(x.new_ones((k * n,) + tuple(x.shape[1:])), self.rate, training=True)
+        return x * keep[i * n:(i + 1) * n]
+
+
+def set_dropout_share(model: nn.Module, share: Optional[Tuple[int, int]]) -> None:
+    """``share`` on every ``Dropout`` of ``model``; None, or a share of one,
+    where the batch is the whole batch."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.share = share if share is not None and share[1] > 1 else None
+
+
 class EncoderBlock(nn.Module):
     """Zorro-masked encoder block (zorro_utils.py:227-240).
 
@@ -224,6 +285,9 @@ class EncoderBlock(nn.Module):
         self.dp1 = DropPath(drop_path)
         self.dp2 = DropPath(drop_path)
         self.fused_block = fused_block
+        # sequence parallelism: the model group; the stream leaves the
+        # attention half as this rank's token shard (parallel/sharding.py)
+        self.sp = None
 
     def forward(self, x, packed_types, fusion_type: int, use_kernel: bool = False):
         b, n, d = x.shape
@@ -234,8 +298,12 @@ class EncoderBlock(nn.Module):
             x = cuda_block_attn.fused_block_attn(
                 x, packed_types, self.norm1.weight, attn.norm.weight, attn.to_q.weight, attn.to_kv.weight,
                 attn.to_out.weight, attn.heads, fusion_type)
+            if self.sp is not None:
+                x = collective(x, "split", self.sp)
         else:
             h = attn(self.norm1(x), packed_types=packed_types, fusion_type=fusion_type, use_kernel=use_kernel)
+            if self.sp is not None:
+                x = collective(x, "split", self.sp)
             x = x + self.dp1(h)
         return x + self.dp2(self.mlp(self.norm2(x), use_kernel=use_kernel))
 
@@ -266,6 +334,7 @@ class FusionBlockFast(nn.Module):
         self.to_out = nn.Linear(inner, dim, bias=False)
         self.norm2 = BiaslessLayerNorm(dim)
         self.mlp = GEGLUFeedForward(dim, ff_mult)
+        self.tp = None  # parallel.sharding.TPLink: this rank's heads
 
     def forward(self, packed, fusion, mask_emb, slot, use, plane_valid=None,
                 use_kernel: bool = False):
@@ -280,6 +349,8 @@ class FusionBlockFast(nn.Module):
         h_packed = self.attn_norm(self.norm1(packed))
         h_mask = self.attn_norm(self.norm1(mask_emb))
         h_fus = self.attn_norm(self.norm1(fusion))
+        if self.tp is not None:
+            h_packed, h_mask, h_fus = (self.tp.into(h) for h in (h_packed, h_mask, h_fus))
 
         q = self.to_q(h_fus)  # [B, F, I]
         kv_p = self.to_kv(h_packed)  # [B, E, 2I]
@@ -295,6 +366,8 @@ class FusionBlockFast(nn.Module):
             out = cuda_fusion_attn.fusion_row_attention_reference(
                 q, kv_grid, kv_f, self.heads, self.dim_head, plane_valid=plane_valid)
         out = self.to_out(out)
+        if self.tp is not None:
+            out = self.tp.out(out)
         fus = fusion + out
         return fus + self.mlp(self.norm2(fus), use_kernel=use_kernel)
 
@@ -355,10 +428,14 @@ class ViTSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.tp = None  # parallel.sharding.TPLink: this rank's heads, proj's bias after the all-reduce
 
     def forward(self, x: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
         fn = cuda_attn.zorro_attention_qkv if use_kernel else cuda_attn.zorro_attention_qkv_reference
-        return self.proj(fn(self.qkv(x), self.num_heads))
+        if self.tp is None:
+            return self.proj(fn(self.qkv(x), self.num_heads))
+        out = F.linear(fn(self.qkv(self.tp.into(x)), self.num_heads), self.proj.weight)
+        return self.tp.out(out) + self.proj.bias
 
 
 class ViTBlock(nn.Module):

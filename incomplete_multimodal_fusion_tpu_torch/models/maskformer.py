@@ -182,6 +182,9 @@ class MaskFormerModel(nn.Module):
                 trunc_normal_(bb.return_tokens, generator)
             if bb.adapter:
                 trunc_normal_(bb.adapter_level_embed, generator)
+            for ad in bb.input_adapters.values():
+                if hasattr(ad, "class_emb"):  # a class-map domain's embedding
+                    trunc_normal_(ad.class_emb, generator)
         embeds = [self.pixel_decoder.level_embed, self.predictor.query_embed]
         if isinstance(self.predictor, MultiScaleMaskedTransformerDecoder):
             embeds += [self.predictor.level_embed, self.predictor.query_feat]

@@ -62,6 +62,7 @@ from ..ops.cuda_attn import PAD_TYPE
 from ..ops.masking import MaskInfo
 from ..ops.patches import unpatchify
 from ..ops.posemb import build_2d_sincos_posemb
+from ..parallel.comm import collective
 from .adapters import SpatialOutputAdapter, SpatialOutputAdapterFull, batched_trunks, input_adapter
 from .layers import (AttentionBiLSTM, BiaslessLayerNorm, EncoderBlock, FusionBlockFast, LayerNorm, Mlp,
                      SnapshotCrossAttention, ZorroAttention, trunc_normal_, xavier_uniform_)
@@ -133,6 +134,14 @@ def gathered_layout(mask_info: MaskInfo, e: int, num_patches: int, n_dom: int) -
     return GatheredLayout(mod_types, slot_valid, types, valid, kernel_types_of(types, valid))
 
 
+def run_block(blk, tokens: torch.Tensor, kernel_types: torch.Tensor, fusion_type: int,
+              use_kernel: bool) -> torch.Tensor:
+    """An encoder block on the whole stream; under sequence parallelism
+    (``blk.sp``) its token shards are all-gathered back into the stream."""
+    tokens = blk(tokens, kernel_types, fusion_type, use_kernel=use_kernel)
+    return tokens if blk.sp is None else collective(tokens, "unsplit", blk.sp)
+
+
 class MultiMAE(nn.Module):
     def __init__(
         self,
@@ -161,7 +170,8 @@ class MultiMAE(nn.Module):
         if fusion_mode == "sup":
             raise NotImplementedError(
                 "fusion_mode='sup' is a downstream backbone variant with no pretraining script "
-                "(JAX multimae.py:410-415); its downstream backbone is not ported yet")
+                "(JAX multimae.py:410-415): use ViTBaseline(fusion_mode='sup') / "
+                "MaskFormerConfig(fusion_mode='sup') instead")
         if fusion_mode not in FUSION_MODES:
             raise ValueError(f"fusion_mode must be one of {FUSION_MODES}, got {fusion_mode!r}")
         if decoder_style not in DECODER_STYLES:
@@ -357,11 +367,18 @@ class MultiMAE(nn.Module):
             grid = torch.where(use[:, m * f:(m + 1) * f, None], gathered[:, m * f:(m + 1) * f], grid)
         return grid
 
-    def forward(self, x: Dict[str, torch.Tensor], mask_info: MaskInfo, num_encoded_tokens: int):
+    def forward(self, x: Dict[str, torch.Tensor], mask_info: MaskInfo, num_encoded_tokens: int, trunk_fn=None):
         """x: {domain: [B, H, W, C]} NHWC ([B, H, W] integer class map for a
         semseg domain). A dropped modality still needs an input (zeros will
         do): its tokens are computed and fully masked out. Returns the JAX
-        package's output dict."""
+        package's output dict.
+
+        ``trunk_fn(tokens, aux)`` (pipeline parallelism,
+        parallel/pp_multimae.py; ``crossattn`` only) replaces the loop over
+        the (fusion block, encoder block) pairs (JAX multimae.py:480-497);
+        ``aux`` is the layer-constant per-example context: ``slot``, ``use``,
+        ``types`` (K1's) and ``mask_emb`` (the mask embedding in the compute
+        dtype, whose gradient comes back through the trunk)."""
         e = num_encoded_tokens
         b = x[self.in_domains[0]].shape[0]
         use_kernel = self.attn_impl != "xla"
@@ -380,12 +397,16 @@ class MultiMAE(nn.Module):
         tokens, types, valid, kernel_types, slot, use = pack_tokens(
             tokens_in, fusion_tokens, mask_info, e, self.num_patches)
         mask_emb = self.mask_embedding.to(dtype)
-        for i, blk in enumerate(self.blocks):
+        if trunk_fn is not None:
+            if self.fusion_mode != "crossattn":
+                raise ValueError("pp trunk supports fusion_mode='crossattn' only")
+            tokens = trunk_fn(tokens, {"slot": slot, "use": use, "types": kernel_types, "mask_emb": mask_emb})
+        for i, blk in enumerate(self.blocks if trunk_fn is None else ()):
             if self.fusion_mode == "crossattn":
                 fusion_new = self.fus_blocks[i](tokens[:, :e], tokens[:, e:], mask_emb, slot, use,
                                                 use_kernel=use_kernel)
                 tokens = torch.cat([tokens[:, :e], fusion_new], dim=1)
-            tokens = blk(tokens, kernel_types, self.fusion_type, use_kernel=use_kernel)
+            tokens = run_block(blk, tokens, kernel_types, self.fusion_type, use_kernel)
         tokens = self.norm(tokens)
         ret = self._pool_returns(tokens, types, valid)
 
@@ -423,7 +444,7 @@ class MultiMAE(nn.Module):
             pairs = torch.stack([packed, fusion_stream], dim=2).reshape(b * e, 2, d)
             tokens = torch.cat([packed, self.attn_lstm(pairs).reshape(b, e, d)], dim=1)
             for blk in self.blocks:
-                tokens = blk(tokens, layout.kernel_types, self.fusion_type, use_kernel=use_kernel)
+                tokens = run_block(blk, tokens, layout.kernel_types, self.fusion_type, use_kernel)
         else:
             slot, use = mask_info.ids_restore, slot_use(mask_info, e)
             idx = slot.clamp(max=e - 1)[..., None].expand(-1, -1, d)
@@ -440,8 +461,8 @@ class MultiMAE(nn.Module):
                 ctx = torch.gather(grid, 1, pick)  # [B, E, T, D]
                 crossed = self.attn_pool_modalities(fus, ctx)
                 fus = fus + self.mlp_modalities(self.norm(crossed))
-                tokens = blk(torch.cat([cur, fus], dim=1), layout.kernel_types, self.fusion_type,
-                             use_kernel=use_kernel)
+                tokens = run_block(blk, torch.cat([cur, fus], dim=1), layout.kernel_types, self.fusion_type,
+                                   use_kernel)
         tokens = self.norm(tokens)
 
         ret = self._pool_returns(tokens, layout.types, layout.valid)

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear_nhwc
-from .layers import Conv2d, Dense, GroupNorm, LayerNorm
+from .layers import Conv2d, Dense, Dropout, GroupNorm, LayerNorm
 from .msda_module import MSDeformAttn
 from .position_encoding import position_embedding_sine
 
@@ -50,7 +50,7 @@ class MSDeformAttnEncoderLayer(nn.Module):
         self.linear1 = Dense(d_model, d_ffn)
         self.linear2 = Dense(d_ffn, d_model)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, src, pos, reference_points, spatial_shapes):
         src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes)

@@ -39,7 +39,7 @@ from torch import nn
 from .. import modalities as modreg
 from ..ops.masking import MaskInfo
 from ..ops.posemb import build_2d_sincos_posemb
-from .adapters import PatchedInputAdapter
+from .adapters import input_adapter
 from .layers import BiaslessLayerNorm, EncoderBlock, FusionBlockFast, GroupNorm, Mlp, ZorroAttention
 from .multimae import pack_tokens
 from .pixel_decoder import reference_points_for
@@ -137,13 +137,10 @@ class ViTBaseline(nn.Module):
         if num_fusion_tokens != self.num_patches:
             raise ValueError("num_fusion_tokens must equal the number of patches (the fusion grid)")
 
-        self.input_adapters = nn.ModuleDict()
-        for d in self.in_domains:
-            spec = modreg.get(d)
-            if spec.adapter != "patched":
-                raise NotImplementedError(f"the {spec.adapter!r} input adapter is not ported yet")
-            self.input_adapters[d] = PatchedInputAdapter(
-                spec.num_channels, dim_tokens, patch_size, image_size, spec.stride_level)
+        # the class-map adapter for a semseg domain such as dnw (JAX
+        # vit_baseline.py:114-129), the patch adapter otherwise
+        self.input_adapters = nn.ModuleDict(
+            {d: input_adapter(modreg.get(d), dim_tokens, patch_size, image_size) for d in self.in_domains})
         self.blocks = nn.ModuleList(
             EncoderBlock(dim_tokens, dim_head, heads, ff_mult) for _ in range(depth))
         if fusion_mode == "crossattn":

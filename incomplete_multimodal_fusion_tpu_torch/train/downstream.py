@@ -34,9 +34,12 @@ from ..eval.metrics import binary_mask_from_labels, dice_score, semantic_inferen
 from ..infer import as_input
 from ..infer_segmentation import segmentation_outputs
 from ..losses.set_criterion import MATCH_MODES, SegTargets, set_criterion, set_criterion_costs
+from ..models.layers import set_dropout_share
 from ..models.maskformer import MaskFormerConfig, MaskFormerModel
 from ..ops import masking
 from ..ops.resize import resize_bilinear
+from ..parallel import comm
+from ..parallel.mesh import Layout, shard_rows
 from ..utils import checkpoint as ckpt_lib
 
 # _freeze_stages (multimae_big_imcomplete.py:682-730): the input adapters,
@@ -74,14 +77,17 @@ class DownstreamOptimizer:
     frozen parameters' included; only the trainable parameters are updated,
     by ``torch.optim.AdamW`` (optax.adamw's defaults: b1 0.9, b2 0.999,
     eps 1e-8, weight decay 1e-4 on every parameter) or SGD with momentum 0.9.
-    ``step()`` returns the raw global gradient norm, a 0-d tensor."""
+    ``step()`` returns the raw global gradient norm, a 0-d tensor. With a
+    ``data_group`` (data parallelism) the gradients, each rank's part of the
+    global loss's, are summed over the ranks in one flat all-reduce first."""
 
     def __init__(self, named_params, lr: float, clip_grad: Optional[float],
-                 trainable: Mapping[str, bool], optimizer: str = "adamw"):
+                 trainable: Mapping[str, bool], optimizer: str = "adamw", data_group=None):
         named = list(named_params)
         self.params = [p for _, p in named]
         self.trainable = [p for n, p in named if trainable[n]]
         self.clip_grad = clip_grad
+        self.data_group = data_group
         if optimizer == "adamw":
             self.inner = torch.optim.AdamW(self.trainable, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                            weight_decay=ADAMW_WEIGHT_DECAY)
@@ -109,6 +115,10 @@ class DownstreamOptimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad for p in self.params if p.grad is not None]
+        if self.data_group is not None:
+            flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.data_group)
+            torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]),
+                                                                       grads)])
         gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.clip_grad:
             # optax: g where the norm is below the limit, else g / norm * limit
@@ -121,13 +131,16 @@ class DownstreamOptimizer:
 
 
 def create_downstream_optimizer(model: torch.nn.Module, lr: float = 1e-4, clip_grad: float = 0.01,
-                                frozen_stages: int = 0, optimizer: str = "adamw") -> DownstreamOptimizer:
+                                frozen_stages: int = 0, optimizer: str = "adamw",
+                                layout: Optional[Layout] = None) -> DownstreamOptimizer:
     """The downstream optimizer of ``model``'s parameters
     (downstream.py:66-89); with ``frozen_stages`` 0 nothing is frozen, as
-    JAX masks the updates only above 0 (:86)."""
+    JAX masks the updates only above 0 (:86). A ``layout``'s data ranks sum
+    their gradients."""
     trainable = freeze_mask(model, frozen_stages) if frozen_stages > 0 else \
         {name: True for name, _ in model.named_parameters()}
-    return DownstreamOptimizer(model.named_parameters(), lr, clip_grad, trainable, optimizer)
+    return DownstreamOptimizer(model.named_parameters(), lr, clip_grad, trainable, optimizer,
+                               None if layout is None else layout.data_group)
 
 
 def set_learning_rate(optimizer: DownstreamOptimizer, lr: float) -> DownstreamOptimizer:
@@ -237,6 +250,7 @@ def make_downstream_train_step(
     cost_class: Optional[float] = None,
     cost_mask: Optional[float] = None,
     cost_dice: Optional[float] = None,
+    layout: Optional[Layout] = None,
 ):
     """``train_step(state, batch, targets, matched_override=None)`` ->
     (state, metrics). The step updates the model's master weights, the
@@ -252,7 +266,18 @@ def make_downstream_train_step(
 
     ``dense_masks`` (the semantic flows) takes the mask losses over the
     whole masks; ``match_mode`` 'exact' (the default: scipy on the host),
-    'greedy' or 'auction' (on the device), as downstream.py:164-209."""
+    'greedy' or 'auction' (on the device), as downstream.py:164-209.
+
+    Data parallelism (``layout``, scripts/train_downstream.py:249-274): the
+    batch and targets are this rank's rows of the global batch; the masks
+    and the random points are the global draws' rows of it, each rank
+    matches its own rows, the criterion's normalisers (``num_masks``, the
+    class weights) are summed over the ranks, every rank seeds dropout
+    alike and keeps its rows of the global batch's mask
+    (``models.layers.Dropout``), and the optimizer
+    (``create_downstream_optimizer(..., layout=)``) sums the gradients once
+    a step. An injected ``mask_info`` or ``point_coords_override`` is this
+    rank's rows."""
     if (match_mode or "exact") not in MATCH_MODES:
         raise ValueError(f"match_mode must be one of {MATCH_MODES}, got {match_mode!r}")
     w_ce, w_dice, w_mask = loss_weights
@@ -260,6 +285,10 @@ def make_downstream_train_step(
     in_domains = tuple(cfg.in_domains)
     nums = (cfg.num_patches,) * len(in_domains)
     e = cfg.max_encoded_tokens
+    dp, dp_rank = (1, 0) if layout is None else (layout.dp, layout.dp_rank)
+    batch_sum = comm.batch_sum(None if layout is None else layout.data_group)
+    share = None if layout is None else (dp_rank, dp)
+    set_dropout_share(model, share)
     costs = dict(cost_class=class_weight if cost_class is None else cost_class,
                  cost_mask=mask_weight if cost_mask is None else cost_mask,
                  cost_dice=dice_weight if cost_dice is None else cost_dice)
@@ -268,7 +297,7 @@ def make_downstream_train_step(
         """The model's outputs in f32, computed on ``dtype`` copies of
         ``params``; dropout on with ``dropout_seed`` (from it), else off."""
         cast_params = {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
-        cast_batch = {d: batch[d].to(dtype) for d in in_domains}
+        cast_batch = {d: batch[d].to(dtype) if batch[d].is_floating_point() else batch[d] for d in in_domains}
         model.train(dropout_seed is not None)
         kwargs = dict(mask_info=mask_info, num_encoded_tokens=e, present=present)
         if dropout_seed is None:
@@ -294,7 +323,7 @@ def make_downstream_train_step(
             out, targets, key, num_classes=cfg.num_classes, eos_coef=eos_coef,
             num_points=num_points, **costs, dense_masks=dense_masks, match_mode=match_mode,
             matched_override=matched_override, point_coords_override=point_coords_override, impl=impl(),
-            return_aux=return_aux)
+            return_aux=return_aux, batch_sum=batch_sum, share=share)
         if return_aux:
             losses, aux = losses
         # partition by exact key prefix; substring tests would double-count
@@ -313,9 +342,12 @@ def make_downstream_train_step(
         g.set_state(state.generator.get_state())
         device = batch[in_domains[0]].device
         present = masking.sample_modality_subset(g, len(in_domains))
+        b = batch[in_domains[0]].shape[0]
         mask_info = masking.incomplete_random_masks(
-            g, in_domains, nums, present, e, batch[in_domains[0]].shape[0],
+            g, in_domains, nums, present, e, b * dp,
             keep_ratio=cfg.keep_ratio, batch_shared=not per_sample_masks, device=device)
+        if layout is not None:  # the global batch's masks, this rank's rows
+            mask_info = shard_rows(mask_info, layout.rows(b * dp))
         dropout_seed = int(torch.randint(2 ** 62, (), generator=g))
         key = int(torch.randint(2 ** 62, (), generator=g))
         return g, present.to(device), mask_info, dropout_seed, key
@@ -350,7 +382,7 @@ def make_downstream_train_step(
         _, present, mask_info, dropout_seed, key = prologue(state, batch)
         with torch.no_grad():
             out = forward(dict(model.named_parameters()), batch, mask_info, present, dropout_seed)
-            return set_criterion_costs(out, targets, key, num_points=num_points, **costs, impl=impl())
+            return set_criterion_costs(out, targets, key, num_points=num_points, **costs, impl=impl(), share=share)
 
     train_step.cost_step = cost_step
     train_step.loss_fn = loss_fn

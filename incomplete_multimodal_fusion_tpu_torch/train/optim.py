@@ -21,7 +21,9 @@ from __future__ import annotations
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ..parallel import comm
 from ..utils.jax_params import flax_path
 
 NO_DECAY_NAMES = (
@@ -95,29 +97,65 @@ class FlatAdamW(torch.optim.Optimizer):
     a parameter element multiplying the update after the weight decay, as
     ``flat_adamw``'s ``ld_vec`` (JAX optim.py:160-163, :192-193).
     ``step()`` updates the parameters in place and returns the raw gradient
-    norm (a 0-d tensor on the parameters' device)."""
+    norm (a 0-d tensor on the parameters' device).
+
+    Parallel training (``layout``, parallel/mesh.py): the flat gradient is
+    summed over the data ranks once a step (each rank's is its rows' part of
+    the global loss's); with ``layout.fsdp`` (ZeRO) it is reduce-scattered
+    instead, and the moments and the update cover this rank's 1/dp slice of
+    the flat vector (padded to a multiple of dp, as the JAX moment vectors
+    are for FSDP), the updated slices all-gathered back into the
+    parameters. ``norm_weights`` {name: w}: the share of a parameter's
+    squared gradient this rank counts in the norm, 1 where it holds its own
+    shard (tensor-parallel shards, its pipeline stage's layers), 1 / size
+    where the model or stage group holds it replicated; the weighted sums
+    are all-reduced over that group, so the norm is the global gradient's.
+    """
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], lr_schedule, wd_schedule, *,
                  betas=(0.9, 0.95), eps: float = 1e-8, clip_grad: Optional[float] = None,
                  skip_grad: Optional[float] = None, decay_mask: Optional[Mapping[str, bool]] = None,
-                 lr_scales: Optional[Mapping[str, float]] = None):
+                 lr_scales: Optional[Mapping[str, float]] = None, layout=None,
+                 norm_weights: Optional[Mapping[str, float]] = None):
         named = list(named_params)
         params = [p for _, p in named]
         super().__init__(params, dict(betas=tuple(betas), eps=eps))
+        self.names = [name for name, _ in named]
         self.clip_grad, self.skip_grad = clip_grad, skip_grad
+        self.data_group = None if layout is None else layout.data_group
+        self.zero = layout is not None and layout.fsdp and self.data_group is not None
         mask = wd_mask(named) if decay_mask is None else decay_mask
         device = params[0].device
-        self.decay = torch.cat([torch.full((p.numel(),), bool(mask[name])) for name, p in named]).to(device)
-        self.lr_scale = None if lr_scales is None else torch.cat(
-            [torch.full((p.numel(),), float(lr_scales[name]), dtype=torch.float32) for name, p in named]).to(device)
+        self.numel = sum(p.numel() for p in params)
+        dp = layout.dp if self.zero else 1
+        self.pad = -self.numel % dp
+        self.lo = (layout.dp_rank if self.zero else 0) * ((self.numel + self.pad) // dp)
+        self.hi = self.lo + (self.numel + self.pad) // dp
+
+        def flat(value_of, dtype):
+            """One entry a parameter element (this rank's slice), padding 0."""
+            v = torch.cat([torch.full((p.numel(),), value_of(name), dtype=dtype) for name, p in named])
+            return self._local(v).to(device)
+
+        self.decay = flat(lambda n: bool(mask[n]), torch.bool)
+        self.lr_scale = None if lr_scales is None else flat(lambda n: float(lr_scales[n]), torch.float32)
+        self.norm_weight = None
+        self.norm_group = None
+        if norm_weights is not None and any(w != 1.0 for w in norm_weights.values()):
+            self.norm_weight = flat(lambda n: float(norm_weights[n]), torch.float32)
+            self.norm_group = layout.model_group if layout.model_group is not None else layout.stage_group
         self.lr_table, self.wd_table = _table(lr_schedule, device), _table(wd_schedule, device)
         self.count = torch.zeros((), dtype=torch.int64, device=device)
-        self.mu = torch.zeros(self.decay.numel(), dtype=torch.float32, device=device)
+        self.mu = torch.zeros(self.hi - self.lo, dtype=torch.float32, device=device)
         self.nu = torch.zeros_like(self.mu)
 
     def _at_count(self, table: torch.Tensor) -> torch.Tensor:
         """table[count] as a [1] tensor, by a device gather (no host read)."""
         return table.index_select(0, self.count.clamp(max=table.numel() - 1).view(1))
+
+    def _local(self, v: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a flat vector (all of it without ZeRO)."""
+        return F.pad(v, (0, self.pad))[self.lo:self.hi] if self.zero else v
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
@@ -125,8 +163,18 @@ class FlatAdamW(torch.optim.Optimizer):
         b1, b2 = self.defaults["betas"]
         g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
                        for p in params])
-        flat = torch.cat([p.reshape(-1).float() for p in params])
-        gnorm = g.square().sum().sqrt()
+        flat = self._local(torch.cat([p.reshape(-1).float() for p in params]))
+        if self.zero:
+            g = comm.reduce_scatter_flat(F.pad(g, (0, self.pad)), self.data_group)
+        elif self.data_group is not None:
+            comm.all_reduce_(g, self.data_group)
+        sq = g.square()
+        sq = (sq if self.norm_weight is None else sq * self.norm_weight).sum()
+        if self.zero:
+            comm.all_reduce_(sq, self.data_group)
+        if self.norm_group is not None:
+            comm.all_reduce_(sq, self.norm_group)
+        gnorm = sq.sqrt()
         if self.clip_grad is not None:
             g = g * torch.where(gnorm > self.clip_grad, self.clip_grad / gnorm, torch.ones_like(gnorm))
         count = self.count + 1
@@ -149,24 +197,38 @@ class FlatAdamW(torch.optim.Optimizer):
         self.mu.copy_(mu)
         self.nu.copy_(nu)
         self.count.copy_(count)
+        if self.zero:
+            new = comm.all_gather_flat(new, self.data_group)[:self.numel]
         torch._foreach_copy_(params, [v.view_as(p) for v, p in zip(new.split([p.numel() for p in params]),
                                                                    params)])
         return gnorm
 
+    def buffers(self):
+        """The tensors ``step()`` updates in place besides the parameters."""
+        return [self.count, self.mu, self.nu]
+
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        """count, mu and nu over the whole flat vector of this rank's
+        parameters (under ZeRO the slices all-gathered: a collective, every
+        data rank calls it)."""
+        if not self.zero:
+            return {"count": self.count, "mu": self.mu, "nu": self.nu}
+        return {"count": self.count, "mu": comm.all_gather_flat(self.mu, self.data_group)[:self.numel],
+                "nu": comm.all_gather_flat(self.nu, self.data_group)[:self.numel]}
 
     def load_state_dict(self, state: Mapping[str, torch.Tensor]) -> None:
         """Copies count, mu and nu in place (a captured graph keeps reading
-        the same tensors)."""
-        for key in ("count", "mu", "nu"):
-            getattr(self, key).copy_(state[key])
+        the same tensors); under ZeRO this rank's slice of them."""
+        self.count.copy_(state["count"])
+        for key in ("mu", "nu"):
+            getattr(self, key).copy_(self._local(state[key].to(self.mu.device)))
 
 
 def create_optimizer(named_params, lr_schedule, wd_schedule, *, betas=(0.9, 0.95), eps: float = 1e-8,
                      clip_grad: Optional[float] = None, skip_grad: Optional[float] = None,
                      decay_mask: Optional[Mapping[str, bool]] = None, layer_decay: Optional[float] = None,
-                     num_layers: int = 12) -> FlatAdamW:
+                     num_layers: int = 12, layout=None,
+                     norm_weights: Optional[Mapping[str, float]] = None) -> FlatAdamW:
     """The pretraining optimizer. The JAX package's two forms
     (``fused_adamw`` True or False) give the same update
     (tests/test_optim_fused.py), so the port has only the flat one; both
@@ -176,4 +238,5 @@ def create_optimizer(named_params, lr_schedule, wd_schedule, *, betas=(0.9, 0.95
     scales = (layer_decay_scales(named, num_layers, layer_decay)
               if layer_decay is not None and layer_decay < 1.0 else None)
     return FlatAdamW(named, lr_schedule, wd_schedule, betas=betas, eps=eps, clip_grad=clip_grad,
-                     skip_grad=skip_grad, decay_mask=decay_mask, lr_scales=scales)
+                     skip_grad=skip_grad, decay_mask=decay_mask, lr_scales=scales, layout=layout,
+                     norm_weights=norm_weights)

@@ -26,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel.dist import is_main_process
+
 PREFIX = "checkpoint-"
 
 
@@ -80,8 +82,12 @@ def _write(directory: str, step: int, payload: Dict) -> str:
 
 def save_checkpoint(directory: str, step: int, state) -> str:
     """Writes ``directory/checkpoint-{step}`` (through a temporary file, so a
-    reader never sees half a checkpoint) and returns its path."""
-    return _write(directory, step, state_payload(state))
+    reader never sees half a checkpoint) and returns its path. Under parallel
+    training every rank calls it (the payload is gathered into the
+    one-device layout) and rank 0 writes."""
+    payload = state_payload(state)
+    path = os.path.join(os.path.abspath(directory), f"{PREFIX}{step}")
+    return _write(directory, step, payload) if is_main_process() else path
 
 
 def save_params(directory: str, step: int, state_dict: Dict[str, torch.Tensor]) -> str:

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -384,11 +385,11 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
                "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export",
-               "phase_pretrain_variants", "phase_backbones", "phase_data")
+               "phase_pretrain_variants", "phase_backbones", "phase_data", "phase_parallel")
 
 
 @pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants",
-                                       "phase_backbones", "phase_data"])
+                                       "phase_backbones", "phase_data", "phase_parallel"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts
@@ -558,3 +559,53 @@ def test_gathered_types_case_pads_mid_sequence(smoke):
         assert (second[:keep] == 3).all() and (second[keep:] == pad).all()
         if keep < 384:
             assert not (first[:keep] == row % 3).any()
+
+
+def test_main_hands_a_parallel_worker_its_arguments(smoke, monkeypatch):
+    """``--parallel-worker`` runs one rank of phase 17 and nothing else."""
+    seen = []
+    monkeypatch.setattr(smoke, "parallel_worker", lambda argv: seen.append(argv) or 0)
+    monkeypatch.setattr(smoke, "phase_device", lambda: pytest.fail("a worker checks no device"))
+    assert smoke.main(["chip_smoke.py", "--parallel-worker", "gloo", "ref.pt", "1", "2", "29500"]) == 0
+    assert seen == [["gloo", "ref.pt", "1", "2", "29500"]]
+
+
+def test_parallel_launches_per_mode(smoke):
+    """Phase 17's launch expectations: the one-process step's per step, the
+    pipeline's trunk kernels once a microbatch (M = 2), the decoder's once."""
+    per_step = smoke.PER_STEP
+    assert smoke.expected_launches(per_step, "dp") == {k: 2 * n for k, n in per_step.items()}
+    pp = smoke.expected_launches(per_step, "pp M=2")
+    assert pp["zorro_attention_qkv/zorro"] == pp["zorro_attention_qkv/zorro_backward"] == 4 * 12
+    assert pp["fused_ffn/geglu"] == 4 * 24 and pp["fusion_row_attention/fusion_row_backward"] == 4 * 12
+    assert pp["zorro_attention_qkv/none"] == 2 * 6 and pp["fused_ffn/mlp_backward"] == 2 * 6
+
+
+def test_parallel_weight_checks_read_the_optimizer(smoke):
+    """Phase 17's optimizer checks on a one-device FlatAdamW: the first
+    moment after a step is (1 - beta1) times the gradient; weights left
+    unchanged read 1 against the step's change; a rank that used half the
+    gradient (its rows' part, the all-reduce skipped) reads 0.5 in mu."""
+    from types import SimpleNamespace
+
+    from incomplete_multimodal_fusion_tpu_torch.train.optim import FlatAdamW
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.nn.Parameter(torch.randn(4, 3, generator=gen)),
+              "b": torch.nn.Parameter(torch.randn(3, generator=gen))}
+    opt = FlatAdamW(params.items(), torch.tensor([1e-3]), torch.tensor([0.05]))
+    start = {n: p.detach().clone() for n, p in params.items()}
+    grads = {n: torch.randn(p.shape, generator=gen) for n, p in params.items()}
+    for n, p in params.items():
+        p.grad = grads[n].clone()
+    opt.step()
+    mu = smoke.first_moment(opt, SimpleNamespace(parallel=None))
+    for n in params:
+        torch.testing.assert_close(mu[n], 0.1 * grads[n])
+    after = {n: p.detach().clone() for n, p in params.items()}
+    assert smoke.delta_rel(after, start, after) == 0.0
+    assert smoke.delta_rel(start, start, after) == 1.0
+    ref = {"betas": opt.defaults["betas"], "eps": opt.defaults["eps"], "clip": None, "mu": mu, "grads": grads}
+    assert smoke.skipped_allreduce(grads, ref) == (0.0, 0.0)
+    skip_mu, skip_step = smoke.skipped_allreduce({n: g / 2 for n, g in grads.items()}, ref)
+    assert skip_mu == pytest.approx(0.5) and skip_step < 1e-6

@@ -10,13 +10,19 @@ f32, 2 epochs of 2 steps, the balancer and the EMA on):
     straight run's;
   * ``--steps_per_call 2`` (``make_multi_step``, a loop of steps on the CPU)
     writes the same last checkpoint bit for bit;
-  * each flag of the JAX script the port does not run yet (parallelism)
-    raises ``NotImplementedError`` naming it, and the device defaults to
-    ``cuda``. ``--data_path`` runs: tests/test_torch_data_cli.py.
+  * the parallel flags' refusals are the JAX script's, with its words
+    (scripts/pretrain.py:169-178), given before any process group forms,
+    and the device defaults to ``cuda``;
+  * two gloo ranks under torchrun with ``--tp 2`` and with ``--pp 2`` train
+    and write checkpoints in the one-device layout (the straight run's
+    tensors, names and shapes). ``--data_path`` runs:
+    tests/test_torch_data_cli.py.
 """
 import json
 import os
+import re
 import shutil
+import socket
 import subprocess
 import sys
 
@@ -78,11 +84,47 @@ def test_steps_per_call_is_k_sequential_steps(straight, tmp_path):
     assert_bitwise(_load(tmp_path / "checkpoint-4"), _load(out / "checkpoint-4"))
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--fsdp"], ["--sp"], ["--pp", "2"], ["--pp_microbatches", "4"]])
-def test_unported_flags_raise(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *flag])
+# (flags, world size, the JAX script's words)
+REFUSALS = [
+    (["--tp", "2"], 1, "--tp 2 does not divide 1 devices"),
+    (["--sp"], 1, "--sp needs --tp > 1 (nothing to shard tokens over)"),
+    (["--tp", "2", "--pp", "2"], 4, "--pp excludes --tp/--sp (PP composes with DP only)"),
+    (["--tp", "2", "--sp", "--pp", "2"], 4, "--pp excludes --tp/--sp (PP composes with DP only)"),
+    (["--pp", "3"], 4, "--pp 3 does not divide 4 devices"),
+    (["--tp", "3"], 4, "--tp 3 does not divide 4 devices"),
+]
+
+
+@pytest.mark.parametrize("flag", REFUSALS)
+def test_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """The parallel flags' refusals (all five flags run since they were
+    ported): the JAX script's, before any group forms."""
+    args, world, words = flag
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(SystemExit, match=re.escape(words)):
+        cli.main(["--device", "cpu", "--output_dir", str(tmp_path), *args])
     assert not os.listdir(tmp_path)  # refused before anything ran
+
+
+@pytest.mark.parametrize("mode", [["--tp", "2"], ["--pp", "2"]], ids=["tp", "pp"])
+def test_two_rank_cli_runs(mode, straight, tmp_path):
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2", "--master_addr",
+                        "127.0.0.1", "--master_port", str(port), "-m",
+                        "incomplete_multimodal_fusion_tpu_torch.cli.pretrain", *SMALL_RUN, "--output_dir",
+                        str(tmp_path), *mode], capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert f"dp=1 tp={2 if mode[0] == '--tp' else 1} pp={2 if mode[0] == '--pp' else 1}" in r.stdout
+    assert sorted(os.listdir(tmp_path)) == ["checkpoint-2", "checkpoint-4", "log.txt"]
+    lines = [json.loads(line) for line in (tmp_path / "log.txt").read_text().splitlines()]
+    assert len(lines) == 2 and all(x["recon_loss"] == x["recon_loss"] for x in lines)
+    got, want = _load(tmp_path / "checkpoint-4"), _load(straight[0] / "checkpoint-4")
+    for part in ("model", "ema"):
+        assert {k: v.shape for k, v in got[part].items()} == {k: v.shape for k, v in want[part].items()}
+    assert got["optimizer"]["mu"].shape == want["optimizer"]["mu"].shape and int(got["optimizer"]["count"]) == 4
 
 
 def test_flags_reach_the_config():

@@ -40,6 +40,10 @@ def test_import_leaves_jax_and_flax_out():
         "from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_instances\n"
         "from incomplete_multimodal_fusion_tpu_torch.data import (ade_odgt, augment, coco_instance, dfc2023,\n"
         "    loader, native, quadruplet, sample_trees, sen12ms, tiff)\n"
+        "from incomplete_multimodal_fusion_tpu_torch.parallel import (comm, dist, mesh, pipeline, pp_multimae,\n"
+        "    sharding, state)\n"
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized()  # no process group at import\n"
         "assert native._lib is None  # nothing built or loaded at import\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('learn', 'tools/train_downstream_synthetic_torch.py')\n"
