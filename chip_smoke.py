@@ -105,7 +105,15 @@ Phases (any failure raises; the exit code is then non-zero):
                  compute_dtype='float32' on phase 7's weights, masks,
                  matches and points, kernel path against plain path, beside
                  phase 7's bf16 numbers, with the head's attention-mask bits
-                 that differ between the two paths in both dtypes.
+                 that differ between the two paths in both dtypes; (d) at
+                 MODEL_SIZES['base'] (K2 / K2b's wide path): one B = 1
+                 serving forward as cli.infer --model_size base runs it
+                 (batched decoder, dem dropped) against its plain path
+                 (F32_FORWARD_REL_L2), and the f32 pretraining step at depth
+                 12, B = F32_BASE_BATCH, against its plain path (F32_LOSS_REL,
+                 F32_GRAD_REL_L2), exact launches, F32_BASE_STEPS timed steps;
+                 for both device ms, peak memory, wall p50, no
+                 simt_f32_product kernel and the wide path's kernels.
  10. semantic-train -- train.downstream.make_downstream_train_step at
                  MaskFormerConfig(num_classes=10), B = 30, seeded label
                  maps through targets_from_semantic_labels (G = 10),
@@ -293,7 +301,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from incomplete_multimodal_fusion_tpu_torch import infer, infer_segmentation, ops, serving
-from incomplete_multimodal_fusion_tpu_torch.config import PretrainConfig
+from incomplete_multimodal_fusion_tpu_torch.config import MODEL_SIZES, DataConfig, PretrainConfig
 from incomplete_multimodal_fusion_tpu_torch.data import dfc2023, sample_trees
 from incomplete_multimodal_fusion_tpu_torch.data.loader import DeviceLoader
 from incomplete_multimodal_fusion_tpu_torch.data.synthetic import synthetic_batch, synthetic_instances
@@ -454,7 +462,8 @@ def entry_kernels(entry: str, label: str = ""):
             return ("zorro_attention_f32",), 2 if backward else 1  # K1b: dq, dk/dv
         if entry.startswith("fused_ffn/"):  # ffn_tf32.cuh: the weights' split and the row kernel (forward;
             # with the hidden split's reduction 3), + the weight gradients and simt_f32's reduction (backward);
-            # past d 256 the FFMA chain (cuda_ffn.forward_kernels_f32 / backward_kernels_f32 on a row)
+            # past d 256 the wide path (ffn_tf32_wide.cuh with simt_f32's LayerNorm, column sums and
+            # reduction; cuda_ffn.forward_kernels_f32 / backward_kernels_f32 on a row)
             return ("ffn_tf32", "simt_f32"), 4 if backward else 2
         if entry.startswith("fused_block_attn/"):  # forward 6, backward 15 (fused_block_attn.cu)
             return ("simt_f32", "zorro_attention_f32"), 15 if backward else 6
@@ -1225,8 +1234,8 @@ def phase_kernels(dev):
 
     def f32_ffn_cases(label, geglu, w, m, main, d_in, d_out, backward=True, **widths):
         """The f32 K2 (and K2b) rows; beside each, the f32 chain's device
-        time (the unfused chain forward, the plain version backward; TF32
-        off), device against device."""
+        time (the unfused chain forward, its autograd backward; TF32 off),
+        device against device."""
         x, dy = randf(m, d_in), randf(m, d_out)
         fwd = ((cuda_ffn.geglu_ffn, cuda_ffn.geglu_ffn_reference, cuda_ffn.geglu_ffn_backward,
                 cuda_ffn.geglu_ffn_backward_reference) if geglu else
@@ -1242,7 +1251,8 @@ def phase_kernels(dev):
             return
         cases.append((f"fused_ffn/{mode}_f32_backward", label, lambda: fwd[2](x, *w, dy), lambda: fwd[3](x, *w, dy),
                       ffn_work(m, True, geglu, elem=4, peak=PEAK_F32_PRODUCTS, **widths), None, main))
-        chains[f"fused_ffn/{mode}_f32_backward", label] = lambda: fwd[3](x, *w, dy)
+        chains[f"fused_ffn/{mode}_f32_backward", label] = unfused_backward(unfused_geglu if geglu else unfused_mlp,
+                                                                            (x, *w), dy)
         per_call[f"fused_ffn/{mode}_f32_backward", label] = cuda_ffn.backward_kernels_f32(geglu, m, d_in, hidden,
                                                                                            d_out)
 
@@ -1256,8 +1266,16 @@ def phase_kernels(dev):
         f32_ffn_cases(f"M={m} d=192 I=512 (serving)", True, geglu_w32, m, False, d, d, backward=False)
     for m in (2048, 256):
         f32_ffn_cases(f"M={m} d=256 H=1024 (serving)", False, mlp_w32, m, False, dd, dd, backward=False)
-    f32_ffn_cases(f"M=8192 d={bd} I={b_inner} (base)", True, tuple(t.float() for t in base_geglu_w), 8192, False,
-                  bd, bd, d=bd, inner_ff=b_inner)
+    # the f32 wide path (past d 256): `base` (phase 9 (d) runs it) and its
+    # serving rows (the output product splits its hidden width), `large`
+    base_geglu_w32 = tuple(t.float() for t in base_geglu_w)
+    f32_ffn_cases(f"M=8192 d={bd} I={b_inner} (base)", True, base_geglu_w32, 8192, False, bd, bd, d=bd,
+                  inner_ff=b_inner)
+    for m in (1024, 256):
+        f32_ffn_cases(f"M={m} d={bd} I={b_inner} (base serving)", True, base_geglu_w32, m, False, bd, bd,
+                      backward=False, d=bd, inner_ff=b_inner)
+    f32_ffn_cases(f"M=8192 d={bd} H={b_hid} (base)", False, tuple(t.float() for t in base_mlp_w), 8192, False, bd,
+                  bd, dd=bd, hid=b_hid)
     f32_ffn_cases(f"M=4096 d={ld} I={l_inner} (large, unpadded)", True, tuple(t.float() for t in large_w), 4096,
                   False, ld, ld, d=ld, inner_ff=l_inner)
 
@@ -2179,6 +2197,11 @@ F32_SEG_TRAIN_PER_STEP = {(k if k.startswith(("ms_deform_attn/", "point_sample/"
 # one f32 serving forward, kernel path vs plain path: f32 throughout, the
 # sums' order differs over 12 blocks
 F32_FORWARD_REL_L2 = 1e-4
+# phase 9 (d): the f32 step at `base`'s widths, PretrainConfig's B = 60 cut
+# to 12 (at 16 the phase's peak reached 26.0 GiB, past 24); its timed steps
+# after one warm-up (the whole script passed 900 s at 3 after 2)
+F32_BASE_BATCH = 12
+F32_BASE_STEPS = 2
 
 
 def phase_f32(dev, seg_ctx):
@@ -2187,7 +2210,8 @@ def phase_f32(dev, seg_ctx):
     B = 60 (default and fused_block), and K1's two modes on its qkv slabs;
     (b) an f32 serving request; (c) phase 7's downstream step with
     compute_dtype='float32' on phase 7's weights, masks, matches and points,
-    beside phase 7's bf16 numbers and the head's attention-mask bits."""
+    beside phase 7's bf16 numbers and the head's attention-mask bits; (d)
+    `base`'s serving forward and step (f32_base)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[f32] every part with TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -2364,6 +2388,133 @@ def phase_f32(dev, seg_ctx):
         raise RuntimeError(f"[f32] launches per f32 downstream step {counts}, expected {F32_SEG_TRAIN_PER_STEP}")
     launches.update(counts)
     log(f"[f32] (c) launches in one f32 downstream step: {F32_SEG_TRAIN_PER_STEP}")
+    launches.update(timed("f32 (d) base", f32_base, dev))
+    return launches
+
+
+def kernels_by_name(fn, reps: int = 2):
+    """Device ms of one call of ``fn`` (the profiler's kernels and copies,
+    after one warm-up call), and its device kernels by name a call: how many
+    and their ms."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts, per_name = collections.Counter(), collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.is_user_annotation:
+            counts[kernel_name(evt.name)] += 1 / reps
+            per_name[kernel_name(evt.name)] += evt.device_time_total / reps / 1e3
+    return sum(per_name.values()), counts, per_name
+
+
+def wide_counts(counts) -> str:
+    """The FFMA products and the wide path's kernels among a call's kernels
+    (``kernels_by_name``); raises where an FFMA product ran or no wide
+    kernel did."""
+    ffma = sum(n for k, n in counts.items() if "simt_f32_product" in k)
+    wide = {k: n for k, n in counts.items() if "ffn_tf32_wide" in k}
+    if ffma or not wide:
+        raise RuntimeError(f"[f32] (d) simt_f32_product kernels {ffma:g} (expected 0), wide-path kernels {wide}")
+    return (f"simt_f32_product kernels {ffma:g}; wide-path kernels {sum(wide.values()):g} ("
+            + ", ".join(f"{k} {n:g}" for k, n in sorted(wide.items())) + ")")
+
+
+def f32_base(dev):
+    """Phase 9 (d): the f32 paths at `base`'s widths (d = 768, 8 x 64 heads,
+    GEGLU inner 2048, depth 12), whose FFNs take K2 / K2b's wide path: (i)
+    one B = 1 serving forward as cli.infer --model_size base runs it
+    (infer.infer, the batched decoder, dem dropped) against its plain path;
+    (ii) the f32 pretraining step at B = F32_BASE_BATCH against its plain
+    path, exact launches, timed steps."""
+    launches = collections.Counter()
+    doms = ("s1", "s2", "dem")
+    model_cfg = dataclasses.replace(MODEL_SIZES["base"], num_fusion_tokens=(256 // 16) ** 2)
+    cfg = PretrainConfig(model=model_cfg, data=DataConfig(input_size=256, in_domains=doms, out_domains=doms,
+                                                          batch_size=1))
+    model = build_multimae(cfg, device=dev, generator=torch.Generator().manual_seed(SEED)).eval()
+    model.decoder_batch_tasks = True
+    x = synthetic_batch(np.random.default_rng(SEED + 21), doms, 1, 256)
+
+    def serve():
+        res = infer.infer(model, None, x, 256, generator=torch.Generator().manual_seed(1), drop_modalities=("dem",))
+        return res.preds, res.pooled
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_kernel_launches()
+    preds, pooled = serve()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    expected = {f32_key(k): n for k, n in BATCHED_PER_FORWARD.items()}
+    if counts != expected:
+        raise RuntimeError(f"[f32] (d) base serving forward: launches {counts}, expected {expected}")
+    launches.update(counts)
+    model.attn_impl = "xla"
+    preds_p, pooled_p = serve()
+    model.attn_impl = "auto"
+    rel = max([rel_l2(preds[d], preds_p[d]) for d in preds] + [rel_l2(pooled, pooled_p)])
+    finite = all(torch.isfinite(p).all() and p.dtype == torch.float32 for p in (*preds.values(), pooled))
+    peak = torch.cuda.max_memory_allocated(dev)
+    dev_ms, names, _ = kernels_by_name(serve, reps=1)
+    lat = wall_ms(serve, reps=3, warmup=1)
+    log(f"[f32] (d) base serving B=1, dem dropped, batched decoder (d=768, 8x64 heads, I=2048, depth 12): "
+        f"launches {counts}; rel_l2 vs plain path {rel:.3g}; device {dev_ms:.6g} ms a forward; peak "
+        f"{peak / 2 ** 30:.4g} GiB; wall p50 {statistics.median(lat):.6g} ms; {wide_counts(names)}")
+    if not (finite and rel <= F32_FORWARD_REL_L2):
+        raise RuntimeError(f"[f32] (d) base serving: finite {finite}, rel L2 {rel} > {F32_FORWARD_REL_L2}")
+    del model, preds_p, pooled_p
+
+    # (ii) the f32 pretraining step at base's widths, full depth, B cut to F32_BASE_BATCH
+    b = F32_BASE_BATCH
+    cfg = PretrainConfig(model=MODEL_SIZES["base"], data=DataConfig(batch_size=b))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, compute_dtype="float32"))
+    nums, e = (cfg.data.num_patches,) * len(doms), cfg.mask.num_encoded_tokens
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), doms, b, cfg.data.input_size).items()}
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, b, device=dev)
+    loss_fn = pretrain.make_loss_fn(model, cfg)
+
+    def run_loss():
+        return loss_fn(dict(model.named_parameters()), batch, mi)[0]
+
+    loss_k, g_k = loss_and_grads(model, run_loss)
+    model.attn_impl = "xla"
+    loss_p, g_p = loss_and_grads(model, run_loss)
+    model.attn_impl = "auto"
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = compare_grads(g_k, g_p)
+    del g_k, g_p
+    ops.reset_kernel_launches()
+    step(state, batch)
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    if counts != F32_PER_STEP:
+        raise RuntimeError(f"[f32] (d) base f32 step: launches {counts}, expected {F32_PER_STEP}")
+    launches.update(counts)
+    times, losses = step_times(lambda: step(state, batch)[1], steps=F32_BASE_STEPS, warmup=1)
+    dev_ms, names, per_name = kernels_by_name(lambda: step(state, batch), reps=1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    k2 = sum(ms for k, ms in per_name.items() if "ffn_tf32" in k)
+    log(f"[f32] (d) base f32 pretraining step B={b} (PretrainConfig's B = 60 cut to {b} so that the peak stays "
+        f"under 24 GiB; nothing else cut): loss "
+        f"kernel path {loss_k:.8g}, plain path {loss_p:.8g}, rel diff {loss_rel:.3g}; flat gradient rel_l2 "
+        f"{grad_rel:.3g}; worst parameters: " + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    log(f"[f32] (d) base f32 step: launches {counts}; losses {[round(v, 4) for v in losses]}; wall p50 "
+        f"{statistics.median(times):.6g} ms over {F32_BASE_STEPS} steps after a warm-up; device "
+        f"{dev_ms:.6g} ms a step (ffn_tf32 kernels {k2:.6g} ms of it); peak {peak / 2 ** 30:.4g} GiB; "
+        f"{wide_counts(names)}")
+    if peak > 24 * 2 ** 30:
+        raise RuntimeError(f"[f32] (d) base f32 step at B = {b}: peak {peak / 2 ** 30:.4g} GiB, past 24 GiB")
+    if not (math.isfinite(loss_k) and loss_rel <= F32_LOSS_REL and grad_rel <= F32_GRAD_REL_L2
+            and all(math.isfinite(v) for v in losses)):
+        raise RuntimeError(f"[f32] (d) base f32 step, kernel vs plain path: loss rel {loss_rel} (bound "
+                           f"{F32_LOSS_REL}), gradient rel L2 {grad_rel} (bound {F32_GRAD_REL_L2}), losses {losses}")
+    del model, state, optimizer, step, batch
     return launches
 
 

@@ -4,8 +4,9 @@
 // lo hi), every sum in f32. What it computes is the TPU kernels' f32 path
 // (ops/pallas_ffn.py _ffn_fwd_impl, _mlp_fwd_impl, _ffn_bwd, _mlp_bwd with
 // f32 operands: no casts, the bias-free LayerNorm with eps 1e-5, the exact
-// erf GELU). Used for d, d_out <= 256; wider rows (`base`, `large`) take the
-// FFMA chain of simt_f32.cuh, by the shape rule rows_fit().
+// erf GELU). The row kernels here take d, d_out <= 256 (their accumulators
+// are registers); wider rows (`base`, `large`) take ffn_tf32_wide.cuh's wide
+// path, on the same arithmetic, by the shape rule rows_fit().
 //
 // The design, the bf16 K2 / K2b's with what TF32 changes:
 //   * A row tile is 64 rows, one warpgroup. Its operand rows (xn after the
@@ -110,7 +111,7 @@ __host__ __device__ inline Plan plan_of(int mode, bool bwd, int d, int hid, int 
 
 __host__ __device__ inline long long unit_floats(const Plan& p) { return (long long)p.chunks * p.upc * UNIT_FLOATS; }
 
-// Whether the tensor-core instance takes these widths; else the FFMA chain
+// Whether the row kernels take these widths; else the wide path (ffn_tf32_wide.cuh)
 __host__ inline bool rows_fit(int d, int d_out) { return d <= MAX_D && d_out <= MAX_D; }
 
 __device__ __forceinline__ float gelu_cdf(float g) { return 0.5f * (1.0f + erff(g * 0.70710678118654752f)); }

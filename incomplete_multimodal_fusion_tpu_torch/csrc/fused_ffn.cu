@@ -771,122 +771,110 @@ extern "C" int mlp_ffn_tasks_bf16(const void* x, const void* w1, const void* b1,
 
 // (included here, after the bf16 kernels, so that their PTX is as it was:
 // the labels of a kernel's blocks are numbered by its place in the file)
-#include "ffn_tf32.cuh"
+#include "ffn_tf32_wide.cuh"
 
 // ---------------------------------------------------------------------------
 // The f32 instance (geglu_ffn_f32, mlp_ffn_f32, mlp_ffn_tasks_f32): the same
 // functions with every product and sum in f32, for the f32 paths the TPU
-// kernels also take. Where d and d_out are at most 256 (every model width of
-// the default paths), ffn_tf32.cuh's tensor-core instance: each product in
-// three TF32 parts (3xTF32 wgmma), u and a kept on chip; 2 launches (the
-// weights split into units, the row kernel), 3 where the hidden chunks split
-// over blocks at small M. Wider (`base`, `large`), by that shape rule alone,
-// the FFMA chain of simt_f32.cuh: GEGLU four launches (the LayerNorm (xn),
-// u = xn W_in^T, a = val gelu(gate), y = a W_out^T), MLP two (a = gelu(x
-// W1^T + b1), y = a W2^T + b2), the activations through the workspace. Any
-// hidden width: no padding of the GEGLU inner width is needed.
+// kernels also take, each product in three TF32 parts (3xTF32 wgmma). Where
+// d and d_out are at most 256 (every model width of the default paths),
+// ffn_tf32.cuh's row kernels, u and a kept on chip; 2 launches (the weights
+// split into units, the row kernel), 3 where the hidden chunks split over
+// blocks at small M. Wider (`base`, `large`), ffn_tf32_wide.cuh's wide
+// path: GEGLU 4 launches (the weights split into TF32 parts, the LayerNorm,
+// the activation into the workspace, the output product), MLP 3, one more
+// where the output product splits its hidden width at small M. Any hidden
+// width: the GEGLU inner width runs unpadded.
 // ---------------------------------------------------------------------------
 
 // Floats of the f32 forward's workspace (mode 0 GEGLU, 1 MLP); -1 for a mode
 // it does not know
 extern "C" long long ffn_fwd_f32_workspace_floats(int mode, int m, int d, int hid, int d_out) {
   if (mode != 0 && mode != 1) return -1;
-  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_workspace_floats(mode, 1, m, d, hid, d_out);
-  if (mode == 0) return (long long)m * (d + 3LL * hid);
-  return (long long)m * hid;
+  if (ffn_tf32::wide(d, d_out)) return ffn_tf32::wide_fwd_plan(mode, m, d, hid, d_out).floats;
+  return ffn_tf32::fwd_workspace_floats(mode, 1, m, d, hid, d_out);
 }
 
 // The kernels one f32 forward launches (mode and widths as above)
 extern "C" int ffn_fwd_f32_kernels(int mode, int m, int d, int hid, int d_out) {
   if (mode != 0 && mode != 1) return -1;
-  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_kernels(m, hid, 1);
-  return mode == 0 ? 4 : 2;
+  if (ffn_tf32::wide(d, d_out)) return ffn_tf32::wide_fwd_kernels(mode, m, d, hid, d_out);
+  return ffn_tf32::fwd_kernels(m, hid, 1);
 }
 
 // GEGLU in f32: x [M, d], gamma [d], w_in [2I, d], w_out [d, I] -> y [M, d]
 extern "C" int geglu_ffn_f32(const void* x, const void* gamma, const void* w_in, const void* w_out, void* y,
                              void* ws, int m, int d, int inner, void* stream) {
-  using namespace simt_f32;
   const float* xp = static_cast<const float*>(x);
+  const float* g = static_cast<const float*>(gamma);
   const float* wi = static_cast<const float*>(w_in);
   const float* wo = static_cast<const float*>(w_out);
+  float* yp = static_cast<float*>(y);
+  float* wsp = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ffn_tf32::rows_fit(d, d))
-    return (int)ffn_tf32::forward<ffn_tf32::MODE_GEGLU>(xp, static_cast<const float*>(gamma), wi, nullptr, wo, nullptr,
-                                                         static_cast<float*>(y), static_cast<float*>(ws), 1, m, d,
-                                                         inner, d, s);
-  float* xn = static_cast<float*>(ws);
-  float* u = xn + (long long)m * d;
-  float* a = u + 2LL * m * inner;
-  cudaError_t err = ln_fwd(xp, static_cast<const float*>(gamma), xn, m, d, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{xn, d, 1}, Mat{wi, 1, d}, u, 2LL * inner, m, 2 * inner, d, nullptr, nullptr, 0, s);
-  if (err == cudaSuccess) err = act(u, a, m, inner, true, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{a, inner, 1}, Mat{wo, 1, inner}, static_cast<float*>(y), d, m, d, inner, nullptr,
-                        nullptr, 0, s);
-  return (int)err;
+  if (ffn_tf32::wide(d, d))
+    return (int)ffn_tf32::forward_wide<ffn_tf32::MODE_GEGLU>(xp, g, wi, nullptr, wo, nullptr, yp, wsp, m, d, inner, d,
+                                                              s);
+  return (int)ffn_tf32::forward<ffn_tf32::MODE_GEGLU>(xp, g, wi, nullptr, wo, nullptr, yp, wsp, 1, m, d, inner, d, s);
 }
 
 // MLP in f32: x [M, d], w1 [H, d], b1 [H], w2 [O, H], b2 [O] -> y [M, O]
 extern "C" int mlp_ffn_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
                            void* ws, int m, int d, int hidden, int d_out, void* stream) {
-  using namespace simt_f32;
+  const float* xp = static_cast<const float*>(x);
+  const float* w1p = static_cast<const float*>(w1);
+  const float* b1p = static_cast<const float*>(b1);
+  const float* w2p = static_cast<const float*>(w2);
+  const float* b2p = static_cast<const float*>(b2);
+  float* yp = static_cast<float*>(y);
+  float* wsp = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ffn_tf32::rows_fit(d, d_out))
-    return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(
-        static_cast<const float*>(x), nullptr, static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), static_cast<float*>(ws),
-        1, m, d, hidden, d_out, s);
-  float* a = static_cast<float*>(ws);
-  cudaError_t err = product<EPI_GELU>(Mat{static_cast<const float*>(x), d, 1},
-                                      Mat{static_cast<const float*>(w1), 1, d},
-                                      Out{a, hidden, static_cast<const float*>(b1), nullptr, 0, nullptr, 0, 0}, m,
-                                      hidden, d, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{a, hidden, 1}, Mat{static_cast<const float*>(w2), 1, hidden}, static_cast<float*>(y),
-                        d_out, m, d_out, hidden, static_cast<const float*>(b2), nullptr, 0, s);
-  return (int)err;
+  if (ffn_tf32::wide(d, d_out))
+    return (int)ffn_tf32::forward_wide<ffn_tf32::MODE_MLP>(xp, nullptr, w1p, b1p, w2p, b2p, yp, wsp, m, d, hidden,
+                                                            d_out, s);
+  return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(xp, nullptr, w1p, b1p, w2p, b2p, yp, wsp, 1, m, d, hidden, d_out,
+                                                     s);
 }
 
 // The f32 task axis: floats of one mlp_ffn_tasks_f32 call's workspace and
-// the kernels it launches (T tasks of these shapes); -1 for no task
+// the kernels it launches (T tasks of these shapes); -1 for no task. Past
+// the row kernels' widths the wide path runs task by task in one workspace.
 extern "C" long long ffn_fwd_tasks_f32_workspace_floats(int tasks, int m, int d, int hid, int d_out) {
   if (tasks < 1) return -1;
-  if (ffn_tf32::rows_fit(d, d_out)) return ffn_tf32::fwd_workspace_floats(1, tasks, m, d, hid, d_out);
-  return (long long)tasks * m * hid;
+  if (ffn_tf32::wide(d, d_out)) return ffn_tf32::wide_fwd_plan(1, m, d, hid, d_out).floats;
+  return ffn_tf32::fwd_workspace_floats(1, tasks, m, d, hid, d_out);
 }
 
 extern "C" int ffn_fwd_tasks_f32_kernels(int tasks, int m, int d, int hid, int d_out) {
   if (tasks < 1) return -1;
-  return ffn_tf32::rows_fit(d, d_out) ? ffn_tf32::fwd_kernels(m, hid, tasks) : 2;
+  if (ffn_tf32::wide(d, d_out)) return tasks * ffn_tf32::wide_fwd_kernels(1, m, d, hid, d_out);
+  return ffn_tf32::fwd_kernels(m, hid, tasks);
 }
 
 // MLP with a task axis in f32: x [T, M, d], w1 [T, H, d], b1 [T, H],
 // w2 [T, O, H], b2 [T, O] -> y [T, M, O], the task a grid coordinate of
-// each launch; ws: ffn_fwd_tasks_f32_workspace_floats(T, M, d, H, O) floats.
-// Past the tensor-core instance's widths, the two products of the FFMA
-// chain, each one launch for all T.
+// each launch (the wide path: task by task); ws:
+// ffn_fwd_tasks_f32_workspace_floats(T, M, d, H, O) floats.
 extern "C" int mlp_ffn_tasks_f32(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                                  void* y, void* ws, int tasks, int m, int d, int hidden, int d_out, void* stream) {
-  using namespace simt_f32;
   if (tasks < 1) return (int)cudaErrorInvalidValue;
+  const float* xp = static_cast<const float*>(x);
+  const float* w1p = static_cast<const float*>(w1);
+  const float* b1p = static_cast<const float*>(b1);
+  const float* w2p = static_cast<const float*>(w2);
+  const float* b2p = static_cast<const float*>(b2);
+  float* yp = static_cast<float*>(y);
+  float* wsp = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ffn_tf32::rows_fit(d, d_out))
-    return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(
-        static_cast<const float*>(x), nullptr, static_cast<const float*>(w1), static_cast<const float*>(b1),
-        static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(y), static_cast<float*>(ws),
-        tasks, m, d, hidden, d_out, s);
-  float* a = static_cast<float*>(ws);
+  if (!ffn_tf32::wide(d, d_out))
+    return (int)ffn_tf32::forward<ffn_tf32::MODE_MLP>(xp, nullptr, w1p, b1p, w2p, b2p, yp, wsp, tasks, m, d, hidden,
+                                                       d_out, s);
   const long long mm = m;
-  cudaError_t err = product_tasks<EPI_GELU>(
-      Mat{static_cast<const float*>(x), d, 1}, Mat{static_cast<const float*>(w1), 1, d},
-      Out{a, hidden, static_cast<const float*>(b1), nullptr, 0, nullptr, 0, 0}, m, hidden, d,
-      Strides{mm * d, (long long)hidden * d, mm * hidden, hidden}, tasks, s);
-  if (err == cudaSuccess)
-    err = product_tasks<EPI_STORE>(
-        Mat{a, hidden, 1}, Mat{static_cast<const float*>(w2), 1, hidden},
-        Out{static_cast<float*>(y), d_out, static_cast<const float*>(b2), nullptr, 0, nullptr, 0, 0}, m, d_out,
-        hidden, Strides{mm * hidden, (long long)d_out * hidden, mm * d_out, d_out}, tasks, s);
-  return (int)err;
+  for (long long t = 0; t < tasks; ++t) {
+    const cudaError_t err = ffn_tf32::forward_wide<ffn_tf32::MODE_MLP>(
+        xp + t * mm * d, nullptr, w1p + t * hidden * (long long)d, b1p + t * hidden,
+        w2p + t * (long long)d_out * hidden, b2p + t * d_out, yp + t * mm * d_out, wsp, m, d, hidden, d_out, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

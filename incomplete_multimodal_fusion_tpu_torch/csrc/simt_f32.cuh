@@ -1,10 +1,10 @@
 // Full-f32 building blocks on the CUDA cores (FFMA), shared by the f32
-// instances of K6 / K6b (fused_block_attn.cu) and of K2 (fused_ffn.cu) and
-// K2b (fused_ffn_bwd.cu) past d 256 (ffn_tf32.cuh takes them up to d 256,
-// with this file's fixed-order reduction): a tiled matrix product with the
-// epilogues those kernels need, the bias-free LayerNorm and its backward a
-// warp a row, the GELU / GEGLU activation, column sums and the fixed-order
-// reduction of partial sums. Every product and sum is f32 (no TF32: the TPU
+// instances of K6 / K6b (fused_block_attn.cu: the products, LayerNorms and
+// reduction) and of K2 / K2b (ffn_tf32.cuh and ffn_tf32_wide.cuh, whose
+// products are on the tensor cores: the LayerNorm and its backward, column
+// sums and the reduction): a tiled matrix product with the epilogues K6
+// needs, the bias-free LayerNorm and its backward a warp a row, column sums
+// and the fixed-order reduction of partial sums. Every product and sum is f32 (no TF32: the TPU
 // kernels and the plain versions keep f32's digits), and nothing is summed
 // by atomics, so two runs are bitwise equal.
 //
@@ -42,11 +42,7 @@ struct Mat {
 
 enum Epi {
   EPI_STORE = 0,    // C = add + (acc + bias), add and bias optional
-  EPI_GELU = 1,     // C = gelu(acc + bias)
-  EPI_DGEGLU = 2,   // da = acc; with u = aux [m, 2n] (val | gate): C[:, j] = da gelu(gate),
-                    // C[:, n + j] = da val gelu'(gate)
-  EPI_DGELU = 3,    // C = acc gelu'(h), h = aux [m, n]
-  EPI_PARTIAL = 4,  // C + z split_stride = acc of reduction range z
+  EPI_PARTIAL = 1,  // C + z split_stride = acc of reduction range z
 };
 
 struct Out {
@@ -55,13 +51,8 @@ struct Out {
   const float* bias;  // [n] or null
   const float* add;   // [m, n] with ld_add, or null
   long long ld_add;
-  const float* aux;  // EPI_DGEGLU, EPI_DGELU
-  long long ld_aux;
   long long split_stride;  // EPI_PARTIAL
 };
-
-__device__ __forceinline__ float gelu_cdf(float g) { return 0.5f * (1.0f + erff(g * 0.70710678118654752f)); }
-__device__ __forceinline__ float gelu_pdf(float g) { return expf(-0.5f * g * g) * 0.39894228040143268f; }
 
 // One block's 64 x 64 tile of C over the reduction range [kb, ke);
 // EPI_PARTIAL stores it as range z's partial
@@ -121,17 +112,6 @@ __device__ __forceinline__ void product_tile(const Mat& a, const Mat& b, const O
         float y = o.bias != nullptr ? v + o.bias[j] : v;
         if (o.add != nullptr) y = o.add[i * o.ld_add + j] + y;
         o.c[i * o.ldc + j] = y;
-      } else if constexpr (EPI == EPI_GELU) {
-        const float h = v + o.bias[j];
-        o.c[i * o.ldc + j] = h * gelu_cdf(h);
-      } else if constexpr (EPI == EPI_DGEGLU) {
-        const float val = o.aux[i * o.ld_aux + j], gate = o.aux[i * o.ld_aux + n + j];
-        const float cdf = gelu_cdf(gate);
-        o.c[i * o.ldc + j] = v * (gate * cdf);
-        o.c[i * o.ldc + n + j] = v * val * (cdf + gate * gelu_pdf(gate));
-      } else if constexpr (EPI == EPI_DGELU) {
-        const float h = o.aux[i * o.ld_aux + j];
-        o.c[i * o.ldc + j] = v * (gelu_cdf(h) + h * gelu_pdf(h));
       } else {
         o.c[z * o.split_stride + i * o.ldc + j] = v;
       }
@@ -144,25 +124,6 @@ __global__ void __launch_bounds__(THREADS)
 simt_f32_product_kernel(Mat a, Mat b, Out o, int m, int n, int k, int k_range) {
   const int kb = blockIdx.z * k_range;
   product_tile<EPI>(a, b, o, m, n, kb, min(k, kb + k_range), blockIdx.z);
-}
-
-// Element offsets of one task's operands from the previous task's: A, B,
-// C and the bias
-struct Strides {
-  long long a, b, c, bias;
-};
-
-// The product over a task axis (K2's MLP with its tasks): blockIdx.z is a
-// task, whose operands lie `st` apart; the whole reduction a block
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-simt_f32_product_tasks_kernel(Mat a, Mat b, Out o, int m, int n, int k, Strides st) {
-  const long long t = blockIdx.z;
-  a.p += t * st.a;
-  b.p += t * st.b;
-  o.c += t * st.c;
-  if (o.bias != nullptr) o.bias += t * st.bias;
-  product_tile<EPI>(a, b, o, m, n, 0, k, 0);
 }
 
 // The reduction ranges of a weight gradient over m rows
@@ -180,18 +141,10 @@ static cudaError_t product(Mat a, Mat b, Out o, int m, int n, int k, cudaStream_
   return cudaGetLastError();
 }
 
-template <int EPI>
-static cudaError_t product_tasks(Mat a, Mat b, Out o, int m, int n, int k, Strides st, int tasks,
-                                 cudaStream_t stream) {
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, tasks);
-  simt_f32_product_tasks_kernel<EPI><<<grid, THREADS, 0, stream>>>(a, b, o, m, n, k, st);
-  return cudaGetLastError();
-}
-
 // C [m, n] row-major (ldc) = A . B
 static cudaError_t product_store(Mat a, Mat b, float* c, long long ldc, int m, int n, int k, const float* bias,
                                  const float* add, long long ld_add, cudaStream_t stream) {
-  return product<EPI_STORE>(a, b, Out{c, ldc, bias, add, ld_add, nullptr, 0, 0}, m, n, k, stream);
+  return product<EPI_STORE>(a, b, Out{c, ldc, bias, add, ld_add, 0}, m, n, k, stream);
 }
 
 // The weight gradient C [p, q] = sum over rows of x[row, p] y[row, q]
@@ -199,9 +152,8 @@ static cudaError_t product_store(Mat a, Mat b, float* c, long long ldc, int m, i
 // as splits_for(rows) partials [range][p][q] at part
 static cudaError_t weight_grad_partials(const float* x, long long ldx, const float* y, long long ldy, int rows,
                                         int p, int q, float* part, cudaStream_t stream) {
-  return product<EPI_PARTIAL>(Mat{x, 1, ldx}, Mat{y, ldy, 1}, Out{part, q, nullptr, nullptr, 0, nullptr, 0,
-                                                                    (long long)p * q},
-                              p, q, rows, stream);
+  return product<EPI_PARTIAL>(Mat{x, 1, ldx}, Mat{y, ldy, 1}, Out{part, q, nullptr, nullptr, 0, (long long)p * q}, p,
+                              q, rows, stream);
 }
 
 // Column sums of x [m, n] (ld) over the same reduction ranges as
@@ -297,20 +249,21 @@ static cudaError_t ln_fwd(const float* x, const float* g, float* out, int m, int
 
 // The backward of out = z g, z = (x - mean) rstd, from dout: dx = (dz -
 // mean(dz) - z mean(dz z)) rstd with dz = dout g, plus `res` where given;
-// the rows' dg = sum dout z as one partial a block (LN_ROWS rows, a warp
-// every LN_WARPS-th row; each warp adds to its own shared-memory row, the
+// the rows' dg = sum dout z as one partial a block (ROWS rows, a warp
+// every WARPS-th row; each warp adds to its own shared-memory row, the
 // warps' rows are summed in warp order).
-__global__ void __launch_bounds__(LN_WARPS * 32)
+template <int WARPS = LN_WARPS, int ROWS = LN_ROWS>
+__global__ void __launch_bounds__(WARPS * 32)
 simt_f32_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ dout,
                        const float* __restrict__ res, float* __restrict__ dx, float* __restrict__ part, int m,
                        int d) {
-  extern __shared__ float dg[];  // [LN_WARPS][d]
+  extern __shared__ float dg[];  // [WARPS][d]
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = threadIdx.x; c < LN_WARPS * d; c += LN_WARPS * 32) dg[c] = 0.0f;
+  for (int c = threadIdx.x; c < WARPS * d; c += WARPS * 32) dg[c] = 0.0f;
   __syncthreads();
   float* mine = dg + w * d;
-  const long long r1 = min((long long)m, (long long)(blockIdx.x + 1) * LN_ROWS);
-  for (long long row = (long long)blockIdx.x * LN_ROWS + w; row < r1; row += LN_WARPS) {
+  const long long r1 = min((long long)m, (long long)(blockIdx.x + 1) * ROWS);
+  for (long long row = (long long)blockIdx.x * ROWS + w; row < r1; row += WARPS) {
     const float* xr = x + row * d;
     const float* dr = dout + row * d;
     float mean, rstd;
@@ -330,41 +283,24 @@ simt_f32_ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < d; c += LN_WARPS * 32) {
+  for (int c = threadIdx.x; c < d; c += WARPS * 32) {
     float s = 0.0f;
-    for (int i = 0; i < LN_WARPS; ++i) s += dg[i * d + c];
+    for (int i = 0; i < WARPS; ++i) s += dg[i * d + c];
     part[(long long)blockIdx.x * d + c] = s;
   }
 }
 
-__host__ __device__ inline int ln_blocks(int m) { return (m + LN_ROWS - 1) / LN_ROWS; }
+template <int ROWS = LN_ROWS>
+__host__ __device__ inline int ln_blocks(int m) {
+  return (m + ROWS - 1) / ROWS;
+}
 
+// (WARPS * d floats of shared memory a block: at most 48 KB)
+template <int WARPS = LN_WARPS, int ROWS = LN_ROWS>
 static cudaError_t ln_bwd(const float* x, const float* g, const float* dout, const float* res, float* dx, float* part,
                           int m, int d, cudaStream_t stream) {
-  simt_f32_ln_bwd_kernel<<<ln_blocks(m), LN_WARPS * 32, LN_WARPS * d * sizeof(float), stream>>>(x, g, dout, res, dx,
-                                                                                               part, m, d);
-  return cudaGetLastError();
-}
-
-// dst [m, n] = src[:, :n] gelu(src[:, n:]) (geglu, src [m, 2n]) or gelu(src)
-// (src [m, n])
-__global__ void __launch_bounds__(256)
-simt_f32_act_kernel(const float* __restrict__ src, float* __restrict__ dst, long long m, int n, int geglu) {
-  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (e >= m * n) return;
-  const long long i = e / n;
-  const int j = (int)(e % n);
-  if (geglu) {
-    const float gate = src[i * 2 * n + n + j];
-    dst[e] = src[i * 2 * n + j] * (gate * gelu_cdf(gate));
-  } else {
-    const float h = src[e];
-    dst[e] = h * gelu_cdf(h);
-  }
-}
-
-static cudaError_t act(const float* src, float* dst, long long m, int n, bool geglu, cudaStream_t stream) {
-  simt_f32_act_kernel<<<(unsigned)((m * n + 255) / 256), 256, 0, stream>>>(src, dst, m, n, geglu ? 1 : 0);
+  simt_f32_ln_bwd_kernel<WARPS, ROWS><<<ln_blocks<ROWS>(m), WARPS * 32, WARPS * d * sizeof(float), stream>>>(
+      x, g, dout, res, dx, part, m, d);
   return cudaGetLastError();
 }
 

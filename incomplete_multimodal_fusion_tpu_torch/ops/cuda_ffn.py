@@ -16,11 +16,13 @@ backwards): on a CPU tensor the plain version, on a CUDA tensor the kernel,
 or an error on any other dtype: bf16 tensors the kernels above, f32
 ones their f32 instance (``*_f32`` in the libraries, the TPU kernels' f32
 path: every product in three TF32 parts on the tensor cores, every sum in
-f32 (csrc/ffn_tf32.cuh); forward 2 launches, 3 where the hidden width splits
-over blocks at small M; backward 4). The f32 instance takes d and the output
-width up to 256, every model width of the default paths; wider (`base`,
-`large`), by that shape rule alone, it runs its FFMA chain (simt_f32.cuh:
-forward GEGLU 4 launches, MLP 2; backward 9).
+f32). Up to d and output width 256, every model width of the default paths,
+its row kernels (csrc/ffn_tf32.cuh; forward 2 launches, 3 where the hidden
+width splits over blocks at small M; backward 4); wider (`base`, `large`)
+its wide path on the same arithmetic (csrc/ffn_tf32_wide.cuh: the weights
+split into TF32 parts once a call, the activation through an f32
+workspace; forward GEGLU 4 launches, MLP 3, one more where the output
+product splits its hidden width at small M; backward GEGLU 6, MLP 5).
 ``mlp_ffn_tasks`` is the MLP with a task axis (T MLPs, each with its own
 weights, in one launch), the decoder trunks of T tasks batched.
 
@@ -257,7 +259,10 @@ def forward_kernels_f32(geglu: bool, m: int, d: int, hid: int, d_out: int, tasks
     """How many kernels one f32 forward launches on the card (``tasks``:
     ``mlp_ffn_tasks`` over that many tasks): the split of the weights and the
     row kernel, and the reduction where the hidden width splits over blocks;
-    past d or d_out 256 the FFMA chain's 4 (GEGLU) or 2 (MLP)."""
+    past d or d_out 256 the wide path's 4 (GEGLU: the weights' split, the
+    LayerNorm, the activation, the output product) or 3 (MLP), and the
+    reduction where the output product splits (the task axis: that, task by
+    task)."""
     if tasks:
         n = _f32_plan_fn("fused_ffn.cu", "ffn_fwd_tasks_f32_kernels")(tasks, m, d, hid, d_out)
     else:
@@ -269,8 +274,8 @@ def forward_kernels_f32(geglu: bool, m: int, d: int, hid: int, d_out: int, tasks
 
 def backward_kernels_f32(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
     """How many kernels one f32 backward launches: 4 (the split of the
-    weights, the row pass, the weight gradients, the reduction), or the
-    FFMA chain's 9 past d or d_out 256."""
+    weights, the row pass, the weight gradients, the reduction), or past d
+    or d_out 256 the wide path's 6 (GEGLU) or 5 (MLP)."""
     return _f32_plan_fn("fused_ffn_bwd.cu", "ffn_bwd_f32_kernels")(0 if geglu else 1, m, d, hid, d_out)
 
 

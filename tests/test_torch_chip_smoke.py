@@ -289,10 +289,10 @@ F32_PER_CALL = {"zorro_attention_qkv/zorro_f32": 1, "zorro_attention_qkv/zorro_f
 F32_KERNELS = {"zorro": {"zorro_attention_f32_fwd_kernel", "zorro_attention_f32_dq_kernel",
                          "zorro_attention_f32_dkdv_kernel"},
                "simt": {"simt_f32_product_kernel", "simt_f32_colsum_kernel", "simt_f32_reduce_kernel",
-                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel", "simt_f32_act_kernel",
-                        "simt_f32_product_tasks_kernel"},
+                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel"},
                "tf32": {"ffn_tf32_split_kernel", "ffn_tf32_fwd_rows_kernel", "ffn_tf32_fwd_reduce_kernel",
-                        "ffn_tf32_bwd_rows_kernel", "ffn_tf32_wgrad_kernel"}}
+                        "ffn_tf32_bwd_rows_kernel", "ffn_tf32_wgrad_kernel", "ffn_tf32_wide_act_kernel",
+                        "ffn_tf32_wide_act_bwd_kernel", "ffn_tf32_wide_gemm_kernel", "ffn_tf32_wide_weights_kernel"}}
 
 
 @pytest.mark.parametrize("entry", sorted(F32_PER_CALL))
@@ -475,8 +475,9 @@ def test_the_cli_phases_parser_refuses_missing_lines(smoke):
 
 def test_the_task_axis_entry_is_k2s_mlp_kernels(smoke):
     """fused_ffn/mlp_tasks (and its f32 key) is K2's forward in csrc/fused_ffn.cu:
-    the row kernel with its task axis, the f32 product with its task axis;
-    each C entry its wrapper binds is defined there."""
+    the row kernel with its task axis, the f32 row kernel with its task axis
+    (past d = 256 the f32 wide path, task by task); each C entry its wrapper
+    binds is defined there."""
     source = ROOT / smoke.PKG / "csrc" / "fused_ffn.cu"
     kernels = _kernels_of(source)
     assert smoke.REPLACES["fused_ffn/mlp_tasks"] == ("csrc/fused_ffn.cu",
@@ -485,7 +486,8 @@ def test_the_task_axis_entry_is_k2s_mlp_kernels(smoke):
     names, per_call = smoke.entry_kernels("fused_ffn/mlp_tasks")
     assert per_call == 1 and all(any(n in k for k in kernels) for n in names)
     names32, per_call32 = smoke.entry_kernels("fused_ffn/mlp_tasks_f32")
-    assert per_call32 == 2 and "simt_f32_product_tasks_kernel" in kernels
+    assert per_call32 == 2 and {"ffn_tf32_fwd_rows_kernel", "ffn_tf32_wide_act_kernel"} <= kernels
+    assert "ffn_tf32::forward_wide<ffn_tf32::MODE_MLP>" in source.read_text()
     text = source.read_text()
     for entry in ("mlp_ffn_tasks_bf16", "mlp_ffn_tasks_f32", "ffn_fwd_tasks_workspace_bytes", "ffn_fwd_tasks_kernels"):
         assert entry in _extern_c(source), entry

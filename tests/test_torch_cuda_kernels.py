@@ -1573,6 +1573,40 @@ def test_ffn_f32_tensor_core_rows_match_plain_and_are_bitwise(dev, mode, m):
     assert torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads_again))
 
 
+@pytest.mark.parametrize("mode,widths,m", [("geglu", (768, 2048), 1024), ("geglu", (768, 2048), 256),
+                                           ("geglu", (768, 2048), 8192), ("mlp", (768, 3072, 768), 2048),
+                                           ("geglu", (1024, 2730), 4096), ("mlp", (320, 208, 288), 130)])
+def test_ffn_f32_wide_rows_match_plain_and_are_bitwise(dev, mode, widths, m):
+    """The wide path (d or d_out past 256) at the serving rows of `base`
+    (M = 1024 and 256: the output product splits its hidden width), its
+    training rows, `large`'s unpadded inner width 2730 (W_out's rows off 16
+    bytes) and an MLP whose hidden width is no multiple of its blocks' 128
+    and whose widths differ: forward and every gradient within F32_REL_L2 of the f32
+    plain version, each bitwise the same run to run."""
+    w, d, d_out = _f32_weights(dev, mode, widths, seed=64)
+    x, dy = _randf(dev, m, d, seed=65), _randf(dev, m, d_out, seed=66)
+    fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
+    out, again, ref = fwd[0](x, *w), fwd[0](x, *w), fwd[1](x, *w)
+    grads, grads_again, ref_grads = bwd[0](x, *w, dy), bwd[0](x, *w, dy), bwd[1](x, *w, dy)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2 and _rel_all(grads, ref_grads) <= F32_REL_L2
+    assert torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(grads, grads_again))
+
+
+def test_mlp_tasks_f32_past_d_256_runs_the_wide_path_task_by_task(dev):
+    """The task axis at `base`'s width (d = 768): within F32_REL_L2 of the
+    plain MLPs, the wide path's launches once a task."""
+    t, m, d, hidden = 2, 300, 768, 1024
+    x = _randf(dev, t, m, d, seed=67)
+    w = (_randf(dev, t, hidden, d, scale=d ** -0.5, seed=68), _randf(dev, t, hidden, scale=0.1, seed=69),
+         _randf(dev, t, d, hidden, scale=hidden ** -0.5, seed=70), _randf(dev, t, d, scale=0.1, seed=71))
+    out, ref = cuda_ffn.mlp_ffn_tasks(x, *w), cuda_ffn.mlp_ffn_tasks_reference(x, *w)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= F32_REL_L2
+    assert cuda_ffn.forward_kernels_f32(False, m, d, hidden, d, tasks=t) == t * cuda_ffn.forward_kernels_f32(
+        False, m, d, hidden, d)
+
+
 @pytest.mark.parametrize("b", [1, 8])
 def test_mlp_tasks_f32_at_the_batched_decoder_rows_is_bitwise(dev, b):
     """The task axis in f32 at T = 3, M = 256 B: within F32_REL_L2 of three
@@ -1587,13 +1621,15 @@ def test_mlp_tasks_f32_at_the_batched_decoder_rows_is_bitwise(dev, b):
     assert _rel(out, ref) <= F32_REL_L2 and torch.equal(out, again)
 
 
-@pytest.mark.parametrize("mode,widths", [("geglu", (192, 512)), ("mlp", (256, 1024, 256)), ("geglu", (768, 2048))])
-def test_ffn_f32_runs_tensor_core_kernels_up_to_d_256(dev, mode, widths):
-    """Up to d = 256 the f32 forward and backward launch ffn_tf32.cuh's
-    kernels and no FFMA product; past it (`base`), by the shape rule, the
-    FFMA chain. Measured as chip_smoke.py's profiles are: after a warm-up,
-    five calls a profile, up to three profiles (after another test's
-    profile the profiler has dropped a call's first kernels)."""
+@pytest.mark.parametrize("mode,widths", [("geglu", (192, 512)), ("mlp", (256, 1024, 256)), ("geglu", (768, 2048)),
+                                         ("mlp", (768, 3072, 768)), ("geglu", (1024, 2730))])
+def test_ffn_f32_runs_tensor_core_kernels_at_every_width(dev, mode, widths):
+    """The f32 forward and backward launch tensor-core kernels and no FFMA
+    product at every width: up to d = 256 ffn_tf32.cuh's row kernels, past
+    it (`base`, `large`) ffn_tf32_wide.cuh's. Measured as chip_smoke.py's
+    profiles are: after a warm-up, five calls a profile, up to three
+    profiles (after another test's profile the profiler has dropped a
+    call's first kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     w, d, d_out = _f32_weights(dev, mode, widths, seed=58)
@@ -1601,7 +1637,10 @@ def test_ffn_f32_runs_tensor_core_kernels_up_to_d_256(dev, mode, widths):
     fwd, bwd = _FFN_FORWARD[mode], _FFN_BACKWARD[mode]
     fwd[0](x, *w), bwd[0](x, *w, dy)
     torch.cuda.synchronize()
-    kinds = ("ffn_tf32_split", "ffn_tf32_fwd_rows", "ffn_tf32_bwd_rows", "ffn_tf32_wgrad")
+    if d <= 256:
+        kinds = ("ffn_tf32_split", "ffn_tf32_fwd_rows", "ffn_tf32_bwd_rows", "ffn_tf32_wgrad")
+    else:
+        kinds = ("ffn_tf32_wide_act_kernel", "ffn_tf32_wide_gemm", "ffn_tf32_wide_act_bwd", "ffn_tf32_wide_weights")
     names = set()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1609,14 +1648,11 @@ def test_ffn_f32_runs_tensor_core_kernels_up_to_d_256(dev, mode, widths):
                 fwd[0](x, *w), bwd[0](x, *w, dy)
             torch.cuda.synchronize()
         names |= {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
-        if d > 256 or all(any(k in n for n in names) for k in kinds):
+        if all(any(k in n for n in names) for k in kinds):
             break
     tensor_core = {k for k in kinds if any(k in n for n in names)}
-    ffma = any("simt_f32_product" in n for n in names)
-    if d <= 256:
-        assert len(tensor_core) == 4 and not ffma, names
-    else:
-        assert ffma and not tensor_core, names
+    assert len(tensor_core) == 4, names
+    assert not any("simt_f32_product" in n for n in names), names
 
 
 def test_ffn_f32_in_a_cuda_graph_replays_bitwise(dev):

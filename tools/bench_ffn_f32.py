@@ -3,7 +3,10 @@ or more source trees timed against each other and against the f32 plain
 chain in one process, at the shapes the f32 paths run: the pretraining
 step's GEGLU rows (M = 38,400 encoder, 15,360 fusion) and decoder MLP rows
 (M = 15,360), the serving forward's (GEGLU M = 1024 and 256, MLP 2048 and
-256) and the batched decoder's task axis (T = 3, M = 256 x 1 and 256 x 8).
+256) and the batched decoder's task axis (T = 3, M = 256 x 1 and 256 x 8);
+with ``--wide`` instead the wide path's: `base` (d = 768, GEGLU inner 2048,
+MLP hidden 3072) at M = 8192 forward and backward and at the serving rows M
+= 1024 and 256, `large` (d = 1024, inner 2730 unpadded) at M = 4096.
 
 Each tree's two sources are built with the port's nvcc flags into a
 temporary directory and called through their C entries, whose interface
@@ -11,10 +14,13 @@ every version shares (the workspace each asks for itself). For each shape
 and version the script prints the device time of one call (torch.profiler:
 the sum of its kernels, 10 calls after 3 warm-ups), the kernels a call, and
 the rel-L2 of the output (every gradient, the worst) against the f32 plain
-version (ops/cuda_ffn.py, TF32 off); the plain chain's own device time is
+version (ops/cuda_ffn.py, TF32 off) and against the plain version in f64
+(beside the f32 plain version's own); the plain chain's own device time is
 printed beside them.
 
-    python3 tools/bench_ffn_f32.py [label=tree ...]   # default: this tree
+    python3 tools/bench_ffn_f32.py [--wide] [label=tree ...]   # default: this tree
+
+Each call's device time is also printed by kernel.
 
 Needs a CUDA card and nvcc; imports nothing of the JAX package.
 """
@@ -125,14 +131,34 @@ class Version:
         return outs
 
 
-def cases(dev):
+def rel64(a, b) -> float:
+    """Relative L2 error in f64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def cases(dev, wide: bool = False):
     """(label, version method, plain function, operands) at the f32 paths'
-    shapes, seeded."""
+    shapes (``wide``: the wide path's), seeded."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randf(*shape, scale=1.0):
         return torch.randn(*shape, device=dev, generator=g) * scale
 
+    if wide:
+        out = []
+        for d, inner, ms, tag in ((768, 2048, (8192, 1024, 256), "base"), (1024, 2730, (4096,), "large")):
+            gw = (1 + 0.1 * randf(d), randf(2 * inner, d, scale=d ** -0.5), randf(d, inner, scale=inner ** -0.5))
+            for m in ms:
+                out.append((f"{tag} GEGLU fwd M={m}", "geglu", cuda_ffn.geglu_ffn_reference, (randf(m, d), *gw)))
+            out.append((f"{tag} GEGLU bwd M={ms[0]}", "geglu_bwd", cuda_ffn.geglu_ffn_backward_reference,
+                        (randf(ms[0], d), *gw, randf(ms[0], d))))
+        d, hid = 768, 3072
+        mw = (randf(hid, d, scale=d ** -0.5), randf(hid, scale=0.1), randf(d, hid, scale=hid ** -0.5),
+              randf(d, scale=0.1))
+        out.append(("base MLP fwd M=8192", "mlp", cuda_ffn.mlp_ffn_reference, (randf(8192, d), *mw)))
+        out.append(("base MLP bwd M=8192", "mlp_bwd", cuda_ffn.mlp_ffn_backward_reference,
+                    (randf(8192, d), *mw, randf(8192, d))))
+        return out
     d, inner, dd, hid = 192, 512, 256, 1024
     gw = (1 + 0.1 * randf(d), randf(2 * inner, d, scale=d ** -0.5), randf(d, inner, scale=inner ** -0.5))
     mw = (randf(hid, dd, scale=dd ** -0.5), randf(hid, scale=0.1), randf(dd, hid, scale=hid ** -0.5),
@@ -163,21 +189,26 @@ def main(argv) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[bench_ffn_f32] {smi}; torch {torch.__version__}", flush=True)
-    trees = [a.split("=", 1) for a in argv[1:]] or [["this", ROOT]]
+    wide = "--wide" in argv[1:]
+    trees = [a.split("=", 1) for a in argv[1:] if a != "--wide"] or [["this", ROOT]]
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         versions = {label: Version(build(os.path.abspath(tree), tmp)) for label, tree in trees}
-        for label, method, plain, args in cases(dev):
+        for label, method, plain, args in cases(dev, wide):
             ref = smoke.outputs(plain(*args))
+            ref64 = smoke.outputs(plain(*(a.double() for a in args)))
             plain_ms = smoke.profiled_ms(lambda: plain(*args))[0]
-            line = f"[bench_ffn_f32] {label:24s} f32 chain {plain_ms:.6g} ms"
+            line = (f"[bench_ffn_f32] {label:24s} f32 chain {plain_ms:.6g} ms, rel_l2 vs f64 "
+                    f"{max(rel64(o, r) for o, r in zip(ref, ref64)):.3g}")
             for name, version in versions.items():
                 fn = getattr(version, method)
                 got = smoke.outputs(fn(*args))
                 torch.cuda.synchronize()
                 rel = max(smoke.rel_l2(o, r) for o, r in zip(got, ref))
-                ms, count, _ = smoke.profiled_ms(lambda: fn(*args))
-                line += f" | {name} {ms:.6g} ms, {count:g} kernels, rel_l2 {rel:.3g}"
+                ms, count, per_name = smoke.profiled_ms(lambda: fn(*args))
+                line += (f" | {name} {ms:.6g} ms, {count:g} kernels, rel_l2 {rel:.3g}, vs f64 "
+                         f"{max(rel64(o, r) for o, r in zip(got, ref64)):.3g} ("
+                         + ", ".join(f"{smoke.kernel_name(k)} {v:.4g}" for k, v in per_name.items()) + ")")
             print(line, flush=True)
     return 0
 
