@@ -98,8 +98,11 @@ Phases (any failure raises; the exit code is then non-zero):
                  plain path on one set of masks (bounds F32_LOSS_REL,
                  F32_GRAD_REL_L2), exact launch counts of f32 keys only, 3
                  warm-up and 5 timed steps, peak memory, the fused_block
-                 step (K6 / K6b f32) against the default f32 step, and K1's
-                 two modes in f32 on each block's qkv slab; (b) one f32
+                 step (K6 / K6b f32) against the default f32 step and
+                 timed beside it (device ms, busy, p50 wall, peak, top
+                 kernels; neither profile may hold an FFMA product
+                 kernel), and K1's two modes in f32 on each block's qkv
+                 slab; (b) one f32
                  serving request against the plain path
                  (F32_FORWARD_REL_L2); (c) phase 7's downstream step with
                  compute_dtype='float32' on phase 7's weights, masks,
@@ -465,8 +468,9 @@ def entry_kernels(entry: str, label: str = ""):
             # past d 256 the wide path (ffn_tf32_wide.cuh with simt_f32's LayerNorm, column sums and
             # reduction; cuda_ffn.forward_kernels_f32 / backward_kernels_f32 on a row)
             return ("ffn_tf32", "simt_f32"), 4 if backward else 2
-        if entry.startswith("fused_block_attn/"):  # forward 6, backward 15 (fused_block_attn.cu)
-            return ("simt_f32", "zorro_attention_f32"), 15 if backward else 6
+        if entry.startswith("fused_block_attn/"):  # fused_block_attn.cu: ffn_tf32_wide.cuh's products and
+            # weight splits, simt_f32's LayerNorms and reduction, K1 / K1b f32; forward 6, backward 13
+            return ("ffn_tf32_wide", "simt_f32", "zorro_attention_f32"), 13 if backward else 6
     if entry.startswith("fused_ffn/") and backward and label.endswith("wide path)"):  # K2b's wide path (WIDE,
         # WIDE_LARGE): (norm), rows, dx, (LN), wgrad's two
         return ("ffn_bwd", "wgrad"), 6 if entry.startswith("fused_ffn/geglu") else 4
@@ -866,6 +870,26 @@ def unfused_backward(chain, operands, dy):
     return lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
 
+def unfused_block_attn(types, heads: int, fusion_type: int):
+    """K6's function as the unfused chain on these types: F.layer_norm twice
+    (no bias), F.linear for q and kv, K1's operator, F.linear plus the
+    residual, in the operands' dtype (f32 with TF32 off); its backward is
+    autograd's (K1b for the attention). Returns chain(x, g1, g2, wq, wkv, wo)
+    for ``unfused_backward``. Printed beside the K6 rows for reference; not
+    the library column, and the port never calls it."""
+    F = torch.nn.functional
+
+    def chain(x, g1, g2, wq, wkv, wo):
+        d = x.shape[-1]
+
+        def run():
+            h = F.layer_norm(F.layer_norm(x, (d,), g1, None, 1e-5), (d,), g2, None, 1e-5)
+            qkv = torch.cat([F.linear(h, wq), F.linear(h, wkv)], dim=-1)
+            return x + F.linear(cuda_attn.zorro_attention_qkv(qkv, heads, types, fusion_type), wo)
+        return run
+    return chain
+
+
 def outputs(r):
     return list(r) if isinstance(r, (tuple, list)) else [r]
 
@@ -899,7 +923,7 @@ def phase_kernels(dev):
     #  library call or None, main shape of the entry?)
     cases = []
     fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
-    chains = {}  # the unfused chain beside the K2 (f32: and K2b) rows, for reference only
+    chains = {}  # the unfused chain beside the K2, K2b and K6 / K6b rows, for reference only
     separate = {}  # single-task K2 launches beside the task-axis rows, for reference only
     per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
     yardstick = {}  # the f32 attention rows' SDPA call in the plain version's layout (sdpa_outputs)
@@ -998,6 +1022,9 @@ def phase_kernels(dev):
                   lambda: cuda_block_attn.fused_block_attn_backward_reference(x_blk, train_types, *blk_w, dy_blk,
                                                                               3, 3),
                   block_attn_work(x_blk, 192, 3, zorro_mask(train_types), True), None, True))
+    chains["fused_block_attn/forward", train_label] = unfused_block_attn(train_types, 3, 3)(x_blk, *blk_w)
+    chains["fused_block_attn/backward", train_label] = unfused_backward(unfused_block_attn(train_types, 3, 3),
+                                                                        (x_blk, *blk_w), dy_blk)
 
     def ffn_work(m, backward, geglu, d=d, inner_ff=inner_ff, dd=dd, hid=hid, elem=2, peak=PEAK_BF16):
         if geglu:
@@ -1373,6 +1400,9 @@ def phase_kernels(dev):
                   lambda: cuda_block_attn.fused_block_attn_backward_reference(x_blk32, train_types, *blk_w32,
                                                                               dy_blk32, 3, 3),
                   block_attn_work(x_blk32, 192, 3, train_mask, True), None, True))
+    chains["fused_block_attn/f32_forward", train_label] = unfused_block_attn(train_types, 3, 3)(x_blk32, *blk_w32)
+    chains["fused_block_attn/f32_backward", train_label] = unfused_backward(unfused_block_attn(train_types, 3, 3),
+                                                                            (x_blk32, *blk_w32), dy_blk32)
 
     results = {}
     for entry, label, kernel, plain, (flops, n_bytes, peak), library, main in cases:
@@ -2270,23 +2300,30 @@ def phase_f32(dev, seg_ctx):
             raise RuntimeError(f"[f32] launches per {'fused ' if fused else ''}f32 step {counts}, expected "
                                f"{expected}")
         launches.update(counts)
-    set_fused_block(model, False)
     log(f"[f32] (a) launches in one f32 step {F32_PER_STEP}; in one fused f32 step {F32_FUSED_PER_STEP}")
-    before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
-    torch.cuda.reset_peak_memory_stats(dev)
-    times, losses = step_times(lambda: step(state, batch)[1], steps=5, warmup=3)
-    peak = torch.cuda.max_memory_allocated(dev)
-    moved = float((torch.cat([p.detach().reshape(-1) for p in model.parameters()]) - before).abs().max())
-    if not all(math.isfinite(x) for x in losses) or moved == 0.0:
-        raise RuntimeError(f"[f32] f32 step losses {losses}, max weight change {moved}")
-    dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=2)
-    log(f"[f32] (a) f32 step: losses {[round(x, 4) for x in losses]}, max weight change {moved:.3g}; p50 "
-        f"{statistics.median(times):.6g} ms over 5 steps after 3 warm-ups; peak device memory "
-        f"{peak / 2 ** 30:.4g} GiB; profile: device {dev_ms:.6g} ms a step in {n_kernels:.0f} kernels/copies, "
-        f"busy {dev_ms / statistics.median(times):.3f} of the p50 wall; by kind "
-        + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
-    for name, ms in top:
-        log(f"[f32]     {ms:9.4f} ms  {name[:100]}")
+    # each step timed and profiled: the default one, then the fused one (K6 / K6b f32 on every block)
+    for fused in (False, True):
+        set_fused_block(model, fused)
+        what = "fused f32 step" if fused else "f32 step"
+        before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, losses = step_times(lambda: step(state, batch)[1], steps=5, warmup=3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        moved = float((torch.cat([p.detach().reshape(-1) for p in model.parameters()]) - before).abs().max())
+        if not all(math.isfinite(x) for x in losses) or moved == 0.0:
+            raise RuntimeError(f"[f32] {what} losses {losses}, max weight change {moved}")
+        dev_ms, n_kernels, by_kind, top = device_breakdown(lambda: step(state, batch), reps=2, top_n=None)
+        log(f"[f32] (a) {what}: losses {[round(x, 4) for x in losses]}, max weight change {moved:.3g}; p50 "
+            f"{statistics.median(times):.6g} ms over 5 steps after 3 warm-ups; peak device memory "
+            f"{peak / 2 ** 30:.4g} GiB; profile: device {dev_ms:.6g} ms a step in {n_kernels:.0f} kernels/copies, "
+            f"busy {dev_ms / statistics.median(times):.3f} of the p50 wall; by kind "
+            + ", ".join(f"{k} {v:.6g} ms" for k, v in sorted(by_kind.items())))
+        for name, ms in top[:8]:
+            log(f"[f32]     {ms:9.4f} ms  {name[:100]}")
+        ffma = [name for name, _ in top if "simt_f32_product" in name]
+        if ffma:  # every f32 product runs on the tensor cores
+            raise RuntimeError(f"[f32] (a) {what}: FFMA product kernels in its profile: {ffma}")
+    set_fused_block(model, False)
 
     # K1's separate-q/k/v and tile-skip modes in f32 on each block's slab
     slabs = capture_qkv_slabs(model, loss_fn, batch, mi)

@@ -54,6 +54,10 @@
 // flops a row, d and hidden unit for GEGLU, three times over at the dense
 // TF32 rate (495 TFLOP/s, 165 in effect); then the windows' traffic from
 // L2 (32 KB a window a block: about 1.6 GB at `base`'s forward hidden pass).
+// The product launch (ffn_tf32_wide_gemm_kernel: 128 x 64 tiles where at
+// most 64 columns are left, a residual epilogue) and the split kernel (two
+// stacked sources, activations transposed) also run every product of K6 /
+// K6b's f32 instance (fused_block_attn.cu).
 #pragma once
 
 #include "ffn_tf32.cuh"
@@ -436,8 +440,9 @@ ffn_tf32_wide_act_bwd_kernel(WideA xs, WideB w_in, WideA dy, WideB w_outt, const
 // One product C = A B^T of a wide launch, as 128 x 128 tiles over `splits`
 // ranges of `wps` windows of the contraction. C's element (p, q) (p < rows,
 // q < cols) goes to c [split z] at p ldc + q (trans: q ldc + p), + bias[q]
-// where given; hp > 0: q maps to a GEGLU weight's rows, q < hid -> q, hp <=
-// q < hp + hid -> hid + q - hp, the padding dropped.
+// where given, then added to add[p ld_add + q] where given (a residual: not
+// with trans or hp); hp > 0: q maps to a GEGLU weight's rows, q < hid -> q,
+// hp <= q < hp + hid -> hid + q - hp, the padding dropped.
 struct WideGemm {
   WideA a;
   WideB b;
@@ -446,6 +451,8 @@ struct WideGemm {
   long long ldc, split_stride;
   int rows, cols, trans, hid, hp;
   const float* bias;
+  const float* add;
+  long long ld_add;
 };
 
 struct WideGemms {
@@ -454,33 +461,29 @@ struct WideGemms {
   int start[4];  // the jobs' first blocks, then the total
 };
 
-template <int AT>
-__global__ void __launch_bounds__(WT, 1) ffn_tf32_wide_gemm_kernel(WideGemms gs) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm;
-  const uint32_t sa = aligned_smem(smem_raw, &sm);
-  const int blk = blockIdx.x;
-  const int job = blk >= gs.start[2] && gs.n > 2 ? 2 : (blk >= gs.start[1] && gs.n > 1 ? 1 : 0);
-  const WideGemm g = job == 0 ? gs.g[0] : (job == 1 ? gs.g[1] : gs.g[2]);
-  int t = blk - gs.start[job];
-  const int mt = t % g.mtiles;
-  t /= g.mtiles;
-  const int nt = t % g.ntiles, z = t / g.ntiles;
-  const int m0 = mt * WB, n0 = nt * WB, w0 = z * g.wps, w1 = min(g.windows, w0 + g.wps);
+// The epilogue of the tile at (m0, n0), N columns wide, of range z
+template <int N>
+__device__ __forceinline__ void wide_gemm_store(const WideGemm& g, const float (&acc)[N / 2], int z, int m0, int n0) {
   const int lane = threadIdx.x % 32, t4 = lane & 3, r0 = (threadIdx.x / 32) * 16 + lane / 4;
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  wide_product<AT, 128>(acc, g.a, m0, g.b, n0, w0, w1, sa, sm);
-
   float* c = g.c + (long long)z * g.split_stride;
   const bool pairs = !g.trans && g.hp == 0;
+  float2 res[2][N / 8];  // the residual's pairs, all read before the first store (which could alias them)
+  if (g.add != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int p = m0 + r0 + 8 * h, q = n0 + 8 * j + 2 * t4;
+        res[h][j] = p < g.rows && q < g.cols ? *reinterpret_cast<const float2*>(g.add + (long long)p * g.ld_add + q)
+                                             : make_float2(0.0f, 0.0f);
+      }
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int p = m0 + r0 + 8 * h;
     if (p >= g.rows) continue;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
       const int q = n0 + 8 * j + 2 * t4;
       if (q >= g.cols) continue;
       float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
@@ -488,6 +491,10 @@ __global__ void __launch_bounds__(WT, 1) ffn_tf32_wide_gemm_kernel(WideGemms gs)
         if (g.bias != nullptr) {
           v0 += g.bias[q];
           v1 += g.bias[q + 1];
+        }
+        if (g.add != nullptr) {
+          v0 = res[h][j].x + v0;
+          v1 = res[h][j].y + v1;
         }
         *reinterpret_cast<float2*>(c + (long long)p * g.ldc + q) = make_float2(v0, v1);
         continue;
@@ -504,17 +511,52 @@ __global__ void __launch_bounds__(WT, 1) ffn_tf32_wide_gemm_kernel(WideGemms gs)
   }
 }
 
+// A block computes one tile of one product: 128 x 128, or 128 x 64 where at
+// most 64 columns are left (a tail: K6's 192 and 576 columns)
+template <int AT>
+__global__ void __launch_bounds__(WT, 1) ffn_tf32_wide_gemm_kernel(WideGemms gs) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t sa = aligned_smem(smem_raw, &sm);
+  const int blk = blockIdx.x;
+  const int job = blk >= gs.start[2] && gs.n > 2 ? 2 : (blk >= gs.start[1] && gs.n > 1 ? 1 : 0);
+  const WideGemm g = job == 0 ? gs.g[0] : (job == 1 ? gs.g[1] : gs.g[2]);
+  int t = blk - gs.start[job];
+  const int mt = t % g.mtiles;
+  t /= g.mtiles;
+  const int nt = t % g.ntiles, z = t / g.ntiles;
+  const int m0 = mt * WB, n0 = nt * WB, w0 = z * g.wps, w1 = min(g.windows, w0 + g.wps);
+  if (g.cols - n0 <= 64) {
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    wide_product<AT, 64>(acc, g.a, m0, g.b, n0, w0, w1, sa, sm);
+    wide_gemm_store<64>(g, acc, z, m0, n0);
+    return;
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  wide_product<AT, 128>(acc, g.a, m0, g.b, n0, w0, w1, sa, sm);
+  wide_gemm_store<128>(g, acc, z, m0, n0);
+}
+
 // The weights of one call split into TF32 hi and lo parts (x = hi + lo,
 // cvt.rna) into dst / lo [rows, cols], zeros where there is no source
 // element: a copy (dst[i][j] = src[i][j], a row padded past src_cols) or,
 // trans, a transpose (dst[i][j] = src[map(j)][i]; map(j) = j (hp = 0) or a
-// GEGLU weight's val / gate row, as WideGemm's columns). blockIdx.z: the
-// job; 32 x 32 tiles.
+// GEGLU weight's val / gate row, as WideGemm's columns). The source is
+// [src_rows, src_cols] row-major at src or, where src1 is given, two
+// stacked matrices: rows from split1 on at src1 (K6's [Wq; Wkv]). The same
+// kernel splits an activation (K6b's h and dy, transposed, rows padded
+// with zeros to the tile). blockIdx.z: the job; 32 x 32 tiles.
 struct WideWeights {
   const float* src;
   float* dst;
   float* lo;
   int src_rows, src_cols, rows, cols, trans, hid, hp;
+  const float* src1;
+  int split1;
 };
 
 struct WideWeightJobs {
@@ -526,6 +568,10 @@ __global__ void __launch_bounds__(256) ffn_tf32_wide_weights_kernel(WideWeightJo
   const WideWeights t = blockIdx.z == 0 ? jobs.w[0] : (blockIdx.z == 1 ? jobs.w[1] : jobs.w[2]);
   const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
   if (i0 >= t.rows || j0 >= t.cols) return;
+  auto at = [&](int r, int c) {  // source element (r, c)
+    return t.src1 != nullptr && r >= t.split1 ? t.src1[(long long)(r - t.split1) * t.src_cols + c]
+                                              : t.src[(long long)r * t.src_cols + c];
+  };
   auto store = [&](int i, int j, float v) {
     uint32_t h, l;
     split_tf32(v, h, l);
@@ -536,7 +582,7 @@ __global__ void __launch_bounds__(256) ffn_tf32_wide_weights_kernel(WideWeightJo
     for (int k = threadIdx.y; k < 32; k += 8) {
       const int i = i0 + k, j = j0 + threadIdx.x;
       if (i < t.rows && j < t.cols)
-        store(i, j, i < t.src_rows && j < t.src_cols ? t.src[(long long)i * t.src_cols + j] : 0.0f);
+        store(i, j, i < t.src_rows && j < t.src_cols ? at(i, j) : 0.0f);
     }
     return;
   }
@@ -545,7 +591,7 @@ __global__ void __launch_bounds__(256) ffn_tf32_wide_weights_kernel(WideWeightJo
     int s = j;
     if (t.hp > 0) s = j < t.hid ? j : (j >= t.hp && j - t.hp < t.hid ? t.hid + j - t.hp : -1);
     else if (j >= t.src_rows) s = -1;
-    tile[k][threadIdx.x] = s >= 0 && i < t.src_cols ? t.src[(long long)s * t.src_cols + i] : 0.0f;
+    tile[k][threadIdx.x] = s >= 0 && i < t.src_cols ? at(s, i) : 0.0f;
   }
   __syncthreads();
   for (int k = threadIdx.y; k < 32; k += 8) {
@@ -711,10 +757,6 @@ static cudaError_t forward_wide(const float* x, const float* gamma, const float*
   return cudaGetLastError();
 }
 
-// The LayerNorm backward's blocks: 64 rows (a dgamma partial each), 8 warps
-// (4 past d = 1536: WARPS d floats of shared memory)
-constexpr int WIDE_LN_ROWS = 64;
-
 // The backward's plan: hp, mp (m rounded up to the tile), the weight
 // gradients' ranges, and the scratch in floats: the weights' hi and lo
 // parts (W_in [(2) hid, d], W_in^T [d, (2) hp], W_out^T [hp, d_out]), xn
@@ -761,7 +803,7 @@ __host__ inline WideBwd wide_bwd_plan(int mode, int m, int d, int hid, int d_out
   s.part0 = s.dxn + (geglu ? (long long)m * d : 0);
   s.part1 = s.part0 + (long long)s.splits * (geglu ? 2LL : 1LL) * hid * d;
   s.vec0 = s.part1 + (long long)s.splits * d_out * hid;
-  s.vec1 = s.vec0 + (geglu ? (long long)simt_f32::ln_blocks<WIDE_LN_ROWS>(m) * d : (long long)(s.mp / WB) * hid);
+  s.vec1 = s.vec0 + (geglu ? (long long)simt_f32::ln_blocks(m) * d : (long long)(s.mp / WB) * hid);
   s.floats = s.vec1 + (geglu ? 0 : (long long)(s.mp / WB) * d_out);
   return s;
 }
@@ -833,8 +875,7 @@ static cudaError_t backward_wide(const float* x, const float* gamma, const float
   err = launch_wide_gemms<1>(gs, stream);
   if (err != cudaSuccess) return err;
   if (GEGLU) {
-    err = d <= 1536 ? simt_f32::ln_bwd<8, WIDE_LN_ROWS>(x, gamma, sc + s.dxn, nullptr, dx, sc + s.vec0, m, d, stream)
-                    : simt_f32::ln_bwd<4, WIDE_LN_ROWS>(x, gamma, sc + s.dxn, nullptr, dx, sc + s.vec0, m, d, stream);
+    err = simt_f32::ln_bwd(x, gamma, sc + s.dxn, nullptr, dx, sc + s.vec0, m, d, stream);
   } else {  // db2: column sums of dy over the act kernel's 128-row blocks
     simt_f32::simt_f32_colsum_kernel<<<dim3((d_out + 255) / 256, mp / WB), 256, 0, stream>>>(dy, d_out, m, d_out, WB,
                                                                                              sc + s.vec1);
@@ -844,7 +885,7 @@ static cudaError_t backward_wide(const float* x, const float* gamma, const float
   const int sp = gs.g[0].splits;  // (both weight gradients: the same rows, ranges and splits)
   simt_f32::Segments segs{{{sc + s.part0, sp, (GEGLU ? 2LL : 1LL) * hid * d, dw_in},
                            {sc + s.part1, sp, (long long)d_out * hid, dw_out},
-                           {sc + s.vec0, GEGLU ? simt_f32::ln_blocks<WIDE_LN_ROWS>(m) : mp / WB, GEGLU ? d : hid, dv0},
+                           {sc + s.vec0, GEGLU ? simt_f32::ln_blocks(m) : mp / WB, GEGLU ? d : hid, dv0},
                            {sc + s.vec1, mp / WB, d_out, dv1}},
                           GEGLU ? 3 : 4};
   return simt_f32::reduce(segs, stream);

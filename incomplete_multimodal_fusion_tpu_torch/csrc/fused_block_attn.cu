@@ -85,22 +85,42 @@
 //
 // The f32 instance (fused_block_attn_fwd_f32, fused_block_attn_bwd_f32),
 // for the f32 paths the TPU kernel also takes: the same function with no
-// cast points, every product and sum to f32's accuracy, from the pieces of
-// simt_f32.cuh (on the CUDA cores) and K1's f32 instance
-// (zorro_attention_f32.cuh, on the tensor cores in three TF32 parts),
-// through an f32 workspace (fused_block_attn_f32_scratch_floats). Forward,
-// six launches: the two LayerNorms (a, then h), q = h Wq^T and kv = h
-// Wkv^T into the slab, K1's f32 forward, y = x + out Wo^T. Backward,
-// fifteen: a and h, the slab, dout = dy Wo, K1's f32 forward (out, lse),
-// K1b's f32 dq and dk/dv kernels (D = rowsum(dout * out): without the bf16
-// rounding of o, the stored o is the unrounded one), dhid = dq Wq + dkv
-// Wkv, both LayerNorm backwards (da, then dx = dy + dx_ln, the gains'
-// partials a row block), the dWqkv and dWo partials over ranges of rows,
-// and one reduction of all partials in a fixed order: no atomics, bitwise
-// the same run to run.
+// cast points, every product in three TF32 parts on the tensor cores
+// (3xTF32, hopper.cuh) and every sum in f32, through an f32 workspace
+// (fused_block_attn_f32_scratch_floats). The products are
+// ffn_tf32_wide.cuh's (K2 / K2b's f32 wide path): C = A B^T in 128 x 128
+// tiles (128 x 64 where 64 columns are left: D = I = 192 and 3I = 576 end
+// in one) over windows of 32 of the contraction, a fresh accumulator a
+// window, B read K-major from its TF32 hi and lo parts split once a call
+// into the workspace (TF32 wgmma has no transposed B), A raw and split in
+// registers, read along its rows or, for the weight gradients, transposed.
+// The attention is K1's f32 instance (zorro_attention_f32.cuh); the
+// LayerNorms, their backward (64-row blocks) and the reduction are
+// simt_f32.cuh's. Forward, six launches: [Wq; Wkv] and Wo split, the two
+// LayerNorms (a, then h), qkv = h [Wq; Wkv]^T as one product of 3I columns
+// into the slab, K1's f32 forward, y = x + out Wo^T (the residual in the
+// product's epilogue). Backward, thirteen: [Wq; Wkv], its transpose and
+// Wo^T split; a and h; h^T and dy^T split (the weight gradients' B, whose
+// contraction is the rows); qkv and dout = dy Wo in one launch; K1's f32
+// forward (out, lse); K1b's f32 dq and dk/dv kernels (D = rowsum(dout *
+// out): without the bf16 rounding of o, the stored o is the unrounded one);
+// dhid = dqkv [Wq; Wkv] (one contraction of 3I); dWqkv = dqkv^T h and dWo =
+// dy^T out over ranges of rows as partials, in one launch; both LayerNorm
+// backwards (da, then dx = dy + dx_ln, the gains' partials a row block); one
+// reduction of all partials in a fixed order: no atomics, bitwise the same
+// run to run. What bounds it on an H100 at the pretraining shape: the
+// products, 11.3 GFLOP forward and 31.1 backward at 3xTF32's 165 TFLOP/s in
+// effect (0.069 and 0.19 ms), and the attention's (K1 / K1b f32). With six
+// windows a tile (D = 192) the products' stores and the serial window loop
+// weigh as much as the tensor work. Tried on an H100 and not kept
+// (tools/bench_block_attn.py --f32): persistent blocks streaming the
+// windows across tiles (0.275 against 0.254 ms forward), A split in shared
+// memory so the next window's copies and split overlap the products
+// (within 1.5%), the tiles ordered by row tile so A is read once (5% slower),
+// the stores as bulk copies through shared memory (13% slower).
 #include <type_traits>
 
-#include "simt_f32.cuh"
+#include "ffn_tf32_wide.cuh"
 #include "wgrad.cuh"
 #include "zorro_attention.cuh"
 #include "zorro_attention_f32.cuh"
@@ -1033,46 +1053,92 @@ extern "C" int fused_block_attn_bwd_bf16(const void* x, const void* types, const
 
 namespace {
 
-struct BlockF32Scratch {  // float offsets into the f32 workspace
-  long long a, h, qkv, out, dout, lse, delta, dqkv, dhid, da, part_qkv, part_o, part_g2, part_g1, floats;
+using ffn_tf32::WB;
+using ffn_tf32::WideA;
+using ffn_tf32::WideGemms;
+using ffn_tf32::WideWeightJobs;
+using ffn_tf32::WideWeights;
+using ffn_tf32::wide_b;
+using ffn_tf32::wide_gemm;
+
+// Float offsets into the f32 workspace, each region on 256 bytes: the
+// weights' TF32 hi and lo parts ([Wq; Wkv] [3I, D]; backward also its
+// transpose [D, 3I] and Wo^T [I, D], forward Wo [D, I]); a = LN_g1(x) and h
+// [M, D]; the slab qkv [M, 3I]; out [M, I]; backward also h^T and dy^T
+// split [D, mp] (mp: M rounded up to the 128-row tile), dout [M, I], lse and
+// delta [B, H, N], dqkv [M, 3I], dhid and da [M, D], the weight gradients'
+// partials [splits, 3I * D] and [splits, D * I] and the gains'
+// [ln_blocks(M), D] each.
+struct BlockF32Scratch {
+  int mp, splits;
+  long long wqkv, wqkv_lo, wqkvt, wqkvt_lo, wo, wo_lo, a, h, ht, ht_lo, dyt, dyt_lo, qkv, out, dout, lse, delta,
+      dqkv, dhid, da, part_qkv, part_o, part_g2, part_g1, floats;
 };
 
+// The row ranges of the weight gradients' launch: as many as fill the SMs
+// once with its tiles (dWqkv [3I, D], dWo^T [I, D]), at least one
+int block_f32_splits(int m, int d, int inner) {
+  const int tiles = ((3 * inner + WB - 1) / WB + (inner + WB - 1) / WB) * ((d + WB - 1) / WB);
+  const int windows = ffn_tf32::wide_windows(m);
+  int s = sm_count() / tiles;
+  s = s < 1 ? 1 : (s > ffn_tf32::MAX_SPLITS ? ffn_tf32::MAX_SPLITS : s);
+  s = s > windows ? windows : s;
+  const int wps = (windows + s - 1) / s;  // whole windows a range, as wide_gemm cuts them
+  return (windows + wps - 1) / wps;
+}
+
 BlockF32Scratch block_f32_scratch(int backward, int batch, int n, int d, int inner, int heads) {
-  const long long m = (long long)batch * n, sp = simt_f32::splits_for((int)m);
+  const long long m = (long long)batch * n, wq = 3LL * inner * d;
   BlockF32Scratch s{};
-  s.a = 0;
-  s.h = s.a + m * d;
-  s.qkv = s.h + m * d;
-  s.out = s.qkv + 3 * m * inner;
-  s.floats = s.out + m * inner;
+  s.mp = (int)((m + WB - 1) / WB * WB);
+  s.splits = backward ? block_f32_splits((int)m, d, inner) : 1;
+  auto take = [&](long long floats) {
+    const long long at = s.floats;
+    s.floats += (floats + 63) / 64 * 64;
+    return at;
+  };
+  s.wqkv = take(wq);
+  s.wqkv_lo = take(wq);
   if (backward) {
-    s.dout = s.floats;
-    s.lse = s.dout + m * inner;
-    s.delta = s.lse + (long long)batch * heads * n;
-    s.dqkv = s.delta + (long long)batch * heads * n;
-    s.dhid = s.dqkv + 3 * m * inner;
-    s.da = s.dhid + m * d;
-    s.part_qkv = s.da + m * d;
-    s.part_o = s.part_qkv + sp * 3 * inner * d;
-    s.part_g2 = s.part_o + sp * d * inner;
-    s.part_g1 = s.part_g2 + (long long)simt_f32::ln_blocks((int)m) * d;
-    s.floats = s.part_g1 + (long long)simt_f32::ln_blocks((int)m) * d;
+    s.wqkvt = take(wq);
+    s.wqkvt_lo = take(wq);
+  }
+  s.wo = take((long long)d * inner);  // backward: Wo^T
+  s.wo_lo = take((long long)d * inner);
+  s.a = take(m * d);
+  s.h = take(m * d);
+  s.qkv = take(3 * m * inner);
+  s.out = take(m * inner);
+  if (backward) {
+    s.ht = take((long long)d * s.mp);
+    s.ht_lo = take((long long)d * s.mp);
+    s.dyt = take((long long)d * s.mp);
+    s.dyt_lo = take((long long)d * s.mp);
+    s.dout = take(m * inner);
+    s.lse = take((long long)batch * heads * n);
+    s.delta = take((long long)batch * heads * n);
+    s.dqkv = take(3 * m * inner);
+    s.dhid = take(m * d);
+    s.da = take(m * d);
+    s.part_qkv = take(s.splits * wq);
+    s.part_o = take((long long)s.splits * d * inner);
+    s.part_g2 = take((long long)simt_f32::ln_blocks((int)m) * d);
+    s.part_g1 = take((long long)simt_f32::ln_blocks((int)m) * d);
   }
   return s;
 }
 
-// a = LN_g1(x), h = LN_g2(a), then q = h Wq^T and kv = h Wkv^T into the slab
-cudaError_t block_f32_project(const float* x, const float* g1, const float* g2, const float* wq, const float* wkv,
-                              float* a, float* h, float* qkv, int m, int d, int inner, cudaStream_t s) {
-  using namespace simt_f32;
-  cudaError_t err = ln_fwd(x, g1, a, m, d, s);
-  if (err == cudaSuccess) err = ln_fwd(a, g2, h, m, d, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{h, d, 1}, Mat{wq, 1, d}, qkv, 3LL * inner, m, inner, d, nullptr, nullptr, 0, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{h, d, 1}, Mat{wkv, 1, d}, qkv + inner, 3LL * inner, m, 2 * inner, d, nullptr, nullptr,
-                        0, s);
-  return err;
+// a = LN_g1(x), h = LN_g2(a) (simt_f32's LayerNorm, a warp a row)
+cudaError_t block_f32_norms(const float* x, const float* g1, const float* g2, float* a, float* h, int m, int d,
+                            cudaStream_t s) {
+  cudaError_t err = simt_f32::ln_fwd(x, g1, a, m, d, s);
+  return err == cudaSuccess ? simt_f32::ln_fwd(a, g2, h, m, d, s) : err;
+}
+
+// qkv = h [Wq; Wkv]^T into the slab, as one product of 3I columns
+ffn_tf32::WideGemm qkv_product(float* p, const BlockF32Scratch& sc, int m, int d, int inner) {
+  return wide_gemm(WideA{p + sc.h, d, m, d}, wide_b(p + sc.wqkv, p + sc.wqkv_lo, d, 3 * inner, d), m, 3 * inner, 1,
+                   p + sc.qkv, 3LL * inner);
 }
 
 zorro::Operands32 slab32(const float* qkv, int n, int inner) {
@@ -1090,40 +1156,59 @@ extern "C" long long fused_block_attn_f32_scratch_floats(int backward, int batch
 
 // Forward in f32: the operands of fused_block_attn_fwd_bf16 in f32 (types
 // int32), the workspace of fused_block_attn_f32_scratch_floats(0, ...)
-// floats. Six launches; returns the first cudaError_t.
+// floats. Six launches: the weights split, the two LayerNorms, the qkv
+// product, K1's f32 forward, y = x + out Wo^T; returns the first
+// cudaError_t.
 extern "C" int fused_block_attn_fwd_f32(const void* x, const void* types, const void* g1, const void* g2,
                                         const void* wq, const void* wkv, const void* wo, void* y, void* ws, int batch,
                                         int n, int d, int heads, int dh, float scale, int fusion_type, void* stream) {
   if (!shape_ok(batch, n, d, heads, dh)) return (int)cudaErrorInvalidValue;
-  using namespace simt_f32;
   const int inner = heads * dh, m = batch * n;
   const BlockF32Scratch sc = block_f32_scratch(0, batch, n, d, inner, heads);
   float* p = static_cast<float*>(ws);
   const float* xp = static_cast<const float*>(x);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = block_f32_project(xp, static_cast<const float*>(g1), static_cast<const float*>(g2),
-                                      static_cast<const float*>(wq), static_cast<const float*>(wkv), p + sc.a,
-                                      p + sc.h, p + sc.qkv, m, d, inner, s);
+  WideWeightJobs jobs{};  // [Wq; Wkv] [3I, D] and Wo [D, I], both with their contraction contiguous
+  jobs.w[0] = WideWeights{static_cast<const float*>(wq), p + sc.wqkv, p + sc.wqkv_lo, 3 * inner, d, 3 * inner, d,
+                          0, 0, 0, static_cast<const float*>(wkv), inner};
+  jobs.w[1] = WideWeights{static_cast<const float*>(wo), p + sc.wo, p + sc.wo_lo, d, inner, d, inner, 0, 0, 0};
+  cudaError_t err = ffn_tf32::split_weights(jobs, 2, s);
+  if (err == cudaSuccess)
+    err = block_f32_norms(xp, static_cast<const float*>(g1), static_cast<const float*>(g2), p + sc.a, p + sc.h, m, d,
+                          s);
+  WideGemms gs{};
+  gs.n = 1;
+  gs.g[0] = qkv_product(p, sc, m, d, inner);
+  if (err == cudaSuccess) err = ffn_tf32::launch_wide_gemms<0>(gs, s);
   if (err == cudaSuccess)
     err = zorro::dispatch_f32<zorro::MODE_ZORRO>(dh, slab32(p + sc.qkv, n, inner), static_cast<const int32_t*>(types),
                                                  nullptr, 0, p + sc.out, nullptr, batch, n, heads,
                                                  (long long)n * inner, inner, n, scale, fusion_type, s);
-  if (err == cudaSuccess)
-    err = product_store(Mat{p + sc.out, inner, 1}, Mat{static_cast<const float*>(wo), 1, inner},
-                        static_cast<float*>(y), d, m, d, inner, nullptr, xp, d, s);
+  // y = x + out Wo^T
+  gs.g[0] = wide_gemm(WideA{p + sc.out, inner, m, inner}, wide_b(p + sc.wo, p + sc.wo_lo, inner, d, inner), m, d, 1,
+                      static_cast<float*>(y), d);
+  gs.g[0].add = xp;
+  gs.g[0].ld_add = d;
+  if (err == cudaSuccess) err = ffn_tf32::launch_wide_gemms<0>(gs, s);
   return (int)err;
 }
 
 // Backward in f32: the forward's operands and dy [B, N, D] (f32, types
 // int32); outputs dx [B, N, D], dg1, dg2 [D], dw_qkv [3I, D] (dWq then
 // dWkv), dwo [D, I]; the workspace of fused_block_attn_f32_scratch_floats(1,
-// ...) floats. Fifteen launches; returns the first cudaError_t.
+// ...) floats. Thirteen launches: the weights split (and transposed), the
+// two LayerNorms, h^T and dy^T split, qkv and dout = dy Wo in one launch,
+// K1's f32 forward (out, lse), K1b's f32 dq and dk/dv kernels (D =
+// rowsum(dout * out) on the unrounded out), dhid = dqkv [Wq; Wkv], dWqkv and
+// dWo over ranges of rows in one launch, both LayerNorm backwards (da, then
+// dx = dy + dx_ln, the gains' partials a row block), one reduction of all
+// partials in a fixed order: no atomics, bitwise the same run to run.
+// Returns the first cudaError_t.
 extern "C" int fused_block_attn_bwd_f32(const void* x, const void* types, const void* g1, const void* g2,
                                         const void* wq, const void* wkv, const void* wo, const void* dy, void* dx,
                                         void* dg1, void* dg2, void* dw_qkv, void* dwo, void* ws, int batch, int n,
                                         int d, int heads, int dh, float scale, int fusion_type, void* stream) {
   if (!shape_ok(batch, n, d, heads, dh)) return (int)cudaErrorInvalidValue;
-  using namespace simt_f32;
   const int inner = heads * dh, m = batch * n;
   const BlockF32Scratch sc = block_f32_scratch(1, batch, n, d, inner, heads);
   float* p = static_cast<float*>(ws);
@@ -1133,39 +1218,60 @@ extern "C" int fused_block_attn_bwd_f32(const void* x, const void* types, const 
   const float *wqp = static_cast<const float*>(wq), *wkvp = static_cast<const float*>(wkv);
   const int32_t* tp = static_cast<const int32_t*>(types);
   float *qkv = p + sc.qkv, *dqkv = p + sc.dqkv, *out = p + sc.out, *dout = p + sc.dout;
-  const long long i3 = 3LL * inner;
+  const int i3 = 3 * inner;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = block_f32_project(xp, g1p, g2p, wqp, wkvp, p + sc.a, p + sc.h, qkv, m, d, inner, s);
-  if (err == cudaSuccess)  // dout = dy Wo
-    err = product_store(Mat{dyp, d, 1}, Mat{static_cast<const float*>(wo), inner, 1}, dout, inner, m, inner, d,
-                        nullptr, nullptr, 0, s);
+  // every B with its contraction contiguous: [Wq; Wkv] (qkv), its transpose
+  // (dhid), Wo^T (dout); then h^T and dy^T (the weight gradients, over rows)
+  WideWeightJobs jobs{};
+  jobs.w[0] = WideWeights{wqp, p + sc.wqkv, p + sc.wqkv_lo, i3, d, i3, d, 0, 0, 0, wkvp, inner};
+  jobs.w[1] = WideWeights{wqp, p + sc.wqkvt, p + sc.wqkvt_lo, i3, d, d, i3, 1, 0, 0, wkvp, inner};
+  jobs.w[2] = WideWeights{static_cast<const float*>(wo), p + sc.wo, p + sc.wo_lo, d, inner, inner, d, 1, 0, 0};
+  cudaError_t err = ffn_tf32::split_weights(jobs, 3, s);
+  if (err == cudaSuccess) err = block_f32_norms(xp, g1p, g2p, p + sc.a, p + sc.h, m, d, s);
+  WideWeightJobs rows{};
+  rows.w[0] = WideWeights{p + sc.h, p + sc.ht, p + sc.ht_lo, m, d, d, sc.mp, 1, 0, 0};
+  rows.w[1] = WideWeights{dyp, p + sc.dyt, p + sc.dyt_lo, m, d, d, sc.mp, 1, 0, 0};
+  if (err == cudaSuccess) err = ffn_tf32::split_weights(rows, 2, s);
+  WideGemms gs{};
+  gs.n = 2;
+  gs.g[0] = qkv_product(p, sc, m, d, inner);
+  gs.g[1] = wide_gemm(WideA{dyp, d, m, d}, wide_b(p + sc.wo, p + sc.wo_lo, d, inner, d), m, inner, 1, dout,
+                      inner);  // dout = dy Wo
+  if (err == cudaSuccess) err = ffn_tf32::launch_wide_gemms<0>(gs, s);
   if (err == cudaSuccess)
     err = zorro::dispatch_f32<zorro::MODE_ZORRO>(dh, slab32(qkv, n, inner), tp, nullptr, 0, out, p + sc.lse, batch,
                                                  n, heads, (long long)n * inner, inner, n, scale, fusion_type, s);
   if (err == cudaSuccess) {
-    const zorro::GradOperands32 grad{dqkv, dqkv + inner, dqkv + 2 * inner, (long long)n * i3, i3};
+    const zorro::GradOperands32 grad{dqkv, dqkv + inner, dqkv + 2 * inner, (long long)n * i3, (long long)i3};
     err = zorro::dispatch_bwd_f32<zorro::MODE_ZORRO>(dh, slab32(qkv, n, inner), tp, nullptr, 0, out, p + sc.lse,
                                                      dout, grad, p + sc.delta, batch, n, heads, n, scale,
                                                      fusion_type, s);
   }
-  if (err == cudaSuccess)  // dhid = dq Wq + dkv Wkv
-    err = product_store(Mat{dqkv, i3, 1}, Mat{wqp, d, 1}, p + sc.dhid, d, m, d, inner, nullptr, nullptr, 0, s);
+  // dhid = dqkv [Wq; Wkv]: one contraction of 3I
+  gs.n = 1;
+  gs.g[0] = wide_gemm(WideA{dqkv, i3, m, i3}, wide_b(p + sc.wqkvt, p + sc.wqkvt_lo, i3, d, i3), m, d, 1, p + sc.dhid,
+                      d);
+  if (err == cudaSuccess) err = ffn_tf32::launch_wide_gemms<0>(gs, s);
+  // over ranges of rows: dWqkv [3I, D] = dqkv^T h and dWo^T [I, D] = out^T dy
+  // (stored as dWo [D, I]), A read transposed from the row-major dqkv and out
+  gs.n = 2;
+  gs.g[0] = wide_gemm(WideA{dqkv, i3, i3, m}, wide_b(p + sc.ht, p + sc.ht_lo, sc.mp, d, sc.mp), i3, d, sc.splits,
+                      p + sc.part_qkv, d);
+  gs.g[1] = wide_gemm(WideA{out, inner, inner, m}, wide_b(p + sc.dyt, p + sc.dyt_lo, sc.mp, d, sc.mp), inner, d,
+                      sc.splits, p + sc.part_o, inner, 1);
+  if (err == cudaSuccess) err = ffn_tf32::launch_wide_gemms<1>(gs, s);
   if (err == cudaSuccess)
-    err = product_store(Mat{dqkv + inner, i3, 1}, Mat{wkvp, d, 1}, p + sc.dhid, d, m, d, 2 * inner, nullptr,
-                        p + sc.dhid, d, s);
-  if (err == cudaSuccess) err = ln_bwd(p + sc.a, g2p, p + sc.dhid, nullptr, p + sc.da, p + sc.part_g2, m, d, s);
+    err = simt_f32::ln_bwd(p + sc.a, g2p, p + sc.dhid, nullptr, p + sc.da, p + sc.part_g2, m, d, s);
   if (err == cudaSuccess)
-    err = ln_bwd(xp, g1p, p + sc.da, dyp, static_cast<float*>(dx), p + sc.part_g1, m, d, s);
-  if (err == cudaSuccess) err = weight_grad_partials(dqkv, i3, p + sc.h, d, m, 3 * inner, d, p + sc.part_qkv, s);
-  if (err == cudaSuccess) err = weight_grad_partials(dyp, d, out, inner, m, d, inner, p + sc.part_o, s);
+    err = simt_f32::ln_bwd(xp, g1p, p + sc.da, dyp, static_cast<float*>(dx), p + sc.part_g1, m, d, s);
   if (err == cudaSuccess) {
-    const int sp = splits_for(m), lb = ln_blocks(m);
-    Segments segs{{{p + sc.part_qkv, sp, i3 * d, static_cast<float*>(dw_qkv)},
-                   {p + sc.part_o, sp, (long long)d * inner, static_cast<float*>(dwo)},
-                   {p + sc.part_g1, lb, d, static_cast<float*>(dg1)},
-                   {p + sc.part_g2, lb, d, static_cast<float*>(dg2)}},
-                  4};
-    err = reduce(segs, s);
+    const int sp = gs.g[0].splits, lb = simt_f32::ln_blocks(m);
+    const simt_f32::Segments segs{{{p + sc.part_qkv, sp, (long long)i3 * d, static_cast<float*>(dw_qkv)},
+                                   {p + sc.part_o, sp, (long long)d * inner, static_cast<float*>(dwo)},
+                                   {p + sc.part_g1, lb, d, static_cast<float*>(dg1)},
+                                   {p + sc.part_g2, lb, d, static_cast<float*>(dg2)}},
+                                  4};
+    err = simt_f32::reduce(segs, s);
   }
   return (int)err;
 }

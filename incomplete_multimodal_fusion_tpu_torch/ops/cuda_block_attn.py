@@ -19,8 +19,13 @@ to ``MAX_D``, dh in 32, 64, 128) or raises. The bf16 instance: the forward
 three (the projection pass, K1's forward, the out projection), the backward
 eight (the projection pass, dout, K1's forward with its D epilogue, K1b's
 two, the row pass, the weight-gradient product and its reduction). The f32
-instance (``*_f32`` in the library, the TPU kernel's f32 path): the forward
-six, the backward fifteen, every product and sum in f32.
+instance (``*_f32`` in the library, the TPU kernel's f32 path; every product
+in three TF32 parts on the tensor cores, ffn_tf32_wide.cuh's, every sum in
+f32): the forward six (the weights' split, the two LayerNorms, the qkv
+product, K1's f32 forward, the out projection with the residual), the
+backward thirteen (the weights' split, the two LayerNorms, h and dy split
+transposed, qkv and dout, K1's f32 forward, K1b's two, dhid, the weight
+gradients, the two LayerNorm backwards, the reduction).
 ``fused_block_attn`` is what ``EncoderBlock(fused_block=True)`` calls.
 """
 from __future__ import annotations
@@ -201,8 +206,11 @@ def _f32_scratch_fn():
 
 
 def _f32_scratch(x, backward: bool, inner: int, heads: int):
+    """The f32 instance's workspace, sized by its library for x's card
+    (the weight gradients' row ranges follow its SM count)."""
     b, n, d = x.shape
-    floats = _f32_scratch_fn()(int(backward), b, n, d, inner, heads)
+    with torch.cuda.device(x.device):
+        floats = _f32_scratch_fn()(int(backward), b, n, d, inner, heads)
     return torch.empty((floats,), dtype=torch.float32, device=x.device)
 
 

@@ -33,20 +33,21 @@ FUSION = 2
 PAD = 255
 
 
-def _data(dtype=np.float32):
+def _data(dtype=np.float32, shape=(B, N, D, H, DH)):
     """x, types and the JAX-layout weights (g1, g2 [1, D], wq [D, I],
-    wkv [D, 2I], wo [I, D]) of tests/test_pallas_block_attn.py, and a
-    cotangent dy."""
+    wkv [D, 2I], wo [I, D]) of tests/test_pallas_block_attn.py (at its
+    shape, or another (B, N, D, heads, dh)), and a cotangent dy."""
+    b, n, d, heads, dh = shape
     rng = np.random.default_rng(0)
-    x = rng.normal(size=(B, N, D)).astype(dtype)
-    types = rng.integers(0, 3, size=(B, N)).astype(np.int32)
+    x = rng.normal(size=(b, n, d)).astype(dtype)
+    types = rng.integers(0, 3, size=(b, n)).astype(np.int32)
     types[:, -5:] = PAD
     rng = np.random.default_rng(1)
-    inner = H * DH
-    weights = [(rng.normal(size=(1, D)) * 0.1 + 1.0), (rng.normal(size=(1, D)) * 0.1 + 1.0),
-               rng.normal(size=(D, inner)) * 0.05, rng.normal(size=(D, 2 * inner)) * 0.05,
-               rng.normal(size=(inner, D)) * 0.05]
-    dy = np.random.default_rng(2).normal(size=(B, N, D))
+    inner = heads * dh
+    weights = [(rng.normal(size=(1, d)) * 0.1 + 1.0), (rng.normal(size=(1, d)) * 0.1 + 1.0),
+               rng.normal(size=(d, inner)) * 0.05, rng.normal(size=(d, 2 * inner)) * 0.05,
+               rng.normal(size=(inner, d)) * 0.05]
+    dy = np.random.default_rng(2).normal(size=(b, n, d))
     return x, types, [w.astype(dtype) for w in weights], dy.astype(dtype)
 
 
@@ -63,22 +64,30 @@ def _jax_grads_in_port_layout(grads):
     return [dx, dg1[0], dg2[0], dwq.T, dwkv.T, dwo.T]
 
 
-def _jax_vjp(fn, x, types, weights, dy):
+def _jax_vjp(fn, x, types, weights, dy, heads=H):
     jt = jnp.asarray(types)
-    out, pullback = jax.vjp(lambda x_, *w: fn(x_, jt, *w, H, FUSION), jnp.asarray(x),
+    out, pullback = jax.vjp(lambda x_, *w: fn(x_, jt, *w, heads, FUSION), jnp.asarray(x),
                             *map(jnp.asarray, weights))
     return np.asarray(out, np.float32), _jax_grads_in_port_layout(pullback(jnp.asarray(dy)))
 
 
-@pytest.mark.parametrize("jax_fn", ["pallas", "xla"])
-def test_plain_versions_match_jax_f32(jax_fn):
-    x, types, weights, dy = _data()
+# the JAX tests' shape, then two whose contraction windows end in a tail on
+# the card (D = 48: half a window of 32; I = 1280 under D = 64, the widest
+# inner width the card tests take at that D): the plain version the card
+# holds the f32 kernel against, pinned to JAX at each
+@pytest.mark.parametrize("jax_fn,shape", [
+    ("pallas", (B, N, D, H, DH)), ("xla", (B, N, D, H, DH)), ("pallas", (1, 33, 48, 2, 32)),
+    ("xla", (1, 33, 48, 2, 32)), ("pallas", (2, 100, 64, 20, 64)), ("xla", (2, 100, 64, 20, 64))],
+    ids=["pallas", "xla", "pallas-d48-n33", "xla-d48-n33", "pallas-d64-i1280", "xla-d64-i1280"])
+def test_plain_versions_match_jax_f32(jax_fn, shape):
+    heads = shape[3]
+    x, types, weights, dy = _data(shape=shape)
     fn = jblock.fused_block_attn if jax_fn == "pallas" else jblock.fused_block_attn_xla
-    ref, ref_grads = _jax_vjp(fn, x, types, weights, dy)
+    ref, ref_grads = _jax_vjp(fn, x, types, weights, dy, heads)
     tx, tt, tdy = torch.from_numpy(x), torch.from_numpy(types), torch.from_numpy(dy)
     w = _port_weights(weights)
-    y = cuda_block_attn.fused_block_attn(tx, tt, *w, H, FUSION)
-    grads = cuda_block_attn.fused_block_attn_backward(tx, tt, *w, tdy, H, FUSION)
+    y = cuda_block_attn.fused_block_attn(tx, tt, *w, heads, FUSION)
+    grads = cuda_block_attn.fused_block_attn_backward(tx, tt, *w, tdy, heads, FUSION)
     np.testing.assert_allclose(to_np(y), ref, atol=2e-5)
     for name, got, want in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), grads, ref_grads):
         np.testing.assert_allclose(to_np(got), want, atol=5e-5, err_msg=name)

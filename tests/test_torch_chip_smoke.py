@@ -285,11 +285,11 @@ F32_PER_CALL = {"zorro_attention_qkv/zorro_f32": 1, "zorro_attention_qkv/zorro_f
                 "fused_ffn/geglu_f32": 2, "fused_ffn/geglu_f32_backward": 4, "fused_ffn/mlp_f32": 2,
                 "fused_ffn/mlp_f32_backward": 4, "fusion_row_attention/fusion_row_f32": 1,
                 "fusion_row_attention/fusion_row_f32_backward": 1, "fused_block_attn/f32_forward": 6,
-                "fused_block_attn/f32_backward": 15, "fused_ffn/mlp_tasks_f32": 2}
+                "fused_block_attn/f32_backward": 13, "fused_ffn/mlp_tasks_f32": 2}
 F32_KERNELS = {"zorro": {"zorro_attention_f32_fwd_kernel", "zorro_attention_f32_dq_kernel",
                          "zorro_attention_f32_dkdv_kernel"},
-               "simt": {"simt_f32_product_kernel", "simt_f32_colsum_kernel", "simt_f32_reduce_kernel",
-                        "simt_f32_ln_fwd_kernel", "simt_f32_ln_bwd_kernel"},
+               "simt": {"simt_f32_colsum_kernel", "simt_f32_reduce_kernel", "simt_f32_ln_fwd_kernel",
+                        "simt_f32_ln_bwd_kernel"},
                "tf32": {"ffn_tf32_split_kernel", "ffn_tf32_fwd_rows_kernel", "ffn_tf32_fwd_reduce_kernel",
                         "ffn_tf32_bwd_rows_kernel", "ffn_tf32_wgrad_kernel", "ffn_tf32_wide_act_kernel",
                         "ffn_tf32_wide_act_bwd_kernel", "ffn_tf32_wide_gemm_kernel", "ffn_tf32_wide_weights_kernel"}}
@@ -313,6 +313,37 @@ def test_f32_entries_are_profiled_by_their_own_kernels(smoke, entry):
     else:
         assert picked and all("f32" in k for k in picked)
         assert picked <= F32_KERNELS["zorro"] | F32_KERNELS["simt"] | F32_KERNELS["tf32"]
+
+
+# the FFMA product that the f32 instances ran before their tensor-core
+# products: its kernel, its tile and its entry points
+FFMA_PRODUCT = re.compile(r"\b(simt_f32_product_kernel|product_tile|product_store|weight_grad_partials|EPI_PARTIAL|"
+                          r"EPI_STORE)\b|simt_f32::product\b")
+
+
+CSRC = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
+def test_no_source_defines_or_calls_the_ffma_product(source):
+    """Every f32 product runs on the tensor cores (3xTF32 wgmma): no CUDA
+    source defines or calls the CUDA-core FFMA product any more."""
+    text = (CSRC / source).read_text()
+    assert not FFMA_PRODUCT.search(text), FFMA_PRODUCT.search(text)
+
+
+def test_k6_f32_runs_the_wide_products(smoke):
+    """K6 / K6b's f32 instance is profiled by ffn_tf32_wide.cuh's products
+    and weight splits, simt_f32's LayerNorms and reduction and K1 / K1b's f32
+    kernels, six launches forward and thirteen backward."""
+    kernels = _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_block_attn.cu")
+    for entry, per_call in (("fused_block_attn/f32_forward", 6), ("fused_block_attn/f32_backward", 13)):
+        names, n = smoke.entry_kernels(entry)
+        assert n == per_call
+        picked = {k for k in kernels if any(name in k for name in names)}
+        assert {"ffn_tf32_wide_gemm_kernel", "ffn_tf32_wide_weights_kernel", "simt_f32_ln_fwd_kernel",
+                "simt_f32_ln_bwd_kernel", "simt_f32_reduce_kernel", "zorro_attention_f32_fwd_kernel",
+                "zorro_attention_f32_dq_kernel", "zorro_attention_f32_dkdv_kernel"} <= picked
 
 
 def test_the_f32_keys_of_the_bf16_entries(smoke):

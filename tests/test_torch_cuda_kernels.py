@@ -1720,9 +1720,11 @@ def _block_case_f32(dev, b, n, d, heads, dh):
     return x.float(), types, tuple(t.float() for t in w), dy.float()
 
 
-@pytest.mark.parametrize("b,n,d,heads,dh", [(2, 70, 64, 1, 64), (3, 100, 96, 3, 32), (2, 64, 128, 1, 128),
-                                            (1, 33, 48, 2, 32), (60, 640, 192, 3, 64), (2, 100, 1664, 13, 128),
-                                            (2, 100, 64, 20, 64)])
+_BLOCK_F32_SHAPES = [(2, 70, 64, 1, 64), (3, 100, 96, 3, 32), (2, 64, 128, 1, 128), (1, 33, 48, 2, 32),
+                     (60, 640, 192, 3, 64), (2, 100, 1664, 13, 128), (2, 100, 64, 20, 64)]
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", _BLOCK_F32_SHAPES)
 def test_fused_block_f32_matches_plain(dev, b, n, d, heads, dh):
     """K6 / K6b's f32 instance within F32_REL_L2 of the f32 plain versions,
     at the pretraining shape and out to D = I = 1664."""
@@ -1736,6 +1738,37 @@ def test_fused_block_f32_matches_plain(dev, b, n, d, heads, dh):
     assert [g.shape for g in grads] == [r.shape for r in ref_grads]
     for name, g, r in zip(("dx", "dg1", "dg2", "dwq", "dwkv", "dwo"), grads, ref_grads):
         assert _rel_all([g], [r]) <= F32_REL_L2, name
+
+
+@pytest.mark.parametrize("b,n,d,heads,dh", _BLOCK_F32_SHAPES)
+def test_fused_block_f32_runs_tensor_core_kernels_at_every_width(dev, b, n, d, heads, dh):
+    """K6 / K6b's f32 instance runs its products on ffn_tf32_wide.cuh's
+    3xTF32 wgmma kernels (the weights' and rows' split, the product
+    launches) and no FFMA product, at every shape the plain comparison takes.
+    Measured as chip_smoke.py's profiles are: after a warm-up, three calls a
+    profile, up to three profiles."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, types, w, dy = _block_case_f32(dev, b, n, d, heads, dh)
+
+    def run():
+        cuda_block_attn.fused_block_attn(x, types, *w, heads, 3)
+        cuda_block_attn.fused_block_attn_backward(x, types, *w, dy, heads, 3)
+
+    run()
+    torch.cuda.synchronize()
+    kinds = ("ffn_tf32_wide_gemm", "ffn_tf32_wide_weights", "zorro_attention_f32", "simt_f32_ln_bwd")
+    names = set()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        names |= {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+        if all(any(k in n_ for n_ in names) for k in kinds):
+            break
+    assert all(any(k in n_ for n_ in names) for k in kinds), names
+    assert not any("simt_f32_product" in n_ for n_ in names), names
 
 
 def test_fused_block_f32_backward_is_bitwise_the_same_run_to_run(dev):
