@@ -22,6 +22,7 @@ feeding the steps and the CLIs from trees on disk.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
+    python3 chip_smoke.py --phases kernels,bf16-base   # phases 1, 2 and those named (PHASES), no result line
 
 Phases (any failure raises; the exit code is then non-zero):
   1. device   -- the card's name and power limit; fails without CUDA.
@@ -276,6 +277,23 @@ Phases (any failure raises; the exit code is then non-zero):
                  plain path. For each mode device ms a step, its
                  collectives' ms and peak memory a rank: two ranks share
                  one card, so none is a multi-GPU figure.
+ 18. bf16-base -- MODEL_SIZES['base'] (d = 768, 8 x 64 heads, GEGLU inner
+                 2048, depth 12, F = 256, the simple decoder) in the default
+                 compute_dtype (bf16 over f32 masters), its encoder and fusion
+                 FFNs on K2 / K2b's bf16 wide path: (i) one B = 1 serving
+                 forward with dem dropped through serving.infer_closure
+                 (exact launches, bitwise unmoved by dem's pixels,
+                 SERVING_REL_L2 against the plain path); (ii) the
+                 pretraining step at B = 60, held against its plain path
+                 on the batch's first BF16_BASE_COMPARE_ROWS rows (the plain
+                 path's B = 60 backward passes the card's 80 GB;
+                 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2), exact launches,
+                 BF16_BASE_STEPS timed steps; device ms and the K2 / K2b
+                 share, busy, peak memory, wall p50. Phase 3 has K2 / K2b's
+                 `base` rows at the step's M = 38,400 and 15,360.
+With --phases, phases 1 and 2 and the named ones run (a phase that reads
+another's model brings that one along: encoder-variants train, f32
+segment-train), and no result line is printed.
 Prints one JSON line of per-kernel results, the card's nvidia-smi line, and
 last the JSON device line.
 """
@@ -455,10 +473,10 @@ def entry_kernels(entry: str, label: str = ""):
     launches (K4, K3 and K3b: one kernel at every shape, its instantiation
     chosen by the operands' widths and alignment; K5b one, its fixed-point
     kernel or, past shared memory, the global-atomics one). K2's forward and K4b
-    launch 1 here; phase 3 takes their count
+    launch 1 here; phase 3 takes their count, and that of K2b's wide rows,
     on a row from their libraries' plans (``cuda_ffn.forward_kernels``,
-    ``cuda_msda.backward_kernels``), which split the work over more kernels
-    at some shapes."""
+    ``cuda_ffn.backward_kernels``, ``cuda_msda.backward_kernels``), which
+    split the work over more kernels at some shapes."""
     backward = entry.endswith("backward")
     if is_f32(entry):  # the f32 instances (ffn_tf32.cuh, simt_f32.cuh, zorro_attention_f32.cuh, K3 on float)
         if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
@@ -472,8 +490,10 @@ def entry_kernels(entry: str, label: str = ""):
             # weight splits, simt_f32's LayerNorms and reduction, K1 / K1b f32; forward 6, backward 13
             return ("ffn_tf32_wide", "simt_f32", "zorro_attention_f32"), 13 if backward else 6
     if entry.startswith("fused_ffn/") and backward and label.endswith("wide path)"):  # K2b's wide path (WIDE,
-        # WIDE_LARGE): (norm), rows, dx, (LN), wgrad's two
-        return ("ffn_bwd", "wgrad"), 6 if entry.startswith("fused_ffn/geglu") else 4
+        # WIDE_LARGE): (norm), the activations' products, one launch of the weight gradients and dxn, (LN),
+        # wgrad's reduction; phase 3 takes the count on a row from the library's plan
+        # (``cuda_ffn.backward_kernels``)
+        return ("ffn_bwd", "wgrad"), 5 if entry.startswith("fused_ffn/geglu") else 3
     if entry.startswith(("zorro_attention_qkv/", "zorro_attention_packed/", "zorro_sparse/")):
         return ("zorro_attention",), 2 if backward else 1  # K1b: dq, dk/dv
     if entry.startswith("fused_ffn/"):  # K2b: row pass, weight-gradient product, reduction
@@ -925,7 +945,8 @@ def phase_kernels(dev):
     fwd_bwd = {}  # SDPA forward and backward in turn, beside the K1b rows' library_ms
     chains = {}  # the unfused chain beside the K2, K2b and K6 / K6b rows, for reference only
     separate = {}  # single-task K2 launches beside the task-axis rows, for reference only
-    per_call = {}  # kernels a call of K2's forward and K4b, from their libraries' plans
+    per_call = {}  # kernels a call of K2's forward and backward and K4b, from their libraries' plans
+    base_step = {}  # launches a `base` pretraining step (phase 18) of the `base` rows' shapes
     yardstick = {}  # the f32 attention rows' SDPA call in the plain version's layout (sdpa_outputs)
 
     def zorro_cases(entry_mode, label, qkv, heads, types, main):
@@ -1072,25 +1093,36 @@ def phase_kernels(dev):
     chains["fused_ffn/mlp_backward", "M=15360 d=256 H=1024"] = unfused_backward(unfused_mlp, (x, *mlp_w), dy)
 
     # K2's and K2b's wide paths at the `base` widths (d = 768, I = 2048,
-    # H = 3072), past the row paths' d <= 256; no main path runs them
+    # H = 3072), past the row paths' d <= 256: M = 8192, and the rows a
+    # `base` pretraining step runs them at (phase 18: 38,400 encoder rows and
+    # 15,360 fusion rows of B = 60, 12 launches each a step); beside each
+    # K2b row, for reference, the bf16 chain's autograd backward
     bd, b_inner, b_hid = 768, 2048, 3072
     base_geglu_w = ((1 + 0.1 * torch.randn(bd, device=dev, generator=g)).to(bf),
                     randn(2 * b_inner, bd, scale=bd ** -0.5), randn(bd, b_inner, scale=b_inner ** -0.5))
     base_mlp_w = (randn(b_hid, bd, scale=bd ** -0.5), randn(b_hid, scale=0.1), randn(bd, b_hid, scale=b_hid ** -0.5),
                   randn(bd, scale=0.1))
-    x_base, dy_base = randn(8192, bd), randn(8192, bd)
-    geglu_case(f"M=8192 d={bd} I={b_inner} {WIDE}", x_base, base_geglu_w, False,
-               ffn_work(8192, False, True, d=bd, inner_ff=b_inner))
-    mlp_case(f"M=8192 d={bd} H={b_hid} {WIDE}", x_base, base_mlp_w, False,
-             ffn_work(8192, False, False, dd=bd, hid=b_hid))
-    cases.append(("fused_ffn/geglu_backward", f"M=8192 d={bd} I={b_inner} {WIDE}",
-                  lambda: cuda_ffn.geglu_ffn_backward(x_base, *base_geglu_w, dy_base),
-                  lambda: cuda_ffn.geglu_ffn_backward_reference(x_base, *base_geglu_w, dy_base),
-                  ffn_work(8192, True, True, d=bd, inner_ff=b_inner), None, False))
-    cases.append(("fused_ffn/mlp_backward", f"M=8192 d={bd} H={b_hid} {WIDE}",
-                  lambda: cuda_ffn.mlp_ffn_backward(x_base, *base_mlp_w, dy_base),
-                  lambda: cuda_ffn.mlp_ffn_backward_reference(x_base, *base_mlp_w, dy_base),
-                  ffn_work(8192, True, False, dd=bd, hid=b_hid), None, False))
+    for m, per_step in ((8192, 0), (38400, 12), (15360, 12)):
+        x_base, dy_base = randn(m, bd), randn(m, bd)
+        label = f"M={m} d={bd} I={b_inner} {WIDE}"
+        geglu_case(label, x_base, base_geglu_w, False, ffn_work(m, False, True, d=bd, inner_ff=b_inner))
+        cases.append(("fused_ffn/geglu_backward", label,
+                      lambda x=x_base, dy=dy_base: cuda_ffn.geglu_ffn_backward(x, *base_geglu_w, dy),
+                      lambda x=x_base, dy=dy_base: cuda_ffn.geglu_ffn_backward_reference(x, *base_geglu_w, dy),
+                      ffn_work(m, True, True, d=bd, inner_ff=b_inner), None, False))
+        chains["fused_ffn/geglu_backward", label] = unfused_backward(unfused_geglu, (x_base, *base_geglu_w), dy_base)
+        per_call["fused_ffn/geglu_backward", label] = cuda_ffn.backward_kernels(True, m, bd, b_inner, bd)
+        base_step["fused_ffn/geglu", label] = base_step["fused_ffn/geglu_backward", label] = per_step
+        if m == 8192:
+            label = f"M=8192 d={bd} H={b_hid} {WIDE}"
+            mlp_case(label, x_base, base_mlp_w, False, ffn_work(8192, False, False, dd=bd, hid=b_hid))
+            cases.append(("fused_ffn/mlp_backward", label,
+                          lambda x=x_base, dy=dy_base: cuda_ffn.mlp_ffn_backward(x, *base_mlp_w, dy),
+                          lambda x=x_base, dy=dy_base: cuda_ffn.mlp_ffn_backward_reference(x, *base_mlp_w, dy),
+                          ffn_work(8192, True, False, dd=bd, hid=b_hid), None, False))
+            chains["fused_ffn/mlp_backward", label] = unfused_backward(unfused_mlp, (x_base, *base_mlp_w), dy_base)
+            per_call["fused_ffn/mlp_backward", label] = cuda_ffn.backward_kernels(False, 8192, bd, b_hid, bd)
+            base_step["fused_ffn/mlp", label] = base_step["fused_ffn/mlp_backward", label] = 0  # the decoder's d = 256
     # the `large` widths: d = 1024 and the GEGLU inner width int(1024 * 8 / 3)
     # = 2730, not a multiple of 16, which the wrappers zero-pad to 2736
     ld, l_inner = 1024, 2730
@@ -1103,6 +1135,10 @@ def phase_kernels(dev):
                   lambda: cuda_ffn.geglu_ffn_backward(x_large, *large_w, dy_large),
                   lambda: cuda_ffn.geglu_ffn_backward_reference(x_large, *large_w, dy_large),
                   ffn_work(4096, True, True, d=ld, inner_ff=l_inner), None, False))
+    chains["fused_ffn/geglu_backward", f"M=4096 d={ld} I={l_inner} {WIDE_LARGE}"] = unfused_backward(
+        unfused_geglu, (x_large, *large_w), dy_large)
+    per_call["fused_ffn/geglu_backward", f"M=4096 d={ld} I={l_inner} {WIDE_LARGE}"] = cuda_ffn.backward_kernels(
+        True, 4096, ld, l_inner, ld)
 
     for b in (1, 8, 60):
         q, kvg, kvf = randn(b, f, 192), randn(b, 3 * f, 384), randn(b, f, 384)
@@ -1444,6 +1480,8 @@ def phase_kernels(dev):
         if library is not None:
             device["library_device_ms"], device["library_device_how"] = library_device_ms(library)
             fb += f", library {fmt_ms(device['library_device_ms'])} ({device['library_device_how']})"
+        if (entry, label) in base_step:
+            fb += f"; launches a `base` step {base_step[entry, label]}"
         log(f"[kernels] {entry:40s} {label:30s} max_abs_err {err:.6g} rel_l2 {rel:.6g} "
             f"kernel {ms_k:.6g} ms plain {ms_p:.6g} ms library "
             f"{'-' if ms_lib is None else f'{ms_lib:.6g} ms'}{fb} bound {bound_ms:.6g} ms ({bound_by})")
@@ -2551,6 +2589,151 @@ def f32_base(dev):
             and all(math.isfinite(v) for v in losses)):
         raise RuntimeError(f"[f32] (d) base f32 step, kernel vs plain path: loss rel {loss_rel} (bound "
                            f"{F32_LOSS_REL}), gradient rel L2 {grad_rel} (bound {F32_GRAD_REL_L2}), losses {losses}")
+    del model, state, optimizer, step, batch
+    return launches
+
+
+BF16_BASE_BATCH = 60  # PretrainConfig's B, cut only where the step's peak passes BF16_BASE_PEAK_GIB
+BF16_BASE_PEAK_GIB = 60
+# The step's own loss at B = 60 is held against the plain path's forward
+# without gradients on the same weights, batch and masks (it keeps no
+# backward state, so it fits). The gradients are held on the batch's first
+# 20 rows with masks of their own: the plain path's backward at B = 60 needs
+# more than the card's 80 GB (its attention keeps f32 scores and
+# probabilities of every block).
+BF16_BASE_COMPARE_ROWS = 20
+BF16_BASE_STEPS = 2  # timed steps, after one warm-up step
+K2_KERNELS = ("ffn_fwd", "ffn_bwd", "wgrad")  # K2's and K2b's bf16 kernels (the wide path's and the row path's)
+
+
+def k2_share(per_name) -> tuple:
+    """The ms of K2 / K2b's bf16 kernels in a profile by name
+    (``kernels_by_name``), and of their wide path's alone."""
+    k2 = sum(ms for k, ms in per_name.items() if any(n in k for n in K2_KERNELS))
+    wide = sum(ms for k, ms in per_name.items() if k.startswith(("ffn_fwd_wide", "ffn_bwd_wide")))
+    return k2, wide
+
+
+def phase_bf16_base(dev):
+    """Phase 18 (bf16-base): MODEL_SIZES['base'] (d = 768, 8 x 64 heads, GEGLU
+    inner 2048, depth 12, F = 256, s1 + s2 + dem at 256^2, the simple
+    decoder) in the default compute_dtype (bf16 over f32 masters), whose
+    encoder and fusion FFNs take K2 / K2b's bf16 wide path: (i) one B = 1
+    serving forward with dem dropped through serving.infer_closure, exact
+    launches, finite, bitwise unmoved by dem's pixels, within SERVING_REL_L2
+    of the plain path; (ii) the pretraining step through create_train_state
+    / make_train_step at PretrainConfig's B = 60 (BF16_BASE_BATCH), every
+    step on one batch and one draw of the step's masks: the step's loss
+    against the plain path's forward at B = 60 (TRAIN_LOSS_REL), loss and
+    gradients against the plain path on one set of masks over the batch's
+    first BF16_BASE_COMPARE_ROWS rows (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2),
+    exact launches a step, BF16_BASE_STEPS timed steps after a warm-up; for
+    both device ms, the K2 / K2b share, busy, peak memory and wall p50."""
+    doms = ("s1", "s2", "dem")
+    cfg = PretrainConfig(model=MODEL_SIZES["base"])
+    model = build_multimae(cfg, device=dev, generator=torch.Generator().manual_seed(SEED)).to(torch.bfloat16).eval()
+    closure = serving.infer_closure(model, None, model.in_domains)
+    run, perturbed = serve_request(model, closure, np.random.default_rng(SEED + 25), 1, ("dem",))
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_kernel_launches()
+    preds, pooled = run()
+    torch.cuda.synchronize()
+    launches = collections.Counter({k: n for k, n in ops.kernel_launches().items() if n})
+    if dict(launches) != PER_FORWARD:
+        raise RuntimeError(f"[bf16-base] serving forward: launches {dict(launches)}, expected {PER_FORWARD}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    preds2, pooled2 = run(perturbed())
+    moved = max([float((preds[d].float() - preds2[d].float()).abs().max()) for d in preds]
+                + [float((pooled.float() - pooled2.float()).abs().max())])
+    model.attn_impl = "xla"
+    preds_p, pooled_p = run()
+    model.attn_impl = "auto"
+    rel = max([rel_l2(preds[d], preds_p[d]) for d in preds] + [rel_l2(pooled, pooled_p)])
+    finite = all(torch.isfinite(p).all() for p in (*preds.values(), pooled))
+    dev_ms, _, per_name = kernels_by_name(run, reps=1)
+    k2, wide = k2_share(per_name)
+    lat = wall_ms(run, reps=5, warmup=2)
+    log(f"[bf16-base] (i) serving B=1, dem dropped (d=768, 8x64 heads, I=2048, depth 12): launches "
+        f"{dict(launches)}; dem-pixel max change {moved:.3g}; rel_l2 vs plain path {rel:.3g}; device "
+        f"{dev_ms:.6g} ms a forward (K2 kernels {k2:.6g} ms, the wide path's {wide:.6g}); busy "
+        f"{dev_ms / statistics.median(lat):.3f}; peak {peak / 2 ** 30:.4g} GiB; wall p50 "
+        f"{statistics.median(lat):.6g} ms")
+    if not (finite and moved <= 1e-6 and rel <= SERVING_REL_L2):
+        raise RuntimeError(f"[bf16-base] serving: finite {finite}, dem-pixel change {moved}, rel L2 {rel} > "
+                           f"{SERVING_REL_L2}")
+    del model, closure, preds, pooled, preds2, pooled2, preds_p, pooled_p
+
+    # (ii) the pretraining step at base's widths, full depth, B = 60
+    b = BF16_BASE_BATCH
+    cfg = PretrainConfig(model=MODEL_SIZES["base"], data=DataConfig(batch_size=b))
+    nums, e = (cfg.data.num_patches,) * len(doms), cfg.mask.num_encoded_tokens
+    model, state, optimizer = pretrain.create_train_state(cfg, SEED, total_steps=1000, device=dev)
+    step = pretrain.make_train_step(model, cfg, optimizer)
+    batch = {d: torch.from_numpy(v).to(dev)
+             for d, v in synthetic_batch(np.random.default_rng(SEED), doms, b, cfg.data.input_size).items()}
+    rows = BF16_BASE_COMPARE_ROWS
+    part = {d: v[:rows] for d, v in batch.items()}
+    mi = masking.generate_random_masks(torch.Generator().manual_seed(SEED), doms, nums, e, rows, device=dev)
+    loss_fn = pretrain.make_loss_fn(model, cfg)
+
+    def run_loss():
+        return loss_fn(dict(model.named_parameters()), part, mi)[0]
+
+    loss_k, g_k = loss_and_grads(model, run_loss)
+    model.attn_impl = "xla"
+    loss_p, g_p = loss_and_grads(model, run_loss)
+    model.attn_impl = "auto"
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel, worst = compare_grads(g_k, g_p)
+    del g_k, g_p, part
+    log(f"[bf16-base] (ii) pretraining step, kernel path against plain path on the batch's first {rows} rows (the "
+        f"plain path's B = {b} backward passes the card's memory): loss kernel path {loss_k:.6g}, plain path "
+        f"{loss_p:.6g}, rel diff {loss_rel:.3g}; flat gradient rel_l2 {grad_rel:.3g}; worst parameters: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in worst))
+    if not (math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2):
+        raise RuntimeError(f"[bf16-base] step, kernel vs plain path: loss rel {loss_rel} (bound {TRAIN_LOSS_REL}), "
+                           f"gradient rel L2 {grad_rel} (bound {TRAIN_GRAD_REL_L2})")
+    mi_step = step.draw_masks(state, b, dev)
+    model.attn_impl = "xla"
+    with torch.no_grad():
+        loss_plain = float(loss_fn(dict(model.named_parameters()), batch, mi_step, state.balancer_params)[0])
+    model.attn_impl = "auto"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_kernel_launches()
+    loss_step = float(step(state, batch, mi_step)[1]["loss"])
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.kernel_launches().items() if n}
+    if counts != PER_STEP:
+        raise RuntimeError(f"[bf16-base] step: launches {counts}, expected {PER_STEP}")
+    launches.update(counts)
+    step_rel = abs(loss_step - loss_plain) / abs(loss_plain)
+    log(f"[bf16-base] (ii) the step's loss at B = {b} {loss_step:.6g}, the plain path's forward on the same weights, "
+        f"batch and masks {loss_plain:.6g}, rel diff {step_rel:.3g}")
+    if not (math.isfinite(loss_step) and step_rel <= TRAIN_LOSS_REL):
+        raise RuntimeError(f"[bf16-base] step at B = {b}: loss {loss_step} against the plain path's {loss_plain}, "
+                           f"rel {step_rel} (bound {TRAIN_LOSS_REL})")
+    before = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    count = int(optimizer.count)
+    times, losses = step_times(lambda: step(state, batch, mi_step)[1], steps=BF16_BASE_STEPS, warmup=1)
+    dev_ms, n_kernels, per_name = kernels_by_name(lambda: step(state, batch, mi_step), reps=1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = float((torch.cat([p.detach().reshape(-1) for p in model.parameters()]) - before).abs().max())
+    k2, wide = k2_share(per_name)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[bf16-base] (ii) step: launches {counts}; losses {[round(v, 4) for v in losses]}; max weight change "
+        f"{moved:.3g}; wall p50 {statistics.median(times):.6g} ms over {BF16_BASE_STEPS} steps after a warm-up; "
+        f"device {dev_ms:.6g} ms a step in {sum(n_kernels.values()):.0f} kernels/copies (K2 / K2b {k2:.6g} ms, "
+        f"the wide path's {wide:.6g}); busy {dev_ms / statistics.median(times):.3f}; peak {peak / 2 ** 30:.4g} "
+        f"GiB (B = {b}, not cut: under {BF16_BASE_PEAK_GIB} GiB); top kernels "
+        + ", ".join(f"{k} {v:.4g} ms" for k, v in top))
+    if peak > BF16_BASE_PEAK_GIB * 2 ** 30:
+        raise RuntimeError(f"[bf16-base] step at B = {b}: peak {peak / 2 ** 30:.4g} GiB, past {BF16_BASE_PEAK_GIB} "
+                           "GiB: cut the batch")
+    if not (all(math.isfinite(v) for v in losses) and moved > 0.0
+            and int(optimizer.count) == count + 1 + BF16_BASE_STEPS + 2):
+        raise RuntimeError(f"[bf16-base] step: losses {losses}, max weight change {moved}, optimizer count "
+                           f"{int(optimizer.count)} (was {count})")
     del model, state, optimizer, step, batch
     return launches
 
@@ -4709,37 +4892,69 @@ def timed(name: str, phase, *args):
     return out
 
 
+# the phases a command line may choose (``--phases a,b``), in the order they
+# run; phases 1 (device) and 2 (build) always run
+PHASES = ("kernels", "serving", "train", "segment", "segment-train", "encoder-variants", "f32", "semantic-train",
+          "pretrain-state", "cli", "export", "pretrain-variants", "backbones", "data", "parallel", "bf16-base")
+NEEDS = {"encoder-variants": "train", "f32": "segment-train"}  # phases that read another's model and batch
+
+
+def chosen_phases(args) -> tuple:
+    """The phases a command line asks for: all of them with no argument,
+    phase 3 alone for ``--kernels-only``, or ``--phases a,b,...`` (names of
+    PHASES; a phase that reads another's state brings that one along)."""
+    if not args:
+        return PHASES
+    if args == ["--kernels-only"]:
+        return ("kernels",)
+    if len(args) == 2 and args[0] == "--phases":
+        names = [n.strip() for n in args[1].split(",") if n.strip()]
+        unknown = [n for n in names if n not in PHASES]
+        if unknown or not names:
+            raise SystemExit(f"chip_smoke.py: unknown phases {unknown}; choose from {', '.join(PHASES)}")
+        names += [NEEDS[n] for n in names if n in NEEDS]
+        return tuple(p for p in PHASES if p in names)
+    raise SystemExit("usage: python3 chip_smoke.py [--kernels-only | --phases a,b,...]")
+
+
 def main(argv) -> int:
     if argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(argv[2:])
+    chosen = chosen_phases(argv[1:])
     smi = phase_device()
     dev = torch.device("cuda", 0)
     timed("build", phase_build)
-    kernel_results = timed("kernels", phase_kernels, dev)
-    if argv[1:] == ["--kernels-only"]:  # phases 1-3 alone; no result line
-        return 0
+    kernel_results = timed("kernels", phase_kernels, dev) if "kernels" in chosen else {}
     # the main paths, each run with the counts set to 0 just before it
-    served = timed("serving", phase_serving, dev)
-    trained, train_context = timed("train", phase_train, dev)
-    segmented = timed("segment", phase_segment, dev)
-    seg_trained, seg_context = timed("segment-train", phase_segment_train, dev)
-    variants = timed("encoder variants", phase_encoder_variants, dev, train_context)
-    del train_context
-    in_f32 = timed("f32", phase_f32, dev, seg_context)
-    del seg_context
-    sem_trained = timed("semantic-train", phase_semantic_train, dev)
-    state_trained = timed("pretrain-state", phase_pretrain_state, dev)
-    by_cli = timed("cli", phase_cli, dev)
-    exported = timed("export", phase_export, dev)
-    pretrain_variants = timed("pretrain variants", phase_pretrain_variants, dev)
-    backbones = timed("backbones", phase_backbones, dev)
-    from_disk = timed("data", phase_data, dev)
-    in_parallel = timed("parallel", phase_parallel, dev)
+    runs, contexts = {}, {}
+    for name, label, phase in (("serving", "serving", phase_serving), ("train", "train", phase_train),
+                               ("segment", "segment", phase_segment),
+                               ("segment-train", "segment-train", phase_segment_train),
+                               ("encoder-variants", "encoder variants", phase_encoder_variants),
+                               ("f32", "f32", phase_f32), ("semantic-train", "semantic-train", phase_semantic_train),
+                               ("pretrain-state", "pretrain-state", phase_pretrain_state), ("cli", "cli", phase_cli),
+                               ("export", "export", phase_export),
+                               ("pretrain-variants", "pretrain variants", phase_pretrain_variants),
+                               ("backbones", "backbones", phase_backbones), ("data", "data", phase_data),
+                               ("parallel", "parallel", phase_parallel), ("bf16-base", "bf16-base", phase_bf16_base)):
+        if name not in chosen:
+            continue
+        args = (dev, contexts.pop(NEEDS[name])) if name in NEEDS else (dev,)
+        out = timed(label, phase, *args)
+        if name in ("train", "segment-train"):  # these also hand their model and batch on
+            out, context = out
+            if any(NEEDS.get(n) == name for n in chosen):
+                contexts[name] = context
+            del context
+        runs[name] = out
+    contexts.clear()
+    if chosen != PHASES:  # a chosen few: their launches, and no result line
+        log(f"[phases] {', '.join(chosen)} passed; launches: "
+            + json.dumps({name: {k: n for k, n in run.items() if n} for name, run in runs.items()}))
+        return 0
     entries = []
     for name in REPLACES:
-        launches = sum(run.get(name, 0) for run in (served, trained, segmented, seg_trained, variants, in_f32,
-                                                    sem_trained, state_trained, by_cli, exported, pretrain_variants,
-                                                    backbones, from_disk, in_parallel))
+        launches = sum(run.get(name, 0) for run in runs.values())
         if launches <= 0:
             raise RuntimeError(f"{name} was not launched by the main paths")
         entries.append(kernel_entry(name, kernel_results[name], launches))

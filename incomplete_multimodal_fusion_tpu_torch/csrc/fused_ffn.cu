@@ -53,12 +53,15 @@
 // The row path takes d, d_out <= 256 where its shared memory fits (GEGLU
 // d = 192: 197,632 bytes, one block an SM; MLP d = O = 256 the same). Past
 // that (the `base` and `large` widths, d = 768 and 1024) a wide path runs
-// instead: (GEGLU) the LayerNorm into an xn workspace, then a = act(xn .
-// W_in^T) as 128-row by 64-hidden-column wgmma tiles with xn and W_in
-// streamed in 64-column windows into an [M, I] bf16 workspace, then
-// y = a . W_out^T as 128 x 128 wgmma tiles over the hidden width. The
-// workspaces cost one write and read of M (d + I) bf16 (about 0.03 ms at
-// `base`, M = 8192) against recomputing u for every 256 columns of y.
+// instead, on ffn_wide.cuh's pipelined product body (a 4-stage cp.async ring
+// of 64-column windows, wgmma with one group left in flight): (GEGLU) the
+// LayerNorm into an xn workspace; a = act(xn . W_in^T) as tiles of 128 rows
+// by 128 hidden units (256 B rows: val and gate) or, for the MLP, 256 units,
+// the activation formed on the accumulator fragments, into an [M, I] bf16
+// workspace, so xn is read once for every 128 units; then y = a . W_out^T
+// as 128 x 256 (or 192) tiles over the hidden width. The workspaces cost one write
+// and read of M (d + I) bf16 (about 0.03 ms at `base`, M = 8192) against
+// recomputing u for every 256 columns of y.
 // No atomics: two calls are bitwise equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +69,7 @@
 
 #include <atomic>
 
+#include "ffn_wide.cuh"
 #include "hopper.cuh"
 #include "simt_f32.cuh"
 
@@ -80,7 +84,6 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int HC = 64;      // hidden columns a chunk
 constexpr int MAX_D = 256;  // the row path's d (one LayerNorm pass a warp) and d_out (y in registers)
-constexpr int KW = 64;      // reduction columns a window on the wide path
 constexpr int MAX_SMEM = 232448;  // a block's shared memory on sm_90 (227 KB)
 constexpr float LN_EPS = 1e-5f;
 
@@ -378,13 +381,6 @@ ffn_fwd_split_reduce_kernel(const float* __restrict__ part, const bf16* __restri
   }
 }
 
-// The wide path's stages: an A window [BM, KW] and a B window [NBR, KW],
-// both K-major in the 128-byte swizzle; two stages.
-template <int NBR>
-struct WideSmem {
-  static constexpr uint32_t A = 0, B = BM * KW * 2, STAGE = B + NBR * KW * 2, BYTES = 2 * STAGE + 1024;
-};
-
 // GEGLU, wide path: the LayerNorm of the rows, cast to bf16, into the xn
 // workspace, a warp a row, two columns a lane at a time
 __global__ void __launch_bounds__(THREADS)
@@ -414,152 +410,100 @@ ffn_fwd_wide_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ga
   }
 }
 
-// Wide path, the hidden activation: block = BM rows by HC hidden columns,
-// u = xs . W_in[chunk]^T with xs (xn, or x for the MLP) and the chunk's W_in
-// rows streamed in KW-column windows, double-buffered; then a (bf16, the
-// row path's activation) into the workspace [m, hid].
+// Wide path, the hidden activation: block = 128 rows (blockIdx.y) by the
+// hidden units of blockIdx.x (GEGLU 128: val and gate, 256 rows of W_in;
+// MLP 256 rows of W1), u = xs . W_in[units]^T on ffn_wide.cuh's product
+// body (xs: xn, or x for the MLP), then the row path's activation on the
+// accumulator fragments (GEGLU a = val gelu(gate), MLP gelu(h + b1); exact
+// erf) cast to bf16 into the workspace [m, hid].
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-ffn_fwd_wide_hidden_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w_in, const bf16* __restrict__ b_in,
-                           bf16* __restrict__ ws_a, int m, int d, int hid) {
-  constexpr int NU = nu_of(MODE);
-  using L = WideSmem<NU>;
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_fwd_wide_act_kernel(ffn_wide::Opnd xs, ffn_wide::Opnd w, const bf16* __restrict__ b_in, bf16* __restrict__ ws_a,
+                        int m, int hid) {
+  constexpr int UNITS = MODE == MODE_GEGLU ? ffn_wide::UT : ffn_wide::BN;
+  static_assert(ffn_wide::BN == THREADS, "a thread a unit of the MLP's b1");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
   const uint32_t sa = aligned_smem(smem_raw, &sm);
-  const int m0 = blockIdx.x * BM, c0 = blockIdx.y * HC;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane & 3;
-  const int wg = threadIdx.x / 128;
-  const int rb = wg * 64 + (warp % 4) * 16 + lane / 4;
-
-  auto load = [&](int k0, int stage) {
-    const uint32_t st = sa + stage * L::STAGE;
-    for (int i = threadIdx.x; i < BM * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const bool in = m0 + r < m && k0 + 8 * cc < d;
-      cp_async16(st + L::A + Sw128::offset(r, cc, BM), xs + (in ? (long long)(m0 + r) * d + k0 + 8 * cc : 0), in);
-    }
-    for (int i = threadIdx.x; i < NU * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const int unit = c0 + r % HC;
-      const bool in = unit < hid && k0 + 8 * cc < d;
-      const long long src = (long long)(r < HC ? unit : hid + unit) * d + k0 + 8 * cc;
-      cp_async16(st + L::B + Sw128::offset(r, cc, NU), w_in + (in ? src : 0), in);
-    }
-  };
-
-  float u[NU / 2];
+  const int c0 = blockIdx.x * UNITS, m0 = blockIdx.y * BM;
+  // MLP: the block's b1 slice, read before the product and handed to the
+  // epilogue through the freed ring
+  const float bias = MODE == MODE_MLP && c0 + (int)threadIdx.x < hid ? __bfloat162float(b_in[c0 + threadIdx.x]) : 0.0f;
+  float u[128];
 #pragma unroll
-  for (int i = 0; i < NU / 2; ++i) u[i] = 0.0f;
-  load(0, 0);
-  cp_async_commit();
-  for (int k0 = 0, stage = 0; k0 < d; k0 += KW, stage ^= 1) {
-    cp_async_wait_all();
-    fence_async_smem();
-    __syncthreads();  // window k0 has landed; the other stage is free
-    if (k0 + KW < d) {
-      load(k0 + KW, stage ^ 1);
-      cp_async_commit();
-    }
-    const uint32_t st = sa + stage * L::STAGE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KW / 16; ++kk) {
-      if (k0 + 16 * kk >= d) continue;
-      const uint64_t da = Sw128::kmajor(st + L::A + wg * 64 * 128, BM, kk);
-      if constexpr (MODE == MODE_GEGLU)
-        wgmma_ss_n128<0, 0>(u, da, Sw128::kmajor(st + L::B, NU, kk));
-      else
-        wgmma_ss_n64<0, 0>(u, da, Sw128::kmajor(st + L::B, NU, kk));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    keep(u);
+  for (int i = 0; i < 128; ++i) u[i] = 0.0f;
+  ffn_wide::product<256, 0, 0, ffn_wide::FWD_ACT_KW, ffn_wide::FWD_ACT_STAGES>(
+      u, xs, m0, w, c0, 0, ffn_wide::windows<ffn_wide::FWD_ACT_KW>(xs.k), sa);
+  const float* bs = reinterpret_cast<const float*>(sm);
+  if constexpr (MODE == MODE_MLP) {
+    reinterpret_cast<float*>(sm)[threadIdx.x] = bias;
+    __syncthreads();
   }
-  uint32_t fa[HC / 16][4];
-  activate<MODE>(u, b_in, c0, hid, t4, fa);
+  const int r0 = ffn_wide::frag_row(), t2 = ffn_wide::frag_col();
 #pragma unroll
-  for (int j = 0; j < HC / 8; ++j)
+  for (int j = 0; j < UNITS / 8; ++j) {
+    const int col = c0 + 8 * j + t2;
+    if (col >= hid) continue;  // hid is a multiple of 16: col + 1 is inside too
+    float2 bb = make_float2(0.0f, 0.0f);
+    if (MODE == MODE_MLP) bb = *reinterpret_cast<const float2*>(bs + 8 * j + t2);
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      const long long grow = (long long)m0 + rb + 8 * hi;
-      const int col = c0 + 8 * j + 2 * t4;
-      if (grow < m && col < hid) *reinterpret_cast<uint32_t*>(ws_a + grow * hid + col) = fa[j / 2][2 * (j % 2) + hi];
+      const long long row = (long long)m0 + r0 + 8 * hi;
+      if (row >= m) continue;
+      const int i = 4 * j + 2 * hi;
+      float a0, a1;
+      if constexpr (MODE == MODE_GEGLU) {
+        a0 = u[i] * gelu_erf(u[64 + i]);
+        a1 = u[i + 1] * gelu_erf(u[64 + i + 1]);
+      } else {
+        a0 = gelu_erf(u[i] + bb.x);
+        a1 = gelu_erf(u[i + 1] + bb.y);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(ws_a + row * hid + col) = __floats2bfloat162_rn(a0, a1);
     }
+  }
 }
 
-// Wide path, the output: y = a . W_out^T (+ b_out), block = BM rows by 128
-// columns, the a rows and W_out rows streamed in KW-column windows of the
-// hidden width, double-buffered.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-ffn_fwd_wide_out_kernel(const bf16* __restrict__ ws_a, const bf16* __restrict__ w_out,
-                        const bf16* __restrict__ b_out, bf16* __restrict__ y, int m, int hid, int d_out) {
-  using L = WideSmem<128>;
+// Wide path, the output: y = a . W_out^T (+ b_out), block = 128 rows by N =
+// 256 or 192 columns (ffn_wide::out_columns; blockIdx.x: the column tile
+// fastest, so the blocks on one row tile run together and read its a rows
+// once from device memory), on the same product body over the hidden
+// width; f32 sums, bf16 out.
+template <int MODE, int N>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_fwd_wide_out_kernel(ffn_wide::Opnd a, ffn_wide::Opnd w_out, const bf16* __restrict__ b_out, bf16* __restrict__ y,
+                        int m, int d_out) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
   const uint32_t sa = aligned_smem(smem_raw, &sm);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * 128;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane & 3;
-  const int wg = threadIdx.x / 128;
-  const int rb = wg * 64 + (warp % 4) * 16 + lane / 4;
-
-  auto load = [&](int k0, int stage) {
-    const uint32_t st = sa + stage * L::STAGE;
-    for (int i = threadIdx.x; i < BM * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const bool in_a = m0 + r < m && k0 + 8 * cc < hid;
-      cp_async16(st + L::A + Sw128::offset(r, cc, BM), ws_a + (in_a ? (long long)(m0 + r) * hid + k0 + 8 * cc : 0),
-                 in_a);
-      const bool in_b = n0 + r < d_out && k0 + 8 * cc < hid;
-      cp_async16(st + L::B + Sw128::offset(r, cc, 128),
-                 w_out + (in_b ? (long long)(n0 + r) * hid + k0 + 8 * cc : 0), in_b);
-    }
-  };
-
-  float acc[64];
+  const int ntiles = (d_out + N - 1) / N;
+  const int n0 = (blockIdx.x % ntiles) * N, m0 = (blockIdx.x / ntiles) * BM;
+  // MLP: the tile's b2 slice, read before the product, through the freed ring
+  const float bias = MODE == MODE_MLP && (int)threadIdx.x < N && n0 + (int)threadIdx.x < d_out
+                         ? __bfloat162float(b_out[n0 + threadIdx.x]) : 0.0f;
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  load(0, 0);
-  cp_async_commit();
-  for (int k0 = 0, stage = 0; k0 < hid; k0 += KW, stage ^= 1) {
-    cp_async_wait_all();
-    fence_async_smem();
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  ffn_wide::product<N, 0, 0, ffn_wide::FWD_OUT_KW, ffn_wide::FWD_OUT_STAGES>(
+      acc, a, m0, w_out, n0, 0, ffn_wide::windows<ffn_wide::FWD_OUT_KW>(a.k), sa);
+  const float* bs = reinterpret_cast<const float*>(sm);
+  if constexpr (MODE == MODE_MLP) {
+    reinterpret_cast<float*>(sm)[threadIdx.x] = bias;
     __syncthreads();
-    if (k0 + KW < hid) {
-      load(k0 + KW, stage ^ 1);
-      cp_async_commit();
-    }
-    const uint32_t st = sa + stage * L::STAGE;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KW / 16; ++kk) {
-      if (k0 + 16 * kk >= hid) continue;
-      wgmma_ss_n128<0, 0>(acc, Sw128::kmajor(st + L::A + wg * 64 * 128, BM, kk), Sw128::kmajor(st + L::B, 128, kk));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    keep(acc);
   }
+  const int r0 = ffn_wide::frag_row(), t2 = ffn_wide::frag_col();
 #pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const long long grow = (long long)m0 + rb + 8 * hi;
-    if (grow >= m) continue;
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = n0 + 8 * j + t2;
+    if (col >= d_out) continue;  // d_out is a multiple of 16: col + 1 is inside too
+    float2 bb = make_float2(0.0f, 0.0f);
+    if (MODE == MODE_MLP) bb = *reinterpret_cast<const float2*>(bs + 8 * j + t2);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + 8 * j + 2 * t4;
-      if (col >= d_out) continue;
-      float v0 = acc[4 * j + 2 * hi], v1 = acc[4 * j + 2 * hi + 1];
-      if (MODE == MODE_MLP) {
-        const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_out + col));
-        v0 += bb.x;
-        v1 += bb.y;
-      }
-      *reinterpret_cast<__nv_bfloat162*>(y + grow * d_out + col) = __floats2bfloat162_rn(v0, v1);
+    for (int hi = 0; hi < 2; ++hi) {
+      const long long row = (long long)m0 + r0 + 8 * hi;
+      if (row < m)
+        *reinterpret_cast<__nv_bfloat162*>(y + row * d_out + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * hi] + bb.x, acc[4 * j + 2 * hi + 1] + bb.y);
     }
   }
 }
@@ -624,12 +568,18 @@ static cudaError_t launch_rows(const bf16* x, const bf16* gamma, const bf16* w_i
   return cudaGetLastError();
 }
 
+// The wide path's launches: (GEGLU) the norm into the xn workspace, the
+// activation into the a workspace, the output product; each product
+// kernel's shared-memory limit is set once per device (a static of this
+// static function: one flag per instantiation and library).
 template <int MODE>
 static cudaError_t launch_wide(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* b_in,
                                const bf16* w_out, const bf16* b_out, bf16* y, bf16* ws, int m, int d, int hid,
                                int d_out, cudaStream_t stream) {
-  static std::atomic<unsigned> ready_hidden{0}, ready_out{0};
-  constexpr int NU = nu_of(MODE);
+  using namespace ffn_wide;
+  static std::atomic<unsigned> ready_act{0}, ready_out{0}, ready_out192{0};
+  constexpr uint32_t ACT_SMEM = ring_bytes<256, FWD_ACT_KW, FWD_ACT_STAGES>() + 1024;  // + the alignment slack
+  constexpr uint32_t SMEM = ring_bytes<256, FWD_OUT_KW, FWD_OUT_STAGES>() + 1024;
   cudaError_t err;
   const bf16* xs = x;
   bf16* ws_a = ws;
@@ -639,15 +589,25 @@ static cudaError_t launch_wide(const bf16* x, const bf16* gamma, const bf16* w_i
     xs = ws;
     ws_a = ws + (long long)m * d;
   }
-  auto hidden = ffn_fwd_wide_hidden_kernel<MODE>;
-  if ((err = allow_smem((const void*)hidden, WideSmem<NU>::BYTES, ready_hidden)) != cudaSuccess) return err;
-  hidden<<<dim3((m + BM - 1) / BM, (hid + HC - 1) / HC), THREADS, WideSmem<NU>::BYTES, stream>>>(xs, w_in, b_in,
-                                                                                                 ws_a, m, d, hid);
+  const int mtiles = (m + BM - 1) / BM;
+  // GEGLU: tile rows 0-127 the val rows of 128 units, 128-255 their gate rows
+  const Opnd w = MODE == MODE_GEGLU ? opnd(w_in, d, hid, d, UT, hid) : opnd(w_in, d, hid, d);
+  const int units = MODE == MODE_GEGLU ? UT : BN;
+  auto act = ffn_fwd_wide_act_kernel<MODE>;
+  if ((err = allow_smem((const void*)act, ACT_SMEM, ready_act)) != cudaSuccess) return err;
+  act<<<dim3((hid + units - 1) / units, mtiles), THREADS, ACT_SMEM, stream>>>(opnd(xs, d, m, d), w, b_in, ws_a, m, hid);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  auto out = ffn_fwd_wide_out_kernel<MODE>;
-  if ((err = allow_smem((const void*)out, WideSmem<128>::BYTES, ready_out)) != cudaSuccess) return err;
-  out<<<dim3((m + BM - 1) / BM, (d_out + 127) / 128), THREADS, WideSmem<128>::BYTES, stream>>>(ws_a, w_out, b_out,
-                                                                                               y, m, hid, d_out);
+  const Opnd a = opnd(ws_a, hid, m, hid), wo = opnd(w_out, hid, d_out, hid);
+  if (out_columns(m, d_out) == 192) {
+    constexpr uint32_t SMEM192 = ring_bytes<192, FWD_OUT_KW, FWD_OUT_STAGES>() + 1024;
+    auto out = ffn_fwd_wide_out_kernel<MODE, 192>;
+    if ((err = allow_smem((const void*)out, SMEM192, ready_out192)) != cudaSuccess) return err;
+    out<<<mtiles * ((d_out + 191) / 192), THREADS, SMEM192, stream>>>(a, wo, b_out, y, m, d_out);
+  } else {
+    auto out = ffn_fwd_wide_out_kernel<MODE, 256>;
+    if ((err = allow_smem((const void*)out, SMEM, ready_out)) != cudaSuccess) return err;
+    out<<<mtiles * ((d_out + 255) / 256), THREADS, SMEM, stream>>>(a, wo, b_out, y, m, d_out);
+  }
   return cudaGetLastError();
 }
 

@@ -46,21 +46,24 @@
 //      row-block vector partials) in a fixed order and casts to bf16.
 // The row pass holds d and d_out up to MAX_D (the dx accumulator is d / 2
 // registers a thread, the row tiles sit in shared memory). Past that (the
-// `base` and `large` widths) a wide path takes its place: a row pass that
-// streams xn and dy in windows and forms du without dx, a product
-// dxn = du . W_in over the hidden width, and the LN backward (see
-// ffn_bwd_wide_rows_kernel). The weight gradients are the same.
-// No atomics, so two calls are bitwise equal. The workspaces cost device
-// memory (du alone is 78 MB at M = 38,400) and one write and read each: at
-// 3.35 TB/s about 0.08 ms at that M (an estimate, not measured), against
-// recomputing u and da per hidden slice in the weight-gradient pass
-// (16 -> 22 M d I flops); which is faster is not measured.
+// `base` and `large` widths) a wide path takes its place, every product on
+// ffn_wide.cuh's pipelined body (a cp.async ring of 64-column windows, wgmma
+// with one group left in flight): a pass over blocks of 128 rows by 128
+// hidden units that forms u and da = dy . W_out and from them du and a
+// (reading xn and dy once for every 128 units, da stashed in shared memory
+// while u is formed), then one launch of the two weight gradients over row
+// ranges and dxn = du . W_in, the LN backward and the reduction (see
+// ffn_bwd_wide_act_kernel). No atomics, so two calls are bitwise equal. The
+// workspaces du, a and xn cost device memory (du alone is 67 MB at `base`,
+// M = 8192, and 315 MB at M = 38,400) and one write and read each, against
+// recomputing u and da in the weight-gradient pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
 
+#include "ffn_wide.cuh"
 #include "hopper.cuh"
 #include "simt_f32.cuh"
 #include "wgrad.cuh"
@@ -500,134 +503,219 @@ ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma, 
 }
 
 // The wide path, for d or d_out past MAX_D, whose dx accumulator and row
-// tiles the row pass cannot hold: four launches in its place.
+// tiles the row pass cannot hold: every product on ffn_wide.cuh's pipelined
+// body, GEGLU in five launches, MLP in three:
 //   a. GEGLU: LayerNorm, a warp a row, into the xn workspace;
-//   b. the wide row pass: blocks of BM rows and a slice of the hidden
-//      chunks of HC columns (the slices fill the card at small M), xn (x)
-//      and dy not resident: each chunk's products stream them in windows
-//      of KW reduction columns beside the W_in and W_out tiles of the
-//      window (cp.async, double-buffered). The GELU parts are the row
-//      pass's (gelu_chunk); du, a and the vector partials go to the same
-//      workspaces, and there is no dx;
-//   c. dxn = du . W_in (MLP: dx = dh . W1), a product of 128-row by 64 NB
-//      column tiles over the hidden width, f32 out for GEGLU;
-//   d. GEGLU: the bias-less LN backward, a warp a row, and the block's
-//      dgamma partial.
-constexpr int KW = 64;  // reduction columns a window
+//   b. the row pass's products (ffn_bwd_wide_act_kernel): a block of 128
+//      rows by 128 hidden units forms u and da, reading xn (x) and dy once
+//      for every 128 units, and stores du (dh) and a, with the MLP's db1 and
+//      db2 partials;
+//   c. one launch of three products: the two weight gradients over row
+//      ranges (f32 partials), then dxn = du . W_in (MLP: dx = dh . W1; GEGLU
+//      f32 out, for the LN backward);
+//   d. GEGLU: the bias-less LN backward, a warp a row, and the row blocks'
+//      dgamma partials;
+//   e. wgrad.cuh's reduction: every partial summed in a fixed order, cast
+//      once.
 
-// Byte offsets of one stage of the wide row pass: the xn (x) window
-// [BM, KW], the chunk's W_in rows [HC, KW] (gate rows after them, GEGLU),
-// the dy window [BM, KW] and W_out's window rows [KW, HC] (64-byte
-// swizzle); two stages, then the db1 buffers.
-struct WideSmem {
-  static constexpr uint32_t XW = 0, WV = XW + BM * KW * 2, WG = WV + HC * KW * 2, DYW = WG + HC * KW * 2,
-                            WO = DYW + BM * KW * 2, STAGE = WO + KW * HC * 2, RED = 2 * STAGE,
-                            BYTES = RED + 2 * WARPS * HC * 4 + 1024;  // + the alignment slack
-};
-static_assert(WideSmem::STAGE % 1024 == 0 && WideSmem::DYW % 1024 == 0, "swizzled tiles start on 1 KB");
-
+// The row pass's products: block = 128 rows (blockIdx.y) by UT = 128 hidden
+// units (blockIdx.x). First da = dy . W_out[:, units] (W_out read MN-major),
+// its f32 fragments stashed in shared memory, a thread's values where it
+// reads them back; then u = xs . W_in[units]^T (GEGLU: val and gate, 256 B
+// rows; MLP: h before b1, 128) on the same ring, so no thread holds more
+// than one product's accumulators. The GELU parts on the fragments: du =
+// [da gelu(gate), da val gelu'(gate)], a = val gelu(gate) (MLP: dh =
+// da gelu'(h), h = u + b1, a = gelu(h)), cast to bf16 into the workspaces
+// du [m, 2 hid] (dh [m, hid]) and a [m, hid]. MLP: the block's column sums
+// of the rounded dh (db1) and, in the first units' blocks, of dy (db2) into
+// its row of vec_part [row blocks, hid + d_out].
 template <int MODE>
-__global__ void __launch_bounds__(THREADS, 2)
-ffn_bwd_wide_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w_in,
-                         const bf16* __restrict__ b_in, const bf16* __restrict__ w_out, const bf16* __restrict__ dy,
-                         bf16* __restrict__ ws_h, bf16* __restrict__ ws_a, bf16* __restrict__ ws_xn,
-                         float* __restrict__ vec_part, int m, int d, int hid, int d_out, int cps) {
-  using L = WideSmem;
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_bwd_wide_act_kernel(ffn_wide::Opnd xs, ffn_wide::Opnd w_in, ffn_wide::Opnd dy, ffn_wide::Opnd w_out,
+                        const bf16* __restrict__ b_in, bf16* __restrict__ ws_h, bf16* __restrict__ ws_a,
+                        float* __restrict__ vec_part, int m, int hid, int d_out) {
+  constexpr int NU = MODE == MODE_GEGLU ? 256 : 128;  // u's columns
+  constexpr int KW = ffn_wide::ACT_BWD_KW, S = ffn_wide::act_bwd_stages(MODE == MODE_GEGLU);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm;
   const uint32_t sa = aligned_smem(smem_raw, &sm);
-  const int m0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane & 3;
-  const int wg = threadIdx.x / 128;
-  const int rb = wg * 64 + (warp % 4) * 16 + lane / 4;
-  float* red = reinterpret_cast<float*>(sm + L::RED);
-  const int chunks = (hid + HC - 1) / HC;
-  const int c_begin = blockIdx.y * cps, c_end = min(chunks, c_begin + cps);  // this block's slice
-  const int windows = ((d > d_out ? d : d_out) + KW - 1) / KW;
-  const int steps = (c_end - c_begin) * windows;
-  const bf16* xs = MODE == MODE_GEGLU ? ws_xn : x;
-
-  if (MODE == MODE_MLP && blockIdx.y == 0) {
-    // db2: this block's column sums of dy
-    for (int c = threadIdx.x; c < d_out; c += THREADS) {
-      float s = 0.0f;
-      for (int r = 0; r < BM && m0 + r < m; ++r) s += __bfloat162float(dy[(long long)(m0 + r) * d_out + c]);
-      vec_part[(long long)blockIdx.x * (hid + d_out) + hid + c] = s;
-    }
-  }
-
-  // step s: chunk c_begin + s / windows, window s % windows, into a stage;
-  // past m, d, d_out and hid: zeros
-  auto load = [&](int s, int stage) {
-    const int c0 = (c_begin + s / windows) * HC, k0 = (s % windows) * KW;
-    const uint32_t st = sa + stage * L::STAGE;
-    for (int i = threadIdx.x; i < BM * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const long long grow = m0 + r;
-      const int col = k0 + 8 * cc;
-      const bool in_x = grow < m && col < d, in_y = grow < m && col < d_out;
-      cp_async16(st + L::XW + Sw128::offset(r, cc, BM), xs + (in_x ? grow * d + col : 0), in_x);
-      cp_async16(st + L::DYW + Sw128::offset(r, cc, BM), dy + (in_y ? grow * d_out + col : 0), in_y);
-    }
-    for (int i = threadIdx.x; i < HC * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const bool in = c0 + r < hid && k0 + 8 * cc < d;
-      cp_async16(st + L::WV + Sw128::offset(r, cc, HC), w_in + (in ? (long long)(c0 + r) * d + k0 + 8 * cc : 0), in);
-      if (MODE == MODE_GEGLU)
-        cp_async16(st + L::WG + Sw128::offset(r, cc, HC),
-                   w_in + (in ? (long long)(hid + c0 + r) * d + k0 + 8 * cc : 0), in);
-    }
-    for (int i = threadIdx.x; i < KW * (HC / 8); i += THREADS) {
-      const int r = i / (HC / 8), cc = i % (HC / 8);
-      const bool in = k0 + r < d_out && c0 + 8 * cc < hid;
-      cp_async16(st + L::WO + Sw64::offset(r, cc), w_out + (in ? (long long)(k0 + r) * hid + c0 + 8 * cc : 0), in);
-    }
-  };
-
-  load(0, 0);
-  cp_async_commit();
-  float val[16], gate[16], da[16];
-  for (int s = 0; s < steps; ++s) {
-    const int stage = s & 1, c = c_begin + s / windows, k0 = (s % windows) * KW;
-    cp_async_wait_all();
-    fence_async_smem();
-    __syncthreads();  // step s has landed; the other stage is free
-    if (MODE == MODE_MLP && k0 == 0 && c > c_begin) flush_db1(red, c - 1, hid, d_out, vec_part);
-    if (s + 1 < steps) {
-      load(s + 1, stage ^ 1);
-      cp_async_commit();
-    }
-    if (k0 == 0) {
+  float* stash = reinterpret_cast<float*>(sm + ffn_wide::ring_bytes<NU, KW, S>());  // [64][THREADS]
+  const int c0 = blockIdx.x * ffn_wide::UT, m0 = blockIdx.y * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // MLP: the block's b1 slice, read before the products and handed to the
+  // epilogue through the freed ring (past the column sums' rows)
+  const float bias = MODE == MODE_MLP && tid < ffn_wide::UT && c0 + tid < hid ? __bfloat162float(b_in[c0 + tid]) : 0.0f;
+  {
+    float da[64];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) val[i] = gate[i] = da[i] = 0.0f;
-    }
-    const uint32_t st = sa + stage * L::STAGE;
-    const uint32_t xa = st + L::XW + wg * 64 * 128, ya = st + L::DYW + wg * 64 * 128;
-    wgmma_fence();
+    for (int i = 0; i < 64; ++i) da[i] = 0.0f;
+    ffn_wide::product<128, 0, 1, KW, S>(da, dy, m0, w_out, c0, 0, ffn_wide::windows<KW>(dy.k), sa);
 #pragma unroll
-    for (int kk = 0; kk < KW / 16; ++kk) {
-      if (k0 + 16 * kk < d) {
-        wgmma_ss_n32<0, 0>(val, Sw128::kmajor(xa, BM, kk), Sw128::kmajor(st + L::WV, HC, kk));
-        if (MODE == MODE_GEGLU) wgmma_ss_n32<0, 0>(gate, Sw128::kmajor(xa, BM, kk), Sw128::kmajor(st + L::WG, HC, kk));
-      }
-      if (k0 + 16 * kk < d_out) wgmma_ss_n32<0, 1>(da, Sw128::kmajor(ya, BM, kk), Sw64::mnmajor(st + L::WO, kk));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    keep(val);
-    if (MODE == MODE_GEGLU) keep(gate);
-    keep(da);
-    if (k0 + KW < (d > d_out ? d : d_out)) continue;  // the chunk's products are not complete yet
-    uint32_t fa[2][4], fb[2][4];
-    float csum[8];
-    gelu_chunk<MODE>(val, gate, da, b_in, ws_h, ws_a, m, (long long)m0 + rb, c * HC, hid, t4, fa, fb, csum);
-    if (MODE == MODE_MLP) store_column_sums(csum, red + (c & 1) * WARPS * HC + warp * HC, lane, t4);
+    for (int i = 0; i < 64; ++i) stash[i * THREADS + tid] = da[i];
   }
-  if (MODE == MODE_MLP) {
+  float u[NU / 2];
+#pragma unroll
+  for (int i = 0; i < NU / 2; ++i) u[i] = 0.0f;
+  ffn_wide::product<NU, 0, 0, KW, S>(u, xs, m0, w_in, c0, 0, ffn_wide::windows<KW>(xs.k), sa);
+  float* bs = reinterpret_cast<float*>(sm) + WARPS * ffn_wide::UT;  // [UT]
+  if constexpr (MODE == MODE_MLP) {
+    if (tid < ffn_wide::UT) bs[tid] = bias;
     __syncthreads();
-    flush_db1(red, c_end - 1, hid, d_out, vec_part);
+  }
+
+  const int r0 = ffn_wide::frag_row(), t2 = ffn_wide::frag_col();
+  const int hw = MODE == MODE_GEGLU ? 2 * hid : hid;  // width of du / dh
+  float csum[32];  // MLP: this thread's sums of the rounded dh over its two rows, a column each
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = c0 + 8 * j + t2;
+    float2 bb = make_float2(0.0f, 0.0f);
+    if (MODE == MODE_MLP) bb = *reinterpret_cast<const float2*>(bs + 8 * j + t2);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int i = 4 * j + 2 * hi;
+      float h0[2], h1[2] = {0.0f, 0.0f}, act[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float da = stash[(i + e) * THREADS + tid];
+        if constexpr (MODE == MODE_GEGLU) {
+          const float v = u[i + e], g = u[64 + i + e];
+          const float cdf = ffn_wide::gelu_cdf(g), gd = cdf + g * ffn_wide::gelu_pdf(g), gv = g * cdf;
+          h0[e] = da * gv;
+          h1[e] = da * v * gd;
+          act[e] = v * gv;
+        } else {
+          const float g = u[i + e] + (e ? bb.y : bb.x);
+          const float cdf = ffn_wide::gelu_cdf(g);
+          h0[e] = da * (cdf + g * ffn_wide::gelu_pdf(g));
+          act[e] = g * cdf;
+        }
+      }
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(h0[0], h0[1]);
+      const long long row = (long long)m0 + r0 + 8 * hi;
+      if (row < m && col < hid) {  // hid is a multiple of 16: col + 1 is inside too
+        *reinterpret_cast<__nv_bfloat162*>(ws_h + row * hw + col) = hv;
+        *reinterpret_cast<__nv_bfloat162*>(ws_a + row * hid + col) = __floats2bfloat162_rn(act[0], act[1]);
+        if (MODE == MODE_GEGLU)
+          *reinterpret_cast<__nv_bfloat162*>(ws_h + row * hw + hid + col) = __floats2bfloat162_rn(h1[0], h1[1]);
+      }
+      if (MODE == MODE_MLP) {  // rows past m and units past hid have da = 0, so dh = 0
+        const float2 f = __bfloat1622float2(hv);  // db1 sums the rounded dh
+        csum[2 * j] = (hi ? csum[2 * j] : 0.0f) + f.x;
+        csum[2 * j + 1] = (hi ? csum[2 * j + 1] : 0.0f) + f.y;
+      }
+    }
+  }
+  if constexpr (MODE == MODE_MLP) {
+    // db1: the warps' column sums (over their 16 rows) in the free ring, then
+    // summed over the warps in order
+    float* red = reinterpret_cast<float*>(sm);  // [WARPS][UT]
+#pragma unroll
+    for (int k = 0; k < 32; ++k) csum[k] = column_sum(csum[k]);
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        red[warp * ffn_wide::UT + 8 * j + t2] = csum[2 * j];
+        red[warp * ffn_wide::UT + 8 * j + t2 + 1] = csum[2 * j + 1];
+      }
+    }
+    __syncthreads();
+    float* vrow = vec_part + (long long)blockIdx.y * (hid + d_out);
+    if (tid < ffn_wide::UT && c0 + tid < hid) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += red[w * ffn_wide::UT + tid];
+      vrow[c0 + tid] = s;
+    }
+    if (blockIdx.x == 0) {  // db2: this block's column sums of dy
+      const bf16* dyp = dy.p;
+      for (int c = tid; c < d_out; c += THREADS) {
+        float s = 0.0f;
+        for (int r = 0; r < BM && m0 + r < m; ++r) s += __bfloat162float(dyp[(long long)(m0 + r) * d_out + c]);
+        vrow[hid + c] = s;
+      }
+    }
+  }
+}
+
+// One product of the backward's product launch: C [rows, cols] = A B^T as
+// 128 x 256 tiles over `splits` ranges of `wps` windows of the contraction
+// (the weight gradients: the rows of the batch), C's element (p, q) of range
+// z stored at c + z split_stride + p ldc + q, in f32 or bf16.
+struct Job {
+  ffn_wide::Opnd a, b;
+  int ta;  // A MN-major (the weight gradients: du^T, dy^T) or K-major (du for dxn)
+  int mtiles, ntiles, wps, windows;
+  void* c;
+  long long ldc, split_stride;
+  int rows, cols, f32;
+};
+
+struct Jobs {
+  Job j[3];
+  int start[4];  // the jobs' first blocks, then the total
+};
+
+__host__ inline Job job(const ffn_wide::Opnd& a, const ffn_wide::Opnd& b, int ta, int rows, int cols, int splits,
+                        void* c, long long ldc, int f32) {
+  Job g{};
+  g.a = a;
+  g.b = b;
+  g.ta = ta;
+  g.mtiles = (rows + BM - 1) / BM;
+  g.ntiles = (cols + ffn_wide::BN - 1) / ffn_wide::BN;
+  g.windows = ffn_wide::windows<ffn_wide::PRODUCTS_KW>(a.k);
+  g.wps = (g.windows + splits - 1) / splits;
+  g.c = c;
+  g.ldc = ldc;
+  g.split_stride = (long long)rows * cols;
+  g.rows = rows;
+  g.cols = cols;
+  g.f32 = f32;
+  return g;
+}
+
+__host__ inline int job_blocks(const Job& g) {
+  return g.mtiles * g.ntiles * ((g.windows + g.wps - 1) / g.wps);
+}
+
+// A block computes one tile of one job (the column tile fastest, the range
+// slowest: the blocks of a wave share their rows of the operands in L2)
+__global__ void __launch_bounds__(THREADS, 1) ffn_bwd_wide_products_kernel(Jobs js) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t sa = aligned_smem(smem_raw, &sm);
+  const int blk = blockIdx.x;
+  const int q = blk >= js.start[2] ? 2 : (blk >= js.start[1] ? 1 : 0);
+  const Job g = q == 0 ? js.j[0] : (q == 1 ? js.j[1] : js.j[2]);
+  int t = blk - js.start[q];
+  const int nt = t % g.ntiles;
+  t /= g.ntiles;
+  const int mt = t % g.mtiles, z = t / g.mtiles;
+  const int m0 = mt * BM, n0 = nt * ffn_wide::BN, w0 = z * g.wps, w1 = min(g.windows, w0 + g.wps);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  if (g.ta)
+    ffn_wide::product<256, 1, 1, ffn_wide::PRODUCTS_KW, ffn_wide::PRODUCTS_STAGES>(acc, g.a, m0, g.b, n0, w0, w1, sa);
+  else
+    ffn_wide::product<256, 0, 1, ffn_wide::PRODUCTS_KW, ffn_wide::PRODUCTS_STAGES>(acc, g.a, m0, g.b, n0, w0, w1, sa);
+  const int r0 = ffn_wide::frag_row(), t2 = ffn_wide::frag_col();
+#pragma unroll
+  for (int hi = 0; hi < 2; ++hi) {
+    const long long p = (long long)m0 + r0 + 8 * hi;
+    if (p >= g.rows) continue;
+    const long long at = z * g.split_stride + p * g.ldc;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = n0 + 8 * j + t2;
+      if (col >= g.cols) continue;  // cols is a multiple of 16: col + 1 is inside too
+      const float v0 = acc[4 * j + 2 * hi], v1 = acc[4 * j + 2 * hi + 1];
+      if (g.f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(g.c) + at + col) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(g.c) + at + col) = __floats2bfloat162_rn(v0, v1);
+    }
   }
 }
 
@@ -667,108 +755,25 @@ ffn_bwd_wide_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ga
   }
 }
 
-// dxn [M, d] = du [M, hw] . W_in [hw, d] over the hidden width (MLP: dx =
-// dh . W1): block = BM rows (a warpgroup a 64) by 64 NB columns; per stage
-// the du window [BM, KW] (K-major) and W_in's window rows [KW, 64 NB]
-// (MN-major: W_in's rows are N-contiguous). GEGLU: f32 out, for the LN
-// backward; MLP: bf16 dx.
-template <int NB>
-struct DxSmem {
-  static constexpr uint32_t A = BM * KW * 2, STAGE = A + KW * 64 * NB * 2, BYTES = 2 * STAGE + 1024;
-};
-
-template <int MODE, int NB>
-__global__ void __launch_bounds__(THREADS, 1)
-ffn_bwd_wide_dx_kernel(const bf16* __restrict__ ws_h, const bf16* __restrict__ w_in, float* __restrict__ dxn,
-                       bf16* __restrict__ dx, int m, int d, int hw) {
-  using L = DxSmem<NB>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm;
-  const uint32_t sa = aligned_smem(smem_raw, &sm);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * 64 * NB;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int t4 = lane & 3;
-  const int wg = threadIdx.x / 128;
-  const int rb = wg * 64 + (warp % 4) * 16 + lane / 4;
-
-  auto load = [&](int k0, int stage) {
-    const uint32_t at = sa + stage * L::STAGE, bt = at + L::A;
-    for (int i = threadIdx.x; i < BM * (KW / 8); i += THREADS) {
-      const int r = i / (KW / 8), cc = i % (KW / 8);
-      const bool in = m0 + r < m && k0 + 8 * cc < hw;
-      cp_async16(at + Sw128::offset(r, cc, BM), ws_h + (in ? (long long)(m0 + r) * hw + k0 + 8 * cc : 0), in);
-    }
-    for (int i = threadIdx.x; i < KW * 8 * NB; i += THREADS) {
-      const int r = i / (8 * NB), cc = i % (8 * NB);
-      const bool in = k0 + r < hw && n0 + 8 * cc < d;
-      cp_async16(bt + Sw128::offset(r, cc, KW), w_in + (in ? (long long)(k0 + r) * d + n0 + 8 * cc : 0), in);
-    }
-  };
-
-  float acc[NB][32];
-#pragma unroll
-  for (int cb = 0; cb < NB; ++cb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.0f;
-  load(0, 0);
-  cp_async_commit();
-  for (int k0 = 0, stage = 0; k0 < hw; k0 += KW, stage ^= 1) {
-    cp_async_wait_all();
-    fence_async_smem();
-    __syncthreads();  // window k0 has landed; the other stage is free
-    if (k0 + KW < hw) {
-      load(k0 + KW, stage ^ 1);
-      cp_async_commit();
-    }
-    const uint32_t at = sa + stage * L::STAGE, bt = at + L::A;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KW / 16; ++kk) {
-      const uint64_t da = Sw128::kmajor(at + wg * 64 * 128, BM, kk);
-#pragma unroll
-      for (int cb = 0; cb < NB; ++cb) wgmma_ss_n64<0, 1>(acc[cb], da, Sw128::mnmajor(bt + cb * KW * 128, KW, kk));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int cb = 0; cb < NB; ++cb) keep(acc[cb]);
-  }
-#pragma unroll
-  for (int hi = 0; hi < 2; ++hi) {
-    const long long grow = (long long)m0 + rb + 8 * hi;
-    if (grow >= m) continue;
-#pragma unroll
-    for (int cb = 0; cb < NB; ++cb)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + cb * 64 + 8 * j + 2 * t4;
-        if (col >= d) continue;  // d is a multiple of 16: col + 1 is inside too
-        const float v0 = acc[cb][4 * j + 2 * hi], v1 = acc[cb][4 * j + 2 * hi + 1];
-        if (MODE == MODE_GEGLU)
-          *reinterpret_cast<float2*>(dxn + grow * d + col) = make_float2(v0, v1);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(dx + grow * d + col) = __floats2bfloat162_rn(v0, v1);
-      }
-  }
-}
-
 // GEGLU, wide path: the bias-less LN backward (pallas_ffn.py:152-158), a
 // warp a row, the statistics recomputed from x: dx = (dz - mean(dz) -
 // z mean(dz z)) rstd with dz = dxn gamma; and the block's dgamma partial,
-// the sums of dxn z over its BM rows, each warp's in its own row of `gsum`
-// (a lane owns its columns), then summed over the warps in order.
+// the sums of dxn z over its LN_ROWS rows, each warp's in its own row of
+// `gsum` (a lane owns its columns), then summed over the warps in order.
+// Blocks of 32 rows: 256 at M = 8192, two an SM.
+constexpr int LN_ROWS = 32;
+
 __global__ void __launch_bounds__(THREADS)
 ffn_bwd_wide_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma, const float* __restrict__ dxn,
                        bf16* __restrict__ dx, float* __restrict__ vec_part, int m, int d) {
   extern __shared__ float gsum[];  // [WARPS][d]
-  const int m0 = blockIdx.x * BM;
+  const int m0 = blockIdx.x * LN_ROWS;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float* gw = gsum + warp * d;
   for (int c = lane; c < d / 2; c += 32) gw[2 * c] = gw[2 * c + 1] = 0.0f;
   const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(gamma);
-  for (int r = warp; r < BM && m0 + r < m; r += WARPS) {
+  for (int r = warp; r < LN_ROWS && m0 + r < m; r += WARPS) {
     const long long grow = m0 + r;
     const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(x + grow * d);
     const float2* vr = reinterpret_cast<const float2*>(dxn + grow * d);
@@ -802,55 +807,6 @@ ffn_bwd_wide_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamm
   }
 }
 
-// The wide path's launches (a-c); each kernel's shared-memory limit is set
-// once per device, as launch_rows does.
-template <int MODE, int NB>
-static cudaError_t launch_wide_dx(const bf16* ws_h, const bf16* w_in, float* dxn, bf16* dx, int m, int d, int hw,
-                                  cudaStream_t stream) {
-  static std::atomic<unsigned> ready{0};
-  auto kernel = ffn_bwd_wide_dx_kernel<MODE, NB>;
-  cudaError_t err = allow_smem((const void*)kernel, DxSmem<NB>::BYTES, ready);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + BM - 1) / BM, (d + 64 * NB - 1) / (64 * NB));
-  kernel<<<grid, THREADS, DxSmem<NB>::BYTES, stream>>>(ws_h, w_in, dxn, dx, m, d, hw);
-  return cudaGetLastError();
-}
-
-template <int MODE>
-static cudaError_t launch_wide(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* b_in,
-                               const bf16* w_out, const bf16* dy, bf16* dx, bf16* ws_h, bf16* ws_a, bf16* ws_xn,
-                               float* vec, float* dxn, int m, int d, int hid, int d_out, cudaStream_t stream) {
-  static std::atomic<unsigned> ready_rows{0}, ready_ln{0};
-  const int blocks = (m + BM - 1) / BM;
-  cudaError_t err;
-  if (MODE == MODE_GEGLU) {
-    ffn_bwd_wide_norm_kernel<<<(m + WARPS - 1) / WARPS, THREADS, 0, stream>>>(x, gamma, ws_xn, m, d);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  // the hidden chunks in slices, enough blocks for two an SM
-  const int chunks = (hid + HC - 1) / HC;
-  int cps = (chunks * blocks + 2 * sm_count() - 1) / (2 * sm_count());
-  cps = cps < 1 ? 1 : cps;
-  auto rows = ffn_bwd_wide_rows_kernel<MODE>;
-  err = allow_smem((const void*)rows, WideSmem::BYTES, ready_rows);
-  if (err != cudaSuccess) return err;
-  rows<<<dim3(blocks, (chunks + cps - 1) / cps), THREADS, WideSmem::BYTES, stream>>>(
-      x, w_in, b_in, w_out, dy, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, cps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int hw = MODE == MODE_GEGLU ? 2 * hid : hid;
-  switch (d >= 256 ? 4 : (d + 63) / 64) {
-    case 1: err = launch_wide_dx<MODE, 1>(ws_h, w_in, dxn, dx, m, d, hw, stream); break;
-    case 2: err = launch_wide_dx<MODE, 2>(ws_h, w_in, dxn, dx, m, d, hw, stream); break;
-    case 3: err = launch_wide_dx<MODE, 3>(ws_h, w_in, dxn, dx, m, d, hw, stream); break;
-    default: err = launch_wide_dx<MODE, 4>(ws_h, w_in, dxn, dx, m, d, hw, stream); break;
-  }
-  if (err != cudaSuccess || MODE == MODE_MLP) return err;
-  err = allow_smem((const void*)ffn_bwd_wide_ln_kernel, MAX_SMEM, ready_ln);
-  if (err != cudaSuccess) return err;
-  ffn_bwd_wide_ln_kernel<<<blocks, THREADS, (size_t)WARPS * d * 4, stream>>>(x, gamma, dxn, dx, vec, m, d);
-  return cudaGetLastError();
-}
-
 // The row pass for d rounded up to DP; the kernel's shared-memory limit is
 // set once per device to the card's maximum (a static of this static
 // function: one flag per instantiation and library).
@@ -880,46 +836,121 @@ __host__ inline bool bad_shape(int m, int d, int hid, int d_out) {
 }
 
 // The f32 scratch of one backward, in floats: the weight-gradient products'
-// row-range partials (their count `splits` chosen by wgrad::splits_for from
-// the shapes and the card), the row blocks' vector partials and, on the
-// wide path in GEGLU mode, dxn [M, d].
+// row-range partials (their count `splits` chosen from the shapes and the
+// card by wgrad::splits_for; on the wide path the ranges that its windows
+// of 64 rows form, as job() cuts them), the row blocks' vector partials
+// (the wide GEGLU's LN backward in blocks of LN_ROWS rows) and, on the wide
+// path in GEGLU mode, dxn [M, d].
 struct Scratch {
-  int splits;
+  int splits, vec_rows;
   long long part1, vec, dxn, floats;
 };
 
 __host__ inline Scratch scratch_of(int mode, int m, int d, int hid, int d_out) {
   const int p0 = mode == MODE_GEGLU ? 2 * hid : hid;
+  const bool wide = !row_pass_fits(mode, d, d_out);
   Scratch s;
   s.splits = wgrad::splits_for(p0, d, hid, d_out, m);
+  if (wide) {
+    const int w = ffn_wide::windows<ffn_wide::PRODUCTS_KW>(m), wps = (w + s.splits - 1) / s.splits;
+    s.splits = (w + wps - 1) / wps;
+  }
   s.part1 = (long long)s.splits * p0 * d;
   s.vec = s.part1 + (long long)s.splits * hid * d_out;
-  s.dxn = s.vec + (long long)((m + BM - 1) / BM) * (mode == MODE_GEGLU ? d : hid + d_out);
-  s.floats = s.dxn + (mode == MODE_GEGLU && !row_pass_fits(mode, d, d_out) ? (long long)m * d : 0);
+  s.vec_rows = mode == MODE_GEGLU && wide ? (m + LN_ROWS - 1) / LN_ROWS : (m + BM - 1) / BM;
+  s.dxn = s.vec + (long long)s.vec_rows * (mode == MODE_GEGLU ? d : hid + d_out);
+  s.floats = s.dxn + (mode == MODE_GEGLU && wide ? (long long)m * d : 0);
   return s;
 }
 
-// One backward: the row pass (or the wide path's three launches), then the
-// weight-gradient product and the reduction. g0 / g1: the two weight
-// gradients (their partials, summed into out0 / out1); v0 / v1: the widths
-// of the vector gradients (vout0 / vout1).
+// The wide path's launches (a-e); each kernel's shared-memory limit is set
+// once per device, as launch_rows does. GEGLU: dW_in = du^T xn, dW_out =
+// dy^T a, dgamma; MLP: dW1 = dh^T x, dW2 = dy^T a, db1, db2 (v0 / v1: the
+// vector gradients' widths, as wgrad::launch).
+template <int MODE>
+static cudaError_t launch_wide(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* b_in,
+                               const bf16* w_out, const bf16* dy, bf16* dx, bf16* ws_h, bf16* ws_a, bf16* ws_xn,
+                               const Scratch& sc, float* scratch, int m, int d, int hid, int d_out, bf16* dw_in,
+                               bf16* dw_out, int v0, bf16* vout0, int v1, bf16* vout1, cudaStream_t stream) {
+  using ffn_wide::opnd;
+  constexpr bool GEGLU = MODE == MODE_GEGLU;
+  constexpr int NU = GEGLU ? 256 : 128;
+  constexpr uint32_t ACT_SMEM =
+      ffn_wide::ring_bytes<NU, ffn_wide::ACT_BWD_KW, ffn_wide::act_bwd_stages(GEGLU)>() + ffn_wide::STASH_BYTES + 1024;
+  constexpr uint32_t PROD_SMEM = ffn_wide::ring_bytes<256, ffn_wide::PRODUCTS_KW, ffn_wide::PRODUCTS_STAGES>() + 1024;
+  static_assert(ACT_SMEM <= MAX_SMEM && PROD_SMEM <= MAX_SMEM, "a block's shared memory");
+  static std::atomic<unsigned> ready_act{0}, ready_prod{0}, ready_ln{0};
+  const int blocks = (m + BM - 1) / BM, hw = GEGLU ? 2 * hid : hid;
+  float* vec = scratch + sc.vec;
+  cudaError_t err;
+  const bf16* xs = x;
+  if (GEGLU) {
+    ffn_bwd_wide_norm_kernel<<<(m + WARPS - 1) / WARPS, THREADS, 0, stream>>>(x, gamma, ws_xn, m, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    xs = ws_xn;
+  }
+  auto act = ffn_bwd_wide_act_kernel<MODE>;
+  if ((err = allow_smem((const void*)act, ACT_SMEM, ready_act)) != cudaSuccess) return err;
+  act<<<dim3((hid + ffn_wide::UT - 1) / ffn_wide::UT, blocks), THREADS, ACT_SMEM, stream>>>(
+      opnd(xs, d, m, d), GEGLU ? opnd(w_in, d, hid, d, ffn_wide::UT, hid) : opnd(w_in, d, hid, d),
+      opnd(dy, d_out, m, d_out), opnd(w_out, hid, hid, d_out), b_in, ws_h, ws_a, vec, m, hid, d_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  // the weight gradients first (the longer blocks), then dxn (MLP dx)
+  Jobs js{};
+  // dW_in [hw, d] = du^T xs over the rows: du and xs read MN-major
+  js.j[0] = job(opnd(ws_h, hw, hw, m), opnd(xs, d, d, m), 1, hw, d, sc.splits, scratch, d, 1);
+  // dW_out [d_out, hid] = dy^T a
+  js.j[1] = job(opnd(dy, d_out, d_out, m), opnd(ws_a, hid, hid, m), 1, d_out, hid, sc.splits, scratch + sc.part1,
+                hid, 1);
+  // dxn [m, d] = du W_in (MLP: dx = dh W1): W_in read MN-major
+  js.j[2] = job(opnd(ws_h, hw, m, hw), opnd(w_in, d, d, hw), 0, m, d, 1,
+                GEGLU ? static_cast<void*>(scratch + sc.dxn) : static_cast<void*>(dx), d, GEGLU ? 1 : 0);
+  int total = 0;
+  for (int i = 0; i < 3; ++i) {
+    js.start[i] = total;
+    total += job_blocks(js.j[i]);
+  }
+  js.start[3] = total;
+  if ((err = allow_smem((const void*)ffn_bwd_wide_products_kernel, PROD_SMEM, ready_prod)) != cudaSuccess) return err;
+  ffn_bwd_wide_products_kernel<<<total, THREADS, PROD_SMEM, stream>>>(js);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  if (GEGLU) {
+    if ((err = allow_smem((const void*)ffn_bwd_wide_ln_kernel, MAX_SMEM, ready_ln)) != cudaSuccess) return err;
+    ffn_bwd_wide_ln_kernel<<<sc.vec_rows, THREADS, (size_t)WARPS * d * 4, stream>>>(x, gamma, scratch + sc.dxn, dx,
+                                                                                  vec, m, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const long long n0 = (long long)hw * d, n1 = (long long)d_out * hid;
+  const int matrix_blocks = (int)((n0 + n1 + wgrad::REDUCE_THREADS - 1) / wgrad::REDUCE_THREADS);
+  const int vector_blocks = (v0 + v1 + wgrad::REDUCE_THREADS / 32 - 1) / (wgrad::REDUCE_THREADS / 32);
+  wgrad::wgrad_reduce_kernel<<<matrix_blocks + vector_blocks, wgrad::REDUCE_THREADS, 0, stream>>>(
+      scratch, dw_in, n0, scratch + sc.part1, dw_out, n1, sc.splits, matrix_blocks, vec, sc.vec_rows, v0, vout0, v1,
+      vout1);
+  return cudaGetLastError();
+}
+
+
+// One backward: the row pass, the weight-gradient product and the
+// reduction, or the wide path's launches. g0 / g1: the two weight gradients
+// (their partials, summed into out0 / out1); v0 / v1: the widths of the
+// vector gradients (vout0 / vout1).
 template <int MODE>
 cudaError_t run(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* b_in, const bf16* w_out,
                 const bf16* dy, bf16* dx, bf16* ws_h, bf16* ws_a, bf16* ws_xn, const Scratch& sc, float* scratch,
                 int m, int d, int hid, int d_out, WGrad g0, bf16* out0, WGrad g1, bf16* out1, int v0, bf16* vout0,
                 int v1, bf16* vout1, cudaStream_t stream) {
+  if (!row_pass_fits(MODE, d, d_out))
+    return launch_wide<MODE>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, sc, scratch, m, d, hid, d_out,
+                             out0, out1, v0, vout0, v1, vout1, stream);
   float* vec = scratch + sc.vec;
   cudaError_t err;
-  if (!row_pass_fits(MODE, d, d_out)) {
-    err = launch_wide<MODE>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, scratch + sc.dxn, m, d, hid,
-                            d_out, stream);
-  } else {
-    switch ((d + 63) / 64) {
-      case 1: err = launch_rows<MODE, 64>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
-      case 2: err = launch_rows<MODE, 128>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
-      case 3: err = launch_rows<MODE, 192>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
-      default: err = launch_rows<MODE, 256>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
-    }
+  switch ((d + 63) / 64) {
+    case 1: err = launch_rows<MODE, 64>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
+    case 2: err = launch_rows<MODE, 128>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
+    case 3: err = launch_rows<MODE, 192>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
+    default: err = launch_rows<MODE, 256>(x, gamma, w_in, b_in, w_out, dy, dx, ws_h, ws_a, ws_xn, vec, m, d, hid, d_out, stream); break;
   }
   if (err != cudaSuccess) return err;
   return wgrad::launch(g0, out0, g1, out1, m, sc.splits, vec, (m + BM - 1) / BM, v0, vout0, v1, vout1, stream);
@@ -932,6 +963,18 @@ cudaError_t run(const bf16* x, const bf16* gamma, const bf16* w_in, const bf16* 
 extern "C" long long ffn_bwd_scratch_floats(int mode, int m, int d, int hid, int d_out) {
   if (bad_shape(m, d, hid, d_out) || (mode != MODE_GEGLU && mode != MODE_MLP)) return -1;
   return scratch_of(mode, m, d, hid, d_out).floats;
+}
+
+// The kernels one backward launches for these shapes (mode and widths as
+// ffn_bwd_scratch_floats): the row pass, the weight-gradient product and the
+// reduction; past the row pass's widths the wide path's (GEGLU: the norm,
+// the activations' products, the weight gradients and dxn in one launch,
+// the LN backward, the reduction; MLP: the three without the norm and the
+// LN backward); -1 for shapes the kernels do not take.
+extern "C" int ffn_bwd_kernels(int mode, int m, int d, int hid, int d_out) {
+  if (bad_shape(m, d, hid, d_out) || (mode != MODE_GEGLU && mode != MODE_MLP)) return -1;
+  if (!row_pass_fits(mode, d, d_out)) return mode == MODE_GEGLU ? 5 : 3;
+  return 3;
 }
 
 // GEGLU: x, dy, dx [M, d]; gamma, dgamma [d]; w_in, dw_in [2I, d]; w_out,

@@ -24,7 +24,13 @@ split into TF32 parts once a call, the activation through an f32
 workspace; forward GEGLU 4 launches, MLP 3, one more where the output
 product splits its hidden width at small M; backward GEGLU 6, MLP 5).
 ``mlp_ffn_tasks`` is the MLP with a task axis (T MLPs, each with its own
-weights, in one launch), the decoder trunks of T tasks batched.
+weights, in one launch), the decoder trunks of T tasks batched. The bf16
+kernels past d or output width 256 (`base`, `large`) take their wide path,
+every product on csrc/ffn_wide.cuh's pipelined body: forward GEGLU 3
+launches (the LayerNorm, the activation, the output product), MLP 2;
+backward GEGLU 5 (the LayerNorm, the activations' products, the weight
+gradients and dxn in one launch, the LayerNorm's backward, the reduction),
+MLP 3 (``forward_kernels``, ``backward_kernels``).
 
 The bf16 kernels take hidden widths that are multiples of 16. A GEGLU inner
 width that is not (the `large` config's int(1024 * 8 / 3) = 2730) is
@@ -243,6 +249,29 @@ def forward_kernels(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
     n = _fwd_kernels_fn()(0 if geglu else 1, m, d, hid, d_out)
     if n < 0:
         raise ValueError(f"fused_ffn: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
+    return n
+
+
+@functools.cache
+def _bwd_kernels_fn():
+    fn = cuda_build.load("fused_ffn_bwd.cu").ffn_bwd_kernels
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def backward_kernels(geglu: bool, m: int, d: int, hid: int, d_out: int) -> int:
+    """How many kernels one bf16 backward launches on the card for these
+    shapes, as the library plans it: 3 (the row pass, the weight-gradient
+    product, the reduction), or past the row pass's widths 5 (GEGLU: the
+    norm, the activations' products, the weight gradients and dxn in one
+    launch, the LN backward, the reduction) or 3 (MLP). A GEGLU inner width
+    is counted padded, as launched."""
+    if geglu:
+        hid += -hid % HIDDEN_MULTIPLE
+    n = _bwd_kernels_fn()(0 if geglu else 1, m, d, hid, d_out)
+    if n < 0:
+        raise ValueError(f"fused_ffn_bwd: no kernel for M = {m}, widths {d}, {hid}, {d_out}")
     return n
 
 

@@ -88,7 +88,7 @@ def test_every_forward_kernel_of_k2_is_profiled(smoke):
     # their own entry)
     kernels_of_source = {k for k in _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn.cu") if "f32" not in k}
     assert {"ffn_fwd_rows_kernel", "ffn_fwd_split_reduce_kernel", "ffn_fwd_wide_norm_kernel",
-            "ffn_fwd_wide_hidden_kernel", "ffn_fwd_wide_out_kernel"} == kernels_of_source
+            "ffn_fwd_wide_act_kernel", "ffn_fwd_wide_out_kernel"} == kernels_of_source
     assert all(any(n in k for n in names) for k in kernels_of_source)
 
 
@@ -207,16 +207,50 @@ def test_k4b_kernels_follow_the_librarys_scratch(monkeypatch, floats, kernels):
     assert asked == [(1, 1344, 1344, 8, 32, 3, 4)]
 
 
-@pytest.mark.parametrize("entry,kernels", [("fused_ffn/geglu_backward", 6), ("fused_ffn/mlp_backward", 4)])
+@pytest.mark.parametrize("entry,kernels", [("fused_ffn/geglu_backward", 5), ("fused_ffn/mlp_backward", 3)])
 def test_kernels_per_call_on_the_wide_path(smoke, entry, kernels):
-    """Past the row pass's widths K2b launches its wide path's kernels."""
+    """Past the row pass's widths K2b launches its wide path's kernels: GEGLU
+    the norm, the activations' products, the weight gradients and dxn in one
+    launch, the LN backward and wgrad.cuh's reduction; MLP the three without
+    the norm and the LN backward."""
     names, per_call = smoke.entry_kernels(entry, f"M=8192 d=768 {smoke.WIDE}")
     assert per_call == kernels
     # the bf16 instance's kernels (the f32 instance's have their own entry)
     kernels_of_source = {k for k in _kernels_of(ROOT / smoke.PKG / "csrc" / "fused_ffn_bwd.cu") if "f32" not in k}
-    assert {"ffn_bwd_wide_norm_kernel", "ffn_bwd_wide_rows_kernel", "ffn_bwd_wide_dx_kernel",
-            "ffn_bwd_wide_ln_kernel"} <= kernels_of_source
+    assert {"ffn_bwd_wide_norm_kernel", "ffn_bwd_wide_act_kernel", "ffn_bwd_wide_products_kernel",
+            "ffn_bwd_wide_ln_kernel", "wgrad_reduce_kernel"} <= kernels_of_source
+    assert not {"ffn_bwd_wide_rows_kernel", "ffn_bwd_wide_dx_kernel"} & kernels_of_source
     assert all(any(n in k for n in names) for k in kernels_of_source)
+
+
+@pytest.mark.parametrize("geglu,hid,launched,planned", [(True, 2730, 2736, 5), (True, 2048, 2048, 5),
+                                                         (False, 3072, 3072, 3), (True, 512, 512, 3)])
+def test_k2b_backward_kernels_are_the_librarys_plan(monkeypatch, geglu, hid, launched, planned):
+    """Phase 3 counts K2b's kernels a call on its wide rows as the library
+    plans them (``ffn_bwd_kernels``), asked at the hidden width it launches
+    (a GEGLU inner width padded to 16)."""
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_ffn
+    asked = []
+    monkeypatch.setattr(cuda_ffn, "_bwd_kernels_fn", lambda: lambda *a: asked.append(a) or planned)
+    d = 192 if hid == 512 else 768
+    assert cuda_ffn.backward_kernels(geglu, 8192, d, hid, d) == planned
+    assert asked == [(0 if geglu else 1, 8192, d, launched, d)]
+
+
+def test_k2b_backward_kernels_refuse_shapes_the_library_does_not_take(monkeypatch):
+    from incomplete_multimodal_fusion_tpu_torch.ops import cuda_ffn
+    monkeypatch.setattr(cuda_ffn, "_bwd_kernels_fn", lambda: lambda *a: -1)
+    with pytest.raises(ValueError):
+        cuda_ffn.backward_kernels(False, 1024, 200, 1024, 200)
+
+
+def test_the_wide_kernels_plan_exports_are_defined_in_csrc():
+    """The plan queries phase 3 and the wrappers read (kernels a call,
+    workspace and scratch sizes) are C entries of the libraries they load."""
+    csrc = ROOT / "incomplete_multimodal_fusion_tpu_torch" / "csrc"
+    assert "ffn_bwd_kernels" in _extern_c(csrc / "fused_ffn_bwd.cu")
+    assert "ffn_bwd_scratch_floats" in _extern_c(csrc / "fused_ffn_bwd.cu")
+    assert {"ffn_fwd_kernels", "ffn_fwd_workspace_bytes"} <= _extern_c(csrc / "fused_ffn.cu")
 
 
 @pytest.mark.parametrize("name,short", [
@@ -416,11 +450,11 @@ def test_every_f32_entry_a_wrapper_binds_is_defined_in_csrc(monkeypatch):
 
 MAIN_PHASES = ("phase_serving", "phase_train", "phase_segment", "phase_segment_train", "phase_encoder_variants",
                "phase_f32", "phase_semantic_train", "phase_pretrain_state", "phase_cli", "phase_export",
-               "phase_pretrain_variants", "phase_backbones", "phase_data", "phase_parallel")
+               "phase_pretrain_variants", "phase_backbones", "phase_data", "phase_parallel", "phase_bf16_base")
 
 
 @pytest.mark.parametrize("launching", ["phase_cli", "phase_serving", "phase_export", "phase_pretrain_variants",
-                                       "phase_backbones", "phase_data", "phase_parallel"])
+                                       "phase_backbones", "phase_data", "phase_parallel", "phase_bf16_base"])
 def test_main_adds_the_cli_phases_launches_to_the_kernels_line(smoke, monkeypatch, capsys, launching):
     """``main`` sums every main path's launches, phase 12's (cli) among
     them: with the launches of one phase alone, each kernel's entry counts
@@ -460,6 +494,41 @@ def test_main_fails_when_no_phase_launches_a_kernel(smoke, monkeypatch):
         monkeypatch.setattr(smoke, phase, lambda *a, two=two: ({}, {}) if two else {})
     with pytest.raises(RuntimeError, match="was not launched by the main paths"):
         smoke.main(["chip_smoke.py"])
+
+
+@pytest.mark.parametrize("args,chosen", [
+    ([], None), (["--kernels-only"], ("kernels",)), (["--phases", "bf16-base"], ("bf16-base",)),
+    (["--phases", "bf16-base,kernels"], ("kernels", "bf16-base")),
+    (["--phases", "encoder-variants"], ("train", "encoder-variants")),
+    (["--phases", "f32,serving"], ("serving", "segment-train", "f32"))])
+def test_phases_are_chosen_from_the_command_line(smoke, args, chosen):
+    """No argument: every phase; ``--phases``: the named ones in the script's
+    order, with the phase whose model and batch a named one reads."""
+    assert smoke.chosen_phases(args) == (smoke.PHASES if chosen is None else chosen)
+
+
+@pytest.mark.parametrize("args", [["--phases", "nope"], ["--phases", ""], ["--phase", "kernels"], ["extra"]])
+def test_an_unknown_phase_is_refused(smoke, args):
+    with pytest.raises(SystemExit):
+        smoke.chosen_phases(args)
+
+
+def test_main_runs_only_the_chosen_phases_and_prints_no_result_line(smoke, monkeypatch, capsys):
+    """``--phases bf16-base,encoder-variants``: phases 1 and 2, the named
+    ones and the train phase encoder-variants reads, each once; no kernels
+    line, no result line."""
+    ran = []
+    monkeypatch.setattr(smoke, "phase_device", lambda: "smi")
+    monkeypatch.setattr(smoke, "phase_build", lambda: None)
+    monkeypatch.setattr(smoke, "phase_kernels", lambda dev: ran.append("phase_kernels") or {})
+    for phase in MAIN_PHASES:
+        two = phase in ("phase_train", "phase_segment_train")
+        monkeypatch.setattr(smoke, phase, lambda *a, two=two, phase=phase: ran.append(phase) or (
+            ({"fused_ffn/geglu": 1}, {"model": None}) if two else {"fused_ffn/geglu": 2}))
+    assert smoke.main(["chip_smoke.py", "--phases", "bf16-base,encoder-variants"]) == 0
+    assert ran == ["phase_train", "phase_encoder_variants", "phase_bf16_base"]
+    out = capsys.readouterr().out
+    assert '"ok": true' not in out and '"kernels"' not in out and "[phases]" in out
 
 
 def test_the_cli_phases_pth_converts_to_the_golden_converter_output(smoke, tmp_path):

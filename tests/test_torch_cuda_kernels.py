@@ -9,7 +9,8 @@ K1's separate-q/k/v and tile-skip modes (a pure-PAD tail tile; with every
 tile active, bitwise the slab kernel) and the fused
 attention half-block K6 / K6b at ragged N, every head width and B = 1 and 60
 (the weight-gradient sums); K2's row path (with its hidden split at small
-M), its wide path and `large`'s padded inner width; K4's staged value
+M), its wide path (`base` and `large` at a step's rows, bitwise run to run)
+and `large`'s padded inner width; K4's staged value
 slice at B = 1 and 30, past shared memory and off 16 bytes, bitwise the
 same from run to run; K3's and K3b's 2-byte paths on operands off 16 bytes
 and both at 40 heads; K5b's fixed-point adds on skewed points and at
@@ -358,6 +359,60 @@ def test_geglu_at_the_large_width_pads_its_inner_width(dev, m):
     assert [g.shape for g in grads] == [r.shape for r in ref_grads] == [t.shape for t in (x, *w)]
     for g, r in zip(grads, ref_grads):
         assert torch.isfinite(g).all() and _rel_all([g], [r]) <= REL_L2
+
+
+# the wide path's widths at the pretraining rows: `base` (d = 768, inner
+# 2048; MLP hidden 3072) and `large` (d = 1024, inner 2730 padded to 2736;
+# MLP hidden 4096)
+_WIDE = {"base": {"geglu": (768, 2048), "mlp": (768, 3072, 768)},
+         "large": {"geglu": (1024, 2730), "mlp": (1024, 4096, 1024)}}
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+@pytest.mark.parametrize("size", ["base", "large"])
+@pytest.mark.parametrize("m", [1, 65, 4100, 15360, 38400])
+def test_ffn_wide_path_at_the_step_rows(dev, mode, size, m):
+    """K2 / K2b's wide path (the pipelined product body of ffn_wide.cuh) at
+    `base`'s and `large`'s widths, at M of one row, a ragged tile, and a
+    `base` step's fusion (15,360) and encoder (38,400) rows: the output and
+    every gradient within REL_L2 of the plain versions."""
+    widths = _WIDE[size][mode]
+    _check_ffn_forward(dev, mode, m, widths)
+    _check_ffn_backward(dev, mode, m, widths)
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+@pytest.mark.parametrize("m", [15360, 38400])
+def test_ffn_wide_path_is_bitwise_the_same_at_the_step_rows(dev, mode, m):
+    """No atomics on the wide path: the weight gradients' row ranges (several
+    at these M) are summed in a fixed order, so two calls, forward and
+    backward, are bitwise equal."""
+    x, w, dy = _ffn_case(dev, mode, m, seed=130, widths="base")
+    forward, _ = _FFN_FORWARD[mode]
+    backward, _ = _FFN_BACKWARD[mode]
+    first, second = forward(x, *w), forward(x, *w)
+    grads, again = backward(x, *w, dy), backward(x, *w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("mode", ["geglu", "mlp"])
+def test_ffn_wide_path_refuses_operands_off_16_bytes(dev, mode):
+    """The wide path's cp.async copies take 16 bytes at a time: an operand
+    whose data starts off a 16-byte boundary is refused by the wrapper
+    (which asks for 32), forward and backward, never read misaligned."""
+    x, w, dy = _ffn_case(dev, mode, 130, seed=140, widths="base")
+    forward, _ = _FFN_FORWARD[mode]
+    backward, _ = _FFN_BACKWARD[mode]
+    for shift in (1, 8):  # 2 and 16 bytes into the storage
+        bad = torch.empty(x.numel() + shift, dtype=x.dtype, device=dev)[shift:].view(x.shape)
+        bad.copy_(x)
+        assert bad.data_ptr() % 32
+        with pytest.raises(ValueError, match="aligned"):
+            forward(bad, *w)
+        with pytest.raises(ValueError, match="aligned"):
+            backward(bad, *w, dy)
 
 
 @pytest.mark.parametrize("t_mod", [1, 3, 8])
@@ -711,17 +766,22 @@ def test_msda_backward_on_views_that_start_off_16_bytes(dev, floats):
         assert _rel_all(out, ref) <= MSDA_REL_L2
 
 
-def _device_kernels(fn, name):
+def _device_kernels(fn, name, tries: int = 3):
     """The device kernels one call of ``fn`` launches whose name holds
-    ``name``, from torch.profiler."""
+    ``name``, from torch.profiler: the most that one call showed in
+    ``tries`` profiles (after another test's profile the profiler has
+    dropped a call's first kernels; it never adds one)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+    counts = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name))
+    return max(counts)
 
 
 @pytest.mark.parametrize("mode,widths,m,planned", [("geglu", "model", 38400, 1), ("geglu", "model", 1024, 2),
@@ -736,6 +796,21 @@ def test_k2_forward_launches_the_kernels_its_library_plans(dev, mode, widths, m,
     hid, d_out = (w[2].shape[1], x.shape[1]) if mode == "geglu" else (w[0].shape[0], w[2].shape[0])
     assert cuda_ffn.forward_kernels(mode == "geglu", m, x.shape[1], hid, d_out) == planned
     assert _device_kernels(lambda: kernel(x, *w), "ffn_fwd") == planned
+
+
+@pytest.mark.parametrize("mode,widths,m,planned", [("geglu", "model", 38400, 3), ("mlp", "model", 15360, 3),
+                                                   ("geglu", "base", 8192, 5), ("mlp", "base", 130, 3),
+                                                   ("geglu", (1024, 2730), 300, 5), ("mlp", (320, 512, 256), 65, 3)])
+def test_k2b_launches_the_kernels_its_library_plans(dev, mode, widths, m, planned):
+    """``cuda_ffn.backward_kernels``, which phase 3 of chip_smoke.py counts
+    K2b's kernels by, is what a backward launches: the row pass, the weight
+    gradients and the reduction, or the wide path's kernels."""
+    x, w, dy = _ffn_case(dev, mode, m, seed=150, widths=widths)
+    kernel, _ = _FFN_BACKWARD[mode]
+    hid, d_out = (w[2].shape[1], x.shape[1]) if mode == "geglu" else (w[0].shape[0], w[2].shape[0])
+    assert cuda_ffn.backward_kernels(mode == "geglu", m, x.shape[1], hid, d_out) == planned
+    run = lambda: kernel(x, *w, dy)  # noqa: E731
+    assert _device_kernels(run, "ffn_bwd") + _device_kernels(run, "wgrad") == planned
 
 
 @pytest.mark.parametrize("b,planned", [(1, 2), (30, 1)])

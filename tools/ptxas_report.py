@@ -1,6 +1,7 @@
 """Registers, shared memory, spills and stack frame of every kernel of a
 CUDA source of the port, as ptxas reports them (``nvcc -Xptxas -v`` with the
-port's build flags), one line per kernel instantiation; for
+port's build flags), one line per kernel instantiation, after the
+compiler's warnings (a wgmma serialized: C7520 and its kin); for
 zorro_attention.cu also each kernel's dynamic shared memory per block
 (``zorro_attention_smem_bytes``; the f32 instances' too).
 
@@ -35,7 +36,8 @@ def demangle(names):
 
 
 def report(source: str):
-    """[(kernel, registers, static smem bytes, spill stores, spill loads)]."""
+    """[(kernel, registers, static smem bytes, spill stores, spill loads)],
+    and the compiler's warnings (ptxas's C7520 and its kin: wgmma serialized)."""
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run([cuda_build.nvcc(), *FLAGS, "-Xptxas", "-v", "-c", str(cuda_build.CSRC / source),
                                "-o", os.path.join(tmp, "k.o")], capture_output=True, text=True)
@@ -58,7 +60,8 @@ def report(source: str):
             rows.append((name, int(m.group(1)), 0, *spills))
             name, spills = None, (0, 0, 0)
     names = demangle([r[0] for r in rows])
-    return [(n.replace("(int)", "").replace("(bool)", "").split("(")[0], *r[1:]) for n, r in zip(names, rows)]
+    warnings = [line for line in proc.stderr.splitlines() if "warning" in line.lower()]
+    return [(n.replace("(int)", "").replace("(bool)", "").split("(")[0], *r[1:]) for n, r in zip(names, rows)], warnings
 
 
 def main(argv) -> int:
@@ -69,7 +72,10 @@ def main(argv) -> int:
             fn = cuda_build.bind(source, "zorro_attention_smem_bytes", [ctypes.c_int, ctypes.c_int])
             fn.restype = ctypes.c_longlong
             smem = fn
-        for kernel, regs, static, st, ld, stack in report(source):
+        rows, warnings = report(source)
+        for line in warnings:
+            print(f"[ptxas] {source}: {line}", flush=True)
+        for kernel, regs, static, st, ld, stack in rows:
             extra = ""
             m = re.search(r"(zorro_attention(?:_f32_fwd|_f32_dq|_f32_dkdv|_dq|_dkdv)?_kernel)<(\d+), (\d+)(, \d+)?>",
                           kernel)
